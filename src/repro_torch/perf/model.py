@@ -1,0 +1,146 @@
+"""First-order cycle and energy cost model (port of ``repro.perf.model``).
+
+Every constant here is a parameter of the *modelled* Dalorex tile (22nm-era
+estimates in tile cycles and picojoules), not a measurement of any device.
+The arithmetic is float32 and eager, in the reference's operation order,
+with Python-number constants where the reference has them, so the port's
+``Stats.cycles`` / ``Stats.energy_pj`` match the reference bit for bit:
+
+  cycles_round = t_round + max over tiles of (pops*t_pop + pushes*t_push
+                 + spill_replays*t_spill + edges*t_scan + updates*t_fold)
+                 + max over links of (flits * t_hop(link_class))
+  energy_round = edges*e_scan + updates*e_fold + msgs*(e_push + e_pop)
+                 + spills*e_spill + sum over links of (flits*e_hop(class))
+                 + T * cycles_round * e_leak_tile_cycle
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.noc.topology import (CLASS_DIE, CLASS_LOCAL, CLASS_PORT,
+                                      CLASS_RUCHE, CLASS_WRAP,
+                                      N_LINK_CLASSES)
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfParams:
+    """Per-op cycle/energy constants of the modelled tile (~1 GHz,
+    22nm-era estimates; cycles in tile cycles, energies in pJ).  Same
+    fields and defaults as the reference; every field is overridable."""
+
+    f_ghz: float = 1.0
+    # --- cycle costs ---
+    t_alu: int = 1
+    t_sram: int = 2
+    t_pop: int = 1
+    t_push: int = 1
+    t_spill: int = 2
+    t_hop_local: int = 1
+    t_hop_ruche: int = 1
+    t_hop_wrap: int = 2
+    t_hop_port: int = 0
+    t_hop_die: int = 4
+    t_hbm: int = 4
+    t_round: int = 1
+    t_migrate: int = 2
+    # --- energy costs (pJ) ---
+    e_alu: float = 0.5
+    e_sram: float = 5.0
+    e_pop: float = 1.0
+    e_push: float = 1.0
+    e_spill: float = 2.0
+    e_hop_local: float = 2.0
+    e_hop_ruche: float = 4.0
+    e_hop_wrap: float = 5.0
+    e_hop_port: float = 2.0
+    e_hop_die: float = 12.0
+    e_hbm: float = 250.0
+    e_migrate: float = 10.0
+    e_leak_tile_cycle: float = 0.05
+
+    @property
+    def t_scan(self) -> int:
+        return self.t_sram + self.t_alu
+
+    @property
+    def t_fold(self) -> int:
+        return 2 * self.t_sram + self.t_alu
+
+    @property
+    def e_scan(self) -> float:
+        return self.e_sram + self.e_alu
+
+    @property
+    def e_fold(self) -> float:
+        return 2 * self.e_sram + self.e_alu
+
+    def hop_cycle_table(self) -> np.ndarray:
+        t = np.zeros(N_LINK_CLASSES, np.float32)
+        t[CLASS_LOCAL] = self.t_hop_local
+        t[CLASS_RUCHE] = self.t_hop_ruche
+        t[CLASS_WRAP] = self.t_hop_wrap
+        t[CLASS_PORT] = self.t_hop_port
+        t[CLASS_DIE] = self.t_hop_die
+        return t
+
+    def hop_energy_table(self) -> np.ndarray:
+        e = np.zeros(N_LINK_CLASSES, np.float32)
+        e[CLASS_LOCAL] = self.e_hop_local
+        e[CLASS_RUCHE] = self.e_hop_ruche
+        e[CLASS_WRAP] = self.e_hop_wrap
+        e[CLASS_PORT] = self.e_hop_port
+        e[CLASS_DIE] = self.e_hop_die
+        return e
+
+
+def link_cost_vectors(params: PerfParams, net, device="cuda"):
+    """``(t_hop, e_hop)``: two (num_links,) float32 tensors pricing each
+    directed link by its class.  The tables are cast to float32 on the
+    host, as the reference's 32-bit arrays are."""
+    cls = np.asarray(net.link_classes)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return f32(params.hop_cycle_table()[cls]), \
+        f32(params.hop_energy_table()[cls])
+
+
+def tile_compute_cycles(params: PerfParams, pops, pushes, spill_replays,
+                        edges, updates, hbm_edges=None):
+    """Per-tile compute cycles of one round (float32, tile-shaped)."""
+    f = torch.float32
+    out = (pops.to(f) * params.t_pop
+           + pushes.to(f) * params.t_push
+           + spill_replays.to(f) * params.t_spill
+           + edges.to(f) * params.t_scan
+           + updates.to(f) * params.t_fold)
+    if hbm_edges is not None:
+        out = out + hbm_edges.to(f) * params.t_hbm
+    return out
+
+
+def leak_pj(params: PerfParams, T: int, cycles: torch.Tensor):
+    """Static leakage over ``cycles`` on a T-tile grid."""
+    k = torch.tensor(T * params.e_leak_tile_cycle, dtype=torch.float32,
+                     device=cycles.device)
+    return k * cycles
+
+
+def round_energy_pj(params: PerfParams, T: int, edges_g, updates_g,
+                    msgs_total, spills_total, link_flits_g, e_hop,
+                    cycles_round, hbm_edges_g=None):
+    """Global energy of one round, linear in the round's Stats
+    increments."""
+    f = torch.float32
+    out = (edges_g.to(f) * params.e_scan
+           + updates_g.to(f) * params.e_fold
+           + msgs_total.to(f) * (params.e_push + params.e_pop)
+           + spills_total.to(f) * params.e_spill
+           + (link_flits_g.to(f) * e_hop).sum()
+           + leak_pj(params, T, cycles_round))
+    if hbm_edges_g is not None:
+        out = out + hbm_edges_g.to(f) * params.e_hbm
+    return out
