@@ -8,7 +8,7 @@ task channel; for the classic program that is
          --- route to the edge owner (ideal crossbar) ---
   leg 1  spill re-queue -> T2 edge scan -> update-queue turn (replay)
          --- route to the vertex owner ---
-  leg 2  spill re-queue -> T3 min fold (re-arms the live frontier)
+  leg 2  spill re-queue -> T3 fold (a min fold re-arms the frontier)
 
 then the TSU, the NoC telemetry and the cycle/energy model.  Stages are
 batched over the T emulated tiles (:class:`LocalComm`), and on
@@ -19,13 +19,14 @@ runs the same round in inline PyTorch ops, like the reference's ``"xla"``.
 
 The reference runs the whole traversal inside one ``lax.while_loop``.
 Here the host drives the rounds and reads the global pending-work count
-back once per round (:func:`run_engine`); capturing rounds in a CUDA
-graph is later work.  Values and every Stats field except ``launches``
-equal the reference's bit for bit.
+back once per round (:func:`run_engine`; in BSP mode the count includes
+the next epoch's frontier); capturing rounds in a CUDA graph is later
+work.  Values and every Stats field except ``launches`` equal the
+reference's bit for bit.
 
-Options of the reference that this slice does not port raise
-``NotImplementedError`` naming the ROADMAP.md item that will: physical
-NoCs, ``mode="bsp"``, ``edge_space="hbm"``, ``trace`` and ``adapt``.
+Options of the reference that the port does not have yet raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them:
+physical NoCs, ``edge_space="hbm"``, ``trace`` and ``adapt``.
 """
 from __future__ import annotations
 
@@ -72,7 +73,7 @@ class EngineConfig:
     cap_rangeq: int = 2048   # local task-queue capacity, "range" channels
     cap_updq: int = 16384    # local spill-queue capacity, "update" channels
     policy: str = "traffic"  # "traffic" | "static"
-    mode: str = "async"      # "async" ("bsp" still to port)
+    mode: str = "async"      # "async" | "bsp"
     max_rounds: int = 100_000
     backend: str = "kernels"  # "kernels" | "torch"
     edge_space: str = "vmem"  # "vmem" ("hbm" still to port)
@@ -160,8 +161,9 @@ class Stats(NamedTuple):
                      z(dtype=F32), z(dtype=F32))
 
 
-def zero_stats(cfg: EngineConfig, T: int, alg=BFS, device="cpu") -> Stats:
-    """A Stats zero shaped for the NoC backend and program of ``cfg``."""
+def zero_stats(cfg: EngineConfig, T: int, alg, device) -> Stats:
+    """A Stats zero shaped for the NoC backend and program of ``cfg``, on
+    ``device`` (the partition's, where the epochs' Stats accumulate)."""
     prog = as_program(alg)
     net = make_network(cfg, T)
     return Stats.zero(net.num_links, net.max_hops, len(prog.channels),
@@ -233,11 +235,26 @@ def _set_queue(st: EngineState, i: int, q: Queue) -> EngineState:
     return st._replace(queues=st.queues[:i] + (q,) + st.queues[i + 1:])
 
 
+def _next_pending(me, st: EngineState) -> torch.Tensor:
+    return st.next_frontier.sum(dim=1, dtype=I32)
+
+
+def _bsp_swap(me, st: EngineState, do_swap: torch.Tensor) -> EngineState:
+    """At a BSP barrier (``do_swap``, (T,) bool), the next epoch's
+    frontier becomes live."""
+    sw = do_swap[:, None]
+    return st._replace(
+        frontier=torch.where(sw, st.frontier | st.next_frontier,
+                             st.frontier),
+        next_frontier=torch.where(sw, torch.zeros_like(st.next_frontier),
+                                  st.next_frontier))
+
+
 def _check_ported(cfg: EngineConfig):
-    """Raise for the options this slice does not port yet."""
-    todo = {"mode": (cfg.mode != "async",
-                     "'The rest of the classic apps' (mode='bsp')"),
-            "trace": (cfg.trace, "'Trace'"),
+    """Raise for the options the port does not have yet."""
+    if cfg.mode not in ("async", "bsp"):
+        raise ValueError(f"unknown mode {cfg.mode!r}")
+    todo = {"trace": (cfg.trace, "'Trace'"),
             "adapt": (cfg.adapt, "'Placement'")}
     for name, (unported, item) in todo.items():
         if unported:
@@ -406,6 +423,14 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
         die_round = comm.psum(die_round)
         st = st._replace(net_pressure=comm.run(net.pressure, link_round))
         pending = comm.psum(comm.run(pending_work, st))
+        epochs = stats.epochs
+        if cfg.mode == "bsp":
+            # the barrier: once the live epoch drains, swap in the next
+            nxt = comm.psum(comm.run(_next_pending, st))
+            do_swap = (pending == 0) & (nxt > 0)
+            st = comm.run(_bsp_swap, st, do_swap)
+            epochs = epochs + comm.to_global(do_swap)
+            pending = pending + nxt
 
         glob = comm.to_global
         msgs_vec = torch.stack([glob(comm.psum(s)) for s in sents])
@@ -430,7 +455,7 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
 
         stats = Stats(
             rounds=stats.rounds + 1,
-            epochs=stats.epochs,
+            epochs=epochs,
             msgs=stats.msgs + msgs_vec,
             spills=stats.spills + spills_vec,
             edges_scanned=stats.edges_scanned + edges_g,

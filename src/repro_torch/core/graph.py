@@ -81,6 +81,7 @@ class PartitionedGraph:
     num_vertices: int  # original V
     num_edges: int  # original E
     edge_mode: str = "equal_edges"
+    sorted_adj: bool = False  # per-vertex segments sorted by placed dst
 
     @property
     def v_chunk(self) -> int:
@@ -174,6 +175,7 @@ def build_partition(g: CSRGraph, T: int, place: np.ndarray, inv: np.ndarray,
 def partition_from_numpy(ptr_start, deg, edge_dst, edge_val, place, inv,
                          num_vertices: int, num_edges: int,
                          edge_mode: str = "equal_edges",
+                         sorted_adj: bool = False,
                          device="cuda") -> PartitionedGraph:
     """A port partition over given shard arrays — e.g. the JAX
     ``PartitionedGraph``'s, passed as numpy — so both packages run on the
@@ -191,7 +193,7 @@ def partition_from_numpy(ptr_start, deg, edge_dst, edge_val, place, inv,
         edge_val=_to(np.asarray(edge_val), torch.float32, device),
         place=np.asarray(place, np.int64), inv=np.asarray(inv, np.int64),
         num_vertices=int(num_vertices), num_edges=int(num_edges),
-        edge_mode=edge_mode)
+        edge_mode=edge_mode, sorted_adj=sorted_adj)
 
 
 def _to(a: np.ndarray, dtype, device) -> torch.Tensor:

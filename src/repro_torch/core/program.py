@@ -9,9 +9,10 @@
   first channel's tasks.
 
 :func:`classic_program` compiles an :class:`AlgSpec` to the paper's
-Listing-1 program (T1 range split -> T2 edge scan -> T3 fold).  This
-slice ports the min folds (BFS, SSSP, WCC); the add folds, k-core and
-triangle counting are still to port (ROADMAP.md).
+Listing-1 program (T1 range split -> T2 edge scan -> T3 fold) for the
+five paper workloads; :func:`kcore_program` reuses the shape with a
+threshold fold, and :data:`TRIANGLES` is the 4-channel 2-hop chain
+(range -> wedge -> second range -> intersection-count fold).
 
 Sources, transforms and handlers are batched per-tile stages: they take
 tile-led ``(T, ...)`` tensors and ``me = arange(T)``.  The building
@@ -344,15 +345,34 @@ def scatter_fold(ctx: Ctx, target, lidx, vals, valid, op: str):
 
 def min_fold(ctx: Ctx, me, sh, st, recv, rv):
     """T3 for relaxations: scatter-min into ``value``; improved vertices
-    re-enter the live frontier (async mode)."""
+    re-enter the live (async) or next-epoch (BSP) frontier."""
     nb, vb = recv[..., 0], recv[..., 1]
     lidx = torch.where(rv, nb % ctx.v_chunk, ctx.v_chunk)  # pad -> trash
     val = i2f(vb)
     applied = rv.sum(dim=1, dtype=torch.int32)
     after = scatter_fold(ctx, st.value, lidx, val, rv, "min")
     improved = after < st.value
-    return st._replace(value=after, frontier=st.frontier | improved), \
-        None, None, applied
+    return _rearm(ctx, st._replace(value=after), improved), None, None, \
+        applied
+
+
+def _rearm(ctx: Ctx, st, hit):
+    """Re-arm ``hit`` vertices: in the live frontier (async) or in the
+    next epoch's (BSP)."""
+    if ctx.cfg.mode == "async":
+        return st._replace(frontier=st.frontier | hit)
+    return st._replace(next_frontier=st.next_frontier | hit)
+
+
+def add_fold(ctx: Ctx, me, sh, st, recv, rv):
+    """T3 for accumulations: scatter-add into ``acc`` in row order
+    (atomic-free: this tile is the only owner)."""
+    nb, vb = recv[..., 0], recv[..., 1]
+    lidx = torch.where(rv, nb % ctx.v_chunk, ctx.v_chunk)
+    val = i2f(vb)
+    applied = rv.sum(dim=1, dtype=torch.int32)
+    acc = scatter_fold(ctx, st.acc, lidx, val, rv, "add")
+    return st._replace(acc=acc), None, None, applied
 
 
 # --------------------------------------------------------------------------
@@ -364,13 +384,13 @@ def classic_program(alg: AlgSpec) -> Program:
     """Compile an AlgSpec to the paper's Listing-1 program: T1 range split
     -> T2 edge scan (routed to the edge owner) -> T3 fold (routed to the
     neighbor's vertex owner)."""
-    if alg.kind != "min":
-        raise NotImplementedError(
-            f"{alg.name}: add folds need an order-keeping scatter-add; "
-            f"still to port (ROADMAP.md, 'The rest of the classic apps')")
 
     def payload(ctx, me, sh, st, vidx, deg):
-        return f2i(st.value.gather(1, vidx.to(torch.int64)))
+        value = st.value.gather(1, vidx.to(torch.int64))
+        if alg.parent == "value_over_deg":
+            # an eager float32 division, correctly rounded on every device
+            value = value / torch.clamp(deg, min=1).to(torch.float32)
+        return f2i(value)
 
     def emit_rows(ctx, recv, nb, w, jvalid):
         out = _emit(alg, i2f(recv[..., 2])[..., None], w).expand(nb.shape)
@@ -385,7 +405,8 @@ def classic_program(alg: AlgSpec) -> Program:
                      handler=edge_scan(emit_rows), emit_factor="max_t2",
                      work="edges"),
             TaskSpec("update", width=2, owner="vertex", knobs="update",
-                     handler=min_fold, work="updates"),
+                     handler=min_fold if alg.kind == "min" else add_fold,
+                     work="updates"),
         ))
 
 
@@ -394,3 +415,155 @@ def as_program(alg) -> Program:
     if isinstance(alg, Program):
         return alg
     return classic_program(alg)
+
+
+def sized_cfg(cfg, program: Program, T: int):
+    """Return ``cfg`` with ``cap_rangeq``/``cap_updq`` raised (next power
+    of two) to satisfy ``program.validate`` — for programs whose channel
+    inflow exceeds the classic defaults (triangles' second range
+    channel).  Deep chains ask ``min_caps`` for 4x the one-round inflow,
+    so the TSU's throttle has a full burst of headroom above 3/4."""
+    rangeq, updq = cfg.cap_rangeq, cfg.cap_updq
+    for ch, need in zip(program.channels, program.min_caps(cfg, T)):
+        if ch.queue_cap is not None:
+            continue
+        need = 1 << (max(int(need), 1) - 1).bit_length()
+        if ch.knobs == "range":
+            rangeq = max(rangeq, need)
+        else:
+            updq = max(updq, need)
+    return dataclasses.replace(cfg, cap_rangeq=rangeq, cap_updq=updq)
+
+
+# --------------------------------------------------------------------------
+# k-core peeling: the classic shape with a threshold fold (different T3).
+# --------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def kcore_program(k: int) -> Program:
+    """Peel the k-core: removed vertices emit one decrement per out-edge;
+    the fold subtracts and re-arms the frontier when a still-alive vertex
+    drops below k (``acc`` is the removed flag).  Needs a symmetrized,
+    deduplicated graph; async and BSP reach the same fixed point."""
+    kf = float(k)
+    one = int(np.float32(1.0).view(np.int32))
+
+    def payload(ctx, me, sh, st, vidx, deg):
+        return torch.full_like(vidx, one)
+
+    def emit_rows(ctx, recv, nb, w, jvalid):
+        return torch.stack([nb, torch.full_like(nb, one)], dim=-1), jvalid
+
+    def fold(ctx, me, sh, st, recv, rv):
+        nb, vb = recv[..., 0], recv[..., 1]
+        lidx = torch.where(rv, nb % ctx.v_chunk, ctx.v_chunk)
+        dec = i2f(vb)
+        applied = rv.sum(dim=1, dtype=torch.int32)
+        after = scatter_fold(ctx, st.value, lidx, -dec, rv, "add")
+        newly = (st.acc == 0.0) & (after < kf)
+        acc = torch.where(newly, 1.0, st.acc)
+        return _rearm(ctx, st._replace(value=after, acc=acc), newly), \
+            None, None, applied
+
+    return Program(
+        name=f"kcore{k}",
+        source=frontier_source(payload),
+        channels=(
+            TaskSpec("range", width=3, owner="edge", knobs="range",
+                     queued=True, transform=range_split,
+                     handler=edge_scan(emit_rows), emit_factor="max_t2",
+                     work="edges"),
+            TaskSpec("decrement", width=2, owner="vertex", knobs="update",
+                     handler=fold, work="updates"),
+        ))
+
+
+# --------------------------------------------------------------------------
+# 2-hop triangle counting: a 4-channel chain (range -> wedge -> second
+# range at the neighbor's owner -> intersection-count fold).
+# --------------------------------------------------------------------------
+
+def _segment_contains(edge_dst: torch.Tensor, lo, deg, target):
+    """Batched bounded binary search: is ``target`` in the sorted local
+    segment ``edge_dst[t, lo : lo+deg]`` of each tile?  edge_dst
+    (T, e_chunk); lo, deg, target (T, R).  A fixed log2(e_chunk)+1 steps,
+    as the reference takes."""
+    e_chunk = edge_dst.shape[1]
+
+    def at(i):
+        return edge_dst.gather(1, torch.clamp(i, 0, e_chunk - 1)
+                               .to(torch.int64))
+
+    left, right = lo, lo + deg
+    for _ in range(max(1, int(e_chunk).bit_length())):
+        has = left < right
+        mid = torch.div(left + right, 2, rounding_mode="floor")
+        go = has & (at(mid) < target)
+        left = torch.where(go, mid + 1, left)
+        right = torch.where(has & ~go, mid, right)
+    return (left < lo + deg) & (at(left) == target)
+
+
+def _make_triangles_program() -> Program:
+    """Count each triangle once at its placed-minimum vertex: wedges
+    v -> u -> w with v < u < w (placed order) close iff w is in adj(v).
+    Needs a ``prepare_triangles`` partition (vertex-aligned edges, each
+    vertex's segment sorted by placed destination)."""
+
+    def payload(ctx, me, sh, st, vidx, deg):
+        return me[:, None] * ctx.v_chunk + vidx  # placed vertex id
+
+    def scan1_rows(ctx, recv, nb, w, jvalid):
+        v = recv[..., 2][..., None].expand(nb.shape)
+        return torch.stack([nb, v], dim=-1), jvalid & (nb > v)
+
+    def wedge_to_range(ctx, me, sh, st, recv, rv):
+        # at u's owner: u's adjacency range -> the second-hop range task
+        u, v = recv[..., 0], recv[..., 1]
+        lidx = torch.where(rv, u % ctx.v_chunk, 0).to(torch.int64)
+        start = sh.ptr_start.gather(1, lidx)
+        deg = sh.deg.gather(1, lidx)
+        rows = torch.stack([start, start + deg, v, u], dim=-1)
+        return st, rows, rv & (deg > 0), \
+            torch.zeros(u.shape[0], dtype=torch.int32, device=u.device)
+
+    def scan2_rows(ctx, recv, nb, w, jvalid):
+        v = recv[..., 2][..., None].expand(nb.shape)
+        u = recv[..., 3][..., None]
+        return torch.stack([v, nb], dim=-1), jvalid & (nb > u)
+
+    def close_fold(ctx, me, sh, st, recv, rv):
+        # at v's owner: does the closing edge (v, w) exist in v's sorted,
+        # local adjacency?
+        v, w = recv[..., 0], recv[..., 1]
+        lidx = torch.where(rv, v % ctx.v_chunk, 0)
+        lo = sh.ptr_start.gather(1, lidx.to(torch.int64)) % ctx.e_chunk
+        deg = sh.deg.gather(1, lidx.to(torch.int64))
+        found = _segment_contains(sh.edge_dst, lo, deg, w) & rv
+        slot = torch.where(rv, lidx, ctx.v_chunk)
+        acc = scatter_fold(ctx, st.acc, slot, found.to(torch.float32), rv,
+                           "add")
+        return st._replace(acc=acc), None, None, \
+            found.sum(dim=1, dtype=torch.int32)
+
+    return Program(
+        name="triangles",
+        source=frontier_source(payload),
+        edge_space="vmem",  # close_fold searches the resident shard
+        channels=(
+            TaskSpec("range", width=3, owner="edge", knobs="range",
+                     queued=True, transform=range_split,
+                     handler=edge_scan(scan1_rows), emit_factor="max_t2",
+                     work="edges"),
+            TaskSpec("wedge", width=2, owner="vertex", knobs="update",
+                     handler=wedge_to_range, emit_factor=1),
+            TaskSpec("range2", width=4, owner="edge", knobs="range",
+                     queued=True, transform=range_split,
+                     handler=edge_scan(scan2_rows), emit_factor="max_t2",
+                     work="edges"),
+            TaskSpec("close", width=2, owner="vertex", knobs="update",
+                     handler=close_fold, work="updates"),
+        ))
+
+
+TRIANGLES = _make_triangles_program()

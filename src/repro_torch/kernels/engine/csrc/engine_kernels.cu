@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ordered_scatter.cuh"
+
 namespace {
 
 // Block-wide exclusive prefix sum of one int per thread (blockDim.x a
@@ -261,21 +263,11 @@ edge_scan_gather_kernel(const int32_t* __restrict__ edge_dst,
 // Bound: bytes — the (v_chunk,) slice is read and written once (8 bytes per
 // vertex) and each row is read once (9 bytes).  Design: one block per tile
 // copies its slice with 16-byte vectors, synchronises, then folds its rows
-// with float atomicMin through the integer-order trick (signed atomicMin on
-// the bits of a non-negative value, unsigned atomicMax on the bits of a
-// negative one).  Min is exact in any order, so the atomics stay bitwise
-// equal to the serial reference; every write stays inside the tile's own
-// slice.  The add fold needs an order-keeping reduction and is not here.
+// with float atomicMin through the integer-order trick (ordered_scatter.cuh).
+// Min is exact in any order, so the atomics stay bitwise equal to the serial
+// reference; every write stays inside the tile's own slice.
 // ---------------------------------------------------------------------------
 constexpr int FS_THREADS = 1024;
-
-__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
-  const int bits = __float_as_int(v);
-  if (bits >= 0)
-    atomicMin(reinterpret_cast<int*>(addr), bits);
-  else
-    atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-}
 
 __global__ void __launch_bounds__(FS_THREADS)
 fold_scatter_min_kernel(const float* __restrict__ target,
@@ -284,24 +276,46 @@ fold_scatter_min_kernel(const float* __restrict__ target,
                         const uint8_t* __restrict__ valid,
                         float* __restrict__ out, int v_chunk, int R) {
   const int t = blockIdx.x;
-  const float* tg = target + (size_t)t * v_chunk;
   float* o = out + (size_t)t * v_chunk;
-  const bool vec = (v_chunk % 4 == 0) &&
-                   ((reinterpret_cast<uintptr_t>(tg) |
-                     reinterpret_cast<uintptr_t>(o)) & 15) == 0;
-  if (vec) {
-    const float4* s4 = reinterpret_cast<const float4*>(tg);
-    float4* o4 = reinterpret_cast<float4*>(o);
-    for (int i = threadIdx.x; i < v_chunk / 4; i += blockDim.x) o4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < v_chunk; i += blockDim.x) o[i] = tg[i];
-  }
+  repro::copy_slice(target + (size_t)t * v_chunk, o, v_chunk);
   __syncthreads();
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const size_t q = (size_t)t * R + r;
     const int li = lidx[q];
-    if (valid[q] && li >= 0 && li < v_chunk) atomic_min_f32(o + li, vals[q]);
+    if (valid[q] && li >= 0 && li < v_chunk)
+      repro::atomic_min_f32(o + li, vals[q]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// fold_scatter, op="add": replaces fold_scatter / scatter_body (kernel.py:557,
+// :204) for the accumulations (SpMV, PageRank, k-core, triangles).  out =
+// target, then every row r with a real slot lidx[r] adds (valid[r] ? vals[r]
+// : 0) onto out[lidx[r]], each slot's rows in increasing r: the serial order
+// of XLA's scatter, bit for bit (float addition is not associative, so an
+// atomicAdd would change the bits from run to run).
+//
+// Bound: bytes — as the min fold: the slice read and written once, each row
+// read once.  Design: one block per tile copies its slice, then sorts the
+// (slot, row) keys of its R rows in shared memory (R <= 16384: 12 bytes a
+// row) and the head thread of each slot's run adds the run in row order
+// (ordered_scatter.cuh).  A slot hit by many rows is one thread's serial
+// chain, which is what the reference's order asks for.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(FS_THREADS)
+fold_scatter_add_kernel(const float* __restrict__ target,
+                        const int32_t* __restrict__ lidx,
+                        const float* __restrict__ vals,
+                        const uint8_t* __restrict__ valid,
+                        float* __restrict__ out, int v_chunk, int R) {
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  const int t = blockIdx.x;
+  float* o = out + (size_t)t * v_chunk;
+  repro::copy_slice(target + (size_t)t * v_chunk, o, v_chunk);
+  __syncthreads();
+  repro::ordered_add_rows(o, v_chunk, lidx + (size_t)t * R,
+                          vals + (size_t)t * R, valid + (size_t)t * R, R,
+                          fa_smem);
 }
 
 }  // namespace
@@ -350,6 +364,24 @@ int repro_edge_scan_gather(const void* edge_dst, const void* edge_val,
       static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
       static_cast<int32_t*>(nb), static_cast<float*>(w),
       static_cast<uint8_t*>(jvalid), e_chunk, R, max_t2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int repro_fold_scatter_add(const void* target, const void* lidx,
+                           const void* vals, const void* valid, void* out,
+                           int T, int v_chunk, int R, void* stream) {
+  const size_t smem = repro::ordered_add_smem(R);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fold_scatter_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  fold_scatter_add_kernel<<<T, FS_THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(target), static_cast<const int32_t*>(lidx),
+      static_cast<const float*>(vals), static_cast<const uint8_t*>(valid),
+      static_cast<float*>(out), v_chunk, R);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,9 @@
 """Hopper kernels of the engine round, their plain PyTorch versions, and the
 build loader (port of ``repro.kernels.engine.kernel``'s unfused path).
 
-Four wrappers replace the four TPU kernels the reference's
+Five wrappers replace the four TPU kernels the reference's
 ``backend="pallas", pallas_fuse=False`` round launches (5 launches per
-round: ``queue_push_pop`` once per channel):
+round: ``queue_push_pop`` once per channel; the fold is min or add):
 
 =====================  ===============================================
 wrapper                TPU kernel it replaces (src/repro/kernels/...)
@@ -14,6 +14,7 @@ wrapper                TPU kernel it replaces (src/repro/kernels/...)
 :func:`edge_scan_gather`  ``engine/kernel.py:473`` (``segment_gather``)
 :func:`fold_scatter`      ``engine/kernel.py:557`` (``scatter_body``,
                           ``op="min"``)
+:func:`fold_scatter_add`  ``engine/kernel.py:557`` (``op="add"``)
 =====================  ===============================================
 
 Each wrapper takes tile-batched ``(T, ...)`` tensors.  On CPU tensors it
@@ -27,138 +28,46 @@ there is no fallback.  Every call is counted for ``Stats.launches``
 through :func:`repro_torch.kernels.engine.launches.record`; the wrapper's
 own ``launches`` attribute counts real CUDA launches only.
 
-The CUDA source is compiled at first use by ``nvcc`` for ``sm_90a`` into
-``build/repro_torch/`` at the repository root, keyed by a hash of the
-source and the flags, and loaded with ``ctypes`` (plain C interface, no
-torch headers).  A failed build raises with nvcc's output.
+The add fold keeps the reference's serial order per slot on every
+device: the kernel sorts each tile's rows by slot, and the plain version
+adds one occurrence rank per pass (:func:`ordered_scatter_add`), so no
+float atomics decide an order.
+
+The CUDA source is built at first use (:mod:`repro_torch.kernels.
+cuda_build`: ``nvcc`` for ``sm_90a`` into ``build/repro_torch/``, loaded
+with ``ctypes``).  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.core.queues import Queue, queue_push
+from repro_torch.core.queues import Queue, occurrence_index, queue_push
+from repro_torch.kernels.cuda_build import I as _I, P as _P
+from repro_torch.kernels.cuda_build import CudaLibrary, check as _check
 from repro_torch.kernels.engine.launches import record
 
 # float32 max: the "unreached" sentinel and the min fold's neutral element
 _INF = float(np.finfo(np.float32).max)
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "engine_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "engine_kernels.cu"
+ORDERED_SCATTER = CSRC / "ordered_scatter.cuh"
 
 # queue_push_pop keeps the compacted fresh-row indices in shared memory
 _QP_MAX_ROWS = 8192
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+# the add fold sorts one 8-byte key and one value per row in shared memory
+FOLD_ADD_MAX_ROWS = 16384
+LIBRARY = CudaLibrary(SOURCE, {
     "repro_frontier_pop": [_P] * 5 + [_I] * 3 + [_P],
     "repro_queue_push_pop": [_P] * 10 + [_I] * 5 + [_P],
     "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
     "repro_fold_scatter_min": [_P] * 5 + [_I] * 3 + [_P],
-}
-
-
-# ==========================================================================
-# Build and load.
-# ==========================================================================
-
-class _Library:
-    """The built kernel library, loaded once per process."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._lib = None
-        self.path = None
-        self.build_log = ""      # nvcc/ptxas output of this process's build
-        self.build_seconds = 0.0  # 0 when an earlier build was reused
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                self.path = self._build()
-                lib = ctypes.CDLL(str(self.path))
-                for name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-                lib.repro_cuda_error_string.restype = ctypes.c_char_p
-                self._lib = lib
-            return self._lib
-
-    def _build(self) -> Path:
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"engine_kernels_{tag[:16]}.so"
-        if out.exists():
-            return out
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}: "
-                f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-        return out
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found: the engine kernels are compiled with the CUDA "
-        "toolkit's nvcc at first use (set CUDA_HOME)")
-
-
-LIBRARY = _Library()
-
-
-def _launch(name: str, *args):
-    """Call launcher ``name`` with tensors as device pointers, ints as C
-    ints and the current stream last; raise if the launch failed."""
-    lib = LIBRARY.get()
-    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-             for a in args]
-    rc = getattr(lib, name)(*cargs, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{lib.repro_cuda_error_string(rc).decode()}")
-
-
-def _check(*operands):
-    """Check the operands of a CUDA launch, each ``(name, tensor, dtype,
-    shape)``: every dtype, shape and contiguity first, then that each
-    tensor lies on a CUDA device."""
-    for name, x, dtype, shape in operands:
-        if x.dtype != dtype:
-            raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                             f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: the kernel needs a contiguous tensor")
-    for name, x, _, _ in operands:
-        if x.device.type != "cuda":
-            raise ValueError(f"{name}: the kernel needs a CUDA tensor, got "
-                             f"{x.device}")
+    "repro_fold_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
+}, headers=(ORDERED_SCATTER,))
+_launch = LIBRARY.launch
 
 
 # ==========================================================================
@@ -236,18 +145,43 @@ def segment_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
     return nb, w, jvalid & (nb >= 0)
 
 
+def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
+                        vals: torch.Tensor) -> torch.Tensor:
+    """``target[t, idx[t, r]] += vals[t, r]`` for every row whose ``idx``
+    lies in ``[0, n)`` (the others are skipped, as the kernel skips them),
+    each slot's rows added in increasing ``r`` on any device: the serial
+    order of XLA's scatter.  target (T, n) f32, idx (T, R), vals (T, R).
+
+    Pass ``k`` adds every row that is the k-th of its slot (its rank from
+    :func:`occurrence_index`).  Within one pass no two rows share a slot,
+    so each ``scatter_add_`` is exact, with or without atomics, and the
+    passes together are the serial sum.  The rows of other passes go to a
+    spare column, which is dropped.
+    """
+    T, n = target.shape
+    live = (idx >= 0) & (idx < n)
+    occ = torch.where(live, occurrence_index(idx, live, n), -1)
+    ext = torch.cat([target, target.new_zeros((T, 1))], dim=1)
+    for k in range(int(occ.max()) + 1 if occ.numel() else 0):
+        hit = occ == k
+        ext.scatter_add_(1, torch.where(hit, idx, n).to(torch.int64),
+                         torch.where(hit, vals, 0.0))
+    return ext[:, :n].contiguous()
+
+
 def scatter_body(target, lidx, vals, valid, op: str):
     """The T3 owner-local scatter-min / scatter-add of each tile's rows
     into its ``(v_chunk,)`` slice; ``lidx == v_chunk`` is the trash slot
-    and invalid rows contribute the neutral element."""
+    and invalid rows contribute the neutral element.  The add keeps row
+    order per slot (:func:`ordered_scatter_add`), so it is the same on
+    every device."""
     T, v_chunk = target.shape
     neutral = _INF if op == "min" else 0.0
-    ext = torch.cat([target, target.new_full((T, 1), neutral)], dim=1)
     masked = torch.where(valid, vals, neutral)
-    if op == "min":
-        ext.scatter_reduce_(1, lidx.to(torch.int64), masked, "amin")
-    else:
-        ext.scatter_add_(1, lidx.to(torch.int64), masked)
+    if op == "add":
+        return ordered_scatter_add(target, lidx, masked)
+    ext = torch.cat([target, target.new_full((T, 1), neutral)], dim=1)
+    ext.scatter_reduce_(1, lidx.to(torch.int64), masked, "amin")
     return ext[:, :v_chunk].contiguous()
 
 
@@ -340,26 +274,30 @@ def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
     return nb, w, jvalid
 
 
-def fold_scatter(target, lidx, vals, valid, op: str = "min"):
-    """T3: fold each tile's delivered rows into its ``(v_chunk,)`` slice —
-    scatter-min (relaxations) or scatter-add (accumulations; CPU only for
-    now).  target (T, v_chunk) float32, lidx (T, R) int32 with ``v_chunk``
-    as the trash slot, vals (T, R) float32, valid (T, R) bool."""
-    if op not in ("min", "add"):
-        raise ValueError(op)
-    if target.device.type == "cpu":
-        record()
-        return scatter_body(target, lidx, vals, valid, op)
-    if op == "add":
-        raise NotImplementedError(
-            "fold_scatter(op='add') on the card needs a reduction that "
-            "keeps row order; still to port (ROADMAP.md, kernels queue)")
+def _fold_checked(target, lidx, vals, valid):
     T, v_chunk = target.shape
     R = lidx.shape[1]
     _check(("target", target, torch.float32, (T, v_chunk)),
            ("lidx", lidx, torch.int32, (T, R)),
            ("vals", vals, torch.float32, (T, R)),
            ("valid", valid, torch.bool, (T, R)))
+    return T, v_chunk, R
+
+
+def fold_scatter(target, lidx, vals, valid, op: str = "min"):
+    """T3: fold each tile's delivered rows into its ``(v_chunk,)`` slice —
+    scatter-min (relaxations), or with ``op="add"`` the scatter-add of
+    :func:`fold_scatter_add` (accumulations).  target (T, v_chunk)
+    float32, lidx (T, R) int32 with ``v_chunk`` as the trash slot, vals
+    (T, R) float32, valid (T, R) bool."""
+    if op == "add":
+        return fold_scatter_add(target, lidx, vals, valid)
+    if op != "min":
+        raise ValueError(op)
+    if target.device.type == "cpu":
+        record()
+        return scatter_body(target, lidx, vals, valid, "min")
+    T, v_chunk, R = _fold_checked(target, lidx, vals, valid)
     out = torch.empty_like(target)
     _launch("repro_fold_scatter_min", target, lidx, vals, valid, out, T,
             v_chunk, R)
@@ -368,6 +306,28 @@ def fold_scatter(target, lidx, vals, valid, op: str = "min"):
     return out
 
 
-KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, fold_scatter)
+def fold_scatter_add(target, lidx, vals, valid):
+    """T3's scatter-add, each slot's rows added in row order; the
+    arguments of :func:`fold_scatter`.  A wrapper of its own, so that its
+    kernel's launches are counted apart from the min fold's."""
+    if target.device.type == "cpu":
+        record()
+        return scatter_body(target, lidx, vals, valid, "add")
+    R = lidx.shape[1]
+    if R > FOLD_ADD_MAX_ROWS:
+        raise ValueError(f"fold_scatter(op='add') sorts at most "
+                         f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
+                         f"memory; got {R}")
+    T, v_chunk, R = _fold_checked(target, lidx, vals, valid)
+    out = torch.empty_like(target)
+    _launch("repro_fold_scatter_add", target, lidx, vals, valid, out, T,
+            v_chunk, R)
+    fold_scatter_add.launches += 1
+    record()
+    return out
+
+
+KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, fold_scatter,
+           fold_scatter_add)
 for _k in KERNELS:
     _k.launches = 0

@@ -45,7 +45,8 @@ def port_partition(pg):
     return partition_from_numpy(
         np.asarray(pg.ptr_start), np.asarray(pg.deg),
         np.asarray(pg.edge_dst), np.asarray(pg.edge_val), pg.place, pg.inv,
-        pg.num_vertices, pg.num_edges, device="cpu")
+        pg.num_vertices, pg.num_edges, edge_mode=pg.edge_mode,
+        sorted_adj=pg.sorted_adj, device="cpu")
 
 
 def assert_stats_equal(ref, got, where):
@@ -113,10 +114,9 @@ def test_unported_options_raise():
     g = CSRGraph.from_edges(8, np.array([0]), np.array([1]),
                             np.ones(1, np.float32))
     tpg = port_partition(ja.prepare(g, T=4))
-    for kw in (dict(noc="mesh"), dict(mode="bsp"), dict(edge_space="hbm"),
+    for kw in (dict(noc="mesh"), dict(edge_space="hbm"),
                dict(trace=True), dict(adapt=True)):
         with pytest.raises(NotImplementedError):
             ta.bfs(tpg, 0, TConfig(**SMALL, **kw))
-    from repro_torch.core.program import PAGERANK, classic_program
-    with pytest.raises(NotImplementedError):
-        classic_program(PAGERANK)
+    with pytest.raises(ValueError, match="mode"):
+        ta.bfs(tpg, 0, TConfig(**SMALL, mode="epoch"))

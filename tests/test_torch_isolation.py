@@ -12,6 +12,8 @@ import torch
 from repro_torch.core.graph import CSRGraph, partition_graph
 from repro_torch.kernels.engine import (edge_scan_gather, fold_scatter,
                                         frontier_pop, queue_push_pop)
+from repro_torch.kernels.scatter_update import scatter_segments
+from repro_torch.kernels.spmv import spmv_block_ell
 
 pytestmark = pytest.mark.torch_port
 
@@ -25,10 +27,21 @@ ISOLATION_SCRIPT = textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     import chip_smoke  # its imports only: the phases run under __main__
+    sys.path.insert(0, "tools")
+    import port_round_profile
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "repro"
                  or m.startswith("repro."))
     assert not bad, bad
+    need = {"repro_torch.kernels.scatter_update.kernel",
+            "repro_torch.kernels.scatter_update.ref",
+            "repro_torch.kernels.spmv.kernel",
+            "repro_torch.kernels.spmv.ref",
+            "repro_torch.kernels.cuda_build",
+            "repro_torch.core.algorithms", "repro_torch.core.program",
+            "repro_torch.core.engine", "repro_torch.core.reference",
+            "repro_torch.kernels.engine.kernel"}
+    assert need <= set(mods), sorted(need - set(mods))
     print("ISOLATED", len(mods))
 """)
 
@@ -41,7 +54,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 22  # every module was imported
 
 
 def test_partition_graph_targets_the_card_by_default():
@@ -93,5 +106,25 @@ def test_cuda_path_rejects_wrong_dtype_and_non_contiguous():
         fold_scatter(tgt, st.long(), vals, rv)
     with pytest.raises(ValueError, match="contiguous"):
         fold_scatter(tgt, st, meta((10, T), torch.float32).t(), rv)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA"):
         fold_scatter(tgt, st, vals, rv, op="add")
+    big = meta((T, 16385), torch.int32)  # past the add fold's sort buffer
+    with pytest.raises(ValueError, match="16384"):
+        fold_scatter(tgt, big, meta((T, 16385), torch.float32),
+                     meta((T, 16385), torch.bool), op="add")
+
+    base, idx = meta((4, 64), torch.float32), meta((4, 8), torch.int32)
+    with pytest.raises(TypeError):
+        scatter_segments(base, idx.long(), meta((4, 8), torch.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_segments(base, idx, meta((4, 8), torch.float32), op="add")
+    with pytest.raises(ValueError):
+        scatter_segments(base, idx, meta((4, 8), torch.float32), op="max")
+
+    bv, bc = meta((2, 3, 32, 32), torch.float32), meta((2, 3), torch.int32)
+    with pytest.raises(TypeError):
+        spmv_block_ell(bv, bc, meta((64,), torch.float64))
+    with pytest.raises(ValueError, match="shape"):
+        spmv_block_ell(bv, bc, meta((65,), torch.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_block_ell(bv, bc, meta((64,), torch.float32))
