@@ -1,46 +1,63 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Dalorex engine on one GPU.
 
-    python3 chip_smoke.py [--phases kernels,twin,main,block,pagerank]
+    python3 chip_smoke.py [--phases kernels,twin,main,hbm,block,rmat18]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), and
-   the build of the three kernel sources (``src/repro_torch/kernels/
+   the build of the four kernel sources (``src/repro_torch/kernels/
    {engine,scatter_update,spmv}/csrc/*.cu``; one nvcc each, sm_90a, all
    started together);
-2. kernels — each of the seven kernels against its plain PyTorch version
-   on the same CUDA tensors, at the main paths' shapes plus the edge cases
-   of the CPU sweeps: bitwise equal on every output element, except
-   ``spmv_block_ell``, whose sums run in another order (``rtol = atol =
-   1e-4``).  Prints each kernel's time (CUDA events, median of 25 launches
-   with the L2 cache flushed before each), its plain version's time, its
-   bound (bytes moved over 3.35 TB/s) and, where one PyTorch call
-   computes the same function, that call's time;
-3. engine twin — R-MAT scale 10 over 16 tiles, ``backend="torch"``
-   against ``backend="kernels"``: values and Stats bitwise equal (but
+2. ``kernels`` — each of the eight standalone kernels against its plain
+   PyTorch version on the same CUDA tensors, at the main paths' shapes
+   plus the edge cases of the CPU sweeps: bitwise equal on every output
+   element, except ``spmv_block_ell``, whose sums run in another order
+   (``rtol = atol = 1e-4``).  Prints each kernel's time (CUDA events,
+   median of 25 launches with the L2 cache flushed before each), its
+   plain version's time, its bound (bytes moved over 3.35 TB/s) and,
+   where one PyTorch call computes the same function, that call's time;
+3. ``twin`` — R-MAT scale 10 over 16 tiles, ``backend="torch"`` against
+   ``backend="kernels"``: values and Stats bitwise equal (but
    ``launches``), and equal to (or within the reference's tolerance of)
    the oracle, for BFS (async and BSP), SSSP, WCC, SpMV, PageRank,
-   k-core (k = 2, 5; async and BSP) and triangles;
-4. the main paths over R-MAT-22 (edge factor 10, seed 1) on 64 tiles,
-   the partition built once: one BFS query from vertex 0 (the highest
-   out-degree) with ``EngineConfig(cap_updq=262144)``, hop counts equal to
-   the oracle; then one SpMV ``y[dst] += val * x[src]`` with
-   ``EngineConfig(cap_updq=SPMV_CAP_UPDQ)``, every update applied once
-   and within the reference's tolerance plus the float32 error limit of
-   the oracle (``spmv_f32_bound``, which a planted lost or doubled hub
-   term must exceed).  Each: no drops, five kernel calls per round, every
-   kernel of the path launched (counts read just after the path);
-5. block — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] = val
-   against the dense oracle and the engine's SpMV at T = 16, and the
+   k-core (k = 2, 5; async and BSP) and triangles; then the classic apps
+   with ``fuse=True`` (each leg one kernel; every leg call also held
+   bitwise against its plain stage, with the edge cases: empty frontier,
+   a leg 0 that pops nothing, a cap-0 update queue, spills on both
+   channels) and BFS, SSSP and SpMV with the edge shard streamed
+   (``edge_space="hbm"``), unfused and fused;
+4. ``main`` — the main paths over R-MAT-22 (edge factor 10, seed 1) on 64
+   tiles, fused, the partition built once: one BFS query from vertex 0
+   (the highest out-degree) with ``EngineConfig(cap_updq=262144)``, hop
+   counts equal to the oracle; then one SpMV ``y[dst] += val * x[src]``
+   with ``EngineConfig(cap_updq=SPMV_CAP_UPDQ)``, every update applied
+   once and within the reference's tolerance plus the float32 error
+   limit of the oracle (``spmv_f32_bound``, which a planted lost or
+   doubled hub term must exceed).  Each: no drops, three kernel calls a
+   round, each leg kernel launched once a round (counts read just after
+   the path).  Then short runs of the same paths (and BFS in BSP mode)
+   whose fused legs are held bitwise against their plain stages at the
+   main shapes and timed (bound, plain time; no library call computes a
+   leg);
+5. ``hbm`` (with ``main``) — fused BFS on the same partition with the
+   edge shard streamed and the tile budget at 4 MiB, under the resident
+   footprint: ``edge_space="vmem"`` must fail validation; hop counts
+   equal to the oracle; rounds, msgs, spills and edges equal to the
+   resident fused run's; ``hbm_windows > 0``;
+6. ``block`` — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] =
+   val against the dense oracle and the engine's SpMV at T = 16, and the
    same product as binned ``scatter_segments`` rounds (add, and a min),
    bitwise equal to numpy's serial ``np.add.at`` / ``np.minimum.at``;
-6. PageRank — R-MAT-18 over 64 tiles, 5 iterations, against the oracle
-   (the depth is cut from the reference's 20 for chip time only).
+7. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths (BFS, BFS with
+   the shard streamed through ``edge_scan_stream``, SpMV; five kernel
+   calls a round) against the oracles, and PageRank, 5 iterations (the
+   depth is cut from the reference's 20 for chip time only).
 
-The last lines are the kernels' JSON record, the nvidia-smi line, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or away from
-the repository, the script fails before printing any result.
+The last lines are the script's wall time, the kernels' JSON record, the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or away from the repository, the script fails before printing
+any result.
 """
 from __future__ import annotations
 
@@ -60,23 +77,29 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import algorithms as alg  # noqa: E402
+from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core.engine import EngineConfig  # noqa: E402
 from repro_torch.core.graph import CSRGraph, rmat_edges  # noqa: E402
 from repro_torch.core import reference as ref  # noqa: E402
 from repro_torch.kernels import scatter_update as SEG  # noqa: E402
 from repro_torch.kernels import spmv as SPMV  # noqa: E402
+from repro_torch.kernels.engine import fused as F  # noqa: E402
 from repro_torch.kernels.engine import kernel as K  # noqa: E402
+from repro_torch.core.program import BFS, as_program  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
+FUSED_SRC = "src/repro_torch/kernels/engine/csrc/fused_legs.cu"
 TPU_KERNEL = "src/repro/kernels/engine/kernel.py"
 # name: (source, TPU kernel it replaces)
 KERNEL_ROWS = {
     "frontier_pop": (ENGINE_SRC, f"{TPU_KERNEL}:371"),
     "queue_push_pop": (ENGINE_SRC, f"{TPU_KERNEL}:417"),
     "edge_scan_gather": (ENGINE_SRC, f"{TPU_KERNEL}:473"),
+    "edge_scan_stream": (ENGINE_SRC, f"{TPU_KERNEL}:519"),
     "fold_scatter": (ENGINE_SRC, f"{TPU_KERNEL}:557"),
     "fold_scatter_add": (ENGINE_SRC, f"{TPU_KERNEL}:557"),
+    **{f"fused_leg{i}": (FUSED_SRC, f"{TPU_KERNEL}:241") for i in range(3)},
     "scatter_segments": (
         "src/repro_torch/kernels/scatter_update/csrc/scatter_segments.cu",
         "src/repro/kernels/scatter_update/kernel.py:47"),
@@ -84,7 +107,8 @@ KERNEL_ROWS = {
         "src/repro_torch/kernels/spmv/csrc/spmv_block_ell.cu",
         "src/repro/kernels/spmv/kernel.py:42"),
 }
-ALL_WRAPPERS = (*K.KERNELS, SEG.scatter_segments, SPMV.spmv_block_ell)
+ALL_WRAPPERS = (*K.KERNELS, *F.KERNELS, SEG.scatter_segments,
+                SPMV.spmv_block_ell)
 
 # Main path: R-MAT-22 over T=64 tiles (v_chunk, e_chunk of its partition).
 # The update (spill) queue holds 262144 entries: its one-round burst bound
@@ -104,6 +128,22 @@ MAIN_CFG = EngineConfig(cap_updq=262144)
 SPMV_CAP_UPDQ = 131072
 SPMV_CFG = EngineConfig(cap_updq=SPMV_CAP_UPDQ)
 SPMV_SEED, SPMV_SOURCES = 0, 1750061  # x's seed; vertices with out-edges
+# The fused main paths: the same configurations, each leg one kernel.
+MAIN_FUSED = dataclasses.replace(MAIN_CFG, fuse=True)
+SPMV_FUSED = dataclasses.replace(SPMV_CFG, fuse=True)
+# The streamed-shard phase: fused BFS on the main partition with the tile's
+# scratchpad budget cut under the resident footprint (8,439,640 B a tile,
+# 5,138,264 of it the edge shard), so only edge_space="hbm" validates.
+HBM_VMEM_LIMIT = 4 * 2 ** 20
+HBM_CFG = dataclasses.replace(MAIN_FUSED, edge_space="hbm",
+                              vmem_limit_bytes=HBM_VMEM_LIMIT)
+# Rounds of the main-shape runs whose fused legs are held against their
+# plain versions (not counted; long enough for spills on both channels and
+# the update queue's growth).
+CHECK_ROUNDS = {"BFS": 1500, "SpMV": 800, "BFS-BSP": 200, "BFS-hbm": 300}
+# The phase on the PageRank partition also drives the unfused paths.
+R18_CFGS = {"BFS": MAIN_CFG, "SpMV": SPMV_CFG,
+            "BFS-hbm": dataclasses.replace(MAIN_CFG, edge_space="hbm")}
 BLOCK_SCALE, BLOCK_B, BLOCK_T = 14, 128, 16
 # the knobs of the reference's block-ELL test (tests/test_kernels.py:75)
 TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -160,22 +200,36 @@ def bound_ms(moved_bytes: int) -> float:
     return moved_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def max_abs_err(got, want) -> float:
-    """Largest |kernel - plain| over all outputs; raises unless every
-    output is bitwise equal."""
-    err = 0.0
+def tensors(x):
+    """The tensors of a (nested) tuple of outputs, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in tensors(y)]
+    return []
+
+
+def assert_bitwise(got, want, where):
+    """Every output tensor bitwise equal (floats by their bits)."""
+    got, want = tensors(got), tensors(want)
+    assert len(got) == len(want), where
     for i, (a, b) in enumerate(zip(got, want)):
         if a.shape != b.shape or a.dtype != b.dtype:
-            raise AssertionError(f"output {i}: {a.shape}/{a.dtype} vs "
-                                 f"{b.shape}/{b.dtype}")
+            raise AssertionError(f"{where}: output {i} {a.shape}/{a.dtype} "
+                                 f"vs {b.shape}/{b.dtype}")
         bits_a = a.view(torch.int32) if a.dtype == torch.float32 else a
         bits_b = b.view(torch.int32) if b.dtype == torch.float32 else b
         if not torch.equal(bits_a, bits_b):
             bad = (bits_a != bits_b).nonzero()[:5].tolist()
-            raise AssertionError(f"output {i} differs at {bad}")
-        if a.numel():
-            err = max(err, float((a.double() - b.double()).abs().max()))
-    return err
+            raise AssertionError(f"{where}: output {i} {tuple(a.shape)} "
+                                 f"differs at {bad}")
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |kernel - plain| over all outputs: 0.0, since every output
+    must be bitwise equal (raises otherwise)."""
+    assert_bitwise(got, want, "kernel against its plain version")
+    return 0.0
 
 
 # --------------------------------------------------------------------------
@@ -192,7 +246,7 @@ def phase_device():
     log(f"# card: {smi}")
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    libs = (K.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY)
+    libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         list(pool.map(lambda lib: lib.get(), libs))
@@ -317,6 +371,49 @@ def check_edge_scan_gather(rng, dev, timer):
         plain_ms=timer.ms(lambda: K.segment_gather(*args, max_t2)),
         bound_ms=bound_ms(moved),
         library_ms=timer.ms(lambda: torch.gather(pairs, 1, gidx)))
+
+
+def stream_words(start, rv, e_chunk, window):
+    """Distinct shard words the staged windows of these messages cover:
+    what a streamed T2 must read."""
+    local0 = torch.where(rv, start % e_chunk, 0)
+    base = torch.div(local0, window, rounding_mode="floor") * window
+    k = torch.arange(2 * window, device=start.device, dtype=torch.int32)
+    sidx = torch.clamp(base[:, :, None] + k, max=e_chunk - 1)
+    return sum(int(torch.unique(sidx[t]).numel())
+               for t in range(start.shape[0]))
+
+
+def check_edge_scan_stream(rng, dev, timer):
+    """Edge cases (windows of 1, 2 and 16 times max_t2, shards shorter
+    than two windows), then the main path's T2 shape with the auto window
+    (128) and the max_t2-tight one (32), as fig13's ladder runs them."""
+    for T, e_chunk, R, mt, win in ((2, 64, 10, 8, 8), (2, 33, 24, 4, 8),
+                                   (3, 128, 1, 16, 256), (2, 300, 40, 8, 8)):
+        args = scan_inputs(rng, T, e_chunk, R, mt, dev)
+        max_abs_err(K.edge_scan_stream(*args, mt, win),
+                    K.segment_stream(*args, mt, win))
+    max_t2 = MAIN_CFG.max_t2
+    R = MAIN_T * MAIN_CFG.cap_route_range
+    args = scan_inputs(rng, MAIN_T, MAIN_E_CHUNK, R, max_t2, dev)
+    start, rv = args[2], args[4]
+    calls = []
+    for window in (128, max_t2):
+        out = K.edge_scan_stream(*args, max_t2, window)
+        err = max_abs_err(out, K.segment_stream(*args, max_t2, window))
+        moved = nbytes(*args[2:], *out) + 8 * stream_words(
+            start, rv, MAIN_E_CHUNK, window)
+        calls.append(dict(
+            call=f"window {window}", shape=[MAIN_T, R, max_t2],
+            max_abs_err=err,
+            ms=timer.ms(lambda: K.edge_scan_stream(*args, max_t2, window)),
+            plain_ms=timer.ms(
+                lambda: K.segment_stream(*args, max_t2, window)),
+            bound_ms=bound_ms(moved)))
+    main = calls[0]  # the auto window, as the engine resolves it
+    return dict(max_abs_err=max(c["max_abs_err"] for c in calls),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], library_ms=None, calls=calls)
 
 
 def fold_inputs(rng, T, v_chunk, R, dev):
@@ -523,13 +620,13 @@ def check_spmv_block_ell(rng, dev, timer):
         bound_ms=bound_ms(moved), library_ms=timer.ms(lambda: csr @ x))
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, timer):
     rng = np.random.default_rng(0)
-    timer = Timer(dev)
     rows = {}
     for name, check in (("frontier_pop", check_frontier_pop),
                         ("queue_push_pop", check_queue_push_pop),
                         ("edge_scan_gather", check_edge_scan_gather),
+                        ("edge_scan_stream", check_edge_scan_stream),
                         ("fold_scatter", check_fold_scatter),
                         ("fold_scatter_add", check_fold_scatter_add),
                         ("scatter_segments", check_scatter_segments),
@@ -551,6 +648,183 @@ def phase_kernels(dev):
                 + (f", library {c['library_ms']:.4f} ms"
                    if "library_ms" in c else ""))
     return rows
+
+
+# --------------------------------------------------------------------------
+# The fused legs against their plain versions, inside engine runs
+# --------------------------------------------------------------------------
+
+def leg_bytes(leg: int, tmpl, ops, out) -> int:
+    """Bytes a fused leg must move on these operands: each input it reads
+    once (the edge shard: the distinct words its messages address; leg 0's
+    vertex arrays: the f_pop slots it gathers), each output once."""
+    st = ops[2]
+    rq, uq = st.queues
+    if leg == 0:
+        T = st.frontier.shape[0]
+        return (nbytes(st.frontier, rq.data, rq.count, uq.count,
+                       st.net_pressure, *tensors(out[1:]))
+                + nbytes(out[0].frontier, *out[0].queues[0])
+                + 12 * T * tmpl.f_pop)
+    recv, rv, sp, spv = ops[3:7]
+    if leg == 1:
+        e_chunk = ops[1].edge_dst.shape[1]
+        if tmpl.window:
+            words = stream_words(recv[..., 0], rv, e_chunk, tmpl.window)
+        else:
+            local0 = torch.where(rv, recv[..., 0] % e_chunk, 0)
+            j = torch.arange(tmpl.max_t2, device=rv.device,
+                             dtype=torch.int32)
+            eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
+            words = sum(int(torch.unique(eidx[t]).numel())
+                        for t in range(eidx.shape[0]))
+        return (nbytes(rq.data, rq.count, uq.data, uq.count, recv, rv, sp,
+                       spv, ops[7], *tensors(out[1:]))
+                + nbytes(*out[0].queues[0], *out[0].queues[1]) + 8 * words)
+    new = out[0]
+    is_min = tmpl.fold == "min"
+    flags = st.frontier if tmpl.mode == "async" else st.next_frontier
+    new_flags = new.frontier if tmpl.mode == "async" else new.next_frontier
+    return (nbytes(uq.data, uq.count, recv, rv, sp, spv,
+                   st.value if is_min else st.acc, *tensors(out[1:]))
+            + nbytes(*new.queues[1], new.value if is_min else new.acc)
+            + (nbytes(flags, new_flags) if is_min else 0))
+
+
+class FusedCheck:
+    """A context in which the engine's three fused-leg wrappers also run
+    each leg's plain version (the stage they are given) on the same
+    operands, at the calls chosen below, and hold every output of the
+    kernel against it bitwise.  ``every`` checks every call; otherwise the
+    first two rounds, every ``period``-th round, each round whose
+    update-queue fill grew by a quarter over the last checked one, the
+    first call of each leg with spills, and the first round with spills
+    on both channels.  Records
+    which edge cases the checked calls covered, and the operands of each
+    leg's last checked call (for timing)."""
+
+    NAMES = ("fused_leg0", "fused_leg1", "fused_leg2")
+
+    def __init__(self, label, every=False, period=0):
+        self.label, self.every, self.period = label, every, period
+        self.round, self.fill = -1, 0
+        self.this_round = self.leg1_spilled = False
+        self.checked = [0, 0, 0]
+        self.cover = set()
+        self.last = [None, None, None]
+        self.busy0 = None  # a checked leg-0 call on a live frontier
+
+    def __enter__(self):
+        self.saved = {n: getattr(E, n) for n in self.NAMES}
+        for i, n in enumerate(self.NAMES):
+            setattr(E, n, functools.partial(self.call, i, self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(E, n, f)
+
+    def call(self, leg, real, tmpl, plain, *ops):
+        st = ops[2]
+        check = self.every
+        both = "spills on both channels in one round"
+        if leg == 0:
+            self.round += 1
+            fill = int(st.queues[1].count.max())
+            grew = fill > 0 and fill >= 1.25 * max(self.fill, 1)
+            if grew:
+                self.fill = fill
+            self.this_round = self.round < 2 or grew or bool(
+                self.period and self.round % self.period == 0)
+            check = check or self.this_round
+        else:
+            spilled = bool(ops[6].any())
+            check = check or self.this_round
+            if leg == 1:
+                self.leg1_spilled = spilled
+                check = check or (spilled and (
+                    both not in self.cover or "leg1: spills" not in self.cover))
+            else:
+                both_now = spilled and self.leg1_spilled
+                check = check or (spilled and "leg2: spills" not in
+                                  self.cover) or (both_now and both not in
+                                                  self.cover)
+        got = real(tmpl, plain, *ops)
+        if check:
+            assert_bitwise(got, plain(*ops), f"{self.label} fused_leg{leg} "
+                                             f"round {self.round}")
+            self.checked[leg] += 1
+            self.last[leg] = (real, tmpl, plain, ops, got)
+            if leg == 0 and not bool(st.frontier.any()):
+                self.cover.add("leg0: empty frontier")
+            elif leg == 0 and tmpl.policy == "traffic":
+                self.busy0 = self.last[0]
+            elif leg == 0 and torch.equal(got[0].frontier, st.frontier):
+                self.cover.add("leg0: pops nothing")
+            elif leg and spilled:
+                self.cover.add(f"leg{leg}: spills")
+                if leg == 2 and self.leg1_spilled:
+                    self.cover.add(both)
+        return got
+
+    def report(self):
+        log(f"#   {self.label}: fused legs held bitwise against their plain "
+            f"versions at {self.checked} calls (legs 0, 1, 2) of "
+            f"{self.round + 1} rounds; peak checked update-queue fill "
+            f"{self.fill}; covered: {sorted(self.cover)}")
+
+
+def cap0_update_queue(st):
+    """``st`` with an update queue of capacity 0 (the fifo_turn early out,
+    src/repro/kernels/engine/kernel.py:109-112)."""
+    rq, uq = st.queues
+    empty = E.Queue(uq.data[:, :0].contiguous(), torch.zeros_like(uq.count))
+    return st._replace(queues=(rq, empty))
+
+
+def check_edge_operands(chk: FusedCheck):
+    """Edge cases no engine configuration reaches on its own, on captured
+    operands: leg 0 with the fabric hot, so that the TSU grants the
+    frontier source nothing and a live frontier pops nothing; legs 1 and
+    2 on a cap-0 update queue (which Program.validate refuses): every
+    spill a drop, nothing replayed."""
+    real, tmpl, plain, ops, _ = chk.busy0
+    st = ops[2]
+    hot = st._replace(net_pressure=torch.full_like(st.net_pressure,
+                                                   tmpl.plimit + 1))
+    ops = (*ops[:2], hot)
+    got = real(tmpl, plain, *ops)
+    assert_bitwise(got, plain(*ops), "leg 0 with the fabric hot")
+    assert bool(st.frontier.any()) and torch.equal(got[0].frontier,
+                                                   st.frontier)
+    chk.cover.add("leg0: pops nothing")
+    for leg in (1, 2):
+        real, tmpl, plain, ops, _ = chk.last[leg]
+        ops = (*ops[:2], cap0_update_queue(ops[2]), *ops[3:])
+        got = real(tmpl, plain, *ops)
+        assert_bitwise(got, plain(*ops), f"cap-0 update queue, leg {leg}")
+    chk.cover.add("cap-0 update queue")
+
+
+def time_legs(chk: FusedCheck, timer, where):
+    """Kernel and plain times and the byte bound of each leg, on the
+    operands of its last checked call."""
+    calls = []
+    for leg in range(3):
+        real, tmpl, plain, ops, out = chk.last[leg]
+        calls.append(dict(
+            leg=leg, call=where, template=dict(
+                payload=tmpl.payload, emit=tmpl.emit, fold=tmpl.fold,
+                mode=tmpl.mode, policy=tmpl.policy, window=tmpl.window),
+            max_abs_err=0.0,
+            ms=timer.ms(lambda: real(tmpl, plain, *ops)),
+            plain_ms=timer.ms(lambda: plain(*ops)),
+            bound_ms=bound_ms(leg_bytes(leg, tmpl, ops, out))))
+        c = calls[-1]
+        log(f"# kernel fused_leg{leg} ({where}): bitwise equal to its plain "
+            f"version; kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+            f"ms, bound {c['bound_ms']:.4f} ms (bytes), library none")
+    return calls
 
 
 # --------------------------------------------------------------------------
@@ -660,12 +934,78 @@ def phase_twin(dev):
             f"({'exact' if tol is None else tol}); rounds {int(st.rounds)},"
             f" epochs {int(st.epochs)}, launches {int(st.launches)}; "
             f"{time.perf_counter() - t0:.1f} s for both backends")
+    apps = twin_apps(g, pg, gs, pgs, pgt, root, x)
+    apps["bfs"] = (lambda c: alg.bfs(pg, root, c), oracle, None)
+    leaf = int(np.argmin(g.ptr[1:] - g.ptr[:-1]))  # no out-edges
+    tight = dict(small, cap_route_range=2, cap_route_update=4)
+    edge_cases = {
+        "bfs-tight": (lambda c: alg.bfs(pg, root, dataclasses.replace(
+            c, **tight)), oracle, None),
+        "bfs-static": (lambda c: alg.bfs(pg, root, dataclasses.replace(
+            c, policy="static", **tight)), oracle, None),
+        "bfs-leaf": (lambda c: alg.bfs(pg, leaf, c), ref.bfs_ref(g, leaf),
+                     None)}
+    with FusedCheck("engine twin (scale 10, T=16)", every=True) as chk:
+        for name in ("bfs", "bfs-bsp", "sssp", "wcc", "spmv", "pagerank",
+                     *edge_cases):
+            run, want, tol = apps.get(name) or edge_cases[name]
+            twin_run(run, want, tol, f"{name} fused", dict(fuse=True), 3)
+        check_edge_operands(chk)
+    chk.report()
+    missing = FUSED_EDGE_CASES - chk.cover
+    assert not missing, f"fused-leg edge cases not reached: {missing}"
+    # the streamed edge shard, unfused (edge_scan_stream) and fused
+    for name in ("bfs", "sssp", "spmv"):
+        run, want, tol = apps[name]
+        for fuse in (False, True):
+            with FusedCheck(f"engine twin {name} hbm", every=True) as chk:
+                st = twin_run(run, want, tol, f"{name} hbm fuse={fuse}",
+                              dict(fuse=fuse, edge_space="hbm"),
+                              3 if fuse else 5)
+            assert int(st.hbm_windows) > 0 and int(st.hbm_edges) == \
+                128 * int(st.hbm_windows)
+            if fuse:
+                chk.report()
 
 
-def drive(fn, smi, what, fold):
-    """Run one main path with every launch counter at 0 just before it;
-    ``fold`` names the fold wrapper the path launches.  Returns (result,
-    the counters just after)."""
+FUSED_EDGE_CASES = {"leg0: empty frontier", "leg0: pops nothing",
+                    "leg1: spills", "leg2: spills",
+                    "spills on both channels in one round",
+                    "cap-0 update queue"}
+
+
+def twin_run(run, want, tol, name, kernels_kw, per_round):
+    """One workload on "torch" and on "kernels" with ``kernels_kw``:
+    values and Stats bitwise equal but ``launches`` (``per_round`` kernel
+    calls a round on "kernels"), values against the oracle, no drops."""
+    t0 = time.perf_counter()
+    base = EngineConfig(**{k: v for k, v in kernels_kw.items()
+                           if k != "fuse"})
+    res = {"torch": run(dataclasses.replace(base, backend="torch")),
+           "kernels": run(dataclasses.replace(base, **kernels_kw))}
+    np.testing.assert_array_equal(res["torch"].values,
+                                  res["kernels"].values, err_msg=name)
+    assert_stats_equal(res["torch"].stats, res["kernels"].stats, name)
+    check_values(res["kernels"].values, want, tol, name)
+    st = res["kernels"].stats
+    assert int(st.drops) == 0, name
+    assert int(st.launches) == per_round * int(st.rounds), name
+    log(f"# engine twin {name} (scale 10, T=16): torch == kernels bitwise, "
+        f"matches the oracle; rounds {int(st.rounds)}, spills "
+        f"{st.spills.tolist()}, launches {int(st.launches)}, hbm windows "
+        f"{int(st.hbm_windows)}; {time.perf_counter() - t0:.1f} s")
+    return st
+
+
+UNFUSED_ROUND = {"frontier_pop": 1, "queue_push_pop": 2,
+                 "edge_scan_gather": 1}
+FUSED_ROUND = {"fused_leg0": 1, "fused_leg1": 1, "fused_leg2": 1}
+
+
+def drive(fn, smi, what, per_round):
+    """Run one path with every launch counter at 0 just before it;
+    ``per_round`` names the kernels each round must launch, and how often.
+    Returns (result, the counters just after, engine wall seconds)."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -677,21 +1017,80 @@ def drive(fn, smi, what, fold):
     st = res.stats
     rounds = int(st.rounds)
     assert int(st.drops) == 0, (what, int(st.drops))
-    assert int(st.launches) == 5 * rounds, (what, int(st.launches), rounds)
+    calls = sum(per_round.values())
+    assert int(st.launches) == calls * rounds, (what, int(st.launches),
+                                                rounds)
     want = dict.fromkeys(launches, 0)
-    want.update({"frontier_pop": rounds, "queue_push_pop": 2 * rounds,
-                 "edge_scan_gather": rounds, fold: rounds})
+    want.update({k: n * rounds for k, n in per_round.items()})
     assert launches == want, (what, launches, want)
     edges = int(st.edges_scanned)
-    log(f"# main path {what}: drops 0; rounds {rounds}, engine wall "
-        f"{wall:.3f} s ({1e3 * wall / rounds:.3f} ms/round), edges scanned "
-        f"{edges}, {edges / wall / 1e6:.3f} M traversed edges/s, peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
-        f"GiB, kernel launches {launches}; card {smi}")
-    return res, launches
+    log(f"# path {what}: drops 0; rounds {rounds}, engine wall "
+        f"{wall:.3f} s ({1e3 * wall / rounds:.3f} ms/round, {calls} kernel "
+        f"calls a round), edges scanned {edges}, "
+        f"{edges / wall / 1e6:.3f} M traversed edges/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, kernel "
+        f"launches { {k: v for k, v in launches.items() if v} }; card {smi}")
+    return res, launches, wall
 
 
-def phase_main(dev, smi):
+def check_spmv(g, res, x, what, planted=True):
+    """SpMV against the float64 oracle: every edge scanned and folded
+    once, and within the reference's tolerance (rtol 2e-4, atol 1e-4,
+    set on scale-8 graphs) plus the oracle's float32 error limit
+    (``spmv_f32_bound``), which a median-size hub term lost or doubled
+    must exceed."""
+    deg = g.ptr[1:] - g.ptr[:-1]
+    want = ref.spmv_ref(g, x.astype(np.float64))
+    assert int(res.stats.edges_scanned) == g.num_edges
+    assert int(res.stats.updates_applied) == g.num_edges
+    ref_tol = 2e-4 * np.abs(want) + 1e-4
+    bound = ref.spmv_f32_bound(g, x.astype(np.float64))
+    limit = ref_tol + bound
+    has = bound > 0   # vertices with in-edges
+    src = np.repeat(np.arange(g.num_vertices), deg)
+    prod = g.val * x[src]
+    y32 = np.zeros(g.num_vertices, np.float32)
+    np.add.at(y32, g.dst, prod)
+    for who, y in (("engine", res.values), ("numpy float32", y32)):
+        err = np.abs(y - want)
+        log(f"# {what} {who} vs the float64 oracle: max abs err "
+            f"{err.max():.3e}; {int((err > ref_tol).sum())} of "
+            f"{g.num_vertices} vertices outside rtol 2e-4 / atol 1e-4; "
+            f"max err / error scale "
+            f"{(err[has] / bound[has]).max() * ref.SPMV_F32_C:.4f}; "
+            f"max err / limit {(err / limit).max():.4e}")
+    err = np.abs(res.values - want)
+    assert (err <= limit).all(), int((err > limit).sum())
+    if not planted:
+        return
+    hub = int(np.argmax(np.bincount(g.dst, minlength=g.num_vertices)))
+    terms = np.sort(np.abs(prod[g.dst == hub]))
+    t_med = terms[len(terms) // 2]
+    planted = {"lost": res.values[hub] - t_med,
+               "doubled": res.values[hub] + t_med}
+    log(f"# {what} planted at hub {hub} ({len(terms)} terms, median |t| "
+        f"{t_med:.4e}, limit {limit[hub]:.4e} = tolerance "
+        f"{ref_tol[hub]:.4e} + float32 limit {bound[hub]:.4e}): " + ", ".join(
+            f"{k} term reads {abs(v - want[hub]) / limit[hub]:.3f} x the "
+            f"limit" for k, v in planted.items()))
+    assert all(abs(v - want[hub]) > limit[hub] for v in planted.values())
+
+
+def legs_at_main_shapes(label, run, cfg, timer):
+    """The fused legs of the first CHECK_ROUNDS[label] rounds of a main
+    path, held against their plain versions (FusedCheck, and every 50th
+    round), then timed.  Async runs must have checked spills on both
+    channels; a BSP run's first epoch is the root's single range task, one
+    message a round, so it spills nothing in these rounds."""
+    with FusedCheck(f"R-MAT-{MAIN_SCALE} {label}", period=50) as chk:
+        run(dataclasses.replace(cfg, max_rounds=CHECK_ROUNDS[label]))
+    chk.report()
+    if cfg.mode == "async":
+        assert {"leg1: spills", "leg2: spills"} <= chk.cover, chk.cover
+    return time_legs(chk, timer, label)
+
+
+def phase_main(dev, smi, timer, with_hbm):
     t0 = time.perf_counter()
     g, pg = build_graph(MAIN_SCALE, MAIN_T, dev)
     torch.cuda.synchronize()
@@ -709,63 +1108,75 @@ def phase_main(dev, smi):
     oracle = ref.bfs_ref(g, MAIN_ROOT)
     log(f"# BFS oracle: {time.perf_counter() - t0:.1f} s, "
         f"{int(np.isfinite(oracle).sum())} reachable vertices")
-    res, bfs_launches = drive(lambda: alg.bfs(pg, MAIN_ROOT, MAIN_CFG), smi,
-                              "BFS", "fold_scatter")
-    np.testing.assert_array_equal(res.values, oracle)
+    paths = {}
+    bfs, paths["BFS"], _ = drive(
+        lambda: alg.bfs(pg, MAIN_ROOT, MAIN_FUSED), smi,
+        f"BFS R-MAT-{MAIN_SCALE} (fused)", FUSED_ROUND)
+    np.testing.assert_array_equal(bfs.values, oracle)
     log("# main path BFS: hop counts equal to the oracle")
 
     x = spmv_x(g.num_vertices)
     assert int((deg > 0).sum()) == SPMV_SOURCES
-    t0 = time.perf_counter()
-    want = ref.spmv_ref(g, x.astype(np.float64))
-    log(f"# SpMV oracle: {time.perf_counter() - t0:.1f} s; initial "
-        f"frontier {SPMV_SOURCES} vertices with out-edges")
-    res, spmv_launches = drive(lambda: alg.spmv(pg, x, SPMV_CFG), smi,
-                               f"SpMV (cap_updq {SPMV_CFG.cap_updq})",
-                               "fold_scatter_add")
-    # every edge scanned once and one update folded for each
-    assert int(res.stats.edges_scanned) == g.num_edges
-    assert int(res.stats.updates_applied) == g.num_edges
-    # The reference's tolerance (rtol 2e-4, atol 1e-4) was set on scale-8
-    # graphs.  Here hubs sum ~10^5 float32 terms of both signs, and where
-    # they cancel a float32 sum in any order can miss it, so the limit adds
-    # the oracle's float32 error limit (SPMV_F32_C times the error scale
-    # of a float32 sum).  Printed: the largest error over that scale, for
-    # the engine and for numpy's own float32 sum in edge order, and what a
-    # median-size term lost or doubled at the largest hub reads.
-    ref_tol = 2e-4 * np.abs(want) + 1e-4
-    bound = ref.spmv_f32_bound(g, x.astype(np.float64))
-    limit = ref_tol + bound
-    has = bound > 0   # vertices with in-edges
-    src = np.repeat(np.arange(g.num_vertices), deg)
-    prod = g.val * x[src]
-    y32 = np.zeros(g.num_vertices, np.float32)
-    np.add.at(y32, g.dst, prod)
-    for what, y in (("engine", res.values), ("numpy float32", y32)):
-        err = np.abs(y - want)
-        log(f"# SpMV {what} vs the float64 oracle: max abs err "
-            f"{err.max():.3e}; {int((err > ref_tol).sum())} of "
-            f"{g.num_vertices} vertices outside rtol 2e-4 / atol 1e-4; "
-            f"max err / error scale "
-            f"{(err[has] / bound[has]).max() * ref.SPMV_F32_C:.4f}; "
-            f"max err / limit {(err / limit).max():.4e}")
-    hub = int(np.argmax(np.bincount(g.dst, minlength=g.num_vertices)))
-    terms = np.sort(np.abs(prod[g.dst == hub]))
-    t_med = terms[len(terms) // 2]
-    planted = {"lost": res.values[hub] - t_med,
-               "doubled": res.values[hub] + t_med}
-    log(f"# SpMV planted at hub {hub} ({len(terms)} terms, median |t| "
-        f"{t_med:.4e}, limit {limit[hub]:.4e} = tolerance "
-        f"{ref_tol[hub]:.4e} + float32 limit {bound[hub]:.4e}): " + ", ".join(
-            f"{k} term reads {abs(v - want[hub]) / limit[hub]:.3f} x the "
-            f"limit" for k, v in planted.items()))
-    err = np.abs(res.values - want)
-    assert (err <= limit).all(), int((err > limit).sum())
-    assert all(abs(v - want[hub]) > limit[hub] for v in planted.values())
+    res, paths["SpMV"], _ = drive(
+        lambda: alg.spmv(pg, x, SPMV_FUSED), smi,
+        f"SpMV R-MAT-{MAIN_SCALE} (fused, cap_updq {SPMV_CFG.cap_updq})",
+        FUSED_ROUND)
+    check_spmv(g, res, x, "main path SpMV")
     log("# main path SpMV: within rtol 2e-4 / atol 1e-4 plus the float32 "
         "error limit of the oracle at every vertex; a lost or doubled "
         "median hub term exceeds it")
-    return bfs_launches, spmv_launches
+
+    calls = []
+    for label, run, cfg in (
+            ("BFS", lambda c: alg.bfs(pg, MAIN_ROOT, c), MAIN_FUSED),
+            ("SpMV", lambda c: alg.spmv(pg, x, c), SPMV_FUSED),
+            ("BFS-BSP", lambda c: alg.bfs(pg, MAIN_ROOT, c),
+             dataclasses.replace(MAIN_FUSED, mode="bsp"))):
+        calls += legs_at_main_shapes(label, run, cfg, timer)
+    if with_hbm:
+        paths["BFS-hbm"] = phase_hbm(pg, oracle, bfs.stats, smi)
+        calls += legs_at_main_shapes(
+            "BFS-hbm", lambda c: alg.bfs(pg, MAIN_ROOT, c), HBM_CFG, timer)
+    return paths, calls
+
+
+def phase_hbm(pg, oracle, vmem_stats, smi):
+    """Fused BFS on the main partition with the edge shard streamed and the
+    tile's scratchpad budget under the resident footprint."""
+    prog = as_program(BFS)
+
+    def scratchpad(cfg):
+        return sum(b for _, sp, b in prog.tile_decls(
+            cfg, MAIN_T, pg.e_chunk, pg.v_chunk) if sp == "vmem")
+
+    resident = dataclasses.replace(HBM_CFG, edge_space="vmem")
+    log(f"# hbm phase: tile scratchpad budget {HBM_VMEM_LIMIT} B; declared "
+        f"{scratchpad(resident)} B with the shard resident, "
+        f"{scratchpad(HBM_CFG)} B with it streamed")
+    assert scratchpad(HBM_CFG) <= HBM_VMEM_LIMIT < scratchpad(resident)
+    try:
+        alg.bfs(pg, MAIN_ROOT, resident)
+    except ValueError as e:
+        assert "over budget" in str(e), e
+        log(f"# hbm phase: edge_space='vmem' refused at validation: {e}")
+    else:
+        raise AssertionError("edge_space='vmem' ran over its budget")
+    res, launches, _ = drive(lambda: alg.bfs(pg, MAIN_ROOT, HBM_CFG), smi,
+                             f"BFS R-MAT-{MAIN_SCALE} (fused, hbm)",
+                             FUSED_ROUND)
+    np.testing.assert_array_equal(res.values, oracle)
+    st = res.stats
+    for f in ("rounds", "msgs", "spills", "edges_scanned",
+              "updates_applied"):
+        assert torch.equal(getattr(st, f), getattr(vmem_stats, f)), f
+    window = 128  # resolve_window(0, max_t2 = 32)
+    assert int(st.hbm_windows) > 0
+    assert int(st.hbm_edges) == window * int(st.hbm_windows)
+    log(f"# hbm phase: hop counts equal to the oracle; rounds, msgs, "
+        f"spills, edges and updates equal the resident fused run's; "
+        f"hbm_windows {int(st.hbm_windows)}, hbm_edges "
+        f"{int(st.hbm_edges)}")
+    return launches
 
 
 def binned_rounds(g, src_idx, prod, b, cap):
@@ -843,11 +1254,43 @@ def phase_block(dev, smi):
     return launches
 
 
-def phase_pagerank(dev, smi):
+def phase_rmat18(dev, smi):
+    """R-MAT-18 over 64 tiles: the unfused paths (BFS, SpMV, and BFS with
+    the streamed shard through edge_scan_stream), then PageRank."""
     t0 = time.perf_counter()
     g, pg = build_graph(PR_SCALE, MAIN_T, dev)
+    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+    oracle = ref.bfs_ref(g, root)
+    log(f"# R-MAT-{PR_SCALE} (V={g.num_vertices}, E={g.num_edges}) over "
+        f"T={MAIN_T}, BFS root {root}: host build and oracle "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {}
+    res, paths["BFS"], _ = drive(
+        lambda: alg.bfs(pg, root, R18_CFGS["BFS"]), smi,
+        f"BFS R-MAT-{PR_SCALE} (unfused)",
+        {**UNFUSED_ROUND, "fold_scatter": 1})
+    np.testing.assert_array_equal(res.values, oracle)
+    vmem_stats = res.stats
+    res, paths["BFS-hbm"], _ = drive(
+        lambda: alg.bfs(pg, root, R18_CFGS["BFS-hbm"]), smi,
+        f"BFS R-MAT-{PR_SCALE} (unfused, hbm)",
+        {"frontier_pop": 1, "queue_push_pop": 2, "edge_scan_stream": 1,
+         "fold_scatter": 1})
+    np.testing.assert_array_equal(res.values, oracle)
+    assert torch.equal(res.stats.edges_scanned, vmem_stats.edges_scanned)
+    assert int(res.stats.hbm_windows) > 0
+    x = spmv_x(g.num_vertices)
+    res, paths["SpMV"], _ = drive(
+        lambda: alg.spmv(pg, x, R18_CFGS["SpMV"]), smi,
+        f"SpMV R-MAT-{PR_SCALE} (unfused)",
+        {**UNFUSED_ROUND, "fold_scatter_add": 1})
+    check_spmv(g, res, x, f"SpMV R-MAT-{PR_SCALE}", planted=False)
+    log(f"# R-MAT-{PR_SCALE} BFS (resident and hbm) equal to the oracle; "
+        f"SpMV within the tolerance plus the float32 limit")
+
+    t0 = time.perf_counter()
     want = ref.pagerank_ref(g, iters=PR_ITERS)
-    t_build = time.perf_counter() - t0
+    t_oracle = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = alg.pagerank(pg, iters=PR_ITERS, cfg=SPMV_CFG)
@@ -857,33 +1300,48 @@ def phase_pagerank(dev, smi):
     assert int(st.drops) == 0 and res.epochs == PR_ITERS
     assert int(st.launches) == 5 * int(st.rounds)
     np.testing.assert_allclose(res.values, want, rtol=2e-3, atol=1e-7)
-    log(f"# PageRank R-MAT-{PR_SCALE} (V={g.num_vertices}, "
-        f"E={g.num_edges}) over T={MAIN_T}, {PR_ITERS} iterations "
-        f"(cap_updq {SPMV_CFG.cap_updq}): within rtol 2e-3 / atol 1e-7 of "
-        f"the "
-        f"oracle, drops 0; rounds {int(st.rounds)}, engine wall "
-        f"{wall:.3f} s ({1e3 * wall / int(st.rounds):.3f} ms/round); host "
-        f"build and oracle {t_build:.1f} s; card {smi}")
+    log(f"# PageRank R-MAT-{PR_SCALE} over T={MAIN_T}, {PR_ITERS} "
+        f"iterations (cap_updq {SPMV_CFG.cap_updq}): within rtol 2e-3 / "
+        f"atol 1e-7 of the oracle, drops 0; rounds {int(st.rounds)}, "
+        f"engine wall {wall:.3f} s ({1e3 * wall / int(st.rounds):.3f} "
+        f"ms/round); oracle {t_oracle:.1f} s; card {smi}")
+    return paths
+
+
+PHASES = ("kernels", "twin", "main", "hbm", "block", "rmat18")
 
 
 def main():
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,twin,main,block,pagerank",
-                    help="comma-separated subset of kernels,twin,main,"
-                         "block,pagerank (default: all)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} "
+                         f"(default: all; hbm runs with main)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if phases - set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
     smi = phase_device()
     dev = torch.device("cuda", 0)
-    rows = phase_kernels(dev) if "kernels" in phases else {}
+    timer = Timer(dev)
+    rows = phase_kernels(dev, timer) if "kernels" in phases else {}
     if "twin" in phases:
         phase_twin(dev)
-    bfs_l, spmv_l = phase_main(dev, smi) if "main" in phases else ({}, {})
-    block_l = phase_block(dev, smi) if "block" in phases else {}
-    if "pagerank" in phases:
-        phase_pagerank(dev, smi)
+    paths = []
+    if "main" in phases:
+        main_paths, calls = phase_main(dev, smi, timer, "hbm" in phases)
+        paths += main_paths.values()
+        for leg in range(3):
+            mine = [c for c in calls if c["leg"] == leg]
+            row = mine[0]  # the BFS main path's template
+            rows[f"fused_leg{leg}"] = dict(
+                max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], library_ms=None, calls=mine)
+    if "block" in phases:
+        paths.append(phase_block(dev, smi))
+    if "rmat18" in phases:
+        paths += phase_rmat18(dev, smi).values()
     # each kernel's launches summed over the driven paths
-    paths = (bfs_l, spmv_l, block_l)
     record = []
     for name, r in rows.items():
         source, replaces = KERNEL_ROWS[name]
@@ -894,6 +1352,8 @@ def main():
             bound_ms=r["bound_ms"], bound_by="bytes",
             library_ms=r["library_ms"],
             **({"calls": r["calls"]} if "calls" in r else {})))
+    log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
+        f"(phases {','.join(p for p in PHASES if p in phases)})")
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

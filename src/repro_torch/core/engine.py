@@ -12,7 +12,7 @@ task channel; for the classic program that is
 
 then the TSU, the NoC telemetry and the cycle/energy model.  Stages are
 batched over the T emulated tiles (:class:`LocalComm`), and on
-``backend="kernels"`` (the default) the building blocks launch the four
+``backend="kernels"`` (the default) the building blocks launch the
 Hopper kernels of :mod:`repro_torch.kernels.engine` — five launches per
 round, as the reference's unfused ``"pallas"`` backend.  ``"torch"``
 runs the same round in inline PyTorch ops, like the reference's ``"xla"``.
@@ -24,13 +24,25 @@ the next epoch's frontier); capturing rounds in a CUDA graph is later
 work.  Values and every Stats field except ``launches`` equal the
 reference's bit for bit.
 
+With ``fuse=True`` (the counterpart of the reference's ``pallas_fuse``)
+each of the classic program's three legs is ONE fused-leg kernel launch
+(:mod:`repro_torch.kernels.engine.fused`), three launches per round as
+the reference's fused ``"pallas"`` round; the routes, the pending count,
+the BSP swap and the perf sums stay PyTorch ops between and after the
+legs, as they sit outside ``fused_leg_call`` there.  ``edge_space="hbm"``
+streams T2 through the ``edge_scan_stream`` kernel (inside leg 1 when
+fused) and prices the streamed windows (``Stats.hbm_windows`` /
+``hbm_edges``, ``t_hbm`` / ``e_hbm``).
+
 Options of the reference that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them:
-physical NoCs, ``edge_space="hbm"``, ``trace`` and ``adapt``.
+physical NoCs, ``trace``, ``adapt``, and ``fuse=True`` for the k-core and
+triangles programs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,7 +52,10 @@ from repro_torch.core.program import (BFS, Ctx, Program, as_program,
                                       resolve_edge_space)
 from repro_torch.core.queues import (Queue, queue_make, queue_push,
                                      queue_take_front)
-from repro_torch.kernels.engine import queue_push_pop, tally
+from repro_torch.kernels.engine import fifo_turn, queue_push_pop, tally
+from repro_torch.kernels.engine.fused import (LegTemplate, fused_leg0,
+                                              fused_leg1, fused_leg2)
+from repro_torch.mem import resolve_window
 from repro_torch.noc import make_network
 from repro_torch.perf import (PerfParams, link_cost_vectors,
                               round_energy_pj, tile_compute_cycles)
@@ -57,11 +72,13 @@ class EngineConfig:
     """Static knobs, per tile; the reference's fields and defaults.
 
     The backend group differs: ``backend`` is "kernels" (the Hopper
-    kernels; the counterpart of the reference's ``"pallas"`` backend with
-    ``pallas_fuse=False``) or "torch" (inline ops; the counterpart of
-    ``"xla"``), and the Pallas-only knobs ``pallas_interpret``,
-    ``pallas_fuse`` and ``pallas_pad_lanes`` have no counterpart (the
-    fused legs are still to port).
+    kernels; the counterpart of the reference's ``"pallas"`` backend) or
+    "torch" (inline ops; the counterpart of ``"xla"``).  ``fuse`` is the
+    counterpart of ``pallas_fuse``: on "kernels" it runs each classic leg
+    as one fused-leg kernel (3 launches per round, against 5 unfused).
+    It defaults to False until the k-core and triangles programs have
+    fused legs (they raise with it).  The Pallas-only knobs
+    ``pallas_interpret`` and ``pallas_pad_lanes`` have no counterpart.
     """
 
     f_pop: int = 32          # frontier bits popped per round (T4 drain)
@@ -76,7 +93,8 @@ class EngineConfig:
     mode: str = "async"      # "async" | "bsp"
     max_rounds: int = 100_000
     backend: str = "kernels"  # "kernels" | "torch"
-    edge_space: str = "vmem"  # "vmem" ("hbm" still to port)
+    fuse: bool = False       # one fused-leg kernel per leg ("kernels")
+    edge_space: str = "vmem"  # "vmem" (resident) | "hbm" (streamed)
     hbm_window: int = 0
     vmem_limit_bytes: int = 0
     noc: str = "ideal"       # "ideal" (physical NoCs still to port)
@@ -250,12 +268,15 @@ def _bsp_swap(me, st: EngineState, do_swap: torch.Tensor) -> EngineState:
                                   st.next_frontier))
 
 
-def _check_ported(cfg: EngineConfig):
+def _check_ported(cfg: EngineConfig, prog: Program, fused: bool):
     """Raise for the options the port does not have yet."""
     if cfg.mode not in ("async", "bsp"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
     todo = {"trace": (cfg.trace, "'Trace'"),
-            "adapt": (cfg.adapt, "'Placement'")}
+            "adapt": (cfg.adapt, "'Placement'"),
+            "fuse": (fused and prog.alg is None,
+                     f"'TPU kernels to port': the fused legs of the "
+                     f"{prog.name!r} program")}
     for name, (unported, item) in todo.items():
         if unported:
             raise NotImplementedError(
@@ -272,13 +293,20 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     """Build the round function ``(state, stats, kahan_comp) -> (state,
     stats, kahan_comp, pending)``; ``kahan_comp`` is the (cycles, energy)
     float32 compensation pair of the perf model's summation."""
-    _check_ported(cfg)
-    resolve_edge_space(prog, cfg)  # raises for the unported "hbm" shard
-    ctx = Ctx(cfg, comm.size, e_chunk, v_chunk)
     chans = prog.channels
     K = len(chans)
-    cxs = tuple(ctx._replace(backend=ch.resolve_backend(cfg))
-                for ch in chans)
+    backends = tuple(ch.resolve_backend(cfg) for ch in chans)
+    # fuse: every leg is one fused-leg kernel when all channels run on
+    # "kernels" (the reference fuses a leg iff its channels are "pallas")
+    fused = cfg.fuse and all(b == "kernels" for b in backends)
+    _check_ported(cfg, prog, fused)
+    # an HBM-declared shard streams T2 through the windows of its space
+    edge_space = resolve_edge_space(prog, cfg)
+    streaming = edge_space == "hbm"
+    window = resolve_window(cfg.hbm_window, cfg.max_t2) if streaming else 0
+    ctx = Ctx(cfg, comm.size, e_chunk, v_chunk, fused=fused,
+              edge_space=edge_space, hbm_window=window)
+    cxs = tuple(ctx._replace(backend=b) for b in backends)
     caps = tuple(ch.route_cap(cfg) for ch in chans)
     pops = tuple(ch.pop_budget(cfg) for ch in chans)
     qcaps = tuple(ch.qcap(cfg) for ch in chans)
@@ -302,14 +330,16 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
         remainders); spill-only channels replay their backlog ahead of the
         fresh messages.  On "kernels" the push + pop pair is one
         ``queue_push_pop`` launch (a spill-only channel turns with an
-        empty fresh batch).  Also returns each tile's queue-op counts for
-        the cycle model: entries popped and entries pushed this round.
+        empty fresh batch), or its plain body ``fifo_turn`` inside a
+        fused leg.  Also returns each tile's queue-op counts for the cycle
+        model: entries popped and entries pushed this round.
         """
         q = st.queues[i]
         kernels = cx.backend == "kernels"
+        turn = fifo_turn if cx.fused else queue_push_pop
         if chans[i].queued:
             if kernels:
-                taken, tvalid, qdata, qcount, d0 = queue_push_pop(
+                taken, tvalid, qdata, qcount, d0 = turn(
                     q.data, q.count, rows, valid, pop_i.contiguous(),
                     pops[i])
                 q = Queue(qdata, qcount)
@@ -328,7 +358,7 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
                 none = torch.zeros((T, 1), dtype=torch.bool,
                                    device=comm.device)
                 pad = torch.zeros((T, 1, w), dtype=I32, device=comm.device)
-                replay, rvalid, qdata, qcount, _ = queue_push_pop(
+                replay, rvalid, qdata, qcount, _ = turn(
                     q.data, q.count, pad, none, pop_i.contiguous(), pops[i])
                 q = Queue(qdata, qcount)
             else:
@@ -366,6 +396,18 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
                                               rv)
         return st, d0, work, spv.sum(dim=1, dtype=I32)
 
+    if fused:
+        # each leg is one kernel; the stages above (under the fused Ctx)
+        # are its plain version
+        alg = prog.alg
+        tmpl = LegTemplate(
+            payload=alg.parent, emit=alg.emit, fold=alg.kind, mode=cfg.mode,
+            policy=cfg.policy, window=window, f_pop=cfg.f_pop,
+            r_pop=pops[0], u_pop=pops[1], max_t2=cfg.max_t2, plimit=plimit)
+        stage_first = functools.partial(fused_leg0, tmpl, stage_first)
+        mids[1] = functools.partial(fused_leg1, tmpl, mids[1])
+        stage_last = functools.partial(fused_leg2, tmpl, stage_last)
+
     def kahan_add(total, comp, inc):
         """Compensated float32 accumulation: (new_total, new_comp)."""
         y = inc - comp
@@ -388,7 +430,11 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             edges = torch.zeros_like(drops)
             applied = torch.zeros_like(drops)
             n_replay = torch.zeros_like(drops)
+            hbm_win = torch.zeros_like(drops) if streaming else None
             for i in range(1, K):
+                if streaming and chans[i - 1].work == "edges":
+                    # each delivered range message fetches its two windows
+                    hbm_win = hbm_win + 2 * tile_sum(routed.recv_valid)
                 st, msgs, mvalid, d, work, npop, npush, nspill = comm.run(
                     mids[i], shard, st, routed.recv, routed.recv_valid,
                     routed.spill, routed.spill_valid, dyn_pops)
@@ -406,6 +452,8 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
                 die_round = die_round + routed.die_hist
                 sents.append(routed.sent)
                 spillv.append(routed.spill_valid)
+            if streaming and chans[K - 1].work == "edges":
+                hbm_win = hbm_win + 2 * tile_sum(routed.recv_valid)
             st, d, work, nspill = comm.run(stage_last, shard, st,
                                            routed.recv, routed.recv_valid,
                                            routed.spill, routed.spill_valid)
@@ -441,14 +489,22 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
         applied_g = glob(comm.psum(applied))
 
         # Cycle/energy model: the slowest tile's compute plus the busiest
-        # link's serialization; energy linear in the round's counters.
-        comp = tile_compute_cycles(pp, n_pop, n_push, n_replay, edges,
-                                   applied)
+        # link's serialization; energy linear in the round's counters.  A
+        # streamed shard also pays t_hbm / e_hbm per streamed edge word;
+        # on resident runs the terms are absent (not multiplied by zero),
+        # as in the reference, so those totals keep their bits.
+        if streaming:
+            hw_g = glob(comm.psum(hbm_win))
+            he_g = hw_g * window
+        comp = tile_compute_cycles(
+            pp, n_pop, n_push, n_replay, edges, applied,
+            hbm_edges=hbm_win * window if streaming else None)
         cyc_round = (t_round + glob(comm.pmax(comp))
                      + (link_g.to(F32) * t_hop).max())
         energy_round = round_energy_pj(
             pp, T, edges_g, applied_g, msgs_vec.sum(dtype=I32),
-            spills_vec.sum(dtype=I32), link_g, e_hop, cyc_round)
+            spills_vec.sum(dtype=I32), link_g, e_hop, cyc_round,
+            hbm_edges_g=he_g if streaming else None)
         cycles_acc, c_cyc = kahan_add(stats.cycles, kcomp[0], cyc_round)
         energy_acc, c_en = kahan_add(stats.energy_pj, kcomp[1],
                                      energy_round)
@@ -470,8 +526,10 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             cycles=cycles_acc,
             energy_pj=energy_acc,
             launches=stats.launches + launch_tally.n,
-            hbm_windows=stats.hbm_windows,
-            hbm_edges=stats.hbm_edges,
+            hbm_windows=(stats.hbm_windows + hw_g if streaming
+                         else stats.hbm_windows),
+            hbm_edges=(stats.hbm_edges + he_g if streaming
+                       else stats.hbm_edges),
             migrated_vertices=stats.migrated_vertices,
             migration_cycles=stats.migration_cycles,
             migration_pj=stats.migration_pj,

@@ -19,7 +19,10 @@ tile-led ``(T, ...)`` tensors and ``me = arange(T)``.  The building
 blocks dispatch on ``Ctx.backend``: ``"kernels"`` calls the Hopper kernel
 wrappers of :mod:`repro_torch.kernels.engine` (the counterpart of the
 reference's unfused ``"pallas"`` backend), ``"torch"`` runs inline
-PyTorch ops (the counterpart of ``"xla"``).  Both give the same bits.
+PyTorch ops (the counterpart of ``"xla"``).  Under ``Ctx.fused`` the
+whole leg is one fused-leg kernel (:mod:`repro_torch.kernels.engine.
+fused`), and the blocks run the kernels' plain bodies: that composition
+is the fused kernel's plain version.  All give the same bits.
 """
 from __future__ import annotations
 
@@ -31,9 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.queues import f2i, i2f
-from repro_torch.kernels.engine import (edge_scan_gather, fold_scatter,
-                                        frontier_pop, scatter_body,
-                                        segment_gather)
+from repro_torch.kernels.engine import (edge_scan_gather, edge_scan_stream,
+                                        fold_scatter, frontier_pop,
+                                        frontier_take, scatter_body,
+                                        segment_gather, segment_stream)
 from repro_torch.mem import check_alloc, check_budgets
 
 INF = float(np.finfo(np.float32).max)  # "unreached": float32 max, not inf
@@ -42,13 +46,23 @@ BACKENDS = ("kernels", "torch")
 
 class Ctx(NamedTuple):
     """Static per-run context threaded to sources/transforms/handlers.
-    ``backend`` is the resolved backend of the current channel."""
+
+    ``backend`` is the resolved backend of the current channel.
+    ``fused`` means the whole leg is one fused-leg kernel launch: the
+    building blocks then run the plain kernel bodies (``frontier_take``,
+    ``segment_gather``/``segment_stream``, ``scatter_body``), which is
+    what the kernel computes on the card.  ``edge_space`` is the resolved
+    space of the tile's edge shard ("vmem" resident, "hbm" streamed
+    through ``hbm_window``-element windows)."""
 
     cfg: object   # EngineConfig
     T: int
     e_chunk: int
     v_chunk: int
     backend: str = "kernels"
+    fused: bool = False
+    edge_space: str = "vmem"
+    hbm_window: int = 0
 
 
 # --------------------------------------------------------------------------
@@ -164,13 +178,16 @@ class TaskSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Program:
-    """An ordered chain of task channels plus the frontier source."""
+    """An ordered chain of task channels plus the frontier source.
+    ``alg`` is the AlgSpec a classic program was compiled from (it picks
+    the fused-leg kernels' template); other programs have none."""
 
     name: str
     channels: tuple
     source: Optional[Callable] = None
     edge_space: Optional[str] = None
     state_space: str = "vmem"
+    alg: Optional[AlgSpec] = None
 
     def min_caps(self, cfg, T: int) -> tuple:
         """Per-channel worst-case one-round queue inflow (the reference's
@@ -229,7 +246,7 @@ class Program:
 
 def resolve_edge_space(prog: Program, cfg) -> str:
     """The memory space of the tile's edge shard: a program pin wins, else
-    ``cfg.edge_space``.  Only "vmem" (resident shard) is ported."""
+    ``cfg.edge_space`` ("vmem" resident, "hbm" streamed)."""
     want = cfg.edge_space
     if prog.edge_space is not None:
         if want not in ("vmem", prog.edge_space):
@@ -239,10 +256,6 @@ def resolve_edge_space(prog: Program, cfg) -> str:
         space = prog.edge_space
     else:
         space = want
-    if space == "hbm":
-        raise NotImplementedError(
-            "edge_space='hbm' (streamed edge shards) is still to port "
-            "(ROADMAP.md, 'Memory spaces in full')")
     check_alloc(space, "edge", f"edge-shard[{prog.name}]")
     return space
 
@@ -274,7 +287,10 @@ def frontier_source(payload: Callable) -> Callable:
     deg)`` returns the payload column(s), (T, k) or (T, k, P) int32."""
 
     def source(ctx: Ctx, me, sh, st, budget):
-        if ctx.backend == "kernels":
+        if ctx.fused:  # inside the leg's one kernel: the plain body
+            vidx, vvalid, frontier = frontier_take(st.frontier, budget,
+                                                   ctx.cfg.f_pop)
+        elif ctx.backend == "kernels":
             vidx, vvalid, frontier = frontier_pop(st.frontier, budget,
                                                   ctx.cfg.f_pop)
         else:
@@ -315,7 +331,16 @@ def edge_scan(emit_rows: Callable) -> Callable:
 
     def handler(ctx: Ctx, me, sh, st, recv, rv):
         r_start, r_stop = recv[..., 0], recv[..., 1]
-        if ctx.backend == "kernels":
+        kernel = ctx.backend == "kernels" and not ctx.fused
+        if ctx.edge_space == "hbm":
+            # a streamed shard: both backends stage the two windows that
+            # cover each message (the reference's edge_scan, :492-517)
+            scan = edge_scan_stream if kernel else segment_stream
+            nb, w, jvalid = scan(
+                sh.edge_dst, sh.edge_val, r_start.contiguous(),
+                r_stop.contiguous(), rv.contiguous(), ctx.cfg.max_t2,
+                ctx.hbm_window)
+        elif kernel:
             nb, w, jvalid = edge_scan_gather(
                 sh.edge_dst, sh.edge_val, r_start.contiguous(),
                 r_stop.contiguous(), rv.contiguous(), ctx.cfg.max_t2)
@@ -337,7 +362,7 @@ def scatter_fold(ctx: Ctx, target, lidx, vals, valid, op: str):
     """T3 scatter primitive: min/add ``vals[valid]`` into each tile's
     ``target`` at local indices ``lidx`` (invalid rows already mapped to
     the trash slot ``v_chunk``)."""
-    if ctx.backend == "kernels":
+    if ctx.backend == "kernels" and not ctx.fused:
         return fold_scatter(target, lidx.contiguous(), vals.contiguous(),
                             valid.contiguous(), op=op)
     return scatter_body(target, lidx, vals, valid, op)
@@ -398,6 +423,7 @@ def classic_program(alg: AlgSpec) -> Program:
 
     return Program(
         name=alg.name,
+        alg=alg,
         source=frontier_source(payload),
         channels=(
             TaskSpec("range", width=3, owner="edge", knobs="range",

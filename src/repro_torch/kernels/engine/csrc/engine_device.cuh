@@ -1,0 +1,261 @@
+// Device code of the engine round's kernels, shared by the standalone
+// kernels (engine_kernels.cu) and the fused legs (fused_legs.cu).  Each
+// function is one pure body of src/repro/kernels/engine/kernel.py, run by
+// one block (or one warp) for one tile, and writes what that body writes,
+// don't-care slots included.
+//
+// Integer arithmetic follows torch's on int32 tensors: // and % round
+// toward negative infinity (floor_div, floor_mod) and + and * wrap (done
+// in unsigned arithmetic, where C's signed overflow would be undefined).
+// Float arithmetic uses the _rn intrinsics, so no contraction into an FMA
+// can change a bit; bitcasts are __int_as_float / __float_as_int (the
+// reference's f2i / i2f, src/repro/core/queues.py:29).
+//
+// Bools are torch.bool tensors: one byte each, 0 or 1.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wrap_mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// Block-wide exclusive prefix sum of one int per thread (blockDim.x a
+// multiple of 32, at most 1024; every thread of the block calls it).
+// Returns the thread's exclusive prefix and the block total in *total.
+// `sm` is 33 ints of shared memory; the trailing barrier makes it safe to
+// call again at once.
+__device__ inline int block_excl_scan(int v, int* total, int* sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sm[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < nwarps ? sm[lane] : 0;
+    int s = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    sm[lane] = s - w;        // exclusive offset of warp `lane`
+    if (lane == 31) sm[32] = s;
+  }
+  __syncthreads();
+  const int res = x - v + sm[warp];
+  *total = sm[32];
+  __syncthreads();
+  return res;
+}
+
+__device__ inline int block_sum(int v, int* sm) {
+  int total;
+  block_excl_scan(v, &total, sm);
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// frontier_take (kernel.py:77): the first min(k, popcount) set bits of one
+// tile's (n,) bitmap m, in position order.  ix[rank] = position for the
+// taken bits and 0 in the slots from n_take to k_max; r = m with exactly the
+// taken bits cleared.  Returns n_take (block-uniform); ix is complete once
+// the caller has passed a barrier.  k <= k_max.
+//
+// The block walks the bitmap in steps of blockDim.x * 16 bytes, each thread
+// owning 16 consecutive bytes read and written as one 16-byte vector; a
+// block scan of the per-thread popcounts gives each thread the rank of its
+// first set bit.  Once k bits are ranked the block only copies.
+// ---------------------------------------------------------------------------
+constexpr int FT_BYTES = 16;
+
+union Bytes16 {
+  uint4 v;
+  uint8_t b[FT_BYTES];
+};
+
+__device__ inline int frontier_take_block(const uint8_t* __restrict__ m,
+                                          uint8_t* __restrict__ r, int n,
+                                          int k, int k_max, int32_t* ix,
+                                          int* sm) {
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(r)) &
+       (FT_BYTES - 1)) == 0;
+  int seen = 0;  // set bits ranked so far; identical in every thread
+  for (int base = 0; base < n; base += blockDim.x * FT_BYTES) {
+    const int p0 = base + threadIdx.x * FT_BYTES;
+    const bool full = vec && p0 + FT_BYTES <= n;
+    Bytes16 u;
+    if (full) {
+      u.v = *reinterpret_cast<const uint4*>(m + p0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < FT_BYTES; ++i) u.b[i] = p0 + i < n ? m[p0 + i] : 0;
+    }
+    if (seen < k) {  // block-uniform branch
+      int cnt = 0;
+#pragma unroll
+      for (int i = 0; i < FT_BYTES; ++i) cnt += u.b[i] != 0;
+      int total;
+      int rank = seen + block_excl_scan(cnt, &total, sm);
+#pragma unroll
+      for (int i = 0; i < FT_BYTES; ++i) {
+        if (u.b[i]) {
+          if (rank < k) {
+            if (rank < k_max) ix[rank] = p0 + i;
+            u.b[i] = 0;
+          }
+          ++rank;
+        }
+      }
+      seen += total;
+    }
+    if (full) {
+      *reinterpret_cast<uint4*>(r + p0) = u.v;
+    } else {
+      for (int i = 0; i < FT_BYTES; ++i)
+        if (p0 + i < n) r[p0 + i] = u.b[i];
+    }
+  }
+  int n_take = seen < k ? seen : k;
+  if (n_take < 0) n_take = 0;
+  for (int j = threadIdx.x; j < k_max; j += blockDim.x)
+    if (j >= n_take) ix[j] = 0;  // disjoint from the ranked writes above
+  return n_take;
+}
+
+// ---------------------------------------------------------------------------
+// fifo_turn (kernel.py:95) after its append: data' is the (cap, w) queue d
+// with the compacted fresh rows fresh(j, col), j < n_push, at rows
+// [c0, c0 + n_push).  Pops n_pop rows off the front by shifting the whole
+// buffer, stale rows included: nd[i] = data'[min(i + n_pop, cap - 1)], and
+// writes the first max_n rows of data' to tk.  nd is a second buffer, since
+// the shift overlaps itself.
+// ---------------------------------------------------------------------------
+template <class Fresh>
+__device__ inline void fifo_shift(const int32_t* __restrict__ d,
+                                  int32_t* __restrict__ nd, int32_t* tk,
+                                  int cap, int w, int c0, int n_push,
+                                  int n_pop, int max_n, Fresh fresh) {
+  auto appended = [&](int row, int col) -> int32_t {
+    return (row >= c0 && row < c0 + n_push) ? fresh(row - c0, col)
+                                            : d[(size_t)row * w + col];
+  };
+  const int ne = cap * w;
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int i = e / w, col = e - i * w;
+    const int row = i + n_pop < cap - 1 ? i + n_pop : cap - 1;
+    nd[e] = appended(row, col);
+  }
+  for (int e = threadIdx.x; e < max_n * w; e += blockDim.x) {
+    const int i = e / w;
+    tk[e] = appended(i, e - i * w);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// queue_append (kernel.py:123; the port's queue_push): the valid rows of
+// rows (n, w), in row order, go to slots count, count + 1, ... of the
+// (cap, w) queue q while the slot is < cap.  q must already hold its rows,
+// visible to the block.  Returns the number of valid rows (block-uniform);
+// the caller's pushes are min(that, max(cap - count, 0)), the rest drops.
+// ---------------------------------------------------------------------------
+__device__ inline int queue_append_block(int32_t* __restrict__ q, int cap,
+                                         int w, int count,
+                                         const int32_t* rows,
+                                         const uint8_t* valid, int n,
+                                         int* sm) {
+  int nvalid = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int v = i < n ? valid[i] != 0 : 0;
+    int total;
+    const int pos = count + nvalid + block_excl_scan(v, &total, sm);
+    if (v && pos < cap)
+      for (int c = 0; c < w; ++c)
+        q[(size_t)pos * w + c] = rows[(size_t)i * w + c];
+    nvalid += total;
+  }
+  return nvalid;
+}
+
+// ---------------------------------------------------------------------------
+// segment_gather (kernel.py:141) and segment_stream (kernel.py:157): lane j
+// of one range message [s, stop) of a tile.  An invalid message has length
+// 0 and local offset 0; valid lanes are those with j < length and dst >= 0.
+// ---------------------------------------------------------------------------
+struct Lane {
+  int32_t dst;
+  float w;
+  bool valid;
+};
+
+__device__ __forceinline__ void message_bounds(bool v, int s, int stop,
+                                               int e_chunk, int* length,
+                                               int* local0) {
+  *length = v ? wrap_add(stop, -s) : 0;
+  *local0 = v ? floor_mod(s, e_chunk) : 0;
+}
+
+// The resident gather: the shard word at min(local0 + j, e_chunk - 1).
+__device__ __forceinline__ Lane gather_lane(const int32_t* __restrict__ ed,
+                                            const float* __restrict__ ev,
+                                            int e_chunk, int length,
+                                            int local0, int j) {
+  const int ei = local0 + j < e_chunk - 1 ? local0 + j : e_chunk - 1;
+  const int32_t dst = ed[ei];
+  return Lane{dst, ev[ei], j < length && dst >= 0};
+}
+
+// The stream: one warp stages the two aligned windows that cover a message,
+// sd/sv[k] = shard[min(base + k, e_chunk - 1)] for k < 2 * window, with
+// base = local0 / window * window (local0 >= 0).  The caller __syncwarp()s
+// before reading the staging buffer and again before restaging it.
+__device__ __forceinline__ int stage_windows(const int32_t* __restrict__ ed,
+                                             const float* __restrict__ ev,
+                                             int e_chunk, int local0,
+                                             int window, int32_t* sd,
+                                             float* sv) {
+  const int base = local0 / window * window;
+  for (int k = threadIdx.x & 31; k < 2 * window; k += 32) {
+    const int si = base + k < e_chunk - 1 ? base + k : e_chunk - 1;
+    sd[k] = ed[si];
+    sv[k] = ev[si];
+  }
+  return base;
+}
+
+// Lane j out of the staging buffer only, at min(local0 - base + j,
+// 2 * window - 1).
+__device__ __forceinline__ Lane stream_lane(const int32_t* sd, const float* sv,
+                                            int window, int length,
+                                            int local0, int base, int j) {
+  const int off0 = local0 - base + j;
+  const int off = off0 < 2 * window - 1 ? off0 : 2 * window - 1;
+  const int32_t dst = sd[off];
+  return Lane{dst, sv[off], j < length && dst >= 0};
+}
+
+}  // namespace repro

@@ -3,7 +3,8 @@
 // batched over the T emulated tiles and writes every output element exactly
 // as the reference's pure body does (including the don't-care slots), so a
 // kernel's outputs are compared with its plain PyTorch version element for
-// element.
+// element.  Their bodies are the device functions of engine_device.cuh and
+// ordered_scatter.cuh, which the fused legs (fused_legs.cu) share.
 //
 // Plain C interface (no torch headers): each launcher takes device pointers,
 // sizes and the caller's cudaStream_t, launches on that stream without
@@ -17,42 +18,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "engine_device.cuh"
 #include "ordered_scatter.cuh"
 
 namespace {
-
-// Block-wide exclusive prefix sum of one int per thread (blockDim.x a
-// multiple of 32, at most 1024).  Returns the thread's exclusive prefix and
-// the block total in *total.  `sm` is 33 ints of shared memory; the trailing
-// barrier makes it safe to call again at once.
-__device__ int block_excl_scan(int v, int* total, int* sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sm[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < nwarps ? sm[lane] : 0;
-    int s = w;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    sm[lane] = s - w;        // exclusive offset of warp `lane`
-    if (lane == 31) sm[32] = s;
-  }
-  __syncthreads();
-  const int res = x - v + sm[warp];
-  *total = sm[32];
-  __syncthreads();
-  return res;
-}
 
 // ---------------------------------------------------------------------------
 // frontier_pop: replaces frontier_pop / frontier_take (kernel.py:371, :77).
@@ -69,12 +38,6 @@ __device__ int block_excl_scan(int v, int* total, int* sm) {
 // the main path, under half of the 132 SMs).
 // ---------------------------------------------------------------------------
 constexpr int FP_THREADS = 512;
-constexpr int FP_BYTES = 16;
-
-union Bytes16 {
-  uint4 v;
-  uint8_t b[FP_BYTES];
-};
 
 __global__ void __launch_bounds__(FP_THREADS)
 frontier_pop_kernel(const uint8_t* __restrict__ mask,
@@ -83,55 +46,11 @@ frontier_pop_kernel(const uint8_t* __restrict__ mask,
                     int n, int k_max) {
   __shared__ int sm[33];
   const int t = blockIdx.x;
-  const uint8_t* m = mask + (size_t)t * n;
-  uint8_t* r = rem + (size_t)t * n;
-  int32_t* ix = idx + (size_t)t * k_max;
-  const int k = kk[t];
-  const bool vec =
-      ((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(r)) &
-       (FP_BYTES - 1)) == 0;
-  int seen = 0;  // set bits ranked so far; identical in every thread
-  for (int base = 0; base < n; base += FP_THREADS * FP_BYTES) {
-    const int p0 = base + threadIdx.x * FP_BYTES;
-    const bool full = vec && p0 + FP_BYTES <= n;
-    Bytes16 u;
-    if (full) {
-      u.v = *reinterpret_cast<const uint4*>(m + p0);
-    } else {
-#pragma unroll
-      for (int i = 0; i < FP_BYTES; ++i) u.b[i] = p0 + i < n ? m[p0 + i] : 0;
-    }
-    if (seen < k) {  // block-uniform branch
-      int cnt = 0;
-#pragma unroll
-      for (int i = 0; i < FP_BYTES; ++i) cnt += u.b[i] != 0;
-      int total;
-      int rank = seen + block_excl_scan(cnt, &total, sm);
-#pragma unroll
-      for (int i = 0; i < FP_BYTES; ++i) {
-        if (u.b[i]) {
-          if (rank < k) {
-            if (rank < k_max) ix[rank] = p0 + i;
-            u.b[i] = 0;
-          }
-          ++rank;
-        }
-      }
-      seen += total;
-    }
-    if (full) {
-      *reinterpret_cast<uint4*>(r + p0) = u.v;
-    } else {
-      for (int i = 0; i < FP_BYTES; ++i)
-        if (p0 + i < n) r[p0 + i] = u.b[i];
-    }
-  }
-  int n_take = seen < k ? seen : k;
-  if (n_take < 0) n_take = 0;
-  for (int j = threadIdx.x; j < k_max; j += blockDim.x) {
-    if (j >= n_take) ix[j] = 0;  // disjoint from the ranked writes above
+  const int n_take = repro::frontier_take_block(
+      mask + (size_t)t * n, rem + (size_t)t * n, n, kk[t], k_max,
+      idx + (size_t)t * k_max, sm);
+  for (int j = threadIdx.x; j < k_max; j += blockDim.x)
     valid[(size_t)t * k_max + j] = j < n_take;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -171,7 +90,7 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
     const int i = base + threadIdx.x;
     const int v = i < n ? pvalid[(size_t)t * n + i] != 0 : 0;
     int total;
-    const int pos = nvalid + block_excl_scan(v, &total, sm);
+    const int pos = nvalid + repro::block_excl_scan(v, &total, sm);
     if (v) src_row[pos] = i;
     nvalid += total;
   }
@@ -179,32 +98,18 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
   const int c0 = count[t];
   const int room = cap - c0 > 0 ? cap - c0 : 0;
   const int n_push = nvalid < room ? nvalid : room;
-  const int c2 = c0 + n_push;
   const int p = npop[t];
-  const int n_pop = p < c2 ? p : c2;
-  const int32_t* d = data + (size_t)t * cap * w;
+  const int n_pop = p < c0 + n_push ? p : c0 + n_push;
   const int32_t* rw = rows + (size_t)t * n * w;
-  // element (row, col) of the post-append buffer data'
-  auto appended = [&](int row, int col) -> int32_t {
-    return (row >= c0 && row < c2) ? rw[(size_t)src_row[row - c0] * w + col]
-                                   : d[(size_t)row * w + col];
-  };
-  int32_t* nd = ndata + (size_t)t * cap * w;
-  const int ne = cap * w;
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int i = e / w, col = e - i * w;
-    const int row = i + n_pop < cap - 1 ? i + n_pop : cap - 1;
-    nd[e] = appended(row, col);
-  }
-  int32_t* tk = taken + (size_t)t * max_n * w;
-  for (int e = threadIdx.x; e < max_n * w; e += blockDim.x) {
-    const int i = e / w;
-    tk[e] = appended(i, e - i * w);
-  }
+  repro::fifo_shift(data + (size_t)t * cap * w, ndata + (size_t)t * cap * w,
+                    taken + (size_t)t * max_n * w, cap, w, c0, n_push, n_pop,
+                    max_n, [&](int j, int col) {
+                      return rw[(size_t)src_row[j] * w + col];
+                    });
   for (int j = threadIdx.x; j < max_n; j += blockDim.x)
     tvalid[(size_t)t * max_n + j] = j < n_pop;
   if (threadIdx.x == 0) {
-    ncount[t] = c2 - n_pop;
+    ncount[t] = c0 + n_push - n_pop;
     drops[t] = nvalid - n_push;
   }
 }
@@ -237,21 +142,70 @@ edge_scan_gather_kernel(const int32_t* __restrict__ edge_dst,
   if (e >= R * max_t2) return;
   const int r = e / max_t2, j = e - r * max_t2;
   const size_t row = (size_t)t * R + r;
-  const bool v = rv[row] != 0;
-  int length = 0, local0 = 0;
-  if (v) {
-    const int s = start[row];
-    length = stop[row] - s;
-    local0 = s % e_chunk;
-    if (local0 < 0) local0 += e_chunk;
-  }
-  const int ei = local0 + j < e_chunk - 1 ? local0 + j : e_chunk - 1;
-  const size_t src = (size_t)t * e_chunk + ei;
-  const int32_t dst = edge_dst[src];
+  int length, local0;
+  repro::message_bounds(rv[row] != 0, start[row], stop[row], e_chunk,
+                        &length, &local0);
+  const repro::Lane l =
+      repro::gather_lane(edge_dst + (size_t)t * e_chunk,
+                         edge_val + (size_t)t * e_chunk, e_chunk, length,
+                         local0, j);
   const size_t o = (size_t)t * R * max_t2 + e;
-  nb[o] = dst;
-  wout[o] = edge_val[src];
-  jvalid[o] = v && j < length && dst >= 0;
+  nb[o] = l.dst;
+  wout[o] = l.w;
+  jvalid[o] = l.valid;
+}
+
+// ---------------------------------------------------------------------------
+// edge_scan_stream: replaces edge_scan_stream / segment_stream
+// (kernel.py:519, :157).  T2 over an HBM-declared edge shard: one warp per
+// range message stages the two aligned `window`-sized windows that cover it
+// (2 * window (dst, val) pairs, indices clamped to the shard) in shared
+// memory, then its lanes gather from the staging buffer only.  Every valid
+// lane reads the word edge_scan_gather reads (window >= max_t2); invalid
+// lanes read the staging buffer, as segment_stream's do.
+//
+// Bound: bytes — what the streamed tile transfers is 2 * window words per
+// message (hbm_edges), against max_t2 for the resident gather; the staging
+// reads are coalesced 128-byte lines.  Design: a (T, R / warps) grid of
+// blocks of `warps` warps, each warp with its own 16 * window bytes of
+// shared memory (warps = 48 KiB / that, at most 8).
+// ---------------------------------------------------------------------------
+constexpr int STAGE_SMEM = 48 * 1024;
+
+__host__ __device__ inline int stage_warps(int window, int most) {
+  const int w = STAGE_SMEM / (16 * window);
+  return w < 1 ? 1 : (w > most ? most : w);
+}
+
+__global__ void edge_scan_stream_kernel(
+    const int32_t* __restrict__ edge_dst, const float* __restrict__ edge_val,
+    const int32_t* __restrict__ start, const int32_t* __restrict__ stop,
+    const uint8_t* __restrict__ rv, int32_t* __restrict__ nb,
+    float* __restrict__ wout, uint8_t* __restrict__ jvalid, int e_chunk,
+    int R, int max_t2, int window) {
+  extern __shared__ __align__(16) unsigned char es_smem[];
+  const int t = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.y * (blockDim.x >> 5) + warp;
+  if (r >= R) return;  // whole warps leave; no block barrier follows
+  int32_t* sd = reinterpret_cast<int32_t*>(es_smem) + warp * 4 * window;
+  float* sv = reinterpret_cast<float*>(sd + 2 * window);
+  const size_t row = (size_t)t * R + r;
+  int length, local0;
+  repro::message_bounds(rv[row] != 0, start[row], stop[row], e_chunk,
+                        &length, &local0);
+  const int base = repro::stage_windows(
+      edge_dst + (size_t)t * e_chunk, edge_val + (size_t)t * e_chunk,
+      e_chunk, local0, window, sd, sv);
+  __syncwarp();
+  for (int j = threadIdx.x & 31; j < max_t2; j += 32) {
+    const repro::Lane l =
+        repro::stream_lane(sd, sv, window, length, local0, base, j);
+    const size_t o = row * max_t2 + j;
+    nb[o] = l.dst;
+    wout[o] = l.w;
+    jvalid[o] = l.valid;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -364,6 +318,22 @@ int repro_edge_scan_gather(const void* edge_dst, const void* edge_val,
       static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
       static_cast<int32_t*>(nb), static_cast<float*>(w),
       static_cast<uint8_t*>(jvalid), e_chunk, R, max_t2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int repro_edge_scan_stream(const void* edge_dst, const void* edge_val,
+                           const void* start, const void* stop, const void* rv,
+                           void* nb, void* w, void* jvalid, int T, int e_chunk,
+                           int R, int max_t2, int window, void* stream) {
+  const int warps = stage_warps(window, 8);
+  const dim3 grid(T, (R + warps - 1) / warps);
+  edge_scan_stream_kernel<<<grid, 32 * warps, (size_t)warps * 16 * window,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(edge_dst),
+      static_cast<const float*>(edge_val), static_cast<const int32_t*>(start),
+      static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
+      static_cast<int32_t*>(nb), static_cast<float*>(w),
+      static_cast<uint8_t*>(jvalid), e_chunk, R, max_t2, window);
   return static_cast<int>(cudaGetLastError());
 }
 

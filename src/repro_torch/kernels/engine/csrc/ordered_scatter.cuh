@@ -1,7 +1,7 @@
-// Device code shared by the T3 folds (engine_kernels.cu) and the binned
-// segment scatter (../../scatter_update/csrc/scatter_segments.cu): one block
-// folds R rows into one slice of float slots, the slice lying in device
-// memory and owned by that block alone.
+// Device code shared by the T3 folds (engine_kernels.cu, fused_legs.cu) and
+// the binned segment scatter (../../scatter_update/csrc/scatter_segments.cu):
+// one block folds R rows into one slice of float slots, the slice lying in
+// device memory and owned by that block alone.
 //
 // The add keeps the serial order of the reference (XLA's scatter, and
 // scatter_ref's loop): slot s ends as target[s] + v[r1] + v[r2] + ... over
@@ -76,26 +76,24 @@ __device__ inline void block_sort(unsigned long long* key, int n) {
   }
 }
 
-// out[slot[r]] += (valid ? (valid[r] ? val[r] : 0) : val[r]) for the rows r
-// with 0 <= slot[r] < n_slots, each slot's rows in increasing r.  `out`
-// must already hold the target slice, visible to the whole block; `smem`
-// holds ordered_add_smem(R) bytes.  Rows that are not valid still add 0.0
-// at their slot, as the reference's masked scatter does (-0.0 + 0.0 is
-// +0.0), so the caller maps them to an out-of-range slot to skip them.
-__device__ inline void ordered_add_rows(float* __restrict__ out, int n_slots,
-                                        const int32_t* __restrict__ slot,
-                                        const float* __restrict__ val,
-                                        const uint8_t* __restrict__ valid,
-                                        int R, unsigned char* smem) {
+// out[s_r] += v_r for the rows r < R with 0 <= s_r < n_slots, each slot's
+// rows in increasing r, where row(r, &s_r, &v_r) reads row r.  `out` must
+// already hold the target slice, visible to the whole block; `smem` holds
+// ordered_add_smem(R) bytes.
+template <class Row>
+__device__ inline void ordered_add_rows_by(float* __restrict__ out,
+                                           int n_slots, int R,
+                                           unsigned char* smem, Row row) {
   const int P = next_pow2(R > 0 ? R : 1);
   unsigned long long* key = reinterpret_cast<unsigned long long*>(smem);
   float* sval = reinterpret_cast<float*>(key + P);
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     unsigned long long k = kNoKey;
     if (i < R) {
-      const int s = slot[i];
-      const float v = val[i];
-      sval[i] = (valid == nullptr || valid[i]) ? v : 0.0f;
+      int s;
+      float v;
+      row(i, &s, &v);
+      sval[i] = v;
       if (s >= 0 && s < n_slots)
         k = (static_cast<unsigned long long>(s) << 32) |
             static_cast<unsigned int>(i);
@@ -115,6 +113,22 @@ __device__ inline void ordered_add_rows(float* __restrict__ out, int n_slots,
       acc = __fadd_rn(acc, sval[static_cast<unsigned int>(key[j])]);
     out[s] = acc;
   }
+}
+
+// out[slot[r]] += (valid ? (valid[r] ? val[r] : 0) : val[r]) for the rows r
+// with 0 <= slot[r] < n_slots, each slot's rows in increasing r.  Rows that
+// are not valid still add 0.0 at their slot, as the reference's masked
+// scatter does (-0.0 + 0.0 is +0.0), so the caller maps them to an
+// out-of-range slot to skip them.
+__device__ inline void ordered_add_rows(float* __restrict__ out, int n_slots,
+                                        const int32_t* __restrict__ slot,
+                                        const float* __restrict__ val,
+                                        const uint8_t* __restrict__ valid,
+                                        int R, unsigned char* smem) {
+  ordered_add_rows_by(out, n_slots, R, smem, [&](int i, int* s, float* v) {
+    *s = slot[i];
+    *v = (valid == nullptr || valid[i]) ? val[i] : 0.0f;
+  });
 }
 
 }  // namespace repro

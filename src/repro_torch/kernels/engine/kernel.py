@@ -1,9 +1,11 @@
 """Hopper kernels of the engine round, their plain PyTorch versions, and the
-build loader (port of ``repro.kernels.engine.kernel``'s unfused path).
+build loader (port of ``repro.kernels.engine.kernel``'s standalone
+kernels; the fused legs are :mod:`repro_torch.kernels.engine.fused`).
 
-Five wrappers replace the four TPU kernels the reference's
+Six wrappers replace the five standalone TPU kernels the reference's
 ``backend="pallas", pallas_fuse=False`` round launches (5 launches per
-round: ``queue_push_pop`` once per channel; the fold is min or add):
+round: ``queue_push_pop`` once per channel; T2 gathers a resident shard
+or streams an HBM-declared one; the fold is min or add):
 
 =====================  ===============================================
 wrapper                TPU kernel it replaces (src/repro/kernels/...)
@@ -12,6 +14,7 @@ wrapper                TPU kernel it replaces (src/repro/kernels/...)
 :func:`queue_push_pop`    ``engine/kernel.py:417`` (``fifo_turn`` +
                           ``queue_append``)
 :func:`edge_scan_gather`  ``engine/kernel.py:473`` (``segment_gather``)
+:func:`edge_scan_stream`  ``engine/kernel.py:519`` (``segment_stream``)
 :func:`fold_scatter`      ``engine/kernel.py:557`` (``scatter_body``,
                           ``op="min"``)
 :func:`fold_scatter_add`  ``engine/kernel.py:557`` (``op="add"``)
@@ -19,14 +22,16 @@ wrapper                TPU kernel it replaces (src/repro/kernels/...)
 
 Each wrapper takes tile-batched ``(T, ...)`` tensors.  On CPU tensors it
 runs its plain version (:func:`frontier_take`, :func:`fifo_turn`,
-:func:`segment_gather`, :func:`scatter_body` — batched ports of the
-reference's pure bodies).  On CUDA tensors it checks dtype, shape and
-contiguity, allocates its outputs, launches its CUDA kernel
-(``csrc/engine_kernels.cu``, what bounds it and how is written beside
-each kernel there) on the current stream and raises if the launch failed;
-there is no fallback.  Every call is counted for ``Stats.launches``
-through :func:`repro_torch.kernels.engine.launches.record`; the wrapper's
-own ``launches`` attribute counts real CUDA launches only.
+:func:`segment_gather`, :func:`segment_stream`, :func:`scatter_body` —
+batched ports of the reference's pure bodies, which the fused legs
+compose too).  On CUDA tensors it checks dtype, shape and contiguity,
+allocates its outputs, launches its CUDA kernel (``csrc/engine_kernels.cu``
+over the device functions of ``csrc/engine_device.cuh``; what bounds it
+and how is written beside each kernel there) on the current stream and
+raises if the launch failed; there is no fallback.  Every call is counted
+for ``Stats.launches`` through
+:func:`repro_torch.kernels.engine.launches.record`; the wrapper's own
+``launches`` attribute counts real CUDA launches only.
 
 The add fold keeps the reference's serial order per slot on every
 device: the kernel sorts each tile's rows by slot, and the plain version
@@ -54,19 +59,23 @@ _INF = float(np.finfo(np.float32).max)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "engine_kernels.cu"
+ENGINE_DEVICE = CSRC / "engine_device.cuh"
 ORDERED_SCATTER = CSRC / "ordered_scatter.cuh"
 
 # queue_push_pop keeps the compacted fresh-row indices in shared memory
 _QP_MAX_ROWS = 8192
 # the add fold sorts one 8-byte key and one value per row in shared memory
 FOLD_ADD_MAX_ROWS = 16384
+# a streamed T2 stages 2 * window (dst, val) pairs per warp in shared memory
+STREAM_MAX_WINDOW = 2048
 LIBRARY = CudaLibrary(SOURCE, {
     "repro_frontier_pop": [_P] * 5 + [_I] * 3 + [_P],
     "repro_queue_push_pop": [_P] * 10 + [_I] * 5 + [_P],
     "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
+    "repro_edge_scan_stream": [_P] * 8 + [_I] * 5 + [_P],
     "repro_fold_scatter_min": [_P] * 5 + [_I] * 3 + [_P],
     "repro_fold_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
-}, headers=(ORDERED_SCATTER,))
+}, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
 
 
@@ -142,6 +151,38 @@ def segment_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
         .to(torch.int64)
     nb = torch.gather(edge_dst, 1, eidx_c).reshape(T, R, max_t2)
     w = torch.gather(edge_val, 1, eidx_c).reshape(T, R, max_t2)
+    return nb, w, jvalid & (nb >= 0)
+
+
+def segment_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
+                   window: int):
+    """T2 over a streamed (HBM-declared) edge shard: each message stages
+    the two aligned ``window``-sized windows that cover it, ``[base, base
+    + 2 * window)`` with ``base = (start % e_chunk) // window * window``
+    (indices clamped to the shard), and gathers its lanes out of that
+    staging buffer only (offsets clamped to it).
+
+    Same operands and outputs as :func:`segment_gather`.  With ``window >=
+    max_t2`` every valid lane reads the same shard word as the gather; the
+    invalid lanes read the staging buffer, so they differ from it.
+    """
+    T, e_chunk = edge_dst.shape
+    R = start.shape[1]
+    dev = start.device
+    length = torch.where(rv, stop - start, 0)
+    local0 = torch.where(rv, start % e_chunk, 0)
+    base = torch.div(local0, window, rounding_mode="floor") * window
+    k = torch.arange(2 * window, dtype=torch.int32, device=dev)
+    sidx = torch.clamp(base[:, :, None] + k, max=e_chunk - 1) \
+        .reshape(T, -1).to(torch.int64)
+    stage_dst = torch.gather(edge_dst, 1, sidx).reshape(T, R, 2 * window)
+    stage_val = torch.gather(edge_val, 1, sidx).reshape(T, R, 2 * window)
+    j = torch.arange(max_t2, dtype=torch.int32, device=dev)
+    jvalid = rv[:, :, None] & (j < length[:, :, None])
+    off = torch.clamp((local0 - base)[:, :, None] + j, max=2 * window - 1) \
+        .to(torch.int64)
+    nb = torch.gather(stage_dst, 2, off)
+    w = torch.gather(stage_val, 2, off)
     return nb, w, jvalid & (nb >= 0)
 
 
@@ -274,6 +315,36 @@ def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
     return nb, w, jvalid
 
 
+def edge_scan_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
+                     window: int):
+    """T2 over a streamed edge shard (:func:`segment_stream`): the
+    operands and outputs of :func:`edge_scan_gather`, plus the static
+    ``window`` (``max_t2 <= window <= STREAM_MAX_WINDOW``)."""
+    if not max_t2 <= window <= STREAM_MAX_WINDOW:
+        raise ValueError(f"edge_scan_stream: window {window} must lie in "
+                         f"[max_t2={max_t2}, {STREAM_MAX_WINDOW}]")
+    if edge_dst.device.type == "cpu":
+        record()
+        return segment_stream(edge_dst, edge_val, start, stop, rv, max_t2,
+                              window)
+    T, e_chunk = edge_dst.shape
+    R = start.shape[1]
+    _check(("edge_dst", edge_dst, torch.int32, (T, e_chunk)),
+           ("edge_val", edge_val, torch.float32, (T, e_chunk)),
+           ("start", start, torch.int32, (T, R)),
+           ("stop", stop, torch.int32, (T, R)),
+           ("rv", rv, torch.bool, (T, R)))
+    dev = edge_dst.device
+    nb = torch.empty((T, R, max_t2), dtype=torch.int32, device=dev)
+    w = torch.empty((T, R, max_t2), dtype=torch.float32, device=dev)
+    jvalid = torch.empty((T, R, max_t2), dtype=torch.bool, device=dev)
+    _launch("repro_edge_scan_stream", edge_dst, edge_val, start, stop, rv,
+            nb, w, jvalid, T, e_chunk, R, max_t2, window)
+    edge_scan_stream.launches += 1
+    record()
+    return nb, w, jvalid
+
+
 def _fold_checked(target, lidx, vals, valid):
     T, v_chunk = target.shape
     R = lidx.shape[1]
@@ -327,7 +398,7 @@ def fold_scatter_add(target, lidx, vals, valid):
     return out
 
 
-KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, fold_scatter,
-           fold_scatter_add)
+KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, edge_scan_stream,
+           fold_scatter, fold_scatter_add)
 for _k in KERNELS:
     _k.launches = 0

@@ -7,7 +7,8 @@ its plain-version calls the way the reference counts its interpret-mode
 launches — and the engine brackets each round with :func:`tally`, so
 ``Stats.launches`` sums the kernel calls of every round.  Rounds run
 eagerly here, so the tally is taken per executed round rather than at
-trace time; for the classic program both give 5 per round.
+trace time; for the classic program both give 5 per round unfused and 3
+fused.
 
 This is separate from each wrapper's ``launches`` attribute, which counts
 only real CUDA launches (the evidence that a run went through the

@@ -114,9 +114,13 @@ def test_unported_options_raise():
     g = CSRGraph.from_edges(8, np.array([0]), np.array([1]),
                             np.ones(1, np.float32))
     tpg = port_partition(ja.prepare(g, T=4))
-    for kw in (dict(noc="mesh"), dict(edge_space="hbm"),
-               dict(trace=True), dict(adapt=True)):
+    for kw in (dict(noc="mesh"), dict(trace=True), dict(adapt=True)):
         with pytest.raises(NotImplementedError):
             ta.bfs(tpg, 0, TConfig(**SMALL, **kw))
+    # k-core has no fused legs yet
+    gs = ja.symmetrize(g)
+    with pytest.raises(NotImplementedError):
+        ta.kcore(port_partition(ja.prepare(gs, T=4)), 2,
+                 TConfig(**SMALL, fuse=True))
     with pytest.raises(ValueError, match="mode"):
         ta.bfs(tpg, 0, TConfig(**SMALL, mode="epoch"))

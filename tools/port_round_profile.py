@@ -2,23 +2,28 @@
 """Round-level profile of the PyTorch/CUDA port's main path on one GPU.
 
     python3 tools/port_round_profile.py [--app bfs|spmv] [--scale 22]
-        [--tiles 64] [--cap-updq 65536 262144] [--profile-at 3000]
+        [--tiles 64] [--cap-updq 65536 262144] [--fuse 0 1 1 0]
+        [--edge-space vmem hbm] [--max-rounds N] [--profile-at 3000]
         [--profile-rounds 50]
 
 Builds R-MAT-``scale`` (edge factor 10, seed 1) over ``tiles`` tiles and
-runs the app once per ``--cap-updq`` value — one BFS query from vertex 0,
-or one SpMV ``y[dst] += val * x[src]`` with ``chip_smoke.py``'s main-path
-``x`` — driving the engine round by round (the loop of
-``run_engine``) to record what the Stats do not: the peak occupancy of
-each channel queue, and — over ``--profile-rounds`` rounds starting at
-``--profile-at`` — a ``torch.profiler`` breakdown of device time by
-kernel.  Prints, per run: rounds, drops, whether the result matches the
-oracle (BFS hop counts equal; SpMV within the reference's rtol 2e-4 /
-atol 1e-4 plus the oracle's float32 error limit, with the count of
-vertices outside the bare tolerance), wall time per round (unprofiled
-rounds only), device time per round, the device busy share (device time
-per round over unprofiled wall time per round) and the top kernels.
-Needs a CUDA device.
+runs the app once per ``--cap-updq`` value, ``--edge-space`` entry and
+``--fuse`` entry, in the order given (``--fuse 0 1 1 0`` alternates
+unfused and fused runs on one card) — one BFS query from vertex 0, or one SpMV ``y[dst] += val *
+x[src]`` with ``chip_smoke.py``'s main-path ``x`` — driving the engine
+round by round (the loop of ``run_engine``) to record what the Stats do
+not: the peak occupancy of each channel queue, and — over
+``--profile-rounds`` rounds starting at ``--profile-at`` — a
+``torch.profiler`` breakdown of device time by kernel.  Prints, per run:
+rounds, drops, whether the result matches the oracle (BFS hop counts
+equal; SpMV within the reference's rtol 2e-4 / atol 1e-4 plus the
+oracle's float32 error limit, with the count of vertices outside the bare
+tolerance; not checked when ``--max-rounds`` stops the run early), wall
+time per round (unprofiled rounds only), device time per round, the
+device busy share (device time per round over unprofiled wall time per
+round), and per profiled round the CUDA kernels launched, the copies and
+memsets, and the PyTorch operators the host dispatched (top-level
+``aten::`` calls), with the top kernels.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -47,24 +52,33 @@ from repro_torch.core.reference import (bfs_ref, spmv_f32_bound,  # noqa
 from repro_torch.noc import make_network  # noqa: E402
 
 
-def device_us(prof) -> tuple[float, dict]:
-    """Total device time (µs) of the profiled window and its split by
-    kernel name; kernels of one stream do not overlap, so the sum is the
-    time the device was busy."""
+def device_us(prof) -> tuple[float, dict, dict]:
+    """Total device time (µs) of the profiled window, its split by kernel
+    name, and counts: CUDA kernels, copies and memsets on the device, and
+    the top-level PyTorch operators the host dispatched.  Kernels of one
+    stream do not overlap, so the sum is the time the device was busy."""
     total, by_name = 0.0, {}
+    counts = dict(kernels=0, copies=0, aten_ops=0)
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            parent = e.cpu_parent
+            if e.name.startswith("aten::") and not (
+                    parent is not None and parent.name.startswith("aten::")):
+                counts["aten_ops"] += 1
             continue
         us = e.time_range.elapsed_us()
         total += us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    return total, by_name
+        copy = e.name.startswith(("Memcpy", "Memset"))
+        counts["copies" if copy else "kernels"] += 1
+    return total, by_name, counts
 
 
-def run(pg, oracle, cap_updq: int, args):
+def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
     dev = pg.device
     T = pg.T
-    cfg = EngineConfig(cap_updq=cap_updq)
+    cfg = EngineConfig(cap_updq=cap_updq, fuse=fuse, edge_space=space,
+                       max_rounds=args.max_rounds)
     prog = as_program(BFS if args.app == "bfs" else SPMV)
     comm = LocalComm(T, dev)
     shard = GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
@@ -81,7 +95,7 @@ def run(pg, oracle, cap_updq: int, args):
     kcomp = (zf, zf)
     peak = [torch.zeros(T, dtype=torch.int32, device=dev)
             for _ in prog.channels]
-    prof_dev, prof_split, prof_rounds = 0.0, {}, 0
+    prof_dev, prof_split, prof_count, prof_rounds = 0.0, {}, {}, 0
     r, pending, wall = 0, 1, 0.0
     while pending > 0 and r < cfg.max_rounds:
         profiled = args.profile_at <= r < args.profile_at + \
@@ -99,7 +113,7 @@ def run(pg, oracle, cap_updq: int, args):
                     prof_rounds += 1
                     if pending == 0:
                         break
-            prof_dev, prof_split = device_us(prof)
+            prof_dev, prof_split, prof_count = device_us(prof)
             continue
         t0 = time.perf_counter()
         st, stats, kcomp, p = rnd(st, stats, kcomp)
@@ -113,7 +127,9 @@ def run(pg, oracle, cap_updq: int, args):
                   f"{int(stats.drops)}, edges {int(stats.edges_scanned)}, "
                   f"{1e3 * wall / (r - prof_rounds):.3f} ms/round",
                   flush=True)
-    if args.app == "bfs":
+    if pending > 0:
+        ok = "not checked (stopped at --max-rounds)"
+    elif args.app == "bfs":
         vals = alg.to_original(pg, st.value).astype(np.float64)
         vals[vals >= np.float32(INF)] = np.inf
         ok = bool(np.array_equal(vals, oracle))
@@ -127,7 +143,8 @@ def run(pg, oracle, cap_updq: int, args):
               f"2e-4 / atol 1e-4, max abs err {err.max():.3e}, max err / "
               f"(tolerance + float32 limit) {(err / (tol + bound)).max():.3e}")
     ms_round = 1e3 * wall / max(r - prof_rounds, 1)
-    print(f"{args.app} cap_updq {cap_updq}: rounds {r}, drops "
+    print(f"{args.app} cap_updq {cap_updq} edge_space {space} fuse "
+          f"{fuse}: rounds {r}, drops "
           f"{int(stats.drops)}, matches the oracle {ok}, edges "
           f"scanned {int(stats.edges_scanned)}, peak queue occupancy "
           f"{[int(p.max()) for p in peak]} (tile "
@@ -137,7 +154,9 @@ def run(pg, oracle, cap_updq: int, args):
         dev_ms = prof_dev / 1e3 / prof_rounds
         print(f"  profile of rounds {args.profile_at}.."
               f"{args.profile_at + prof_rounds - 1}: device {dev_ms:.3f} "
-              f"ms/round, busy share {dev_ms / ms_round:.3f}", flush=True)
+              f"ms/round, busy share {dev_ms / ms_round:.3f}; per round "
+              + ", ".join(f"{k} {v / prof_rounds:.1f}"
+                          for k, v in prof_count.items()), flush=True)
         for name, us in sorted(prof_split.items(), key=lambda kv: -kv[1])[
                 :args.top]:
             print(f"    {us / 1e3 / prof_rounds:8.4f} ms/round "
@@ -150,6 +169,11 @@ def main():
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--tiles", type=int, default=64)
     ap.add_argument("--cap-updq", type=int, nargs="+", default=[262144])
+    ap.add_argument("--fuse", type=int, nargs="+", choices=(0, 1),
+                    default=[0], help="one run per entry, in order")
+    ap.add_argument("--edge-space", choices=("vmem", "hbm"), nargs="+",
+                    default=["vmem"], help="one run per entry, in order")
+    ap.add_argument("--max-rounds", type=int, default=100_000)
     ap.add_argument("--profile-at", type=int, default=3000)
     ap.add_argument("--profile-rounds", type=int, default=50)
     ap.add_argument("--every", type=int, default=5000)
@@ -173,7 +197,9 @@ def main():
           f"E={g.num_edges}, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for cap in args.cap_updq:
-        run(pg, oracle, cap, args)
+        for space in args.edge_space:
+            for fuse in args.fuse:
+                run(pg, oracle, cap, space, bool(fuse), args)
 
 
 if __name__ == "__main__":
