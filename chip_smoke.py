@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Dalorex engine on one GPU.
 
-    python3 chip_smoke.py [--phases kernels,twin,main,hbm,block,rmat18]
+    python3 chip_smoke.py \
+        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -21,11 +22,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``backend="kernels"``: values and Stats bitwise equal (but
    ``launches``), and equal to (or within the reference's tolerance of)
    the oracle, for BFS (async and BSP), SSSP, WCC, SpMV, PageRank,
-   k-core (k = 2, 5; async and BSP) and triangles; then the classic apps
-   with ``fuse=True`` (each leg one kernel; every leg call also held
+   k-core (k = 2, 5; async and BSP) and triangles, unfused
+   (``fuse=False``); then every one of them with ``fuse=True`` (each leg
+   one kernel: 3 calls a round, 5 for triangles; every leg call also held
    bitwise against its plain stage, with the edge cases: empty frontier,
-   a leg 0 that pops nothing, a cap-0 update queue, spills on both
-   channels) and BFS, SSSP and SpMV with the edge shard streamed
+   a leg 0 that pops nothing, a cap-0 update queue, spills on every
+   channel, the four of triangles included), k-core also with the edge
+   shard streamed, and BFS, SSSP and SpMV with the edge shard streamed
    (``edge_space="hbm"``), unfused and fused;
 4. ``main`` — the main paths over R-MAT-22 (edge factor 10, seed 1) on 64
    tiles, fused, the partition built once: one BFS query from vertex 0
@@ -45,14 +48,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    footprint: ``edge_space="vmem"`` must fail validation; hop counts
    equal to the oracle; rounds, msgs, spills and edges equal to the
    resident fused run's; ``hbm_windows > 0``;
-6. ``block`` — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] =
+6. ``taskgraph`` — the fused task-graph programs on 64 tiles: k-core
+   (k = 16) on symmetrized R-MAT-20 (edge factor 10, seed 1), equal to
+   ``kcore_ref``, and triangle counting on ``prepare_triangles`` of
+   symmetrized R-MAT-TRI_SCALE, equal to ``triangles_wedge_ref`` (the
+   vectorized ``triangles_ref``; both under ``key=pg.place``).  Each: no
+   drops, each leg kernel launched once a round (3 and 5 a round); then
+   short runs whose legs are held bitwise against their plain stages at
+   selected rounds and timed;
+7. ``block`` — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] =
    val against the dense oracle and the engine's SpMV at T = 16, and the
    same product as binned ``scatter_segments`` rounds (add, and a min),
    bitwise equal to numpy's serial ``np.add.at`` / ``np.minimum.at``;
-7. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths (BFS, BFS with
-   the shard streamed through ``edge_scan_stream``, SpMV; five kernel
-   calls a round) against the oracles, and PageRank, 5 iterations (the
-   depth is cut from the reference's 20 for chip time only).
+8. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths
+   (``fuse=False``: BFS, BFS with the shard streamed through
+   ``edge_scan_stream``, SpMV, PageRank; five kernel calls a round)
+   against the oracles; PageRank runs 5 iterations (the depth is cut from
+   the reference's 20 for chip time only).
 
 The last lines are the script's wall time, the kernels' JSON record, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -99,7 +111,7 @@ KERNEL_ROWS = {
     "edge_scan_stream": (ENGINE_SRC, f"{TPU_KERNEL}:519"),
     "fold_scatter": (ENGINE_SRC, f"{TPU_KERNEL}:557"),
     "fold_scatter_add": (ENGINE_SRC, f"{TPU_KERNEL}:557"),
-    **{f"fused_leg{i}": (FUSED_SRC, f"{TPU_KERNEL}:241") for i in range(3)},
+    **{k.__name__: (FUSED_SRC, f"{TPU_KERNEL}:241") for k in F.KERNELS},
     "scatter_segments": (
         "src/repro_torch/kernels/scatter_update/csrc/scatter_segments.cu",
         "src/repro/kernels/scatter_update/kernel.py:47"),
@@ -128,7 +140,7 @@ MAIN_CFG = EngineConfig(cap_updq=262144)
 SPMV_CAP_UPDQ = 131072
 SPMV_CFG = EngineConfig(cap_updq=SPMV_CAP_UPDQ)
 SPMV_SEED, SPMV_SOURCES = 0, 1750061  # x's seed; vertices with out-edges
-# The fused main paths: the same configurations, each leg one kernel.
+# The fused main paths (fuse=True is the default): each leg one kernel.
 MAIN_FUSED = dataclasses.replace(MAIN_CFG, fuse=True)
 SPMV_FUSED = dataclasses.replace(SPMV_CFG, fuse=True)
 # The streamed-shard phase: fused BFS on the main partition with the tile's
@@ -141,9 +153,25 @@ HBM_CFG = dataclasses.replace(MAIN_FUSED, edge_space="hbm",
 # plain versions (not counted; long enough for spills on both channels and
 # the update queue's growth).
 CHECK_ROUNDS = {"BFS": 1500, "SpMV": 800, "BFS-BSP": 200, "BFS-hbm": 300}
-# The phase on the PageRank partition also drives the unfused paths.
-R18_CFGS = {"BFS": MAIN_CFG, "SpMV": SPMV_CFG,
-            "BFS-hbm": dataclasses.replace(MAIN_CFG, edge_space="hbm")}
+# The phase on the PageRank partition drives the unfused paths.
+UNFUSED = dict(fuse=False)
+R18_CFGS = {"BFS": dataclasses.replace(MAIN_CFG, **UNFUSED),
+            "SpMV": dataclasses.replace(SPMV_CFG, **UNFUSED),
+            "BFS-hbm": dataclasses.replace(MAIN_CFG, edge_space="hbm",
+                                           **UNFUSED)}
+# The task-graph programs over the main path's 64 tiles.  k-core: k = 16
+# on symmetrized R-MAT-20 (V = 1,048,576, E = 19,967,950 directed edges;
+# a serial peel takes 3 epochs and 1,761,883 decrements and leaves a core
+# of 137,224), with the BFS main path's update queue (its spill traffic
+# also converges on hub owners).  Triangles: prepare_triangles of
+# symmetrized R-MAT-TRI_SCALE, queues sized by sized_cfg.  Both scales
+# are cut for the script's time, not for memory (PERF.md §4).
+KCORE_SCALE, KCORE_K = 20, 16
+KCORE_V, KCORE_E, KCORE_CORE = 1048576, 19967950, 137224
+KCORE_CFG = MAIN_CFG
+TRI_SCALE = 14
+TRI_CFG = EngineConfig()
+CHECK_ROUNDS.update({"k-core": 400, "triangles": 300})
 BLOCK_SCALE, BLOCK_B, BLOCK_T = 14, 128, 16
 # the knobs of the reference's block-ELL test (tests/test_kernels.py:75)
 TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -654,83 +682,105 @@ def phase_kernels(dev, timer):
 # The fused legs against their plain versions, inside engine runs
 # --------------------------------------------------------------------------
 
-def leg_bytes(leg: int, tmpl, ops, out) -> int:
+def leg_index(name: str) -> int:
+    """The leg a fused-leg wrapper runs: the digit its name ends with."""
+    return int(name[-1])
+
+
+def scan_words(recv, rv, e_chunk, tmpl) -> int:
+    """Distinct shard words the T2 lanes of these messages read: the
+    staged windows when streamed, else the clamped lane indices."""
+    if tmpl.window:
+        return stream_words(recv[..., 0], rv, e_chunk, tmpl.window)
+    local0 = torch.where(rv, recv[..., 0] % e_chunk, 0)
+    j = torch.arange(tmpl.max_t2, device=rv.device, dtype=torch.int32)
+    eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
+    return sum(int(torch.unique(eidx[t]).numel())
+               for t in range(eidx.shape[0]))
+
+
+def leg_bytes(name: str, tmpl, ops, out) -> int:
     """Bytes a fused leg must move on these operands: each input it reads
-    once (the edge shard: the distinct words its messages address; leg 0's
-    vertex arrays: the f_pop slots it gathers), each output once."""
-    st = ops[2]
-    rq, uq = st.queues
-    if leg == 0:
-        T = st.frontier.shape[0]
-        return (nbytes(st.frontier, rq.data, rq.count, uq.count,
-                       st.net_pressure, *tensors(out[1:]))
-                + nbytes(out[0].frontier, *out[0].queues[0])
-                + 12 * T * tmpl.f_pop)
-    recv, rv, sp, spv = ops[3:7]
-    if leg == 1:
-        e_chunk = ops[1].edge_dst.shape[1]
-        if tmpl.window:
-            words = stream_words(recv[..., 0], rv, e_chunk, tmpl.window)
-        else:
-            local0 = torch.where(rv, recv[..., 0] % e_chunk, 0)
-            j = torch.arange(tmpl.max_t2, device=rv.device,
-                             dtype=torch.int32)
-            eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
-            words = sum(int(torch.unique(eidx[t]).numel())
-                        for t in range(eidx.shape[0]))
-        return (nbytes(rq.data, rq.count, uq.data, uq.count, recv, rv, sp,
-                       spv, ops[7], *tensors(out[1:]))
-                + nbytes(*out[0].queues[0], *out[0].queues[1]) + 8 * words)
-    new = out[0]
-    is_min = tmpl.fold == "min"
-    flags = st.frontier if tmpl.mode == "async" else st.next_frontier
-    new_flags = new.frontier if tmpl.mode == "async" else new.next_frontier
-    return (nbytes(uq.data, uq.count, recv, rv, sp, spv,
-                   st.value if is_min else st.acc, *tensors(out[1:]))
-            + nbytes(*new.queues[1], new.value if is_min else new.acc)
-            + (nbytes(flags, new_flags) if is_min else 0))
+    once, each output once; the data-dependent reads as this call needs
+    them: leg 0's f_pop vertex slots (deg and ptr_start, and the value
+    where the payload reads it), the distinct shard words a scan
+    leg's messages address (4 bytes each, 8 where the emit reads the edge
+    value), the two vertex words of each delivered wedge or close row,
+    and at least one shard word per close row's search."""
+    sh, st, new = ops[1], ops[2], out[0]
+    small = nbytes(*tensors(out[1:]))
+    if leg_index(name) == 0:
+        rq = st.queues[0]
+        slot = 12 if tmpl.payload in ("value", "value_over_deg") else 8
+        return (nbytes(st.frontier, rq.data, st.net_pressure,
+                       *(q.count for q in st.queues), new.frontier,
+                       *new.queues[0])
+                + small + slot * st.frontier.shape[0] * tmpl.f_pop)
+    recv, rv = ops[3], ops[4]
+    moved = small + nbytes(*ops[3:])
+    moved += sum(nbytes(*q, *q2) for q, q2 in zip(st.queues, new.queues)
+                 if q is not q2)
+    if name in ("fused_leg1", "fused_tri_leg1", "fused_tri_leg3"):
+        word = 8 if tmpl.emit in ("plus_w", "times_w") and \
+            name == "fused_leg1" else 4
+        return moved + word * scan_words(recv, rv, sh.edge_dst.shape[1],
+                                         tmpl)
+    if name == "fused_tri_leg2":
+        return moved + 8 * int(rv.sum())
+    if name == "fused_tri_leg4":
+        return moved + nbytes(st.acc, new.acc) + 12 * int(rv.sum())
+    flags = "frontier" if tmpl.mode == "async" else "next_frontier"
+    if name == "fused_kcore_leg2":
+        return moved + nbytes(st.value, st.acc, getattr(st, flags),
+                              new.value, new.acc, getattr(new, flags))
+    if tmpl.fold == "min":
+        return moved + nbytes(st.value, getattr(st, flags), new.value,
+                              getattr(new, flags))
+    return moved + nbytes(st.acc, new.acc)
+
+
+EVERY_CHANNEL = "spills on every channel in one round"
 
 
 class FusedCheck:
-    """A context in which the engine's three fused-leg wrappers also run
-    each leg's plain version (the stage they are given) on the same
-    operands, at the calls chosen below, and hold every output of the
-    kernel against it bitwise.  ``every`` checks every call; otherwise the
-    first two rounds, every ``period``-th round, each round whose
-    update-queue fill grew by a quarter over the last checked one, the
-    first call of each leg with spills, and the first round with spills
-    on both channels.  Records
-    which edge cases the checked calls covered, and the operands of each
-    leg's last checked call (for timing)."""
-
-    NAMES = ("fused_leg0", "fused_leg1", "fused_leg2")
+    """A context in which the engine's fused-leg wrappers also run each
+    leg's plain version (the stage they are given) on the same operands,
+    at the calls chosen below, and hold every output of the kernel against
+    it bitwise.  ``every`` checks every call; otherwise the first two
+    rounds, every ``period``-th round, each round whose spill-queue fill
+    grew by a quarter over the last checked one, the first call of each
+    leg with spills, and the first round with spills on every channel.
+    Records which edge cases the checked calls covered, and the operands
+    of each wrapper's last checked call (for timing)."""
 
     def __init__(self, label, every=False, period=0):
         self.label, self.every, self.period = label, every, period
         self.round, self.fill = -1, 0
-        self.this_round = self.leg1_spilled = False
-        self.checked = [0, 0, 0]
+        self.this_round = False
+        self.spilled = set()  # the legs that spilled this round
+        self.checked = {}     # wrapper name: checked calls
         self.cover = set()
-        self.last = [None, None, None]
-        self.busy0 = None  # a checked leg-0 call on a live frontier
+        self.last = {}        # wrapper name: its last checked call
+        self.busy0 = None     # (name, call) of leg 0 on a live frontier
 
     def __enter__(self):
-        self.saved = {n: getattr(E, n) for n in self.NAMES}
-        for i, n in enumerate(self.NAMES):
-            setattr(E, n, functools.partial(self.call, i, self.saved[n]))
+        self.saved = {k.__name__: k for k in F.KERNELS}
+        for n, f in self.saved.items():
+            setattr(F, n, functools.partial(self.call, n, f))
         return self
 
     def __exit__(self, *exc):
         for n, f in self.saved.items():
-            setattr(E, n, f)
+            setattr(F, n, f)
 
-    def call(self, leg, real, tmpl, plain, *ops):
-        st = ops[2]
+    def call(self, name, real, tmpl, plain, *ops):
+        leg, st = leg_index(name), ops[2]
         check = self.every
-        both = "spills on both channels in one round"
+        every_now = spilled = False
         if leg == 0:
             self.round += 1
-            fill = int(st.queues[1].count.max())
+            self.spilled = set()
+            fill = max(int(q.count.max()) for q in st.queues[1:])
             grew = fill > 0 and fill >= 1.25 * max(self.fill, 1)
             if grew:
                 self.fill = fill
@@ -739,39 +789,35 @@ class FusedCheck:
             check = check or self.this_round
         else:
             spilled = bool(ops[6].any())
-            check = check or self.this_round
-            if leg == 1:
-                self.leg1_spilled = spilled
-                check = check or (spilled and (
-                    both not in self.cover or "leg1: spills" not in self.cover))
-            else:
-                both_now = spilled and self.leg1_spilled
-                check = check or (spilled and "leg2: spills" not in
-                                  self.cover) or (both_now and both not in
-                                                  self.cover)
+            if spilled:
+                self.spilled.add(leg)
+            every_now = len(self.spilled) == len(st.queues)
+            check = (check or self.this_round
+                     or (spilled and f"{name}: spills" not in self.cover)
+                     or (every_now and EVERY_CHANNEL not in self.cover))
         got = real(tmpl, plain, *ops)
         if check:
-            assert_bitwise(got, plain(*ops), f"{self.label} fused_leg{leg} "
-                                             f"round {self.round}")
-            self.checked[leg] += 1
-            self.last[leg] = (real, tmpl, plain, ops, got)
+            assert_bitwise(got, plain(*ops),
+                           f"{self.label} {name} round {self.round}")
+            self.checked[name] = self.checked.get(name, 0) + 1
+            self.last[name] = (real, tmpl, plain, ops, got)
             if leg == 0 and not bool(st.frontier.any()):
-                self.cover.add("leg0: empty frontier")
+                self.cover.add(f"{name}: empty frontier")
             elif leg == 0 and tmpl.policy == "traffic":
-                self.busy0 = self.last[0]
+                self.busy0 = (name, self.last[name])
             elif leg == 0 and torch.equal(got[0].frontier, st.frontier):
-                self.cover.add("leg0: pops nothing")
-            elif leg and spilled:
-                self.cover.add(f"leg{leg}: spills")
-                if leg == 2 and self.leg1_spilled:
-                    self.cover.add(both)
+                self.cover.add(f"{name}: pops nothing")
+            elif spilled:
+                self.cover.add(f"{name}: spills")
+                if every_now:
+                    self.cover.add(EVERY_CHANNEL)
         return got
 
     def report(self):
         log(f"#   {self.label}: fused legs held bitwise against their plain "
-            f"versions at {self.checked} calls (legs 0, 1, 2) of "
-            f"{self.round + 1} rounds; peak checked update-queue fill "
-            f"{self.fill}; covered: {sorted(self.cover)}")
+            f"versions at {self.checked} calls of {self.round + 1} rounds; "
+            f"peak checked spill-queue fill {self.fill}; covered: "
+            f"{sorted(self.cover)}")
 
 
 def cap0_update_queue(st):
@@ -782,46 +828,70 @@ def cap0_update_queue(st):
     return st._replace(queues=(rq, empty))
 
 
-def check_edge_operands(chk: FusedCheck):
+def check_edge_operands(chk: FusedCheck, cap0_legs=()):
     """Edge cases no engine configuration reaches on its own, on captured
     operands: leg 0 with the fabric hot, so that the TSU grants the
-    frontier source nothing and a live frontier pops nothing; legs 1 and
-    2 on a cap-0 update queue (which Program.validate refuses): every
-    spill a drop, nothing replayed."""
-    real, tmpl, plain, ops, _ = chk.busy0
-    st = ops[2]
+    frontier source nothing and a live frontier pops nothing; the
+    ``cap0_legs`` of a 2-channel program on a cap-0 update queue (which
+    Program.validate refuses): every spill a drop, nothing replayed; on a
+    4-channel program, leg 0 with the fabric cold and queue 2 over 3/4
+    full on every other tile, so that the TSU there grants channels 0 and
+    1 nothing and channels 2 and 3 their pops."""
+    name, (real, tmpl, plain, ops0, _) = chk.busy0
+    st = ops0[2]
     hot = st._replace(net_pressure=torch.full_like(st.net_pressure,
                                                    tmpl.plimit + 1))
-    ops = (*ops[:2], hot)
+    ops = (*ops0[:2], hot)
     got = real(tmpl, plain, *ops)
-    assert_bitwise(got, plain(*ops), "leg 0 with the fabric hot")
+    assert_bitwise(got, plain(*ops), f"{name} with the fabric hot")
     assert bool(st.frontier.any()) and torch.equal(got[0].frontier,
                                                    st.frontier)
-    chk.cover.add("leg0: pops nothing")
-    for leg in (1, 2):
+    chk.cover.add(f"{name}: pops nothing")
+    if len(st.queues) == 4:
+        q1, q2, q3 = st.queues[1:]
+        cap2, cap3 = q2.data.shape[1], q3.data.shape[1]
+        jam = torch.arange(q2.count.shape[0], device=q2.count.device) \
+            % 2 == 0
+        queues = (st.queues[0], q1,
+                  q2._replace(count=torch.where(
+                      jam, 3 * cap2 // 4 + 1, q2.count).to(torch.int32)),
+                  q3._replace(count=torch.clamp(q3.count,
+                                                max=3 * cap3 // 4)))
+        cold = st._replace(net_pressure=torch.zeros_like(st.net_pressure),
+                           queues=queues)
+        ops = (*ops0[:2], cold)
+        got = real(tmpl, plain, *ops)
+        assert_bitwise(got, plain(*ops), f"{name} with queue 2 congested")
+        pops = got[4][jam]
+        assert bool((pops[:, :2] == 0).all()) and \
+            bool((pops[:, 2:] > 0).all()), pops.tolist()
+        chk.cover.add(f"{name}: a congested queue downstream")
+    for leg in cap0_legs:
         real, tmpl, plain, ops, _ = chk.last[leg]
         ops = (*ops[:2], cap0_update_queue(ops[2]), *ops[3:])
         got = real(tmpl, plain, *ops)
-        assert_bitwise(got, plain(*ops), f"cap-0 update queue, leg {leg}")
-    chk.cover.add("cap-0 update queue")
+        assert_bitwise(got, plain(*ops), f"cap-0 update queue, {leg}")
+    if cap0_legs:
+        chk.cover.add("cap-0 update queue")
 
 
 def time_legs(chk: FusedCheck, timer, where):
     """Kernel and plain times and the byte bound of each leg, on the
-    operands of its last checked call."""
+    operands of its last checked call, in leg order."""
     calls = []
-    for leg in range(3):
-        real, tmpl, plain, ops, out = chk.last[leg]
+    for name in sorted(chk.last, key=leg_index):
+        real, tmpl, plain, ops, out = chk.last[name]
         calls.append(dict(
-            leg=leg, call=where, template=dict(
+            kernel=name, call=where, template=dict(
                 payload=tmpl.payload, emit=tmpl.emit, fold=tmpl.fold,
-                mode=tmpl.mode, policy=tmpl.policy, window=tmpl.window),
+                k=tmpl.k, mode=tmpl.mode, policy=tmpl.policy,
+                window=tmpl.window),
             max_abs_err=0.0,
             ms=timer.ms(lambda: real(tmpl, plain, *ops)),
             plain_ms=timer.ms(lambda: plain(*ops)),
-            bound_ms=bound_ms(leg_bytes(leg, tmpl, ops, out))))
+            bound_ms=bound_ms(leg_bytes(name, tmpl, ops, out))))
         c = calls[-1]
-        log(f"# kernel fused_leg{leg} ({where}): bitwise equal to its plain "
+        log(f"# kernel {name} ({where}): bitwise equal to its plain "
             f"version; kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
             f"ms, bound {c['bound_ms']:.4f} ms (bytes), library none")
     return calls
@@ -898,7 +968,8 @@ def phase_twin(dev):
                  cap_route_update=32, cap_rangeq=128, cap_updq=4096)
     oracle = ref.bfs_ref(g, root)
     for knobs in (small, {}):
-        res = {b: alg.bfs(pg, root, EngineConfig(backend=b, **knobs))
+        res = {b: alg.bfs(pg, root, EngineConfig(backend=b, fuse=False,
+                                                 **knobs))
                for b in ("torch", "kernels")}
         np.testing.assert_array_equal(res["torch"].values,
                                       res["kernels"].values)
@@ -920,7 +991,8 @@ def phase_twin(dev):
     for name, (run, want, tol) in twin_apps(g, pg, gs, pgs, pgt, root,
                                             x).items():
         t0 = time.perf_counter()
-        res = {b: run(EngineConfig(backend=b)) for b in ("torch", "kernels")}
+        res = {b: run(EngineConfig(backend=b, fuse=False))
+               for b in ("torch", "kernels")}
         np.testing.assert_array_equal(res["torch"].values,
                                       res["kernels"].values, err_msg=name)
         assert_stats_equal(res["torch"].stats, res["kernels"].stats, name)
@@ -929,8 +1001,8 @@ def phase_twin(dev):
         assert int(st.drops) == 0, name
         assert int(st.launches) > 0 and int(res["torch"].stats.launches) \
             == 0, name
-        log(f"# engine twin {name} (scale 10, T=16, default knobs): torch "
-            f"== kernels bitwise, matches the oracle "
+        log(f"# engine twin {name} (scale 10, T=16, default knobs, "
+            f"unfused): torch == kernels bitwise, matches the oracle "
             f"({'exact' if tol is None else tol}); rounds {int(st.rounds)},"
             f" epochs {int(st.epochs)}, launches {int(st.launches)}; "
             f"{time.perf_counter() - t0:.1f} s for both backends")
@@ -950,10 +1022,40 @@ def phase_twin(dev):
                      *edge_cases):
             run, want, tol = apps.get(name) or edge_cases[name]
             twin_run(run, want, tol, f"{name} fused", dict(fuse=True), 3)
-        check_edge_operands(chk)
+        check_edge_operands(chk, ("fused_leg1", "fused_leg2"))
     chk.report()
     missing = FUSED_EDGE_CASES - chk.cover
     assert not missing, f"fused-leg edge cases not reached: {missing}"
+    # k-core's fused legs (the classic legs 0 and 1 with its codes, then its
+    # threshold fold), resident and streamed, and tight queues for spills
+    with FusedCheck("engine twin k-core (scale 10, T=16)",
+                    every=True) as chk:
+        for k in (2, 5):
+            for mode in ("async", "bsp"):
+                run, want, tol = apps[f"kcore{k}-{mode}"]
+                for space in ("vmem", "hbm"):
+                    st = twin_run(run, want, tol,
+                                  f"kcore{k}-{mode} {space} fused",
+                                  dict(fuse=True, edge_space=space), 3)
+                    assert (int(st.hbm_windows) > 0) == (space == "hbm")
+        run, want, tol = apps["kcore5-async"]
+        twin_run(lambda c: run(dataclasses.replace(c, **tight)), want, tol,
+                 "kcore5-tight fused", dict(fuse=True), 3)
+        check_edge_operands(chk, ("fused_leg1", "fused_kcore_leg2"))
+    chk.report()
+    missing = KCORE_EDGE_CASES - chk.cover
+    assert not missing, f"k-core fused-leg edge cases not reached: {missing}"
+    # triangles' five legs; the default knobs spill on all four channels
+    with FusedCheck("engine twin triangles (scale 10, T=16)",
+                    every=True) as chk:
+        run, want, tol = apps["triangles"]
+        st = twin_run(run, want, tol, "triangles fused", dict(fuse=True), 5)
+        assert bool((st.spills > 0).all()), st.spills.tolist()
+        check_edge_operands(chk)
+    chk.report()
+    missing = TRIANGLES_EDGE_CASES - chk.cover
+    assert not missing, f"triangles fused-leg edge cases not reached: " \
+        f"{missing}"
     # the streamed edge shard, unfused (edge_scan_stream) and fused
     for name in ("bfs", "sssp", "spmv"):
         run, want, tol = apps[name]
@@ -968,10 +1070,16 @@ def phase_twin(dev):
                 chk.report()
 
 
-FUSED_EDGE_CASES = {"leg0: empty frontier", "leg0: pops nothing",
-                    "leg1: spills", "leg2: spills",
-                    "spills on both channels in one round",
-                    "cap-0 update queue"}
+FUSED_EDGE_CASES = {"fused_leg0: empty frontier", "fused_leg0: pops nothing",
+                    "fused_leg1: spills", "fused_leg2: spills",
+                    EVERY_CHANNEL, "cap-0 update queue"}
+KCORE_EDGE_CASES = {"fused_leg0: empty frontier", "fused_leg0: pops nothing",
+                    "fused_leg1: spills", "fused_kcore_leg2: spills",
+                    EVERY_CHANNEL, "cap-0 update queue"}
+TRIANGLES_EDGE_CASES = {"fused_tri_leg0: empty frontier",
+                        "fused_tri_leg0: pops nothing",
+                        "fused_tri_leg0: a congested queue downstream",
+                        *(f"fused_tri_leg{i}: spills" for i in range(1, 5))}
 
 
 def twin_run(run, want, tol, name, kernels_kw, per_round):
@@ -1076,17 +1184,19 @@ def check_spmv(g, res, x, what, planted=True):
     assert all(abs(v - want[hub]) > limit[hub] for v in planted.values())
 
 
-def legs_at_main_shapes(label, run, cfg, timer):
+def legs_at_main_shapes(label, run, cfg, timer, scale=MAIN_SCALE,
+                        spilling=("fused_leg1", "fused_leg2")):
     """The fused legs of the first CHECK_ROUNDS[label] rounds of a main
     path, held against their plain versions (FusedCheck, and every 50th
-    round), then timed.  Async runs must have checked spills on both
-    channels; a BSP run's first epoch is the root's single range task, one
-    message a round, so it spills nothing in these rounds."""
-    with FusedCheck(f"R-MAT-{MAIN_SCALE} {label}", period=50) as chk:
+    round), then timed.  Async runs must have checked spills in the
+    ``spilling`` legs; a BSP run's first epoch is the root's single range
+    task, one message a round, so it spills nothing in these rounds."""
+    with FusedCheck(f"R-MAT-{scale} {label}", period=50) as chk:
         run(dataclasses.replace(cfg, max_rounds=CHECK_ROUNDS[label]))
     chk.report()
     if cfg.mode == "async":
-        assert {"leg1: spills", "leg2: spills"} <= chk.cover, chk.cover
+        want = {f"{n}: spills" for n in spilling}
+        assert want <= chk.cover, (want, chk.cover)
     return time_legs(chk, timer, label)
 
 
@@ -1179,6 +1289,68 @@ def phase_hbm(pg, oracle, vmem_stats, smi):
     return launches
 
 
+KCORE_ROUND = {"fused_leg0": 1, "fused_leg1": 1, "fused_kcore_leg2": 1}
+TRIANGLES_ROUND = {f"fused_tri_leg{i}": 1 for i in range(5)}
+
+
+def phase_taskgraph(dev, smi, timer):
+    """The fused k-core and triangles programs on 64 tiles, against their
+    oracles; then their legs held against the plain stages and timed."""
+    paths, calls = {}, []
+    t0 = time.perf_counter()
+    n, src, dst, val = rmat_edges(KCORE_SCALE, edge_factor=10, seed=1)
+    gs = alg.symmetrize(CSRGraph.from_edges(n, src, dst, val))
+    pgs = alg.prepare(gs, MAIN_T, device=dev)
+    assert (gs.num_vertices, gs.num_edges) == (KCORE_V, KCORE_E), \
+        (gs.num_vertices, gs.num_edges)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ref.kcore_ref(gs, KCORE_K)
+    assert int(want.sum()) == KCORE_CORE, int(want.sum())
+    log(f"# taskgraph k-core: symmetrized R-MAT-{KCORE_SCALE} V="
+        f"{gs.num_vertices} E={gs.num_edges} T={MAIN_T} v_chunk="
+        f"{pgs.v_chunk} e_chunk={pgs.e_chunk}, k={KCORE_K}: host build "
+        f"{t_graph:.1f} s, oracle {time.perf_counter() - t0:.1f} s, core "
+        f"{int(want.sum())}")
+    res, paths["k-core"], _ = drive(
+        lambda: alg.kcore(pgs, KCORE_K, KCORE_CFG), smi,
+        f"k-core k={KCORE_K} R-MAT-{KCORE_SCALE} (fused, cap_updq "
+        f"{KCORE_CFG.cap_updq})", KCORE_ROUND)
+    np.testing.assert_array_equal(res.values, want)
+    log(f"# taskgraph k-core: equal to kcore_ref; epochs "
+        f"{int(res.stats.epochs)}, rounds {int(res.stats.rounds)}, "
+        f"decrements applied {int(res.stats.updates_applied)}")
+    calls += legs_at_main_shapes(
+        "k-core", lambda c: alg.kcore(pgs, KCORE_K, c), KCORE_CFG, timer,
+        KCORE_SCALE, ("fused_leg1",))
+    del pgs
+
+    t0 = time.perf_counter()
+    n, src, dst, val = rmat_edges(TRI_SCALE, edge_factor=10, seed=1)
+    gs = alg.symmetrize(CSRGraph.from_edges(n, src, dst, val))
+    pgt = alg.prepare_triangles(gs, MAIN_T, device=dev)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ref.triangles_wedge_ref(gs, key=pgt.place)
+    log(f"# taskgraph triangles: symmetrized R-MAT-{TRI_SCALE} V="
+        f"{gs.num_vertices} E={gs.num_edges} T={MAIN_T} v_chunk="
+        f"{pgt.v_chunk} e_chunk={pgt.e_chunk}: host build {t_graph:.1f} s, "
+        f"oracle {time.perf_counter() - t0:.1f} s, {int(want.sum())} "
+        f"triangles")
+    res, paths["triangles"], wall = drive(
+        lambda: alg.triangles(pgt, TRI_CFG), smi,
+        f"triangles R-MAT-{TRI_SCALE} (fused)", TRIANGLES_ROUND)
+    np.testing.assert_array_equal(res.values, want)
+    st = res.stats
+    log(f"# taskgraph triangles: equal to the oracle; msgs per channel "
+        f"{st.msgs.tolist()}, spills {st.spills.tolist()}, close tasks "
+        f"searched {int(st.msgs[3])}; engine wall {wall:.3f} s")
+    calls += legs_at_main_shapes(
+        "triangles", lambda c: alg.triangles(pgt, c), TRI_CFG, timer,
+        TRI_SCALE, ())
+    return paths, calls
+
+
 def binned_rounds(g, src_idx, prod, b, cap):
     """The products ``prod`` of the edges of ``g`` binned by destination
     block (bins of ``b`` slots), in edge order, as rounds of ``cap`` slots
@@ -1240,7 +1412,7 @@ def phase_block(dev, smi):
                                       want.view(np.int32), err_msg=op)
     np.testing.assert_allclose(add_ref[:n], expect, rtol=1e-4, atol=1e-4)
     pg = alg.prepare(g, BLOCK_T, device=dev)
-    res = alg.spmv(pg, x, EngineConfig(**TEST_KNOBS))
+    res = alg.spmv(pg, x, EngineConfig(fuse=False, **TEST_KNOBS))
     assert int(res.stats.drops) == 0
     np.testing.assert_allclose(res.values, expect, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(y, res.values, rtol=1e-4, atol=1e-4)
@@ -1293,7 +1465,7 @@ def phase_rmat18(dev, smi):
     t_oracle = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = alg.pagerank(pg, iters=PR_ITERS, cfg=SPMV_CFG)
+    res = alg.pagerank(pg, iters=PR_ITERS, cfg=R18_CFGS["SpMV"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = res.stats
@@ -1308,7 +1480,7 @@ def phase_rmat18(dev, smi):
     return paths
 
 
-PHASES = ("kernels", "twin", "main", "hbm", "block", "rmat18")
+PHASES = ("kernels", "twin", "main", "hbm", "taskgraph", "block", "rmat18")
 
 
 def main():
@@ -1327,14 +1499,21 @@ def main():
     rows = phase_kernels(dev, timer) if "kernels" in phases else {}
     if "twin" in phases:
         phase_twin(dev)
-    paths = []
+    paths, calls = [], []
     if "main" in phases:
-        main_paths, calls = phase_main(dev, smi, timer, "hbm" in phases)
+        main_paths, main_calls = phase_main(dev, smi, timer,
+                                            "hbm" in phases)
         paths += main_paths.values()
-        for leg in range(3):
-            mine = [c for c in calls if c["leg"] == leg]
-            row = mine[0]  # the BFS main path's template
-            rows[f"fused_leg{leg}"] = dict(
+        calls += main_calls
+    if "taskgraph" in phases:
+        task_paths, task_calls = phase_taskgraph(dev, smi, timer)
+        paths += task_paths.values()
+        calls += task_calls
+    for k in F.KERNELS:
+        mine = [c for c in calls if c["kernel"] == k.__name__]
+        if mine:
+            row = mine[0]  # the first path's template (BFS, k-core, ...)
+            rows[k.__name__] = dict(
                 max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], library_ms=None, calls=mine)
     if "block" in phases:

@@ -87,6 +87,13 @@ def init_kcore_state(pg: PartitionedGraph, k: int):
     return _dev(pg, value, dead0, acc)
 
 
+def init_triangles_state(pg: PartitionedGraph):
+    """value = 0 (unused); every real vertex with edges seeds the
+    frontier."""
+    value = np.zeros((pg.T, pg.v_chunk), np.float32)
+    return _dev(pg, value, real_mask(pg) & (_host_deg(pg) > 0))
+
+
 def to_original(pg: PartitionedGraph, arr) -> np.ndarray:
     """(T, v_chunk) placed-space tensor -> (V,) numpy in original order."""
     flat = arr.detach().cpu().numpy().reshape(-1) \
@@ -249,9 +256,7 @@ def triangles(pg: PartitionedGraph,
             f"edges, sorted segments); got edge_mode={pg.edge_mode!r}, "
             f"sorted_adj={pg.sorted_adj}")
     cfg = sized_cfg(cfg, TRIANGLES, pg.T)
-    value = torch.zeros((pg.T, pg.v_chunk), dtype=torch.float32,
-                        device=pg.device)
-    (frontier,) = _dev(pg, real_mask(pg) & (_host_deg(pg) > 0))
+    value, frontier = init_triangles_state(pg)
     _, a, stats = local_engine_call(pg, TRIANGLES, cfg, value, frontier)
     return Result(to_original(pg, a).astype(np.int64), stats)
 

@@ -11,11 +11,17 @@ task channel; for the classic program that is
   leg 2  spill re-queue -> T3 fold (a min fold re-arms the frontier)
 
 then the TSU, the NoC telemetry and the cycle/energy model.  Stages are
-batched over the T emulated tiles (:class:`LocalComm`), and on
-``backend="kernels"`` (the default) the building blocks launch the
-Hopper kernels of :mod:`repro_torch.kernels.engine` — five launches per
-round, as the reference's unfused ``"pallas"`` backend.  ``"torch"``
-runs the same round in inline PyTorch ops, like the reference's ``"xla"``.
+batched over the T emulated tiles (:class:`LocalComm`).  On
+``backend="kernels"`` (the default) with ``fuse=True`` (the default, the
+counterpart of the reference's ``pallas_fuse``) each leg is ONE fused-leg
+kernel launch (:mod:`repro_torch.kernels.engine.fused`): three launches
+per round for the classic and k-core programs, five for the 4-channel
+triangles chain, as the reference's fused ``"pallas"`` round.  With
+``fuse=False`` the building blocks launch the standalone Hopper kernels of
+:mod:`repro_torch.kernels.engine` — five launches per classic round and
+eight per triangles round, as the reference's unfused ``"pallas"``
+backend.  ``"torch"`` runs the same round in inline PyTorch ops and fuses
+nothing, like the reference's ``"xla"``.
 
 The reference runs the whole traversal inside one ``lax.while_loop``.
 Here the host drives the rounds and reads the global pending-work count
@@ -24,20 +30,17 @@ the next epoch's frontier); capturing rounds in a CUDA graph is later
 work.  Values and every Stats field except ``launches`` equal the
 reference's bit for bit.
 
-With ``fuse=True`` (the counterpart of the reference's ``pallas_fuse``)
-each of the classic program's three legs is ONE fused-leg kernel launch
-(:mod:`repro_torch.kernels.engine.fused`), three launches per round as
-the reference's fused ``"pallas"`` round; the routes, the pending count,
-the BSP swap and the perf sums stay PyTorch ops between and after the
-legs, as they sit outside ``fused_leg_call`` there.  ``edge_space="hbm"``
-streams T2 through the ``edge_scan_stream`` kernel (inside leg 1 when
-fused) and prices the streamed windows (``Stats.hbm_windows`` /
-``hbm_edges``, ``t_hbm`` / ``e_hbm``).
+Under ``fuse`` the routes, the pending count, the BSP swap and the perf
+sums stay PyTorch ops between and after the legs, as they sit outside
+``fused_leg_call`` there; ``Program.fused`` names the program's leg
+kernels.  ``edge_space="hbm"`` streams T2 through the
+``edge_scan_stream`` kernel (inside leg 1 when fused) and prices the
+streamed windows (``Stats.hbm_windows`` / ``hbm_edges``, ``t_hbm`` /
+``e_hbm``).
 
 Options of the reference that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them:
-physical NoCs, ``trace``, ``adapt``, and ``fuse=True`` for the k-core and
-triangles programs.
+physical NoCs, ``trace`` and ``adapt``.
 """
 from __future__ import annotations
 
@@ -53,8 +56,8 @@ from repro_torch.core.program import (BFS, Ctx, Program, as_program,
 from repro_torch.core.queues import (Queue, queue_make, queue_push,
                                      queue_take_front)
 from repro_torch.kernels.engine import fifo_turn, queue_push_pop, tally
-from repro_torch.kernels.engine.fused import (LegTemplate, fused_leg0,
-                                              fused_leg1, fused_leg2)
+from repro_torch.kernels.engine import fused as fused_legs
+from repro_torch.kernels.engine.fused import LegTemplate
 from repro_torch.mem import resolve_window
 from repro_torch.noc import make_network
 from repro_torch.perf import (PerfParams, link_cost_vectors,
@@ -74,11 +77,11 @@ class EngineConfig:
     The backend group differs: ``backend`` is "kernels" (the Hopper
     kernels; the counterpart of the reference's ``"pallas"`` backend) or
     "torch" (inline ops; the counterpart of ``"xla"``).  ``fuse`` is the
-    counterpart of ``pallas_fuse``: on "kernels" it runs each classic leg
-    as one fused-leg kernel (3 launches per round, against 5 unfused).
-    It defaults to False until the k-core and triangles programs have
-    fused legs (they raise with it).  The Pallas-only knobs
-    ``pallas_interpret`` and ``pallas_pad_lanes`` have no counterpart.
+    counterpart of ``pallas_fuse`` and, like it, defaults to True: on
+    "kernels" it runs each leg as one fused-leg kernel (3 launches per
+    classic or k-core round against 5 unfused, 5 per triangles round
+    against 8).  The Pallas-only knobs ``pallas_interpret`` and
+    ``pallas_pad_lanes`` have no counterpart.
     """
 
     f_pop: int = 32          # frontier bits popped per round (T4 drain)
@@ -93,7 +96,7 @@ class EngineConfig:
     mode: str = "async"      # "async" | "bsp"
     max_rounds: int = 100_000
     backend: str = "kernels"  # "kernels" | "torch"
-    fuse: bool = False       # one fused-leg kernel per leg ("kernels")
+    fuse: bool = True        # one fused-leg kernel per leg ("kernels")
     edge_space: str = "vmem"  # "vmem" (resident) | "hbm" (streamed)
     hbm_window: int = 0
     vmem_limit_bytes: int = 0
@@ -268,15 +271,12 @@ def _bsp_swap(me, st: EngineState, do_swap: torch.Tensor) -> EngineState:
                                   st.next_frontier))
 
 
-def _check_ported(cfg: EngineConfig, prog: Program, fused: bool):
+def _check_ported(cfg: EngineConfig):
     """Raise for the options the port does not have yet."""
     if cfg.mode not in ("async", "bsp"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
     todo = {"trace": (cfg.trace, "'Trace'"),
-            "adapt": (cfg.adapt, "'Placement'"),
-            "fuse": (fused and prog.alg is None,
-                     f"'TPU kernels to port': the fused legs of the "
-                     f"{prog.name!r} program")}
+            "adapt": (cfg.adapt, "'Placement'")}
     for name, (unported, item) in todo.items():
         if unported:
             raise NotImplementedError(
@@ -299,7 +299,7 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     # fuse: every leg is one fused-leg kernel when all channels run on
     # "kernels" (the reference fuses a leg iff its channels are "pallas")
     fused = cfg.fuse and all(b == "kernels" for b in backends)
-    _check_ported(cfg, prog, fused)
+    _check_ported(cfg)
     # an HBM-declared shard streams T2 through the windows of its space
     edge_space = resolve_edge_space(prog, cfg)
     streaming = edge_space == "hbm"
@@ -399,14 +399,17 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     if fused:
         # each leg is one kernel; the stages above (under the fused Ctx)
         # are its plain version
-        alg = prog.alg
+        codes = prog.fused
         tmpl = LegTemplate(
-            payload=alg.parent, emit=alg.emit, fold=alg.kind, mode=cfg.mode,
-            policy=cfg.policy, window=window, f_pop=cfg.f_pop,
-            r_pop=pops[0], u_pop=pops[1], max_t2=cfg.max_t2, plimit=plimit)
-        stage_first = functools.partial(fused_leg0, tmpl, stage_first)
-        mids[1] = functools.partial(fused_leg1, tmpl, mids[1])
-        stage_last = functools.partial(fused_leg2, tmpl, stage_last)
+            payload=codes.payload, emit=codes.emit, fold=codes.fold,
+            k=codes.k, mode=cfg.mode, policy=cfg.policy, window=window,
+            f_pop=cfg.f_pop, pops=pops, max_t2=cfg.max_t2, plimit=plimit)
+        legs = [functools.partial(getattr(fused_legs, name), tmpl)
+                for name in fused_legs.LEGS[codes.family]]
+        stage_first = functools.partial(legs[0], stage_first)
+        for i in range(1, K):
+            mids[i] = functools.partial(legs[i], mids[i])
+        stage_last = functools.partial(legs[K], stage_last)
 
     def kahan_add(total, comp, inc):
         """Compensated float32 accumulation: (new_total, new_comp)."""

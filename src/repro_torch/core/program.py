@@ -176,18 +176,32 @@ class TaskSpec:
         return lambda m: m[..., 0] // chunk
 
 
+class FusedLegs(NamedTuple):
+    """Which fused-leg kernels run a program's legs under ``fuse=True``,
+    and the template codes they take (:mod:`repro_torch.kernels.engine.
+    fused`): ``family`` "classic" (an AlgSpec's three legs), "kcore" (the
+    classic legs 0 and 1 with k-core's payload and emit, and its
+    threshold fold at ``k``) or "triangles" (the 4-channel chain's five
+    legs)."""
+
+    family: str
+    payload: str = ""
+    emit: str = ""
+    fold: str = ""
+    k: int = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class Program:
     """An ordered chain of task channels plus the frontier source.
-    ``alg`` is the AlgSpec a classic program was compiled from (it picks
-    the fused-leg kernels' template); other programs have none."""
+    ``fused`` names the fused-leg kernels of the program's legs."""
 
     name: str
     channels: tuple
+    fused: FusedLegs
     source: Optional[Callable] = None
     edge_space: Optional[str] = None
     state_space: str = "vmem"
-    alg: Optional[AlgSpec] = None
 
     def min_caps(self, cfg, T: int) -> tuple:
         """Per-channel worst-case one-round queue inflow (the reference's
@@ -423,7 +437,7 @@ def classic_program(alg: AlgSpec) -> Program:
 
     return Program(
         name=alg.name,
-        alg=alg,
+        fused=FusedLegs("classic", alg.parent, alg.emit, alg.kind),
         source=frontier_source(payload),
         channels=(
             TaskSpec("range", width=3, owner="edge", knobs="range",
@@ -493,6 +507,7 @@ def kcore_program(k: int) -> Program:
 
     return Program(
         name=f"kcore{k}",
+        fused=FusedLegs("kcore", "one", "one", "kcore", k),
         source=frontier_source(payload),
         channels=(
             TaskSpec("range", width=3, owner="edge", knobs="range",
@@ -574,6 +589,7 @@ def _make_triangles_program() -> Program:
 
     return Program(
         name="triangles",
+        fused=FusedLegs("triangles", "placed"),
         source=frontier_source(payload),
         edge_space="vmem",  # close_fold searches the resident shard
         channels=(

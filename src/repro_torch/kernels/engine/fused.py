@@ -1,34 +1,55 @@
-"""Fused engine legs: one Hopper kernel launch per channel leg of the
-classic program (port of ``repro.kernels.engine.kernel.fused_leg_call``).
+"""Fused engine legs: one Hopper kernel launch per channel leg (port of
+``repro.kernels.engine.kernel.fused_leg_call``).
 
 The reference's ``fused_leg_call(fn, *operands)`` makes the per-tile
-stage ``fn`` itself the body of one ``pallas_call``.  Here each of the
-classic program's three legs is a hand-written CUDA kernel
+stage ``fn`` itself the body of one ``pallas_call``.  Here each leg of the
+repository's programs is a hand-written CUDA kernel
 (``csrc/fused_legs.cu``), one block per tile, templated on the
-:class:`LegTemplate`:
+:class:`LegTemplate`.  Leg ``i`` of a K-channel program is channel
+``i - 1``'s handler plus channel ``i``'s ingest (leg 0: the source plus
+channel 0's ingest; leg K: channel K-1's handler):
 
-=====================  ==================================================
-wrapper                one launch computes, per tile
-=====================  ==================================================
-:func:`fused_leg0`     TSU budgets, T4 frontier pop and payload, range-queue
-                       turn, T1 range split, remainder re-push
-:func:`fused_leg1`     range-spill re-queue, T2 scan (resident gather or
-                       streamed windows), update-queue replay turn,
-                       replay + fresh rows into the messages
-:func:`fused_leg2`     update-spill re-queue, T3 min fold + frontier
-                       re-arm (async or BSP) or ordered add fold
-=====================  ==================================================
+========================  ===============================================
+wrapper                   one launch computes, per tile
+========================  ===============================================
+:func:`fused_leg0`        TSU budgets, T4 frontier pop and payload, range-
+                          queue turn, T1 range split, remainder re-push
+                          (classic and k-core leg 0)
+:func:`fused_leg1`        range-spill re-queue, T2 scan (resident gather or
+                          streamed windows) and emit, update-queue replay
+                          turn, replay + fresh rows into the messages
+                          (classic and k-core leg 1)
+:func:`fused_leg2`        update-spill re-queue, T3 min fold + frontier
+                          re-arm (async or BSP) or ordered add fold
+:func:`fused_kcore_leg2`  decrement-spill re-queue, ordered add of the
+                          decrements into ``value``, the newly removed
+                          vertices into ``acc`` and the re-armed flags
+:func:`fused_tri_leg0`    leg 0 with the placed-id payload and the TSU over
+                          the four queues of the triangles chain
+:func:`fused_tri_leg1`    leg 1 emitting wedges ``(nb, v)``, valid iff
+                          ``nb > v``; wedge-queue replay
+:func:`fused_tri_leg2`    wedge-spill re-queue, ``wedge_to_range``, range2-
+                          queue turn of the width-4 rows, T1 range split,
+                          remainder re-push
+:func:`fused_tri_leg3`    leg 1 on width-4 messages emitting ``(v, nb)``,
+                          valid iff ``nb > u``; close-queue replay
+:func:`fused_tri_leg4`    close-spill re-queue, bounded binary search of the
+                          closing edge, ordered add of the hits into ``acc``
+========================  ===============================================
 
-Each wrapper takes the stage's own arguments and returns what the stage
-returns.  Its plain version is the stage itself, ``plain``, built by the
-engine under ``Ctx.fused``: the same composition of the plain bodies of
-:mod:`repro_torch.kernels.engine.kernel` (``frontier_take``,
-``fifo_turn``, ``queue_push``, ``segment_gather``/``segment_stream``,
-``scatter_body``), as the reference's fused body composes its pure
-bodies.  On CPU tensors a wrapper runs ``plain``; on CUDA tensors it
-launches its kernel and raises if the launch failed, with no fallback.
-Each call is one :func:`~repro_torch.kernels.engine.launches.record`, so
-the classic round counts 3 launches, as the reference's fused round.
+:data:`LEGS` names each program family's wrappers, leg by leg
+(``Program.fused.family``).  Each wrapper takes the stage's own arguments
+and returns what the stage returns.  Its plain version is the stage
+itself, ``plain``, built by the engine under ``Ctx.fused``: the same
+composition of the plain bodies of :mod:`repro_torch.kernels.engine.
+kernel` (``frontier_take``, ``fifo_turn``, ``queue_push``,
+``segment_gather``/``segment_stream``, ``scatter_body``), as the
+reference's fused body composes its pure bodies.  On CPU tensors a wrapper
+runs ``plain``; on CUDA tensors it launches its kernel and raises if the
+launch failed, with no fallback.  Each call is one
+:func:`~repro_torch.kernels.engine.launches.record`, so a round counts one
+launch per leg (3 for the classic and k-core programs, 5 for triangles),
+as the reference's fused round.
 
 The kernels write every output element as the plain stage does,
 including the don't-care slots (the whole shifted queues, the messages of
@@ -52,35 +73,43 @@ from repro_torch.kernels.engine.launches import record
 SOURCE = CSRC / "fused_legs.cu"
 LIBRARY = CudaLibrary(SOURCE, {
     "repro_fused_leg0": [_P] * 17 + [_I] * 12 + [_P],
+    "repro_fused_leg0_chain": [_P] * 19 + [_I] * 16 + [_P],
     "repro_fused_leg1": [_P] * 22 + [_I] * 10 + [_P],
+    "repro_fused_leg1_chain": [_P] * 22 + [_I] * 11 + [_P],
     "repro_fused_leg2": [_P] * 15 + [_I] * 6 + [_P],
+    "repro_fused_kcore_leg2": [_P] * 17 + [_I] * 6 + [_P],
+    "repro_fused_wedge_leg": [_P] * 22 + [_I] * 12 + [_P],
+    "repro_fused_close_leg": [_P] * 16 + [_I] * 7 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
 
 # template codes shared with csrc/fused_legs.cu; the mode picks the flags
-# leg 2 re-arms (frontier or next_frontier), so it is no template there
-PAYLOADS = ("value", "value_over_deg")
-EMITS = ("plus1", "plus_w", "copy", "times_w")
-FOLDS = ("min", "add")
+# the fold legs re-arm (frontier or next_frontier), so it is no template
+PAYLOADS = ("value", "value_over_deg", "one", "placed")
+EMITS = ("plus1", "plus_w", "copy", "times_w", "one", "wedge", "close")
+FOLDS = ("min", "add", "kcore")
 POLICIES = ("traffic", "static")
-# leg 0 keeps its popped frontier tasks and range rows in shared memory
+# leg 0 and the wedge leg keep their popped tasks in shared memory
 LEG0_MAX_ROWS = 256
+# the wedge leg keeps its compacted fresh rows (16 bytes each) there too
+WEDGE_MAX_ROWS = 8192
 
 
 class LegTemplate(NamedTuple):
-    """The static shape of a classic round's legs: the AlgSpec (payload,
-    emit, fold), the run's mode and TSU policy, the edge shard's window
-    (0: resident), and the budgets of the TSU."""
+    """The static shape of a round's legs: the program's codes (payload,
+    emit, fold, and k-core's threshold ``k``), the run's mode and TSU
+    policy, the edge shard's window (0: resident), and the budgets of the
+    TSU (``pops``: each channel's pop budget)."""
 
     payload: str
     emit: str
     fold: str
+    k: int
     mode: str
     policy: str
     window: int
     f_pop: int
-    r_pop: int
-    u_pop: int
+    pops: tuple
     max_t2: int
     plimit: int
 
@@ -91,30 +120,63 @@ def _code(options, value):
     return options.index(value)
 
 
-def fused_leg0(tmpl: LegTemplate, plain, me, sh, st):
-    """Leg 0 of a classic round (the engine's ``stage_first``).  Returns
-    ``(state, msgs (T, r_pop, 3), mvalid, drops, dyn_pops (T, 2), npop,
-    npush)``; the state's frontier and range queue are new."""
-    if st.frontier.device.type == "cpu":
+def _count(name: str) -> None:
+    """One CUDA launch of wrapper ``name``, on the wrapper itself (looked
+    up in :data:`KERNELS`, so a caller that wraps the module's functions
+    does not hide it)."""
+    _WRAPPERS[name].launches += 1
+
+
+def _on_cpu(st) -> bool:
+    return st.frontier.device.type == "cpu"
+
+
+def _with_queues(st, i: int, *qs):
+    """``st`` with queues ``i, i + 1, ...`` replaced by ``qs``."""
+    queues = list(st.queues)
+    queues[i:i + len(qs)] = qs
+    return st._replace(queues=tuple(queues))
+
+
+def _spill_checks(q, sp, spv, recv, rv, T, w):
+    """The checks of a spill re-queue into ``q`` (rows of ``w`` words) and
+    of the delivered messages of the same channel."""
+    cap = q.data.shape[1]
+    S, R = sp.shape[1], recv.shape[1]
+    return (("queue", q.data, torch.int32, (T, cap, w)),
+            ("queue count", q.count, torch.int32, (T,)),
+            ("spill", sp, torch.int32, (T, S, w)),
+            ("spill_valid", spv, torch.bool, (T, S)),
+            ("recv", recv, torch.int32, (T, R, w)),
+            ("recv_valid", rv, torch.bool, (T, R)))
+
+
+# --------------------------------------------------------------------------
+# Leg 0: the source leg.
+# --------------------------------------------------------------------------
+
+def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
+    if _on_cpu(st):
         record()
         return plain(me, sh, st)
-    rq, uq = st.queues
+    queues = st.queues
+    rq, K = queues[0], len(queues)
     T, v_chunk = st.frontier.shape
     cap_r = rq.data.shape[1]
-    eff = min(tmpl.r_pop, cap_r)
+    eff = min(tmpl.pops[0], cap_r)
     e_chunk = sh.edge_dst.shape[1]
     _check(("frontier", st.frontier, torch.bool, (T, v_chunk)),
            ("value", st.value, torch.float32, (T, v_chunk)),
            ("deg", sh.deg, torch.int32, (T, v_chunk)),
            ("ptr_start", sh.ptr_start, torch.int32, (T, v_chunk)),
            ("range queue", rq.data, torch.int32, (T, cap_r, 3)),
-           ("range count", rq.count, torch.int32, (T,)),
-           ("update count", uq.count, torch.int32, (T,)),
+           *((f"queue {i} count", q.count, torch.int32, (T,))
+             for i, q in enumerate(queues)),
            ("net_pressure", st.net_pressure, torch.int32, (T,)))
     if tmpl.f_pop > LEG0_MAX_ROWS or eff > LEG0_MAX_ROWS:
-        raise ValueError(f"fused_leg0 holds at most {LEG0_MAX_ROWS} "
+        raise ValueError(f"fused leg 0 holds at most {LEG0_MAX_ROWS} "
                          f"popped rows; got f_pop={tmpl.f_pop}, r_pop="
-                         f"{tmpl.r_pop}")
+                         f"{tmpl.pops[0]}")
     dev = st.frontier.device
     i32 = dict(dtype=torch.int32, device=dev)
     frontier = torch.empty_like(st.frontier)
@@ -123,49 +185,74 @@ def fused_leg0(tmpl: LegTemplate, plain, me, sh, st):
     msgs = torch.empty((T, eff, 3), **i32)
     mvalid = torch.empty((T, eff), dtype=torch.bool, device=dev)
     counts = torch.empty((3, T), **i32)  # drops, npop, npush
-    dyn_pops = torch.empty((T, 2), **i32)
-    _launch("repro_fused_leg0", st.frontier, st.value, sh.deg, sh.ptr_start,
-            rq.data, rq.count, uq.count, st.net_pressure, frontier, qdata,
-            qcount, msgs, mvalid, counts[0], dyn_pops, counts[1], counts[2],
-            T, v_chunk, e_chunk, cap_r, uq.data.shape[1], tmpl.f_pop,
-            tmpl.r_pop, tmpl.u_pop, tmpl.max_t2, tmpl.plimit,
-            _code(PAYLOADS, tmpl.payload), _code(POLICIES, tmpl.policy))
-    fused_leg0.launches += 1
+    dyn_pops = torch.empty((T, K), **i32)
+    ins = (st.frontier, st.value, sh.deg, sh.ptr_start, rq.data, rq.count)
+    outs = (st.net_pressure, frontier, qdata, qcount, msgs, mvalid,
+            counts[0], dyn_pops, counts[1], counts[2], T, v_chunk, e_chunk,
+            cap_r)
+    codes = (tmpl.max_t2, tmpl.plimit, _code(PAYLOADS, tmpl.payload),
+             _code(POLICIES, tmpl.policy))
+    if K == 2:
+        uq = queues[1]
+        _launch("repro_fused_leg0", *ins, uq.count, *outs, uq.data.shape[1],
+                tmpl.f_pop, tmpl.pops[0], tmpl.pops[1], *codes)
+    elif K == 4:
+        _launch("repro_fused_leg0_chain", *ins,
+                *(q.count for q in queues[1:]), *outs,
+                *(q.data.shape[1] for q in queues[1:]), tmpl.f_pop,
+                *tmpl.pops, *codes)
+    else:
+        raise ValueError(f"fused leg 0 runs 2- or 4-channel programs; got "
+                         f"{K} channels")
+    _count(name)
     record()
-    st = st._replace(frontier=frontier, queues=(Queue(qdata, qcount), uq))
+    st = _with_queues(st._replace(frontier=frontier), 0,
+                      Queue(qdata, qcount))
     return st, msgs, mvalid, counts[0], dyn_pops, counts[1], counts[2]
 
 
-def fused_leg1(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
-               dyn_pops):
-    """Leg 1 of a classic round (the engine's mid stage): range-spill
-    re-queue, T2, update-queue replay.  Returns ``(state, msgs (T, u_pop +
-    R * max_t2, 2), mvalid, drops, edges, npop, npush, nspill)``; both
-    queues of the state are new."""
-    if st.frontier.device.type == "cpu":
+def fused_leg0(tmpl: LegTemplate, plain, me, sh, st):
+    """Leg 0 of a classic or k-core round (the engine's ``stage_first``).
+    Returns ``(state, msgs (T, r_pop, 3), mvalid, drops, dyn_pops (T, 2),
+    npop, npush)``; the state's frontier and range queue are new."""
+    return _source_leg("fused_leg0", tmpl, plain, me, sh, st)
+
+
+def fused_tri_leg0(tmpl: LegTemplate, plain, me, sh, st):
+    """Leg 0 of a triangles round: :func:`fused_leg0` with the placed-id
+    payload and ``dyn_pops`` (T, 4) from the four queue counts."""
+    return _source_leg("fused_tri_leg0", tmpl, plain, me, sh, st)
+
+
+# --------------------------------------------------------------------------
+# The scan legs: range-spill re-queue, T2 + emit, replay of a spill queue.
+# --------------------------------------------------------------------------
+
+def _scan_leg(name: str, chan: int, emit: str, tmpl: LegTemplate, plain, me,
+              sh, st, recv, rv, sp, spv, dyn_pops):
+    """Channel ``chan - 1`` (a range channel)'s handler, then the replay
+    turn of the spill-only channel ``chan``."""
+    if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv, dyn_pops)
     recv, rv, sp, spv = (x.contiguous() for x in (recv, rv, sp, spv))
-    rq, uq = st.queues
-    T, cap_r, _ = rq.data.shape
+    rq, uq = st.queues[chan - 1], st.queues[chan]
+    K = len(st.queues)
+    T, cap_r, W = rq.data.shape
     cap_u = uq.data.shape[1]
     e_chunk = sh.edge_dst.shape[1]
     S, R = sp.shape[1], recv.shape[1]
-    _check(("range queue", rq.data, torch.int32, (T, cap_r, 3)),
-           ("range count", rq.count, torch.int32, (T,)),
-           ("spill", sp, torch.int32, (T, S, 3)),
-           ("spill_valid", spv, torch.bool, (T, S)),
-           ("recv", recv, torch.int32, (T, R, 3)),
-           ("recv_valid", rv, torch.bool, (T, R)),
+    _check(*_spill_checks(rq, sp, spv, recv, rv, T, W),
            ("edge_dst", sh.edge_dst, torch.int32, (T, e_chunk)),
            ("edge_val", sh.edge_val, torch.float32, (T, e_chunk)),
            ("update queue", uq.data, torch.int32, (T, cap_u, 2)),
            ("update count", uq.count, torch.int32, (T,)),
-           ("dyn_pops", dyn_pops, torch.int32, (T, 2)))
+           ("dyn_pops", dyn_pops, torch.int32, (T, K)))
     if tmpl.window and not tmpl.max_t2 <= tmpl.window <= STREAM_MAX_WINDOW:
-        raise ValueError(f"fused_leg1: window {tmpl.window} must lie in "
+        raise ValueError(f"fused leg 1: window {tmpl.window} must lie in "
                          f"[max_t2={tmpl.max_t2}, {STREAM_MAX_WINDOW}]")
-    eff = min(tmpl.u_pop, cap_u)
+    u_pop = tmpl.pops[chan]
+    eff = min(u_pop, cap_u)
     n_msgs = eff + R * tmpl.max_t2
     dev = rq.data.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -174,19 +261,58 @@ def fused_leg1(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
     counts = torch.empty((7, T), **i32)
     msgs = torch.empty((T, n_msgs, 2), **i32)
     mvalid = torch.empty((T, n_msgs), dtype=torch.bool, device=dev)
-    _launch("repro_fused_leg1", rq.data, rq.count, sp, spv, recv, rv,
-            sh.edge_dst, sh.edge_val, uq.data, uq.count, dyn_pops, rdata,
-            counts[0], udata, counts[1], msgs, mvalid, counts[2], counts[3],
-            counts[4], counts[5], counts[6],
-            T, cap_r, S, R, e_chunk, tmpl.max_t2, tmpl.window, cap_u,
-            tmpl.u_pop, _code(EMITS, tmpl.emit))
-    fused_leg1.launches += 1
+    args = (rq.data, rq.count, sp, spv, recv, rv, sh.edge_dst, sh.edge_val,
+            uq.data, uq.count, dyn_pops, rdata, counts[0], udata, counts[1],
+            msgs, mvalid, counts[2], counts[3], counts[4], counts[5],
+            counts[6], T, cap_r, S, R, e_chunk, tmpl.max_t2)
+    if K == 2:
+        _launch("repro_fused_leg1", *args, tmpl.window, cap_u, u_pop,
+                _code(EMITS, emit))
+    else:  # the chain's shard is resident (triangles pins it)
+        if tmpl.window:
+            raise ValueError("the triangles chain scans a resident shard")
+        _launch("repro_fused_leg1_chain", *args, cap_u, u_pop, K, chan,
+                _code(EMITS, emit))
+    _count(name)
     record()
-    st = st._replace(queues=(Queue(rdata, counts[0]),
-                             Queue(udata, counts[1])))
+    st = _with_queues(st, chan - 1, Queue(rdata, counts[0]),
+                      Queue(udata, counts[1]))
     return (st, msgs, mvalid, counts[2], counts[3], counts[4], counts[5],
             counts[6])
 
+
+def fused_leg1(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
+               dyn_pops):
+    """Leg 1 of a classic or k-core round (the engine's mid stage): range-
+    spill re-queue, T2 with ``tmpl.emit``, update-queue replay.  Returns
+    ``(state, msgs (T, u_pop + R * max_t2, 2), mvalid, drops, edges, npop,
+    npush, nspill)``; both queues of the state are new."""
+    return _scan_leg("fused_leg1", 1, tmpl.emit, tmpl, plain, me, sh, st,
+                     recv, rv, sp, spv, dyn_pops)
+
+
+def fused_tri_leg1(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
+                   dyn_pops):
+    """Leg 1 of a triangles round: range-spill re-queue, T2 emitting the
+    wedges ``(nb, v)`` valid iff ``nb > v``, wedge-queue replay; the
+    returns of :func:`fused_leg1`, queues 0 and 1 new."""
+    return _scan_leg("fused_tri_leg1", 1, "wedge", tmpl, plain, me, sh, st,
+                     recv, rv, sp, spv, dyn_pops)
+
+
+def fused_tri_leg3(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
+                   dyn_pops):
+    """Leg 3 of a triangles round: range2-spill re-queue, T2 of the width-4
+    messages ``(start, stop, v, u)`` emitting ``(v, nb)`` valid iff ``nb >
+    u``, close-queue replay; the returns of :func:`fused_leg1`, queues 2
+    and 3 new."""
+    return _scan_leg("fused_tri_leg3", 3, "close", tmpl, plain, me, sh, st,
+                     recv, rv, sp, spv, dyn_pops)
+
+
+# --------------------------------------------------------------------------
+# The fold legs.
+# --------------------------------------------------------------------------
 
 def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     """Leg 2 of a classic round (the engine's ``stage_last``):
@@ -194,7 +320,7 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     applied, nspill)``; the state's update queue is new, and so are
     ``value`` and the re-armed frontier (min fold; ``next_frontier`` in
     BSP mode) or ``acc`` (add fold)."""
-    if st.frontier.device.type == "cpu":
+    if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv)
     recv, rv, sp, spv = (x.contiguous() for x in (recv, rv, sp, spv))
@@ -205,12 +331,7 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     is_min = tmpl.fold == "min"
     target = st.value if is_min else st.acc
     flags = st.frontier if tmpl.mode == "async" else st.next_frontier
-    _check(("update queue", uq.data, torch.int32, (T, cap_u, 2)),
-           ("update count", uq.count, torch.int32, (T,)),
-           ("spill", sp, torch.int32, (T, S, 2)),
-           ("spill_valid", spv, torch.bool, (T, S)),
-           ("recv", recv, torch.int32, (T, R, 2)),
-           ("recv_valid", rv, torch.bool, (T, R)),
+    _check(*_spill_checks(uq, sp, spv, recv, rv, T, 2),
            ("target", target, torch.float32, (T, v_chunk)),
            ("flags", flags, torch.bool, (T, v_chunk)))
     if not is_min and R > FOLD_ADD_MAX_ROWS:
@@ -227,7 +348,7 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
             target, flags, udata, counts[0], out, new_flags, counts[1],
             counts[2], counts[3], T, cap_u, S, R, v_chunk,
             _code(FOLDS, tmpl.fold))
-    fused_leg2.launches += 1
+    _count("fused_leg2")
     record()
     st = st._replace(queues=(rq, Queue(udata, counts[0])))
     if not is_min:
@@ -239,6 +360,153 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     return st, counts[1], counts[2], counts[3]
 
 
-KERNELS = (fused_leg0, fused_leg1, fused_leg2)
+def _flags_field(tmpl: LegTemplate) -> str:
+    return "frontier" if tmpl.mode == "async" else "next_frontier"
+
+
+def fused_kcore_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp,
+                     spv):
+    """Leg 2 of a k-core round: decrement-spill re-queue; the ordered add
+    of ``-dec`` into ``value``; ``newly = (acc == 0) & (value' < k)``;
+    ``acc`` set to 1 where newly, and newly re-armed in the frontier
+    (async) or ``next_frontier`` (BSP).  Returns ``(state, drops,
+    applied, nspill)``; the update queue, ``value``, ``acc`` and the
+    re-armed flags are new."""
+    if _on_cpu(st):
+        record()
+        return plain(me, sh, st, recv, rv, sp, spv)
+    recv, rv, sp, spv = (x.contiguous() for x in (recv, rv, sp, spv))
+    rq, uq = st.queues
+    T, cap_u, _ = uq.data.shape
+    v_chunk = st.value.shape[1]
+    S, R = sp.shape[1], recv.shape[1]
+    flags = getattr(st, _flags_field(tmpl))
+    _check(*_spill_checks(uq, sp, spv, recv, rv, T, 2),
+           ("value", st.value, torch.float32, (T, v_chunk)),
+           ("acc", st.acc, torch.float32, (T, v_chunk)),
+           ("flags", flags, torch.bool, (T, v_chunk)))
+    if R > FOLD_ADD_MAX_ROWS:
+        raise ValueError(f"fused_kcore_leg2 sorts at most "
+                         f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
+                         f"memory; got {R}")
+    udata = torch.empty_like(uq.data)
+    counts = torch.empty((4, T), dtype=torch.int32, device=uq.data.device)
+    # queue count, drops, applied, nspill
+    value, acc = torch.empty_like(st.value), torch.empty_like(st.acc)
+    new_flags = torch.empty_like(flags)
+    _launch("repro_fused_kcore_leg2", uq.data, uq.count, sp, spv, recv, rv,
+            st.value, flags, st.acc, udata, counts[0], value, new_flags, acc,
+            counts[1], counts[2], counts[3], T, cap_u, S, R, v_chunk, tmpl.k)
+    _count("fused_kcore_leg2")
+    record()
+    st = st._replace(queues=(rq, Queue(udata, counts[0])), value=value,
+                     acc=acc, **{_flags_field(tmpl): new_flags})
+    return st, counts[1], counts[2], counts[3]
+
+
+def fused_tri_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
+                   dyn_pops):
+    """Leg 2 of a triangles round: wedge-spill re-queue; at u's owner the
+    second-hop tasks ``(start, start + deg, v, u)`` of the delivered
+    wedges ``(u, v)``, valid where ``deg > 0``; the range2-queue turn
+    with them; T1 range split; remainder re-push.  Returns ``(state, msgs
+    (T, r_pop, 4), mvalid, drops, work (0), npop, npush, nspill)``; queues
+    1 and 2 are new."""
+    if _on_cpu(st):
+        record()
+        return plain(me, sh, st, recv, rv, sp, spv, dyn_pops)
+    recv, rv, sp, spv = (x.contiguous() for x in (recv, rv, sp, spv))
+    wq, rq = st.queues[1], st.queues[2]
+    T, cap_w, _ = wq.data.shape
+    cap_r = rq.data.shape[1]
+    v_chunk = sh.deg.shape[1]
+    S, R = sp.shape[1], recv.shape[1]
+    K = len(st.queues)
+    _check(*_spill_checks(wq, sp, spv, recv, rv, T, 2),
+           ("ptr_start", sh.ptr_start, torch.int32, (T, v_chunk)),
+           ("deg", sh.deg, torch.int32, (T, v_chunk)),
+           ("range2 queue", rq.data, torch.int32, (T, cap_r, 4)),
+           ("range2 count", rq.count, torch.int32, (T,)),
+           ("dyn_pops", dyn_pops, torch.int32, (T, K)))
+    r_pop = tmpl.pops[2]
+    eff = min(r_pop, cap_r)
+    fresh = min(R, cap_r)
+    if eff > LEG0_MAX_ROWS or fresh > WEDGE_MAX_ROWS:
+        raise ValueError(f"fused_tri_leg2 holds at most {LEG0_MAX_ROWS} "
+                         f"popped and {WEDGE_MAX_ROWS} fresh rows; got "
+                         f"{eff} and {fresh}")
+    dev = rq.data.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    wdata, rdata = torch.empty_like(wq.data), torch.empty_like(rq.data)
+    # queue counts (wedge, range2), drops, work, npop, npush, nspill
+    counts = torch.empty((7, T), **i32)
+    msgs = torch.empty((T, eff, 4), **i32)
+    mvalid = torch.empty((T, eff), dtype=torch.bool, device=dev)
+    _launch("repro_fused_wedge_leg", wq.data, wq.count, sp, spv, recv, rv,
+            sh.ptr_start, sh.deg, rq.data, rq.count, dyn_pops, wdata,
+            counts[0], rdata, counts[1], msgs, mvalid, counts[2], counts[3],
+            counts[4], counts[5], counts[6], T, cap_w, S, R, v_chunk,
+            sh.edge_dst.shape[1], cap_r, r_pop, tmpl.max_t2, K, 2, fresh)
+    _count("fused_tri_leg2")
+    record()
+    st = _with_queues(st, 1, Queue(wdata, counts[0]), Queue(rdata, counts[1]))
+    return (st, msgs, mvalid, counts[2], counts[3], counts[4], counts[5],
+            counts[6])
+
+
+def search_steps(e_chunk: int) -> int:
+    """The close fold's binary-search steps: ``max(1, bit_length(e_chunk))``
+    (program.py ``_segment_contains``)."""
+    return max(1, int(e_chunk).bit_length())
+
+
+def fused_tri_leg4(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
+    """Leg 4 of a triangles round: close-spill re-queue; for each delivered
+    ``(v, w)`` whether the closing edge is in v's sorted local segment;
+    the ordered add of the hits into ``acc`` at v's slot.  Returns
+    ``(state, drops, found, nspill)``; the close queue and ``acc`` are
+    new."""
+    if _on_cpu(st):
+        record()
+        return plain(me, sh, st, recv, rv, sp, spv)
+    recv, rv, sp, spv = (x.contiguous() for x in (recv, rv, sp, spv))
+    cq = st.queues[3]
+    T, cap_c, _ = cq.data.shape
+    v_chunk = st.acc.shape[1]
+    e_chunk = sh.edge_dst.shape[1]
+    S, R = sp.shape[1], recv.shape[1]
+    _check(*_spill_checks(cq, sp, spv, recv, rv, T, 2),
+           ("ptr_start", sh.ptr_start, torch.int32, (T, v_chunk)),
+           ("deg", sh.deg, torch.int32, (T, v_chunk)),
+           ("edge_dst", sh.edge_dst, torch.int32, (T, e_chunk)),
+           ("acc", st.acc, torch.float32, (T, v_chunk)))
+    if R > FOLD_ADD_MAX_ROWS:
+        raise ValueError(f"fused_tri_leg4 sorts at most {FOLD_ADD_MAX_ROWS} "
+                         f"rows per tile in shared memory; got {R}")
+    cdata = torch.empty_like(cq.data)
+    counts = torch.empty((4, T), dtype=torch.int32, device=cq.data.device)
+    # queue count, drops, found, nspill
+    acc = torch.empty_like(st.acc)
+    _launch("repro_fused_close_leg", cq.data, cq.count, sp, spv, recv, rv,
+            sh.ptr_start, sh.deg, sh.edge_dst, st.acc, cdata, counts[0], acc,
+            counts[1], counts[2], counts[3], T, cap_c, S, R, v_chunk,
+            e_chunk, search_steps(e_chunk))
+    _count("fused_tri_leg4")
+    record()
+    st = _with_queues(st._replace(acc=acc), 3, Queue(cdata, counts[0]))
+    return st, counts[1], counts[2], counts[3]
+
+
+KERNELS = (fused_leg0, fused_leg1, fused_leg2, fused_kcore_leg2,
+           fused_tri_leg0, fused_tri_leg1, fused_tri_leg2, fused_tri_leg3,
+           fused_tri_leg4)
 for _k in KERNELS:
     _k.launches = 0
+_WRAPPERS = {k.__name__: k for k in KERNELS}
+
+# each program family's wrappers, leg by leg (Program.fused.family)
+LEGS = {
+    "classic": ("fused_leg0", "fused_leg1", "fused_leg2"),
+    "kcore": ("fused_leg0", "fused_leg1", "fused_kcore_leg2"),
+    "triangles": tuple(f"fused_tri_leg{i}" for i in range(5)),
+}

@@ -5,12 +5,13 @@ As in ``tests/test_torch_engine.py``: one partition built by the JAX
 package is carried across with ``partition_from_numpy``, and each workload
 runs through the JAX package under ``backend="xla"`` and under
 ``backend="pallas", pallas_fuse=False`` (interpret mode), and through the
-port on the CPU under ``"kernels"`` (the kernel wrappers' plain versions)
-and ``"torch"``.  Values and every Stats field except ``launches`` must be
-bitwise equal — for SpMV and PageRank that includes the float32 sums of
-the add fold, which the port keeps in the reference's serial row order.
-``launches`` on ``"kernels"`` equals the unfused Pallas run's, five per
-round.  The results also match the port's own oracles.
+port on the CPU under ``"kernels"`` unfused (``fuse=False``; the kernel
+wrappers' plain versions) and ``"torch"``.  Values and every Stats field
+except ``launches`` must be bitwise equal — for SpMV and PageRank that
+includes the float32 sums of the add fold, which the port keeps in the
+reference's serial row order.  ``launches`` on ``"kernels"`` equals the
+unfused Pallas run's, five per round.  The results also match the port's
+own oracles.
 """
 import numpy as np
 import pytest
@@ -101,7 +102,7 @@ def test_port_app_bitwise_equals_jax(case):
            "pallas-nofuse": run(ja, app, pg, g, JConfig(
                backend="pallas", pallas_fuse=False, **knobs))}
     tpg = port_partition(pg)
-    port = {b: run(ta, app, tpg, g, TConfig(backend=b, **knobs))
+    port = {b: run(ta, app, tpg, g, TConfig(backend=b, fuse=False, **knobs))
             for b in ("kernels", "torch")}
     for rname, r in ref.items():
         for pname, p in port.items():

@@ -2,8 +2,9 @@
 
 The same partition (built by the JAX package, carried across with
 ``partition_from_numpy``) runs through ``repro_torch.core.algorithms.bfs``
-on the CPU under both port backends — ``"kernels"`` (the kernel wrappers,
-here their plain versions) and ``"torch"`` (inline ops) — and through
+on the CPU under both port backends — ``"kernels"`` unfused
+(``fuse=False``: the kernel wrappers, here their plain versions) and
+``"torch"`` (inline ops) — and through
 ``repro.core.algorithms.bfs`` under ``backend="xla"`` and under
 ``backend="pallas", pallas_fuse=False`` (interpret mode).  Values and every
 Stats field except ``launches`` must be bitwise equal, including the
@@ -67,7 +68,7 @@ def run_all(g, T, knobs, root):
            "pallas-nofuse": ja.bfs(pg, root, JConfig(
                backend="pallas", pallas_fuse=False, **knobs))}
     tpg = port_partition(pg)
-    port = {b: ta.bfs(tpg, root, TConfig(backend=b, **knobs))
+    port = {b: ta.bfs(tpg, root, TConfig(backend=b, fuse=False, **knobs))
             for b in ("kernels", "torch")}
     return ref, port
 
@@ -117,10 +118,10 @@ def test_unported_options_raise():
     for kw in (dict(noc="mesh"), dict(trace=True), dict(adapt=True)):
         with pytest.raises(NotImplementedError):
             ta.bfs(tpg, 0, TConfig(**SMALL, **kw))
-    # k-core has no fused legs yet
+    # k-core has fused legs now: fuse=True (the default) runs, 3 a round
     gs = ja.symmetrize(g)
-    with pytest.raises(NotImplementedError):
-        ta.kcore(port_partition(ja.prepare(gs, T=4)), 2,
-                 TConfig(**SMALL, fuse=True))
+    res = ta.kcore(port_partition(ja.prepare(gs, T=4)), 2,
+                   TConfig(**SMALL, fuse=True))
+    assert int(res.stats.launches) == 3 * int(res.stats.rounds) > 0
     with pytest.raises(ValueError, match="mode"):
         ta.bfs(tpg, 0, TConfig(**SMALL, mode="epoch"))

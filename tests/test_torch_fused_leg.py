@@ -1,16 +1,18 @@
-"""The port's fused legs (``EngineConfig(fuse=True)``) == the JAX package's
-fused Pallas round, bit for bit, launches included.
+"""The port's fused legs (``EngineConfig(fuse=True)``, the default) == the
+JAX package's fused Pallas round, bit for bit, launches included.
 
-Each case runs one classic workload on a partition built by the JAX
-package: through the JAX package under ``backend="pallas"`` with
+Each case runs one workload on a partition built by the JAX package:
+through the JAX package under ``backend="pallas"`` with
 ``pallas_fuse=True`` (interpret mode: one ``pallas_call`` per leg) and
 under ``backend="xla"``, and through the port on the CPU under
 ``backend="kernels", fuse=True``, where each leg is one fused-leg wrapper
 call running its plain version (the engine's stage under ``Ctx.fused``).
 Values and every Stats field must be bitwise equal to the fused Pallas
-run's — ``launches`` too, three per round — and to the xla run's but for
-``launches``.  The tight knobs make both channels spill, so both re-queue
-phases run.
+run's — ``launches`` too: three per round for the classic programs and
+k-core, five for the 4-channel triangles chain — and to the xla run's
+but for ``launches``.  The tight knobs make every channel spill, so every
+re-queue phase runs.  The port's defaults equal the reference's
+``backend="pallas"`` defaults, fused included.
 """
 import numpy as np
 import pytest
@@ -19,7 +21,9 @@ from repro.core import algorithms as ja
 from repro.core.engine import EngineConfig as JConfig
 from repro.core.graph import CSRGraph, rmat_edges
 from repro_torch.core import algorithms as ta
+from repro_torch.core import reference as tref
 from repro_torch.core.engine import EngineConfig as TConfig
+from repro_torch.core.graph import CSRGraph as TCSRGraph
 from repro_torch.kernels.engine import fused
 from test_torch_apps import check_oracle, graph, oracle, run
 from test_torch_engine import SMALL, TIGHT, assert_stats_equal, \
@@ -83,9 +87,10 @@ def test_fused_port_from_a_root_without_out_edges():
     assert int(tf.stats.launches) == 3 * int(tf.stats.rounds)
 
 
-def test_fused_round_calls_no_unfused_wrapper(monkeypatch):
+def test_fused_round_calls_no_unfused_wrapper(monkeypatch, gs):
     """Under ``fuse=True`` each leg is one fused-leg wrapper call: none of
-    the unfused wrappers runs, and on the CPU no CUDA launch is counted."""
+    the unfused wrappers runs, for the classic program, k-core and
+    triangles, and on the CPU no CUDA launch is counted."""
     from repro_torch.core import engine, program
 
     def refuse(*a, **k):
@@ -102,23 +107,104 @@ def test_fused_round_calls_no_unfused_wrapper(monkeypatch):
     for space in ("vmem", "hbm"):
         res = ta.bfs(tpg, 0, TConfig(fuse=True, edge_space=space, **SMALL))
         assert int(res.stats.launches) == 3 * int(res.stats.rounds) > 3
+        res = ta.kcore(port_partition(ja.prepare(gs, T=4)), 5,
+                       TConfig(edge_space=space, **SMALL))
+        assert int(res.stats.launches) == 3 * int(res.stats.rounds) > 3
+    res = ta.triangles(port_partition(ja.prepare_triangles(gs, T=4)),
+                       TConfig(**SMALL))
+    assert int(res.stats.launches) == 5 * int(res.stats.rounds) > 5
     assert [k.launches for k in fused.KERNELS] == before
     with pytest.raises(AssertionError, match="unfused"):
-        ta.bfs(tpg, 0, TConfig(**SMALL))
+        ta.bfs(tpg, 0, TConfig(fuse=False, **SMALL))
 
 
-@pytest.mark.parametrize("program", ["kcore", "triangles"])
-def test_unported_fused_programs_raise(program):
-    n, src, dst, val = rmat_edges(5, edge_factor=4, seed=2)
-    gs = ja.symmetrize(CSRGraph.from_edges(n, src, dst, val))
-    cfg = TConfig(fuse=True, **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if program == "kcore":
-            ta.kcore(port_partition(ja.prepare(gs, T=4)), 2, cfg)
-        else:
-            ta.triangles(port_partition(ja.prepare_triangles(gs, T=4)),
-                         cfg)
-    # the torch backend fuses nothing, as the reference's xla backend
-    res = ta.kcore(port_partition(ja.prepare(gs, T=4)), 2,
-                   TConfig(fuse=True, backend="torch", **SMALL))
-    assert int(res.stats.launches) == 0
+@pytest.fixture(scope="module")
+def gs():
+    # the reference program tests' graph (tests/test_programs.py):
+    # non-trivial cores for k = 2 and 5, and 235 triangles
+    n, src, dst, val = rmat_edges(6, edge_factor=5, seed=2)
+    return ja.symmetrize(CSRGraph.from_edges(n, src, dst, val))
+
+
+def run_program(pkg, program, pg, cfg):
+    if program.startswith("kcore"):
+        return pkg.kcore(pg, int(program[5:]), cfg)
+    return pkg.triangles(pg, cfg)
+
+
+# name: (program, T, knobs); TIGHT spills on every channel of triangles
+PROGRAM_CASES = {
+    "kcore2-async": ("kcore2", 4, TIGHT),
+    "kcore5-async": ("kcore5", 4, TIGHT),
+    "kcore2-bsp": ("kcore2", 4, dict(TIGHT, mode="bsp")),
+    "kcore5-bsp": ("kcore5", 4, dict(TIGHT, mode="bsp")),
+    "kcore5-hbm": ("kcore5", 4, dict(SMALL, edge_space="hbm")),
+    "triangles-T4": ("triangles", 4, TIGHT),
+    "triangles-T16": ("triangles", 16, TIGHT),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROGRAM_CASES))
+def test_fused_programs_bitwise_equal_jax_fused(gs, case):
+    """k-core (3 legs: the classic leg 0 and 1 kernels with k-core's codes,
+    then its threshold fold) and triangles (5 legs over 4 channels)."""
+    program, T, knobs = PROGRAM_CASES[case]
+    tri = program == "triangles"
+    pg = ja.prepare_triangles(gs, T=T) if tri else ja.prepare(gs, T=T)
+    jf = run_program(ja, program, pg, JConfig(backend="pallas", **knobs))
+    jx = run_program(ja, program, pg, JConfig(backend="xla", **knobs))
+    tf = run_program(ta, program, port_partition(pg), TConfig(**knobs))
+    for rname, r in (("pallas fused", jf), ("xla", jx)):
+        where = f"{case}: port fused vs jax {rname}"
+        np.testing.assert_array_equal(r.values, tf.values, err_msg=where)
+        assert_stats_equal(r.stats, tf.stats, where)
+    assert_all_stats_equal(jf.stats, tf.stats, f"{case} fused")
+    st = tf.stats
+    assert int(st.launches) == (5 if tri else 3) * int(st.rounds)
+    assert int(st.drops) == 0 and int(st.rounds) > 1
+    tg = TCSRGraph(gs.ptr, gs.dst, gs.val)
+    if tri:
+        assert bool((st.spills > 0).all()), st.spills  # every re-queue ran
+        want = tref.triangles_ref(tg, key=pg.place)
+        assert int(want.sum()) == 235
+    else:
+        want = tref.kcore_ref(tg, int(program[5:]))
+        assert 0 < int(want.sum()) < gs.num_vertices  # a non-trivial core
+    np.testing.assert_array_equal(tf.values, want)
+    if knobs.get("edge_space") == "hbm":
+        assert int(st.hbm_windows) > 0
+
+
+@pytest.mark.parametrize("program", ["kcore2", "triangles"])
+def test_torch_backend_fuses_nothing(gs, program):
+    """``fuse=True`` on the "torch" backend launches nothing, as the
+    reference's xla backend."""
+    pg = ja.prepare_triangles(gs, T=4) if program == "triangles" \
+        else ja.prepare(gs, T=4)
+    res = run_program(ta, program, port_partition(pg),
+                      TConfig(fuse=True, backend="torch", **SMALL))
+    assert int(res.stats.launches) == 0 < int(res.stats.rounds)
+
+
+@pytest.mark.parametrize("program", ["bfs", "kcore5", "triangles"])
+def test_default_config_equals_jax_pallas_default(gs, program):
+    """``EngineConfig()`` with no arguments runs what the reference's
+    ``EngineConfig(backend="pallas")`` runs: fused legs, the same values
+    and every Stats field, ``launches`` included."""
+    assert TConfig().fuse is True and JConfig(backend="pallas").pallas_fuse
+    if program == "bfs":
+        n, src, dst, val = rmat_edges(8, edge_factor=5, seed=12)
+        g = CSRGraph.from_edges(n, src, dst, val)
+        pg = ja.prepare(g, T=4)
+        root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+        jr = ja.bfs(pg, root, JConfig(backend="pallas"))
+        tr = ta.bfs(port_partition(pg), root, TConfig())
+    else:
+        pg = ja.prepare_triangles(gs, T=4) if program == "triangles" \
+            else ja.prepare(gs, T=4)
+        jr = run_program(ja, program, pg, JConfig(backend="pallas"))
+        tr = run_program(ta, program, port_partition(pg), TConfig())
+    np.testing.assert_array_equal(jr.values, tr.values)
+    assert_all_stats_equal(jr.stats, tr.stats, f"{program} defaults")
+    per_round = 5 if program == "triangles" else 3
+    assert int(tr.stats.launches) == per_round * int(tr.stats.rounds) > 0

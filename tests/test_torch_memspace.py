@@ -146,7 +146,7 @@ def test_hbm_unfused_bitwise_equals_jax_xla(case):
     pg = ja.prepare(g, T=T)
     cfg = dict(knobs, edge_space="hbm")
     jx = run(ja, app, pg, g, JConfig(backend="xla", **cfg))
-    tp = run(ta, app, port_partition(pg), g, TConfig(**cfg))
+    tp = run(ta, app, port_partition(pg), g, TConfig(fuse=False, **cfg))
     np.testing.assert_array_equal(jx.values, tp.values)
     assert_stats_equal(jx.stats, tp.stats, f"{app} hbm")
     st = tp.stats
@@ -163,7 +163,7 @@ def test_hbm_kcore_bitwise_equals_jax_xla(mode):
     pg = ja.prepare(gs, T=4)
     cfg = dict(SMALL, edge_space="hbm", mode=mode)
     jx = ja.kcore(pg, 2, JConfig(backend="xla", **cfg))
-    tp = ta.kcore(port_partition(pg), 2, TConfig(**cfg))
+    tp = ta.kcore(port_partition(pg), 2, TConfig(fuse=False, **cfg))
     np.testing.assert_array_equal(jx.values, tp.values)
     assert_stats_equal(jx.stats, tp.stats, f"kcore hbm {mode}")
     assert int(tp.stats.hbm_edges) > 0

@@ -3,8 +3,8 @@ package's, bit for bit, and the triangle partition's layout equal to the
 reference's.
 
 Each engine case runs the JAX package (``backend="xla"`` and unfused
-``"pallas"`` in interpret mode) and the port on the CPU (``"kernels"`` and
-``"torch"``) on one partition carried across with
+``"pallas"`` in interpret mode) and the port on the CPU (``"kernels"`` with
+``fuse=False``, and ``"torch"``) on one partition carried across with
 ``partition_from_numpy``: values and every Stats field except
 ``launches`` bitwise equal, and ``launches`` on ``"kernels"`` equal to the
 unfused Pallas run's.  k-core runs in both async and BSP mode; triangles
@@ -62,7 +62,7 @@ def test_port_kcore_bitwise_equals_jax(gs, k, mode):
            "pallas-nofuse": ja.kcore(pg, k, JConfig(
                backend="pallas", pallas_fuse=False, **knobs))}
     tpg = port_partition(pg)
-    port = {b: ta.kcore(tpg, k, TConfig(backend=b, **knobs))
+    port = {b: ta.kcore(tpg, k, TConfig(backend=b, fuse=False, **knobs))
             for b in ("kernels", "torch")}
     check_twins(ref, port, f"kcore{k} {mode}")
     st = port["kernels"].stats
@@ -80,7 +80,7 @@ def test_port_triangles_bitwise_equals_jax(gs, T, knobs):
            "pallas-nofuse": ja.triangles(pg, JConfig(
                backend="pallas", pallas_fuse=False, **knobs))}
     tpg = port_partition(pg)
-    port = {b: ta.triangles(tpg, TConfig(backend=b, **knobs))
+    port = {b: ta.triangles(tpg, TConfig(backend=b, fuse=False, **knobs))
             for b in ("kernels", "torch")}
     check_twins(ref, port, f"triangles T={T}")
     st = port["kernels"].stats
@@ -137,3 +137,20 @@ def test_sized_cfg_and_min_caps_match_jax(prog):
         tprog.validate(tc, T)
         with pytest.raises(ValueError, match="worst-case inflow"):
             tprog.validate(TConfig(**knobs), T)
+
+
+@pytest.mark.parametrize("scale,keyed", [(6, False), (6, True), (9, True)])
+def test_triangles_wedge_ref_equals_triangles_ref(scale, keyed,
+                                                  monkeypatch):
+    """The vectorized oracle counts what the loop oracle counts, per
+    vertex, under an id order or a permuted one, with the wedges taken
+    in one chunk and in many chunks of about 1,000."""
+    n, src, dst, val = rmat_edges(scale, edge_factor=8, seed=scale)
+    g = tgraph(ja.symmetrize(CSRGraph.from_edges(n, src, dst, val)))
+    key = np.random.default_rng(scale).permutation(n) if keyed else None
+    want = tref.triangles_ref(g, key)
+    assert int(want.sum()) > 0
+    for chunk in (1000, 1 << 23):
+        monkeypatch.setattr(tref, "WEDGE_CHUNK", chunk)
+        np.testing.assert_array_equal(tref.triangles_wedge_ref(g, key),
+                                      want)

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """Round-level profile of the PyTorch/CUDA port's main path on one GPU.
 
-    python3 tools/port_round_profile.py [--app bfs|spmv] [--scale 22]
-        [--tiles 64] [--cap-updq 65536 262144] [--fuse 0 1 1 0]
-        [--edge-space vmem hbm] [--max-rounds N] [--profile-at 3000]
-        [--profile-rounds 50]
+    python3 tools/port_round_profile.py [--app bfs|spmv|kcore|triangles]
+        [--scale 22] [--k 16] [--tiles 64] [--cap-updq 65536 262144]
+        [--fuse 0 1 1 0] [--edge-space vmem hbm] [--max-rounds N]
+        [--profile-at 3000] [--profile-rounds 50]
 
-Builds R-MAT-``scale`` (edge factor 10, seed 1) over ``tiles`` tiles and
-runs the app once per ``--cap-updq`` value, ``--edge-space`` entry and
-``--fuse`` entry, in the order given (``--fuse 0 1 1 0`` alternates
-unfused and fused runs on one card) — one BFS query from vertex 0, or one SpMV ``y[dst] += val *
-x[src]`` with ``chip_smoke.py``'s main-path ``x`` — driving the engine
-round by round (the loop of ``run_engine``) to record what the Stats do
-not: the peak occupancy of each channel queue, and — over
+Builds R-MAT-``scale`` (edge factor 10, seed 1; symmetrized for k-core
+and triangles, and laid out by ``prepare_triangles`` for triangles) over
+``tiles`` tiles and runs the app once per ``--cap-updq`` value,
+``--edge-space`` entry and ``--fuse`` entry, in the order given
+(``--fuse 0 1 1 0`` alternates unfused and fused runs on one card) — one
+BFS query from vertex 0, one SpMV ``y[dst] += val * x[src]`` with
+``chip_smoke.py``'s main-path ``x``, k-core peeling at ``--k``, or
+triangle counting (queues sized by ``sized_cfg``) — driving the engine
+round by round (the loop of ``run_engine``, async mode) to record what the
+Stats do not: the peak occupancy of each channel queue, and — over
 ``--profile-rounds`` rounds starting at ``--profile-at`` — a
 ``torch.profiler`` breakdown of device time by kernel.  Prints, per run:
-rounds, drops, whether the result matches the oracle (BFS hop counts
-equal; SpMV within the reference's rtol 2e-4 / atol 1e-4 plus the
-oracle's float32 error limit, with the count of vertices outside the bare
-tolerance; not checked when ``--max-rounds`` stops the run early), wall
+rounds, drops, whether the result matches the oracle (BFS hop counts,
+k-core membership and triangle counts equal; SpMV within the reference's
+rtol 2e-4 / atol 1e-4 plus the oracle's float32 error limit, with the
+count of vertices outside the bare tolerance; not checked when
+``--max-rounds`` stops the run early), wall
 time per round (unprofiled rounds only), device time per round, the
 device busy share (device time per round over unprofiled wall time per
 round), and per profiled round the CUDA kernels launched, the copies and
@@ -46,9 +50,11 @@ from repro_torch.core.comm import LocalComm  # noqa: E402
 from repro_torch.core.engine import (EngineConfig, GraphShard,  # noqa: E402
                                      Stats, init_state, make_round)
 from repro_torch.core.graph import CSRGraph, rmat_edges  # noqa: E402
-from repro_torch.core.program import BFS, INF, SPMV, as_program  # noqa
-from repro_torch.core.reference import (bfs_ref, spmv_f32_bound,  # noqa
-                                        spmv_ref)
+from repro_torch.core.program import (BFS, INF, SPMV, TRIANGLES,  # noqa
+                                      as_program, kcore_program, sized_cfg)
+from repro_torch.core.reference import (bfs_ref, kcore_ref,  # noqa
+                                        spmv_f32_bound, spmv_ref,
+                                        triangles_wedge_ref)
 from repro_torch.noc import make_network  # noqa: E402
 
 
@@ -79,14 +85,23 @@ def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
     T = pg.T
     cfg = EngineConfig(cap_updq=cap_updq, fuse=fuse, edge_space=space,
                        max_rounds=args.max_rounds)
-    prog = as_program(BFS if args.app == "bfs" else SPMV)
     comm = LocalComm(T, dev)
     shard = GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
+    acc = None
     if args.app == "bfs":
+        prog = as_program(BFS)
         value, frontier = alg.init_min_state(pg, [0])
-    else:
+    elif args.app == "spmv":
+        prog = as_program(SPMV)
         value, frontier = alg.init_add_state(pg, spmv_x(pg.num_vertices))
-    st = init_state(comm, cfg, pg.v_chunk, value, frontier, prog)
+    elif args.app == "kcore":
+        prog = kcore_program(args.k)
+        value, frontier, acc = alg.init_kcore_state(pg, args.k)
+    else:
+        prog = TRIANGLES
+        cfg = sized_cfg(cfg, prog, T)
+        value, frontier = alg.init_triangles_state(pg)
+    st = init_state(comm, cfg, pg.v_chunk, value, frontier, prog, acc)
     net = make_network(cfg, T)
     rnd = make_round(comm, net, cfg, prog, pg.e_chunk, pg.v_chunk, shard)
     stats = Stats.zero(net.num_links, net.max_hops, len(prog.channels),
@@ -133,6 +148,12 @@ def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
         vals = alg.to_original(pg, st.value).astype(np.float64)
         vals[vals >= np.float32(INF)] = np.inf
         ok = bool(np.array_equal(vals, oracle))
+    elif args.app == "kcore":
+        ok = bool(np.array_equal(
+            (alg.to_original(pg, st.acc) == 0.0).astype(np.int64), oracle))
+    elif args.app == "triangles":
+        ok = bool(np.array_equal(
+            alg.to_original(pg, st.acc).astype(np.int64), oracle))
     else:
         vals = alg.to_original(pg, st.acc).astype(np.float64)
         want, bound = oracle
@@ -143,7 +164,7 @@ def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
               f"2e-4 / atol 1e-4, max abs err {err.max():.3e}, max err / "
               f"(tolerance + float32 limit) {(err / (tol + bound)).max():.3e}")
     ms_round = 1e3 * wall / max(r - prof_rounds, 1)
-    print(f"{args.app} cap_updq {cap_updq} edge_space {space} fuse "
+    print(f"{args.app} cap_updq {cfg.cap_updq} edge_space {space} fuse "
           f"{fuse}: rounds {r}, drops "
           f"{int(stats.drops)}, matches the oracle {ok}, edges "
           f"scanned {int(stats.edges_scanned)}, peak queue occupancy "
@@ -165,8 +186,10 @@ def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--app", choices=("bfs", "spmv"), default="bfs")
+    ap.add_argument("--app", choices=("bfs", "spmv", "kcore", "triangles"),
+                    default="bfs")
     ap.add_argument("--scale", type=int, default=22)
+    ap.add_argument("--k", type=int, default=16, help="k-core's k")
     ap.add_argument("--tiles", type=int, default=64)
     ap.add_argument("--cap-updq", type=int, nargs="+", default=[262144])
     ap.add_argument("--fuse", type=int, nargs="+", choices=(0, 1),
@@ -187,9 +210,16 @@ def main():
     t0 = time.perf_counter()
     n, src, dst, val = rmat_edges(args.scale, edge_factor=10, seed=1)
     g = CSRGraph.from_edges(n, src, dst, val)
-    pg = alg.prepare(g, args.tiles, device="cuda")
+    if args.app in ("kcore", "triangles"):
+        g = alg.symmetrize(g)
+    prep = alg.prepare_triangles if args.app == "triangles" else alg.prepare
+    pg = prep(g, args.tiles, device="cuda")
     if args.app == "bfs":
         oracle = bfs_ref(g, 0)
+    elif args.app == "kcore":
+        oracle = kcore_ref(g, args.k)
+    elif args.app == "triangles":
+        oracle = triangles_wedge_ref(g, key=pg.place)
     else:
         x = spmv_x(n).astype(np.float64)
         oracle = spmv_ref(g, x), spmv_f32_bound(g, x)
