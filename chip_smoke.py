@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the Dalorex engine on one GPU.
+"""Drive the PyTorch/CUDA port of the Dalorex engine and of granite-3-2b
+serving on one GPU.
 
     python3 chip_smoke.py \
-        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18]
+        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18,lm]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), and
-   the build of the four kernel sources (``src/repro_torch/kernels/
-   {engine,scatter_update,spmv}/csrc/*.cu``; one nvcc each, sm_90a, all
-   started together);
+   the build of the five kernel sources (``src/repro_torch/kernels/
+   {engine,scatter_update,spmv,flash_attention}/csrc/*.cu``; one nvcc
+   each, sm_90a, all started together);
 2. ``kernels`` — each of the eight standalone kernels against its plain
    PyTorch version on the same CUDA tensors, at the main paths' shapes
    plus the edge cases of the CPU sweeps: bitwise equal on every output
@@ -64,7 +65,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (``fuse=False``: BFS, BFS with the shard streamed through
    ``edge_scan_stream``, SpMV, PageRank; five kernel calls a round)
    against the oracles; PageRank runs 5 iterations (the depth is cut from
-   the reference's 20 for chip time only).
+   the reference's 20 for chip time only);
+9. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
+   flash kernel against its plain version (K/V repeated, blockwise scan)
+   at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
+   and the reference's sweep plus G = 4, hd 32 / 128, one-tile and ragged
+   S, window 128 and float32 at granite's shape (2e-5 float32, 2e-2
+   bfloat16), timed with SDPA as the library yardstick (timed only; the
+   port never calls it); bfloat16 projections held to the float32 product
+   (float32 accumulation).  Then, with random weights from a seed made on
+   the card, 4 prompts of 2048 random tokens: ``prefill`` and 16 greedy
+   ``serve_step``s with the kernel against the same path with
+   ``use_kernels=False``, in float32 (layer 0's K/V bitwise equal, last
+   hidden within 1e-3, greedy tokens equal where the plain top-2 logit
+   gap > 1e-2, position, finiteness) and in bfloat16 (finite, tokens in
+   the vocabulary, last hidden within ``BF16_REL_L2`` of the plain run).
+   The kernel launches once a layer in prefill (40) and never in decode,
+   the plain path never (counts read just after each path).
 
 The last lines are the script's wall time, the kernels' JSON record, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -98,6 +115,10 @@ from repro_torch.kernels import spmv as SPMV  # noqa: E402
 from repro_torch.kernels.engine import fused as F  # noqa: E402
 from repro_torch.kernels.engine import kernel as K  # noqa: E402
 from repro_torch.core.program import BFS, as_program  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.models import layers as LMLAYERS  # noqa: E402
+from repro_torch.models import transformer as TFM  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
@@ -118,9 +139,12 @@ KERNEL_ROWS = {
     "spmv_block_ell": (
         "src/repro_torch/kernels/spmv/csrc/spmv_block_ell.cu",
         "src/repro/kernels/spmv/kernel.py:42"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:72"),
 }
 ALL_WRAPPERS = (*K.KERNELS, *F.KERNELS, SEG.scatter_segments,
-                SPMV.spmv_block_ell)
+                SPMV.spmv_block_ell, FA.flash_attention)
 
 # Main path: R-MAT-22 over T=64 tiles (v_chunk, e_chunk of its partition).
 # The update (spill) queue holds 262144 entries: its one-round burst bound
@@ -181,6 +205,32 @@ SEG_CAP = 4096        # updates per bin and round of the binned scatter
 PR_SCALE, PR_ITERS = 18, 5
 INF32 = float(np.finfo(np.float32).max)
 REPS = 25
+# The LM serving path: granite-3-2b at full width and all 40 layers, B = 4
+# prompts of 2048 random tokens, 16 greedy steps.
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bfloat16 (NVIDIA data sheet)
+LM_ARCH, LM_B, LM_P, LM_G, LM_SEED = "granite-3-2b", 4, 2048, 16, 0
+# flash cases (B, S, H, Hkv, hd, window, dtype): the reference's sweep
+# (tests/test_kernels.py:24-30), then G = 4 at hd 128 and 32, S one tile
+# of the reference (128) and of the kernel (64), S = 100 (a ragged tile),
+# granite's prefill shape with window 128 and in float32; the main shape,
+# granite's bfloat16 prefill, is timed.  Tolerances: the reference's.
+FLASH_SWEEP = (
+    (2, 256, 4, 2, 64, 0, "float32"), (1, 256, 4, 1, 64, 64, "float32"),
+    (2, 128, 2, 2, 32, 0, "float32"), (1, 512, 8, 8, 64, 128, "float32"),
+    (1, 256, 4, 4, 128, 0, "bfloat16"), (1, 256, 8, 2, 128, 0, "float32"),
+    (1, 384, 8, 2, 32, 64, "bfloat16"), (1, 128, 4, 4, 64, 0, "float32"),
+    (1, 64, 4, 1, 64, 0, "float32"), (1, 100, 4, 2, 64, 0, "float32"),
+    (LM_B, LM_P, 32, 8, 64, 128, "bfloat16"),
+    (LM_B, LM_P, 32, 8, 64, 0, "float32"))
+FLASH_MAIN = (LM_B, LM_P, 32, 8, 64, 0, "bfloat16")
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Largest relative L2 distance of the bfloat16 kernel run's last hidden
+# state from the bfloat16 plain run's: twice the 0.0717 the card gave
+# (PERF.md §5).  The two differ only in the attention's summation order,
+# but a flipped bfloat16 rounding grows over 40 layers under the
+# reference's init (std 1/sqrt(40) on every block matrix); the float32
+# run, held to 1e-3, is the check of the kernel's arithmetic.
+BF16_REL_L2 = 0.15
 
 
 def log(*a):
@@ -274,7 +324,7 @@ def phase_device():
     log(f"# card: {smi}")
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY)
+    libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY, FA.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         list(pool.map(lambda lib: lib.get(), libs))
@@ -1480,7 +1530,227 @@ def phase_rmat18(dev, smi):
     return paths
 
 
-PHASES = ("kernels", "twin", "main", "hbm", "taskgraph", "block", "rmat18")
+# --------------------------------------------------------------------------
+# Phase 9: granite-3-2b serving on the flash kernel
+# --------------------------------------------------------------------------
+
+def flash_inputs(gen, B, S, H, Hkv, hd, dtype, dev):
+    dt = getattr(torch, dtype)
+    return [torch.randn(B, S, h, hd, generator=gen, device=dev).to(dt)
+            for h in (H, Hkv, Hkv)]
+
+
+def check_flash(dev, timer):
+    """The flash kernel against its plain version at the reference's
+    sweep and granite-3-2b's prefill shape; timed at the latter."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for case in (*FLASH_SWEEP, FLASH_MAIN):
+        B, S, H, Hkv, hd, win, dtype = case
+        q, k, v = flash_inputs(gen, B, S, H, Hkv, hd, dtype, dev)
+        out = FA.flash_attention(q, k, v, win)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        want = FA.repeat_kv_attention(q, k, v, pos, win)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=f"flash {case}")
+        err = float((out.float() - want.float()).abs().max())
+        log(f"#   flash (B, S, H, Hkv, hd, window, dtype) = {case}: within "
+            f"{tol} of its plain version (max |err| {err:.3g})")
+    B, S, H, Hkv, hd, win, dtype = FLASH_MAIN
+    # the library yardstick, timed only: SDPA on (B, H, S, hd) views
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    torch.testing.assert_close(sdpa().transpose(1, 2).float(), want.float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+    flops = 2 * B * H * S * S * hd   # QK^T and PV over the causal triangle
+    bound = max(flops / BF16_FLOPS_PER_S, nbytes(q, k, v, out)
+                / HBM_BYTES_PER_S) * 1e3
+    return dict(max_abs_err=err,
+                ms=timer.ms(lambda: FA.flash_attention(q, k, v, win)),
+                plain_ms=timer.ms(lambda: FA.repeat_kv_attention(
+                    q, k, v, pos, win)),
+                bound_ms=bound, library_ms=timer.ms(sdpa),
+                bound_by="operations")
+
+
+def check_matmul_f32(dev):
+    """bfloat16 projections accumulate in float32 on the card: matmul_f32
+    at granite's MLP widths against the float32 product of the same
+    values (a sum rounded to bfloat16 would sit near bfloat16's rounding
+    unit, 2**-9, from it)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(LM_B * 256, 2048, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(2048, 8192, generator=gen, device=dev) / 45).bfloat16()
+    y = LMLAYERS.matmul_f32(a, w)
+    want = a.float() @ w.float()
+    rel = float((y - want).norm() / want.norm())
+    assert y.dtype == torch.float32 and rel < 1e-5, rel
+    return rel
+
+
+def serve(params, cfg, prompts, use_kernels, lm_head):
+    """prefill + LM_G greedy steps.  The kernel run drives the entry
+    points (``prefill``, ``serve_step``); the plain run takes the same
+    steps through ``forward`` with ``use_kernels=False`` and keeps each
+    step's float32 logits, whose top-2 gap says where greedy tokens must
+    agree.  Returns the run's outputs, times and launch counts."""
+    B, P = prompts.shape
+    cache = TFM.init_cache(cfg, B, P + LM_G, prompts.device)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = TFM.prefill(params, cfg, cache, {"tokens": prompts},
+                            use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = read_launches()
+    layer0 = (cache.attn_k[0].clone(), cache.attn_v[0].clone())
+    reset_launches()
+    tok, toks, gaps = prompts[:, -1:], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_G):
+        if use_kernels:
+            nxt, cache = TFM.serve_step(params, cfg, cache, tok)
+        else:
+            x, cache, _ = TFM.forward(params, cfg, {"tokens": tok},
+                                    cache=cache, use_kernels=False)
+            logits = LMLAYERS.matmul_f32(x[:, -1], lm_head)
+            top2 = logits.topk(2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(nxt)
+        tok = nxt[:, None]
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    return dict(last=last, cache=cache, layer0=layer0,
+                tokens=torch.stack(toks, 1),
+                gaps=torch.stack(gaps, 1) if gaps else None,
+                prefill_s=t_prefill, decode_s=t_decode,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                prefill_launches=prefill_launches,
+                decode_launches=read_launches())
+
+
+def check_serving_run(run, cfg, what, use_kernels):
+    """Launches (40 flash launches a prefill on the kernel path, none in
+    decode or on the plain path), the position, finiteness, token range."""
+    want = dict.fromkeys(run["prefill_launches"], 0)
+    assert run["decode_launches"] == want, (what, run["decode_launches"])
+    if use_kernels:
+        want["flash_attention"] = cfg.num_layers
+    assert run["prefill_launches"] == want, (what, run["prefill_launches"])
+    assert int(run["cache"].pos) == LM_P + LM_G, what
+    for x in (run["last"], run["cache"].attn_k, run["cache"].attn_v):
+        assert bool(torch.isfinite(x).all()), what
+    v_pad = TFM.abstract_params(cfg)["lm_head"].shape[1]
+    toks = run["tokens"]
+    assert int(toks.min()) >= 0 and int(toks.max()) < v_pad, what
+    step_ms = 1e3 * run["decode_s"] / LM_G
+    log(f"# lm {what}: prefill {LM_B}x{LM_P} {run['prefill_s'] * 1e3:.1f} "
+        f"ms ({LM_B * LM_P / run['prefill_s']:.0f} tokens/s), decode "
+        f"{step_ms:.2f} ms/step ({LM_B * 1e3 / step_ms:.1f} tokens/s), "
+        f"peak device memory "
+        f"{run['peak_gib']:.3f} GiB, flash launches "
+        f"{run['prefill_launches']['flash_attention']} in prefill, "
+        f"{run['decode_launches']['flash_attention']} in {LM_G} decode steps")
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_lm(dev, smi, timer):
+    """granite-3-2b at full width and depth: the flash kernel against its
+    plain version, then prefill + greedy decode, kernel against plain,
+    float32 and bfloat16.  Returns (the kernel's record row, the launch
+    counts of the kernel paths)."""
+    row = check_flash(dev, timer)
+    log(f"# kernel flash_attention: within {FLASH_TOL['bfloat16']} of its "
+        f"plain version at {FLASH_MAIN}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"(operations), library {row['library_ms']:.4f} ms (SDPA); card "
+        f"{smi}")
+    rel = check_matmul_f32(dev)
+    log(f"# lm: bfloat16 projections accumulate in float32 (rel L2 "
+        f"{rel:.3g} from the float32 product)")
+    # float32 matmuls in full float32, stated and set for this script
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, base.vocab_size, (LM_B, LM_P), generator=gen,
+                            dtype=torch.int32, device=dev)
+    log(f"# lm: {LM_ARCH} at full width, all {base.num_layers} layers "
+        f"(d {base.d_model}, {base.num_heads} heads / {base.num_kv_heads} "
+        f"kv of {base.hd}, d_ff {base.d_ff}, vocab {base.vocab_size}, "
+        f"{base.param_count() / 1e9:.3f} B parameters), random weights "
+        f"from seed {LM_SEED}, B = {LM_B}, prompt {LM_P}, {LM_G} greedy "
+        f"steps")
+    paths, runs = [], {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        params = TFM.init_params(
+            torch.Generator(device=dev).manual_seed(LM_SEED), cfg, dev)
+        torch.cuda.synchronize()
+        log(f"# lm {dtype}: weights made on the card in "
+            f"{time.perf_counter() - t0:.2f} s")
+        with torch.inference_mode():
+            # untimed: the first prefill of a dtype pays cuBLAS's set-up
+            warm = TFM.init_cache(cfg, LM_B, LM_P, dev)
+            TFM.prefill(params, cfg, warm, {"tokens": prompts},
+                        use_kernels=False)
+            del warm
+            plain = serve(params, cfg, prompts, False, params["lm_head"])
+            check_serving_run(plain, cfg, f"{dtype} plain", False)
+            kern = serve(params, cfg, prompts, True, params["lm_head"])
+            check_serving_run(kern, cfg, f"{dtype} kernel", True)
+        paths.append({**kern["prefill_launches"]})
+        del params
+        runs[dtype] = (kern, plain)
+        err = rel_l2(kern["last"], plain["last"])
+        if dtype == "float32":
+            for a, b in zip(kern["layer0"], plain["layer0"]):
+                assert torch.equal(a, b), "layer 0 K/V cache differs"
+            torch.testing.assert_close(kern["last"], plain["last"],
+                                       rtol=1e-3, atol=1e-3)
+            # greedy tokens agree wherever the plain run's top-2 gap
+            # exceeds 1e-2, while a row's earlier tokens agreed
+            sure = plain["gaps"] > 1e-2
+            same = kern["tokens"] == plain["tokens"]
+            alive = torch.cumprod(same.int(), 1).bool()
+            alive = torch.cat([torch.ones_like(alive[:, :1]),
+                               alive[:, :-1]], 1)
+            checked = sure & alive
+            assert bool(same[checked].all()), "greedy tokens differ"
+            log(f"# lm float32: layer 0 K/V bitwise equal; last hidden "
+                f"within rtol = atol = 1e-3 (max |err| "
+                f"{float((kern['last'] - plain['last']).abs().max()):.3g}, "
+                f"rel L2 {err:.3g}); greedy tokens equal on "
+                f"{int(checked.sum())} of {LM_B * LM_G} (row, step) pairs "
+                f"whose plain top-2 gap > 1e-2 (all pairs equal: "
+                f"{int(same.sum())}); pos {LM_P + LM_G}")
+        else:
+            assert err < BF16_REL_L2, (err, BF16_REL_L2)
+            f32_kern = runs["float32"][0]
+            log(f"# lm bfloat16: last hidden rel L2 {err:.4g} from the "
+                f"bfloat16 plain run (bound {BF16_REL_L2}), "
+                f"{rel_l2(kern['last'], f32_kern['last']):.4g} from the "
+                f"float32 kernel run; greedy tokens equal to the plain "
+                f"run's: {int((kern['tokens'] == plain['tokens']).sum())} "
+                f"of {LM_B * LM_G}")
+        torch.cuda.empty_cache()
+    return row, paths
+
+
+PHASES = ("kernels", "twin", "main", "hbm", "taskgraph", "block", "rmat18",
+          "lm")
 
 
 def main():
@@ -1520,6 +1790,9 @@ def main():
         paths.append(phase_block(dev, smi))
     if "rmat18" in phases:
         paths += phase_rmat18(dev, smi).values()
+    if "lm" in phases:
+        rows["flash_attention"], lm_paths = phase_lm(dev, smi, timer)
+        paths += lm_paths
     # each kernel's launches summed over the driven paths
     record = []
     for name, r in rows.items():
@@ -1528,7 +1801,7 @@ def main():
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(p.get(name, 0) for p in paths),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by="bytes",
+            bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             library_ms=r["library_ms"],
             **({"calls": r["calls"]} if "calls" in r else {})))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "

@@ -1,0 +1,279 @@
+"""Dense LM: specs, params, decode cache, blocks and the serving entry
+points (port of ``repro.models.transformer``, the dense family).
+
+A pre-norm GQA transformer, granite-3-2b's family.  Parameters are nested
+dicts of tensors in the reference's layouts, the block leaves stacked on a
+leading layer axis; the layer stack is a Python loop.  Serving keeps a
+ring-buffered KV cache (slot = position mod C).  The prefill's attention
+goes through :func:`repro_torch.kernels.flash_attention.attention`: the
+Hopper flash kernel on the card (``use_kernels=True``), where the
+reference calls ``blockwise_attention`` over K/V repeated to H heads
+(``src/repro/models/transformer.py:270-275``), whose counterpart is the
+kernel's plain version.  Decode attends with :func:`decode_attention`
+(no kernel), as the reference does.
+
+The cache tensors are written in place (they are the largest state of a
+serving run); ``prefill``, ``serve_step`` and ``forward`` return a new
+:class:`Cache` whose position has advanced, over the same tensors.
+
+Not ported: the MoE, SSM (RWKV6) and hybrid (zamba2) families, the vision
+and audio frontends, ring (context-parallel) attention, which needs a
+mesh, and the loss (``lm_loss``, ``chunked_xent``); each raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.embedding import embed_lookup, padded_vocab
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.models.layers import (decode_attention, matmul_f32,
+                                       mlp_apply, mlp_specs, rms_norm, rope)
+from repro_torch.parallel.sharding import ParamSpec, init_tree, tree_map
+
+# the ROADMAP items that bring what is not ported
+SUBSTRATE_ITEM = "ROADMAP §1, still to port: the rest of the LM substrate"
+FAMILY_ITEMS = {"hybrid": "ROADMAP §1: zamba2-2.7b serving",
+                "ssm": "ROADMAP §1: rwkv6-1.6b serving"}
+TRAINING_ITEM = "ROADMAP §1: the LM training path"
+
+
+def _check_ported(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: "
+            f"{FAMILY_ITEMS.get(cfg.family, SUBSTRATE_ITEM)}")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"frontend {cfg.frontend!r}: "
+                                  f"{SUBSTRATE_ITEM}")
+
+
+# --------------------------------------------------------------------------
+# Parameter specs.
+# --------------------------------------------------------------------------
+
+def _attn_specs(cfg: ModelConfig):
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    return {
+        "ln": ParamSpec((d,), (None,), "float32", init="ones"),
+        "wq": ParamSpec((d, H, hd), ("fsdp", "heads", None), cfg.dtype),
+        "wk": ParamSpec((d, Hkv, hd), ("fsdp", "kv_heads", None), cfg.dtype),
+        "wv": ParamSpec((d, Hkv, hd), ("fsdp", "kv_heads", None), cfg.dtype),
+        "wo": ParamSpec((H, hd, d), ("heads", None, "fsdp"), cfg.dtype),
+    }
+
+
+def _dense_block_specs(cfg: ModelConfig):
+    return {"attn": _attn_specs(cfg),
+            "ln2": ParamSpec((cfg.d_model,), (None,), "float32",
+                             init="ones"),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.dtype)}
+
+
+def _stack(specs, n: int):
+    """Add a leading layer axis to every leaf spec."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, (None,) + s.axes,
+                                        s.dtype, s.init, s.scale),
+                    specs, is_leaf=lambda x: isinstance(x, ParamSpec))
+
+
+def abstract_params(cfg: ModelConfig):
+    """ParamSpec tree for the whole model.  One device, so the vocab is
+    padded for one shard (the reference's model-axis size without a
+    mesh)."""
+    _check_ported(cfg)
+    d = cfg.d_model
+    v_pad = padded_vocab(cfg.vocab_size, 1)
+    vocab_axis = "vocab" if cfg.routed_embedding else None
+    return {
+        "embed": ParamSpec((v_pad, d), (vocab_axis, None), cfg.dtype,
+                           init="embed", scale=0.02),
+        "final_norm": ParamSpec((d,), (None,), "float32", init="ones"),
+        "lm_head": ParamSpec((d, v_pad), ("fsdp", "vocab"), cfg.dtype),
+        "blocks": _stack(_dense_block_specs(cfg), cfg.num_layers),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
+    """Random weights by the reference's init rule, drawn from ``gen`` (a
+    generator on ``device``)."""
+    return init_tree(gen, abstract_params(cfg), device)
+
+
+# --------------------------------------------------------------------------
+# Decode cache.
+# --------------------------------------------------------------------------
+
+class Cache(NamedTuple):
+    pos: torch.Tensor              # () int32 — tokens decoded so far
+    attn_k: torch.Tensor | None    # (L, B, C, Hkv, hd)
+    attn_v: torch.Tensor | None
+    rwkv: tuple | None             # (not ported: RWKV6 state)
+    mamba: tuple | None            # (not ported: Mamba2 state)
+
+
+def cache_slots(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int):
+    """ParamSpec tree for the decode cache."""
+    _check_ported(cfg)
+    C = cache_slots(cfg, seq_len)
+    shape = (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.hd)
+    kv_axes = (None, "batch", "kv_seq", None, None)
+    return Cache(ParamSpec((), (), "int32", init="zeros"),
+                 ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
+                 ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
+                 None, None)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
+    return init_tree(None, abstract_cache(cfg, batch, seq_len), device)
+
+
+def _slot_positions(pos, C: int):
+    """Sequence position stored in each ring slot (-1 = empty)."""
+    i = torch.arange(C, dtype=torch.int32, device=pos.device)
+    cand = pos - 1 - ((pos - 1 - i) % C)
+    return torch.where(cand >= 0, cand, -1)
+
+
+# --------------------------------------------------------------------------
+# Attention and dense blocks.
+# --------------------------------------------------------------------------
+
+def _attn_apply(p, x, cfg: ModelConfig, kv_cache, pos, use_kernels: bool):
+    """x: (B, S, d).  kv_cache: None (no cache) or (k, v) ring buffers
+    (B, C, Hkv, hd), written in place.  Returns out (B, S, d)."""
+    B, S, d = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = matmul_f32(h, p["wq"]).to(x.dtype)
+    kk = matmul_f32(h, p["wk"]).to(x.dtype)
+    vv = matmul_f32(h, p["wv"]).to(x.dtype)
+
+    if kv_cache is None or S > 1:  # train / prefill
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        kk = rope(kk, positions, cfg.rope_theta)
+        att = attention(q, kk, vv, positions, window=cfg.sliding_window,
+                        use_kernel=use_kernels)
+        if kv_cache is not None:  # prefill into the ring cache
+            ck, cv = kv_cache
+            C = ck.shape[1]
+            take = min(S, C)
+            slots = (torch.arange(take, device=x.device) + (S - take)) % C
+            ck.index_copy_(1, slots, kk[:, S - take:].to(ck.dtype))
+            cv.index_copy_(1, slots, vv[:, S - take:].to(cv.dtype))
+    else:  # decode: one token against the ring cache
+        qpos = pos.expand(B)
+        q = rope(q, qpos[:, None], cfg.rope_theta)
+        kk = rope(kk, qpos[:, None], cfg.rope_theta)
+        ck, cv = kv_cache
+        C = ck.shape[1]
+        slot = (pos % C).reshape(1).long()
+        ck.index_copy_(1, slot, kk.to(ck.dtype))
+        cv.index_copy_(1, slot, vv.to(cv.dtype))
+        cpos = _slot_positions(pos + 1, C)[None].expand(B, C)
+        att = decode_attention(q, ck, cv, cpos, qpos,
+                               window=cfg.sliding_window)
+
+    out = matmul_f32(att.reshape(B, S, -1), p["wo"].reshape(-1, d))
+    return out.to(x.dtype)
+
+
+def _dense_block(p, x, cfg, kv_cache, pos, use_kernels: bool):
+    x = x + _attn_apply(p["attn"], x, cfg, kv_cache, pos, use_kernels)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.mlp)
+
+
+# --------------------------------------------------------------------------
+# Forward and serving.
+# --------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
+            use_kernels: bool = True):
+    """Returns (hidden (B, S, d), new_cache, aux dict).
+
+    batch: {"tokens": (B, S)}.  cache=None -> scoring (no cache written);
+    cache -> prefill (S > 1) or decode (S == 1) into the ring cache.
+    ``use_kernels`` reaches the prefill's attention: the flash kernel on
+    CUDA tensors when True, its plain version when False."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x, ovf = embed_lookup(params["embed"], tokens, cfg.routed_embedding)
+    pos = cache.pos if cache is not None else \
+        torch.zeros((), dtype=torch.int32, device=tokens.device)
+    blocks = params["blocks"]
+    for i in range(cfg.num_layers):
+        p_l = tree_map(lambda a: a[i], blocks)
+        kv_l = None if cache is None else (cache.attn_k[i], cache.attn_v[i])
+        x = _dense_block(p_l, x, cfg, kv_l, pos, use_kernels)
+    new_cache = cache
+    if cache is not None:
+        new_cache = cache._replace(pos=cache.pos + S)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                  device=x.device), "overflow": ovf}
+    return x, new_cache, aux
+
+
+def serve_step(params, cfg: ModelConfig, cache: Cache, tokens):
+    """One decode step for the whole batch.  tokens: (B, 1) int.
+    Returns (next_token (B,) int32, new_cache): the first maximal index of
+    the float32 logits of the last position."""
+    x, new_cache, _ = forward(params, cfg, {"tokens": tokens}, cache=cache)
+    logits = matmul_f32(x[:, -1:], params["lm_head"])
+    nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+    return nxt, new_cache
+
+
+def prefill(params, cfg: ModelConfig, cache: Cache, batch: dict, *,
+            use_kernels: bool = True):
+    """Fill the cache with a prompt (positions 0..S-1, whatever
+    ``cache.pos`` is, as the reference); returns (last-position hidden,
+    cache)."""
+    x, new_cache, _ = forward(params, cfg, batch, cache=cache,
+                              use_kernels=use_kernels)
+    return x[:, -1], new_cache
+
+
+def lm_loss(*args, **kw):
+    raise NotImplementedError(f"lm_loss: {TRAINING_ITEM}")
+
+
+def chunked_xent(*args, **kw):
+    raise NotImplementedError(f"chunked_xent: {TRAINING_ITEM}")
+
+
+# --------------------------------------------------------------------------
+# Carrying the JAX package's trees across (tests).
+# --------------------------------------------------------------------------
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: move the bits
+        return torch.from_numpy(a.view(np.int16).copy()) \
+            .view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The JAX package's params (nested dicts of numpy arrays, same keys
+    and layouts) as the port's tensors on ``device``."""
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def cache_from_numpy(cache, device="cuda"):
+    """The JAX package's ``Cache`` (its fields as numpy arrays) as the
+    port's :class:`Cache`."""
+    return Cache(*(tree_map(lambda a: _tensor(a, device), f)
+                   for f in cache))
