@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the Dalorex engine and of granite-3-2b
-serving on one GPU.
+and rwkv6-1.6b serving on one GPU.
 
     python3 chip_smoke.py \
-        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18,lm]
+        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18,lm,rwkv]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), and
-   the build of the five kernel sources (``src/repro_torch/kernels/
-   {engine,scatter_update,spmv,flash_attention}/csrc/*.cu``; one nvcc
-   each, sm_90a, all started together);
+   the build of the six kernel sources (``src/repro_torch/kernels/
+   {engine,scatter_update,spmv,flash_attention,rwkv6}/csrc/*.cu``; one
+   nvcc each, sm_90a, all started together);
 2. ``kernels`` — each of the eight standalone kernels against its plain
    PyTorch version on the same CUDA tensors, at the main paths' shapes
    plus the edge cases of the CPU sweeps: bitwise equal on every output
@@ -70,7 +70,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    flash kernel against its plain version (K/V repeated, blockwise scan)
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
    and the reference's sweep plus G = 4, hd 32 / 128, one-tile and ragged
-   S, window 128 and float32 at granite's shape (2e-5 float32, 2e-2
+   S (100, and 200: one 200-row block of the reference's prefill), window
+   128 and float32 at granite's shape (2e-5 float32, 2e-2
    bfloat16), timed with SDPA as the library yardstick (timed only; the
    port never calls it); bfloat16 projections held to the float32 product
    (float32 accumulation).  Then, with random weights from a seed made on
@@ -81,7 +82,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    gap > 1e-2, position, finiteness) and in bfloat16 (finite, tokens in
    the vocabulary, last hidden within ``BF16_REL_L2`` of the plain run).
    The kernel launches once a layer in prefill (40) and never in decode,
-   the plain path never (counts read just after each path).
+   the plain path never (counts read just after each path).  A float32
+   prompt of 200 tokens prefills on the kernel and matches the plain
+   path; one of 600 (600 % 512 != 0) is refused on both paths, as the
+   reference's prefill refuses it;
+10. ``rwkv`` — rwkv6-1.6b serving at full width and all 24 layers.  The
+   WKV6 kernel against its plain version (``wkv6_chunked`` at the same
+   chunk; y and the final state within ``WKV_REL_TOL`` of their largest
+   magnitude) and against the step-by-step scan oracle (the reference's
+   3e-4) on the reference's sweep, a state carried across two calls, a
+   non-zero state0, S = 8 (one chunk of 8), every decay at -4 and at
+   -1e-6, and the prefill shape (B 4, S 2048, 32 heads of 64), timed at
+   the latter (no single PyTorch call computes WKV6: no library time).
+   Then, with random weights from a seed made on the card, 4 prompts of
+   2048 random tokens: ``prefill`` and 16 greedy ``serve_step``s with the
+   kernel against ``use_kernels=False``, in float32 with the decay, bonus
+   and token-shift leaves drawn from a seed (layer 0's token-shift carry
+   bitwise equal, its WKV state within ``WKV_REL_TOL`` and the last hidden
+   within ``RWKV_F32_TOL`` of their largest magnitude, greedy tokens as in
+   ``lm``, position, finiteness) and in bfloat16 at the reference's init
+   (finite, tokens in the vocabulary, last hidden within
+   ``RWKV_BF16_REL_L2`` of the plain run).  The kernel launches once a
+   layer in prefill (24) and never in decode, the plain path never.
 
 The last lines are the script's wall time, the kernels' JSON record, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -117,6 +139,7 @@ from repro_torch.kernels.engine import kernel as K  # noqa: E402
 from repro_torch.core.program import BFS, as_program  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import rwkv6 as W6  # noqa: E402
 from repro_torch.models import layers as LMLAYERS  # noqa: E402
 from repro_torch.models import transformer as TFM  # noqa: E402
 
@@ -142,9 +165,11 @@ KERNEL_ROWS = {
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:72"),
+    "wkv6_kernel": ("src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+                    "src/repro/kernels/rwkv6/kernel.py:59"),
 }
 ALL_WRAPPERS = (*K.KERNELS, *F.KERNELS, SEG.scatter_segments,
-                SPMV.spmv_block_ell, FA.flash_attention)
+                SPMV.spmv_block_ell, FA.flash_attention, W6.wkv6_kernel)
 
 # Main path: R-MAT-22 over T=64 tiles (v_chunk, e_chunk of its partition).
 # The update (spill) queue holds 262144 entries: its one-round burst bound
@@ -211,7 +236,8 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bfloat16 (NVIDIA data sheet)
 LM_ARCH, LM_B, LM_P, LM_G, LM_SEED = "granite-3-2b", 4, 2048, 16, 0
 # flash cases (B, S, H, Hkv, hd, window, dtype): the reference's sweep
 # (tests/test_kernels.py:24-30), then G = 4 at hd 128 and 32, S one tile
-# of the reference (128) and of the kernel (64), S = 100 (a ragged tile),
+# of the reference (128) and of the kernel (64), S = 100 and 200 (ragged
+# tiles; 200 is one block of the reference's prefill, min(512, S)),
 # granite's prefill shape with window 128 and in float32; the main shape,
 # granite's bfloat16 prefill, is timed.  Tolerances: the reference's.
 FLASH_SWEEP = (
@@ -220,6 +246,7 @@ FLASH_SWEEP = (
     (1, 256, 4, 4, 128, 0, "bfloat16"), (1, 256, 8, 2, 128, 0, "float32"),
     (1, 384, 8, 2, 32, 64, "bfloat16"), (1, 128, 4, 4, 64, 0, "float32"),
     (1, 64, 4, 1, 64, 0, "float32"), (1, 100, 4, 2, 64, 0, "float32"),
+    (2, 200, 32, 8, 64, 0, "float32"), (2, 200, 32, 8, 64, 0, "bfloat16"),
     (LM_B, LM_P, 32, 8, 64, 128, "bfloat16"),
     (LM_B, LM_P, 32, 8, 64, 0, "float32"))
 FLASH_MAIN = (LM_B, LM_P, 32, 8, 64, 0, "bfloat16")
@@ -231,6 +258,35 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # reference's init (std 1/sqrt(40) on every block matrix); the float32
 # run, held to 1e-3, is the check of the kernel's arithmetic.
 BF16_REL_L2 = 0.15
+# granite prompt lengths the reference's prefill takes (one 200-row block)
+# and refuses (600 % min(512, 600) != 0)
+LM_RAGGED_P, LM_REFUSED_P = 200, 600
+# The rwkv6 serving path: rwkv6-1.6b at full width and all 24 layers, the
+# same prompts and steps.  WKV6 cases (B, S, H, K, chunk, w_log, state0):
+# the reference's sweep (tests/test_kernels.py:142-146), a non-zero state0,
+# S = 8 (C = S), every decay at the clip and at no decay, and the prefill
+# shape (timed).  w_log None draws clip(-exp(0.5 N(0, 1))), as the sweep.
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+RWKV_ARCH = "rwkv6-1.6b"
+WKV_SWEEP = (
+    (2, 128, 3, 16, 16, None, False), (1, 64, 2, 32, 32, None, False),
+    (2, 96, 1, 64, 16, None, False), (2, 128, 4, 64, 16, None, True),
+    (1, 8, 2, 64, 16, None, False), (1, 64, 2, 64, 16, -4.0, False),
+    (1, 64, 2, 64, 16, -1e-6, False))
+WKV_MAIN = (LM_B, LM_P, 32, 64, 16, None, True)
+# y and the final state within WKV_REL_TOL of their largest magnitude
+# (the kernel and wkv6_chunked sum in float32 in other orders; the card
+# gave at most 3.7e-7, PERF.md §6); the reference's tolerance against the
+# scan oracle
+WKV_REL_TOL = 1e-5
+WKV_ORACLE_TOL = 3e-4
+# float32 serving: the last hidden state within RWKV_F32_TOL of its largest
+# magnitude (the WKV sums' order differs in each of 24 layers; the card
+# gave 1.22e-5).  bfloat16, at the reference's init: rel L2 from the plain
+# run within RWKV_BF16_REL_L2, twice the 0.02796 the card gave (a flipped
+# bfloat16 rounding of the time mix's output grows over the layers)
+RWKV_F32_TOL = 1e-4
+RWKV_BF16_REL_L2 = 0.06
 
 
 def log(*a):
@@ -324,7 +380,8 @@ def phase_device():
     log(f"# card: {smi}")
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY, FA.LIBRARY)
+    libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY, FA.LIBRARY,
+            W6.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         list(pool.map(lambda lib: lib.get(), libs))
@@ -1592,12 +1649,14 @@ def check_matmul_f32(dev):
     return rel
 
 
-def serve(params, cfg, prompts, use_kernels, lm_head):
+def serve(params, cfg, prompts, use_kernels, lm_head, layer0_of):
     """prefill + LM_G greedy steps.  The kernel run drives the entry
     points (``prefill``, ``serve_step``); the plain run takes the same
     steps through ``forward`` with ``use_kernels=False`` and keeps each
     step's float32 logits, whose top-2 gap says where greedy tokens must
-    agree.  Returns the run's outputs, times and launch counts."""
+    agree.  ``layer0_of(cache)`` copies the cache fields of layer 0 just
+    after the prefill.  Returns the run's outputs, times and launch
+    counts."""
     B, P = prompts.shape
     cache = TFM.init_cache(cfg, B, P + LM_G, prompts.device)
     reset_launches()
@@ -1609,7 +1668,7 @@ def serve(params, cfg, prompts, use_kernels, lm_head):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     prefill_launches = read_launches()
-    layer0 = (cache.attn_k[0].clone(), cache.attn_v[0].clone())
+    layer0 = layer0_of(cache)
     reset_launches()
     tok, toks, gaps = prompts[:, -1:], [], []
     torch.cuda.synchronize()
@@ -1637,32 +1696,85 @@ def serve(params, cfg, prompts, use_kernels, lm_head):
                 decode_launches=read_launches())
 
 
-def check_serving_run(run, cfg, what, use_kernels):
-    """Launches (40 flash launches a prefill on the kernel path, none in
-    decode or on the plain path), the position, finiteness, token range."""
+def check_serving_run(run, cfg, what, use_kernels, kernel):
+    """Launches (the prefill's ``kernel`` once a layer on the kernel path,
+    no kernel in decode or on the plain path), the position, finiteness
+    of the hidden state and every cache tensor, token range."""
     want = dict.fromkeys(run["prefill_launches"], 0)
     assert run["decode_launches"] == want, (what, run["decode_launches"])
     if use_kernels:
-        want["flash_attention"] = cfg.num_layers
+        want[kernel] = cfg.num_layers
     assert run["prefill_launches"] == want, (what, run["prefill_launches"])
     assert int(run["cache"].pos) == LM_P + LM_G, what
-    for x in (run["last"], run["cache"].attn_k, run["cache"].attn_v):
+    for x in (run["last"], *tensors(tuple(run["cache"][1:]))):
         assert bool(torch.isfinite(x).all()), what
     v_pad = TFM.abstract_params(cfg)["lm_head"].shape[1]
     toks = run["tokens"]
     assert int(toks.min()) >= 0 and int(toks.max()) < v_pad, what
     step_ms = 1e3 * run["decode_s"] / LM_G
-    log(f"# lm {what}: prefill {LM_B}x{LM_P} {run['prefill_s'] * 1e3:.1f} "
+    log(f"# {what}: prefill {LM_B}x{LM_P} {run['prefill_s'] * 1e3:.1f} "
         f"ms ({LM_B * LM_P / run['prefill_s']:.0f} tokens/s), decode "
         f"{step_ms:.2f} ms/step ({LM_B * 1e3 / step_ms:.1f} tokens/s), "
         f"peak device memory "
-        f"{run['peak_gib']:.3f} GiB, flash launches "
-        f"{run['prefill_launches']['flash_attention']} in prefill, "
-        f"{run['decode_launches']['flash_attention']} in {LM_G} decode steps")
+        f"{run['peak_gib']:.3f} GiB, {kernel} launches "
+        f"{run['prefill_launches'][kernel]} in prefill, "
+        f"{run['decode_launches'][kernel]} in {LM_G} decode steps")
 
 
 def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def kv_layer0(cache):
+    return cache.attn_k[0].clone(), cache.attn_v[0].clone()
+
+
+def check_tokens(kern, plain):
+    """Greedy tokens agree wherever the plain run's top-2 gap exceeds
+    1e-2, while a row's earlier tokens agreed.  Returns (pairs checked,
+    pairs equal)."""
+    sure = plain["gaps"] > 1e-2
+    same = kern["tokens"] == plain["tokens"]
+    alive = torch.cumprod(same.int(), 1).bool()
+    alive = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], 1)
+    checked = sure & alive
+    assert bool(same[checked].all()), "greedy tokens differ"
+    return int(checked.sum()), int(same.sum())
+
+
+def check_prompt_lengths(params, cfg, prompts):
+    """A prompt of LM_RAGGED_P tokens (one 200-row block of the
+    reference's prefill) prefills on the flash kernel, within 1e-3 of the
+    plain path; one of LM_REFUSED_P tokens is refused on both paths, as
+    the reference's block rule refuses it."""
+    last = {}
+    for use in (True, False):
+        cache = TFM.init_cache(cfg, LM_B, LM_RAGGED_P, prompts.device)
+        FA.flash_attention.launches = 0
+        last[use], _ = TFM.prefill(params, cfg, cache,
+                                   {"tokens": prompts[:, :LM_RAGGED_P]},
+                                   use_kernels=use)
+        assert FA.flash_attention.launches == (cfg.num_layers if use
+                                               else 0), use
+    torch.testing.assert_close(last[True], last[False], rtol=1e-3,
+                               atol=1e-3)
+    long = prompts.repeat(1, -(-LM_REFUSED_P // prompts.shape[1]))[
+        :, :LM_REFUSED_P]
+    for use in (True, False):
+        cache = TFM.init_cache(cfg, LM_B, LM_REFUSED_P, prompts.device)
+        try:
+            TFM.prefill(params, cfg, cache, {"tokens": long},
+                        use_kernels=use)
+        except ValueError as e:
+            assert "512" in str(e), e
+        else:
+            raise AssertionError(f"a {LM_REFUSED_P}-token prompt was "
+                                 f"served (use_kernels={use})")
+    log(f"# lm float32: a {LM_RAGGED_P}-token prompt prefills on the flash "
+        f"kernel ({cfg.num_layers} launches), last hidden within 1e-3 of "
+        f"the plain path (max |err| "
+        f"{float((last[True] - last[False]).abs().max()):.3g}); a "
+        f"{LM_REFUSED_P}-token prompt is refused on both paths")
 
 
 def phase_lm(dev, smi, timer):
@@ -1707,10 +1819,16 @@ def phase_lm(dev, smi, timer):
             TFM.prefill(params, cfg, warm, {"tokens": prompts},
                         use_kernels=False)
             del warm
-            plain = serve(params, cfg, prompts, False, params["lm_head"])
-            check_serving_run(plain, cfg, f"{dtype} plain", False)
-            kern = serve(params, cfg, prompts, True, params["lm_head"])
-            check_serving_run(kern, cfg, f"{dtype} kernel", True)
+            plain = serve(params, cfg, prompts, False, params["lm_head"],
+                          kv_layer0)
+            check_serving_run(plain, cfg, f"lm {dtype} plain", False,
+                              "flash_attention")
+            kern = serve(params, cfg, prompts, True, params["lm_head"],
+                         kv_layer0)
+            check_serving_run(kern, cfg, f"lm {dtype} kernel", True,
+                              "flash_attention")
+            if dtype == "float32":
+                check_prompt_lengths(params, cfg, prompts)
         paths.append({**kern["prefill_launches"]})
         del params
         runs[dtype] = (kern, plain)
@@ -1720,22 +1838,14 @@ def phase_lm(dev, smi, timer):
                 assert torch.equal(a, b), "layer 0 K/V cache differs"
             torch.testing.assert_close(kern["last"], plain["last"],
                                        rtol=1e-3, atol=1e-3)
-            # greedy tokens agree wherever the plain run's top-2 gap
-            # exceeds 1e-2, while a row's earlier tokens agreed
-            sure = plain["gaps"] > 1e-2
-            same = kern["tokens"] == plain["tokens"]
-            alive = torch.cumprod(same.int(), 1).bool()
-            alive = torch.cat([torch.ones_like(alive[:, :1]),
-                               alive[:, :-1]], 1)
-            checked = sure & alive
-            assert bool(same[checked].all()), "greedy tokens differ"
+            checked, same = check_tokens(kern, plain)
             log(f"# lm float32: layer 0 K/V bitwise equal; last hidden "
                 f"within rtol = atol = 1e-3 (max |err| "
                 f"{float((kern['last'] - plain['last']).abs().max()):.3g}, "
                 f"rel L2 {err:.3g}); greedy tokens equal on "
-                f"{int(checked.sum())} of {LM_B * LM_G} (row, step) pairs "
+                f"{checked} of {LM_B * LM_G} (row, step) pairs "
                 f"whose plain top-2 gap > 1e-2 (all pairs equal: "
-                f"{int(same.sum())}); pos {LM_P + LM_G}")
+                f"{same}); pos {LM_P + LM_G}")
         else:
             assert err < BF16_REL_L2, (err, BF16_REL_L2)
             f32_kern = runs["float32"][0]
@@ -1749,8 +1859,201 @@ def phase_lm(dev, smi, timer):
     return row, paths
 
 
+# --------------------------------------------------------------------------
+# Phase 10: rwkv6-1.6b serving on the WKV6 kernel
+# --------------------------------------------------------------------------
+
+def wkv_inputs(gen, B, S, H, K, w_fixed, state, dev):
+    """r, k, v ~ N(0, 1); w_log = clip(-exp(0.5 N(0, 1))) or ``w_fixed``;
+    u ~ 0.5 N(0, 1); state0 ~ N(0, 1) when ``state``, else None."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    r, k, v = randn(B, S, H, K), randn(B, S, H, K), randn(B, S, H, K)
+    w = torch.clamp(-torch.exp(0.5 * randn(B, S, H, K)), -4.0, -1e-6)
+    if w_fixed is not None:
+        w = torch.full_like(w, w_fixed)
+    return r, k, v, w, 0.5 * randn(H, K), randn(B, H, K, K) if state else None
+
+
+def rel_to_max(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_wkv6_case(args, chunk, what):
+    """The kernel against its plain version (within WKV_REL_TOL of the
+    largest magnitude) and the scan oracle (the reference's 3e-4) on one
+    case; returns (the kernel's output, its largest errors)."""
+    out = W6.wkv6_kernel(*args, chunk=chunk)
+    plain = W6.wkv6_chunked(*args, chunk=chunk)
+    oracle = W6.wkv6_scan_oracle(*args)
+    torch.cuda.synchronize()
+    errs = [rel_to_max(a, b) for a, b in zip(out, plain)]
+    assert max(errs) <= WKV_REL_TOL, (what, errs)
+    for a, b in zip(out, oracle):
+        torch.testing.assert_close(a, b, rtol=WKV_ORACLE_TOL,
+                                   atol=WKV_ORACLE_TOL, msg=what)
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+    log(f"#   wkv6 {what}: y and state within {WKV_REL_TOL} of the plain "
+        f"version's largest magnitude (rel {errs[0]:.3g}, {errs[1]:.3g}; max "
+        f"|err| {abs_err:.3g}) and within {WKV_ORACLE_TOL} of the scan "
+        f"oracle")
+    return out, abs_err
+
+
+def wkv6_flops(B, S, H, K, C) -> int:
+    """Operations of the chunked recurrence: per chunk and head, r_in S
+    (2CK^2), the strictly lower scores and their product with v (2 x
+    C(C-1)K), the bonus (5CK) and the state update (2CK^2 + 2K^2)."""
+    return B * H * (S // C) * (4 * C * K * K + 2 * C * (C - 1) * K
+                               + 5 * C * K + 2 * K * K)
+
+
+def check_wkv6(dev, smi, timer):
+    """The WKV6 kernel against its plain version and the scan oracle on
+    the reference's sweep and the edge cases, a state carried across two
+    calls, and the rwkv6-1.6b prefill shape, timed at the latter.
+    Returns the kernel's record row."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for B, S, H, K, chunk, w_fixed, state in WKV_SWEEP:
+        args = wkv_inputs(gen, B, S, H, K, w_fixed, state, dev)
+        check_wkv6_case(args, chunk, f"(B, S, H, K, chunk) = "
+                        f"{(B, S, H, K, chunk)}, w_log "
+                        f"{'drawn' if w_fixed is None else w_fixed}, state0 "
+                        f"{'drawn' if state else 'zero'}")
+    r, k, v, w, u, _ = wkv_inputs(gen, 1, 64, 2, 16, None, False, dev)
+    full = W6.wkv6_kernel(r, k, v, w, u)
+    h = 32
+    halves = [W6.wkv6_kernel(r[:, :h].contiguous(), k[:, :h].contiguous(),
+                             v[:, :h].contiguous(), w[:, :h].contiguous(), u)]
+    halves.append(W6.wkv6_kernel(
+        r[:, h:].contiguous(), k[:, h:].contiguous(), v[:, h:].contiguous(),
+        w[:, h:].contiguous(), u, state0=halves[0][1]))
+    errs = (rel_to_max(torch.cat([halves[0][0], halves[1][0]], 1), full[0]),
+            rel_to_max(halves[1][1], full[1]))
+    assert max(errs) <= WKV_REL_TOL, ("state carry", errs)
+    log(f"#   wkv6 state carry (1, 64, 2, 16): two halves within "
+        f"{WKV_REL_TOL} of one call (rel {errs[0]:.3g}, {errs[1]:.3g})")
+    B, S, H, K, chunk, w_fixed, state = WKV_MAIN
+    args = wkv_inputs(gen, B, S, H, K, w_fixed, state, dev)
+    out, abs_err = check_wkv6_case(args, chunk, f"prefill shape "
+                                   f"{(B, S, H, K, chunk)}, state0 drawn")
+    moved = nbytes(*args, *out)
+    C = min(chunk, S)
+    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+              "operations": wkv6_flops(B, S, H, K, C) / F32_FLOPS_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    row = dict(max_abs_err=abs_err,
+               ms=timer.ms(lambda: W6.wkv6_kernel(*args, chunk=chunk)),
+               plain_ms=timer.ms(lambda: W6.wkv6_chunked(*args,
+                                                         chunk=chunk)),
+               bound_ms=bounds[bound_by], bound_by=bound_by,
+               library_ms=None)
+    log(f"# kernel wkv6_kernel: within {WKV_REL_TOL} of its plain version "
+        f"at {WKV_MAIN[:5]}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({bound_by}; {moved / 1e6:.1f} MB moved: "
+        f"{bounds['bytes']:.4f} ms, operations: "
+        f"{bounds['operations']:.4f} ms), library none; card {smi}")
+    return row
+
+
+def perturb_decays(params, gen):
+    """Draw the decay, bonus and token-shift leaves, which the reference's
+    init leaves at zero (w_log = -1, u = 0, no shift): ``w0`` uniform in
+    [-3, 1.5], ``w_lora_b`` 0.1 N(0, 1), ``u`` 0.5 N(0, 1), ``mu`` and
+    ``mu_c`` uniform in [0, 1]."""
+    blocks = params["blocks"]
+    blocks["w0"].uniform_(-3.0, 1.5, generator=gen)
+    blocks["w_lora_b"].normal_(0.0, 0.1, generator=gen)
+    blocks["u"].normal_(0.0, 0.5, generator=gen)
+    blocks["mu"].uniform_(0.0, 1.0, generator=gen)
+    blocks["mu_c"].uniform_(0.0, 1.0, generator=gen)
+
+
+def rwkv_layer0(cache):
+    return cache.rwkv[0][0].clone(), cache.rwkv[2][0].clone()
+
+
+def phase_rwkv(dev, smi, timer):
+    """rwkv6-1.6b at full width and depth: the WKV6 kernel against its
+    plain version, then prefill + greedy decode, kernel against plain,
+    float32 (decay leaves drawn) and bfloat16 (the reference's init).
+    Returns (the kernel's record row, the launch counts of the kernel
+    paths)."""
+    row = check_wkv6(dev, smi, timer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config(RWKV_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, base.vocab_size, (LM_B, LM_P), generator=gen,
+                            dtype=torch.int32, device=dev)
+    log(f"# rwkv: {RWKV_ARCH} at full width, all {base.num_layers} layers "
+        f"(d {base.d_model}, heads of {base.rwkv_head_dim}, d_ff "
+        f"{base.d_ff}, vocab {base.vocab_size}, "
+        f"{base.param_count() / 1e9:.3f} B parameters), random weights "
+        f"from seed {LM_SEED}, B = {LM_B}, prompt {LM_P}, {LM_G} greedy "
+        f"steps")
+    paths = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        params = TFM.init_params(
+            torch.Generator(device=dev).manual_seed(LM_SEED), cfg, dev)
+        if dtype == "float32":
+            perturb_decays(params, torch.Generator(device=dev).manual_seed(
+                LM_SEED + 2))
+        torch.cuda.synchronize()
+        log(f"# rwkv {dtype}: weights made on the card in "
+            f"{time.perf_counter() - t0:.2f} s"
+            + (" (decay, bonus and shift leaves drawn)"
+               if dtype == "float32" else " (the reference's init)"))
+        with torch.inference_mode():
+            # untimed: the first prefills of a dtype pay cuBLAS's set-up
+            for use in (False, True):
+                warm = TFM.init_cache(cfg, LM_B, 64, dev)
+                TFM.prefill(params, cfg, warm, {"tokens": prompts[:, :64]},
+                            use_kernels=use)
+            del warm
+            plain = serve(params, cfg, prompts, False, params["lm_head"],
+                          rwkv_layer0)
+            check_serving_run(plain, cfg, f"rwkv {dtype} plain", False,
+                              "wkv6_kernel")
+            kern = serve(params, cfg, prompts, True, params["lm_head"],
+                         rwkv_layer0)
+            check_serving_run(kern, cfg, f"rwkv {dtype} kernel", True,
+                              "wkv6_kernel")
+        paths.append({**kern["prefill_launches"]})
+        del params
+        err = rel_l2(kern["last"], plain["last"])
+        if dtype == "float32":
+            assert torch.equal(kern["layer0"][0], plain["layer0"][0]), \
+                "layer 0 token-shift carry differs"
+            wkv_err = rel_to_max(kern["layer0"][1], plain["layer0"][1])
+            assert wkv_err <= WKV_REL_TOL, wkv_err
+            last_err = rel_to_max(kern["last"], plain["last"])
+            assert last_err <= RWKV_F32_TOL, last_err
+            checked, same = check_tokens(kern, plain)
+            log(f"# rwkv float32: layer 0 token-shift carry bitwise equal, "
+                f"its WKV state within {WKV_REL_TOL} of the largest "
+                f"magnitude ({wkv_err:.3g}); last hidden within "
+                f"{RWKV_F32_TOL} of the largest magnitude ({last_err:.3g}, "
+                f"rel L2 {err:.3g}); greedy tokens equal on {checked} of "
+                f"{LM_B * LM_G} (row, step) pairs whose plain top-2 gap > "
+                f"1e-2 (all pairs equal: {same}); pos {LM_P + LM_G}")
+        else:
+            assert err < RWKV_BF16_REL_L2, (err, RWKV_BF16_REL_L2)
+            log(f"# rwkv bfloat16: last hidden rel L2 {err:.4g} from the "
+                f"bfloat16 plain run (bound {RWKV_BF16_REL_L2}); greedy "
+                f"tokens equal to the plain run's: "
+                f"{int((kern['tokens'] == plain['tokens']).sum())} of "
+                f"{LM_B * LM_G}")
+        torch.cuda.empty_cache()
+    return row, paths
+
+
 PHASES = ("kernels", "twin", "main", "hbm", "taskgraph", "block", "rmat18",
-          "lm")
+          "lm", "rwkv")
 
 
 def main():
@@ -1793,6 +2096,9 @@ def main():
     if "lm" in phases:
         rows["flash_attention"], lm_paths = phase_lm(dev, smi, timer)
         paths += lm_paths
+    if "rwkv" in phases:
+        rows["wkv6_kernel"], rwkv_paths = phase_rwkv(dev, smi, timer)
+        paths += rwkv_paths
     # each kernel's launches summed over the driven paths
     record = []
     for name, r in rows.items():

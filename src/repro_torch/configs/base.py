@@ -164,8 +164,6 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 NOT_PORTED = {
     "zamba2-2.7b": "ROADMAP §1: zamba2-2.7b serving (models/mamba.py, "
                    "ssd_pallas)",
-    "rwkv6-1.6b": "ROADMAP §1: rwkv6-1.6b serving (models/rwkv.py, "
-                  "wkv6_pallas)",
     **dict.fromkeys(
         ("granite-34b", "internlm2-20b", "internvl2-76b", "mixtral-8x22b",
          "moonshot-v1-16b-a3b", "musicgen-large", "nemotron-4-15b"),
@@ -183,6 +181,7 @@ def register(name: str):
 def _load_archs():
     # import the arch modules lazily so that each self-registers
     from repro_torch.configs import granite_3_2b  # noqa: F401
+    from repro_torch.configs import rwkv6_1_6b  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:

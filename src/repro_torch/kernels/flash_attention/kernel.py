@@ -55,9 +55,10 @@ def check_shapes(q, k, v, window: int):
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {Hkv} kv heads")
-    if S % min(128, S):
+    if S % min(512, S):
         raise ValueError(f"flash_attention: S={S} is not a multiple of "
-                         f"min(128, S), the reference's block")
+                         f"min(512, S), the reference prefill's block "
+                         f"(blockwise_attention)")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     check(("q", q, q.dtype, (B, S, H, hd)),

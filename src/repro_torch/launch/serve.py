@@ -1,8 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> ...``
 (port of ``repro.launch.serve``).
 
-Prefill + batched greedy decode with the ring-buffer KV cache, on the
-card unless ``--device cpu``.  As the reference, it serves the reduced
+Prefill + batched greedy decode, on the card unless ``--device cpu``:
+granite-3-2b (the default) with the ring-buffer KV cache, rwkv6-1.6b
+with each layer's recurrent state.  As the reference, it serves the reduced
 config (``cfg.reduced()``) with random weights from ``--seed``; the first
 decode step feeds the prompt's last token again, as the reference does.
 """

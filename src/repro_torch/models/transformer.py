@@ -1,10 +1,19 @@
-"""Dense LM: specs, params, decode cache, blocks and the serving entry
-points (port of ``repro.models.transformer``, the dense family).
+"""The LMs: specs, params, decode cache, blocks and the serving
+entry points (port of ``repro.models.transformer``, the dense and ssm
+families).
 
-A pre-norm GQA transformer, granite-3-2b's family.  Parameters are nested
-dicts of tensors in the reference's layouts, the block leaves stacked on a
-leading layer axis; the layer stack is a Python loop.  Serving keeps a
-ring-buffered KV cache (slot = position mod C).  The prefill's attention
+dense — a pre-norm GQA transformer, granite-3-2b's family.
+ssm   — an RWKV6 stack (attention-free), rwkv6-1.6b's family
+        (:mod:`repro_torch.models.rwkv`).
+
+Parameters are nested dicts of tensors in the reference's layouts, the
+block leaves stacked on a leading layer axis; the layer stack is a Python
+loop.  Dense serving keeps a ring-buffered KV cache (slot = position mod
+C); ssm serving keeps each layer's recurrent state (the two token-shift
+carries and the WKV state), which a prefill continues from, as the
+reference's does.  The ssm prefill's time mix goes through the Hopper
+WKV6 kernel (``use_kernels=True``) or its chunked plain version.  The
+dense prefill's attention
 goes through :func:`repro_torch.kernels.flash_attention.attention`: the
 Hopper flash kernel on the card (``use_kernels=True``), where the
 reference calls ``blockwise_attention`` over K/V repeated to H heads
@@ -16,7 +25,7 @@ The cache tensors are written in place (they are the largest state of a
 serving run); ``prefill``, ``serve_step`` and ``forward`` return a new
 :class:`Cache` whose position has advanced, over the same tensors.
 
-Not ported: the MoE, SSM (RWKV6) and hybrid (zamba2) families, the vision
+Not ported: the MoE and hybrid (zamba2) families, the vision
 and audio frontends, ring (context-parallel) attention, which needs a
 mesh, and the loss (``lm_loss``, ``chunked_xent``); each raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -33,17 +42,18 @@ from repro_torch.core.embedding import embed_lookup, padded_vocab
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import (decode_attention, matmul_f32,
                                        mlp_apply, mlp_specs, rms_norm, rope)
+from repro_torch.models.rwkv import rwkv_block, rwkv_block_specs
 from repro_torch.parallel.sharding import ParamSpec, init_tree, tree_map
 
 # the ROADMAP items that bring what is not ported
 SUBSTRATE_ITEM = "ROADMAP §1, still to port: the rest of the LM substrate"
-FAMILY_ITEMS = {"hybrid": "ROADMAP §1: zamba2-2.7b serving",
-                "ssm": "ROADMAP §1: rwkv6-1.6b serving"}
+FAMILY_ITEMS = {"hybrid": "ROADMAP §1: zamba2-2.7b serving"}
+PORTED_FAMILIES = ("dense", "ssm")
 TRAINING_ITEM = "ROADMAP §1: the LM training path"
 
 
 def _check_ported(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: "
             f"{FAMILY_ITEMS.get(cfg.family, SUBSTRATE_ITEM)}")
@@ -89,12 +99,16 @@ def abstract_params(cfg: ModelConfig):
     d = cfg.d_model
     v_pad = padded_vocab(cfg.vocab_size, 1)
     vocab_axis = "vocab" if cfg.routed_embedding else None
+    if cfg.family == "ssm":
+        blocks = rwkv_block_specs(d, cfg.d_ff, cfg.rwkv_head_dim, cfg.dtype)
+    else:
+        blocks = _dense_block_specs(cfg)
     return {
         "embed": ParamSpec((v_pad, d), (vocab_axis, None), cfg.dtype,
                            init="embed", scale=0.02),
         "final_norm": ParamSpec((d,), (None,), "float32", init="ones"),
         "lm_head": ParamSpec((d, v_pad), ("fsdp", "vocab"), cfg.dtype),
-        "blocks": _stack(_dense_block_specs(cfg), cfg.num_layers),
+        "blocks": _stack(blocks, cfg.num_layers),
     }
 
 
@@ -112,7 +126,7 @@ class Cache(NamedTuple):
     pos: torch.Tensor              # () int32 — tokens decoded so far
     attn_k: torch.Tensor | None    # (L, B, C, Hkv, hd)
     attn_v: torch.Tensor | None
-    rwkv: tuple | None             # (not ported: RWKV6 state)
+    rwkv: tuple | None             # (last_tm, last_cm, wkv) leading (L, B)
     mamba: tuple | None            # (not ported: Mamba2 state)
 
 
@@ -125,11 +139,20 @@ def cache_slots(cfg: ModelConfig, seq_len: int) -> int:
 def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int):
     """ParamSpec tree for the decode cache."""
     _check_ported(cfg)
+    L = cfg.num_layers
+    pos = ParamSpec((), (), "int32", init="zeros")
+    if cfg.family == "ssm":
+        d, K = cfg.d_model, cfg.rwkv_head_dim
+        carry = ParamSpec((L, batch, d), (None, "batch", None), cfg.dtype,
+                          init="zeros")
+        wkv = ParamSpec((L, batch, d // K, K, K),
+                        (None, "batch", "heads", None, None), "float32",
+                        init="zeros")
+        return Cache(pos, None, None, (carry, carry, wkv), None)
     C = cache_slots(cfg, seq_len)
-    shape = (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.hd)
+    shape = (L, batch, C, cfg.num_kv_heads, cfg.hd)
     kv_axes = (None, "batch", "kv_seq", None, None)
-    return Cache(ParamSpec((), (), "int32", init="zeros"),
-                 ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
+    return Cache(pos, ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
                  ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
                  None, None)
 
@@ -203,9 +226,12 @@ def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
     """Returns (hidden (B, S, d), new_cache, aux dict).
 
     batch: {"tokens": (B, S)}.  cache=None -> scoring (no cache written);
-    cache -> prefill (S > 1) or decode (S == 1) into the ring cache.
-    ``use_kernels`` reaches the prefill's attention: the flash kernel on
-    CUDA tensors when True, its plain version when False."""
+    cache -> prefill (S > 1) or decode (S == 1) into the cache, in place:
+    the ring KV cache (dense) or each layer's recurrent state (ssm, which
+    continues from the cache's state).  ``use_kernels`` reaches the
+    prefill's kernel, the flash attention (dense) or the WKV6 recurrence
+    (ssm): the kernel on CUDA tensors when True, its plain version when
+    False."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -215,8 +241,17 @@ def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
     blocks = params["blocks"]
     for i in range(cfg.num_layers):
         p_l = tree_map(lambda a: a[i], blocks)
-        kv_l = None if cache is None else (cache.attn_k[i], cache.attn_v[i])
-        x = _dense_block(p_l, x, cfg, kv_l, pos, use_kernels)
+        if cfg.family == "ssm":
+            st = None if cache is None else tuple(a[i] for a in cache.rwkv)
+            x, new_st = rwkv_block(p_l, x, st, cfg.rwkv_head_dim,
+                                   cfg.norm_eps, use_kernels)
+            if cache is not None:
+                for a, b in zip(st, new_st):
+                    a.copy_(b)
+        else:
+            kv_l = None if cache is None else (cache.attn_k[i],
+                                               cache.attn_v[i])
+            x = _dense_block(p_l, x, cfg, kv_l, pos, use_kernels)
     new_cache = cache
     if cache is not None:
         new_cache = cache._replace(pos=cache.pos + S)
@@ -238,9 +273,10 @@ def serve_step(params, cfg: ModelConfig, cache: Cache, tokens):
 
 def prefill(params, cfg: ModelConfig, cache: Cache, batch: dict, *,
             use_kernels: bool = True):
-    """Fill the cache with a prompt (positions 0..S-1, whatever
-    ``cache.pos`` is, as the reference); returns (last-position hidden,
-    cache)."""
+    """Fill the cache with a prompt, as the reference: a dense prompt takes
+    positions 0..S-1 whatever ``cache.pos`` is; an ssm prompt continues
+    from the cache's recurrent state (a new cache holds zeros).  Returns
+    (last-position hidden, cache)."""
     x, new_cache, _ = forward(params, cfg, batch, cache=cache,
                               use_kernels=use_kernels)
     return x[:, -1], new_cache

@@ -26,6 +26,7 @@ SWEEP = [
     (1, 512, 8, 8, 64, 128, "float32"),
     (1, 256, 4, 4, 128, 0, "bfloat16"),
     (1, 100, 4, 2, 64, 0, "float32"),      # S not a multiple of 64
+    (2, 200, 8, 2, 64, 0, "float32"),      # one 200-row reference block
     (4, 2048, 32, 8, 64, 0, "bfloat16"),   # granite-3-2b's prefill
 ]
 
@@ -58,15 +59,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                         meta((2, 256, 2, 48)))
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention(q, meta((2, 256, 3, 64)), meta((2, 256, 3, 64)))
-    with pytest.raises(ValueError, match="min"):
-        flash_attention(meta((1, 200, 8, 64)), meta((1, 200, 2, 64)),
-                        meta((1, 200, 2, 64)))
+    with pytest.raises(ValueError, match="min"):   # 600 % 512 != 0
+        flash_attention(meta((1, 600, 8, 64)), meta((1, 600, 2, 64)),
+                        meta((1, 600, 2, 64)))
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, kv, kv, window=-1)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="positions"):
         attention(q, kv, kv, torch.arange(255), use_kernel=True)
+    assert flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("S", [200, 300, 1024, 2048])
+def test_wrapper_takes_the_lengths_the_reference_prefill_takes(S):
+    """An S that divides into blocks of min(512, S), as the reference's
+    prefill (``blockwise_attention``) requires, passes every shape check
+    and stops only at the device check."""
+    q, kv = meta((1, S, 8, 64)), meta((1, S, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, kv, kv)
     assert flash_attention.launches == 0
 
 

@@ -176,15 +176,17 @@ def test_prefill_then_decode_matches_parallel_forward(run):
 
 
 def test_what_is_not_ported_raises():
-    assert list_archs() == ["granite-3-2b"]
-    for arch, item in (("zamba2-2.7b", "zamba2"), ("rwkv6-1.6b", "rwkv6"),
+    assert list_archs() == ["granite-3-2b", "rwkv6-1.6b"]
+    for arch, item in (("zamba2-2.7b", "zamba2"),
                        ("mixtral-8x22b", "ROADMAP")):
         with pytest.raises(KeyError, match=item):
             get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
+    assert get_config("rwkv6-1.6b").family == "ssm"   # ported
+    T.abstract_params(get_config("rwkv6-1.6b").reduced())
     cfg = get_config("granite-3-2b").reduced()
-    for family in ("moe", "ssm", "hybrid"):
+    for family in ("moe", "hybrid"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.abstract_params(dataclasses.replace(cfg, family=family))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
