@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the Dalorex engine and of granite-3-2b
-and rwkv6-1.6b serving on one GPU.
+"""Drive the PyTorch/CUDA port of the Dalorex engine and of granite-3-2b,
+rwkv6-1.6b and zamba2-2.7b serving on one GPU.
 
     python3 chip_smoke.py \
-        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18,lm,rwkv]
+        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18,lm,rwkv,zamba]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), and
-   the build of the six kernel sources (``src/repro_torch/kernels/
-   {engine,scatter_update,spmv,flash_attention,rwkv6}/csrc/*.cu``; one
-   nvcc each, sm_90a, all started together);
+   the build of the seven kernel sources (``src/repro_torch/kernels/
+   {engine,scatter_update,spmv,flash_attention,rwkv6,mamba2}/csrc/*.cu``;
+   one nvcc each, sm_90a, all started together);
 2. ``kernels`` — each of the eight standalone kernels against its plain
    PyTorch version on the same CUDA tensors, at the main paths' shapes
    plus the edge cases of the CPU sweeps: bitwise equal on every output
@@ -103,7 +103,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``lm``, position, finiteness) and in bfloat16 at the reference's init
    (finite, tokens in the vocabulary, last hidden within
    ``RWKV_BF16_REL_L2`` of the plain run).  The kernel launches once a
-   layer in prefill (24) and never in decode, the plain path never.
+   layer in prefill (24) and never in decode, the plain path never;
+11. ``zamba`` — zamba2-2.7b serving at full width and all 54 layers (9
+   superblocks: the shared attention block, then 6 Mamba2 layers).  The
+   SSD kernel against its plain version (``ssd_chunked`` at the same
+   chunk; y and the final state within ``SSD_REL_TOL`` of their largest
+   magnitude, every output finite) and against the step-by-step scan
+   oracle (the reference's 3e-4) on the reference's sweep, a non-zero
+   state0, a state carried across two calls, S = 16 (one chunk), every dt
+   at the clip, dt -> 0, chunk 32 with an upper triangle that overflows
+   float32, and the prefill shape (B 4, S 2048, 80 heads, P 64, N 64),
+   timed at the latter (no PyTorch call computes SSD: no library time).
+   The flash kernel at hd 80 against its plain version in float32 and
+   bfloat16, timed at zamba2's prefill shape (B 4, S 2048, 32 / 32 heads)
+   with SDPA as the yardstick.  Then, with random weights from a seed made
+   on the card, 4 prompts of 2048 random tokens: ``prefill`` and 16 greedy
+   ``serve_step``s with the kernels against ``use_kernels=False``, in
+   float32 with ``a_log``, ``dt_bias``, ``d_skip`` and ``conv_b`` drawn
+   from a seed (superblock 0's K/V bitwise equal; the first Mamba2 layer's
+   conv carry and SSD state and the last hidden within ``ZAMBA_F32_TOL``
+   of their largest magnitude; greedy tokens as in ``lm``; position;
+   finiteness) and in bfloat16 at the reference's init (finite, tokens in
+   the vocabulary, last hidden within ``ZAMBA_BF16_REL_L2`` of the plain
+   run).  The SSD kernel launches once a Mamba2 layer in prefill (54) and
+   the flash kernel once a superblock (9), neither in decode, the plain
+   path neither.  A 208-token prompt prefills on the kernels and matches
+   the plain path; a 200-token one (200 % 16 != 0) is refused on both
+   paths, as the reference's ``ssd_chunked`` asserts.
 
 The last lines are the script's wall time, the kernels' JSON record, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -139,9 +165,11 @@ from repro_torch.kernels.engine import kernel as K  # noqa: E402
 from repro_torch.core.program import BFS, as_program  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import mamba2 as SSD  # noqa: E402
 from repro_torch.kernels import rwkv6 as W6  # noqa: E402
 from repro_torch.models import layers as LMLAYERS  # noqa: E402
 from repro_torch.models import transformer as TFM  # noqa: E402
+from repro_torch.parallel.sharding import ParamSpec, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
@@ -167,9 +195,12 @@ KERNEL_ROWS = {
         "src/repro/kernels/flash_attention/kernel.py:72"),
     "wkv6_kernel": ("src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
                     "src/repro/kernels/rwkv6/kernel.py:59"),
+    "ssd_kernel": ("src/repro_torch/kernels/mamba2/csrc/ssd.cu",
+                   "src/repro/kernels/mamba2/kernel.py:55"),
 }
 ALL_WRAPPERS = (*K.KERNELS, *F.KERNELS, SEG.scatter_segments,
-                SPMV.spmv_block_ell, FA.flash_attention, W6.wkv6_kernel)
+                SPMV.spmv_block_ell, FA.flash_attention, W6.wkv6_kernel,
+                SSD.ssd_kernel)
 
 # Main path: R-MAT-22 over T=64 tiles (v_chunk, e_chunk of its partition).
 # The update (spill) queue holds 262144 entries: its one-round burst bound
@@ -287,6 +318,55 @@ WKV_ORACLE_TOL = 3e-4
 # bfloat16 rounding of the time mix's output grows over the layers)
 RWKV_F32_TOL = 1e-4
 RWKV_BF16_REL_L2 = 0.06
+# The zamba2 serving path: zamba2-2.7b at full width and all 54 layers (9
+# superblocks of the shared attention block and 6 Mamba2 layers), the same
+# prompts and steps.  SSD cases (B, S, H, P, N, chunk, a_log, dt, state0):
+# the reference's sweep (tests/test_kernels.py:180-182), a non-zero state0,
+# one chunk (S = 16), every dt at the clip (-e^2 * 10 < -4), dt -> 0, and
+# chunk 32 at the clip, whose upper triangle overflows float32; then the
+# prefill shape (timed).  a_log None draws 0.3 N(0, 1) and dt None
+# softplus(N(0, 1)), as the sweep.
+ZAMBA_ARCH = "zamba2-2.7b"
+SSD_SWEEP = (
+    (2, 128, 3, 16, 8, 16, None, None, False),
+    (1, 64, 2, 32, 16, 32, None, None, False),
+    (2, 96, 1, 64, 64, 16, None, None, False),
+    (2, 128, 4, 64, 64, 16, None, None, True),
+    (1, 16, 2, 64, 64, 16, None, None, False),
+    (2, 64, 3, 32, 16, 16, 2.0, 10.0, False),
+    (1, 64, 2, 32, 16, 16, None, 1e-5, False),
+    (1, 64, 2, 16, 8, 32, 2.0, 10.0, False))
+SSD_MAIN = (LM_B, LM_P, 80, 64, 64, 16, None, None, True)
+# y and the final state within SSD_REL_TOL of their largest magnitude
+# (the kernel and ssd_chunked sum in float32 in other orders); the
+# reference's tolerance against the scan oracle
+SSD_REL_TOL = 1e-5
+SSD_ORACLE_TOL = 3e-4
+# flash at zamba2's head width, 80 (2560 / 32): the reference's sweep
+# shapes at hd 80, a ragged windowed S, float32 at the prefill shape; the
+# main shape, zamba2's bfloat16 prefill, is timed
+FLASH80_SWEEP = (
+    (1, 256, 4, 4, 80, 0, "float32"), (2, 200, 4, 2, 80, 64, "float32"),
+    (1, 256, 4, 4, 80, 0, "bfloat16"), (LM_B, LM_P, 32, 32, 80, 0, "float32"))
+FLASH80_MAIN = (LM_B, LM_P, 32, 32, 80, 0, "bfloat16")
+# float32 serving, with a_log, dt_bias, d_skip and conv_b drawn (at the
+# reference's init a_log = dt_bias = conv_b = 0 and d_skip = 1 in every
+# head): the first Mamba2 layer's conv carry and SSD state and the last
+# hidden state within ZAMBA_F32_TOL of their largest magnitude (the card
+# gave at most 6.4e-6: the attention's and the SSD's sums run in other
+# orders in each of 9 superblocks and 54 layers).  bfloat16, at the
+# reference's init: rel L2 from the plain run within ZAMBA_BF16_REL_L2,
+# about twice the 0.787 the card gave.  That bound says little: at the
+# reference's init (std 1/3 on every Mamba2 matrix, ROADMAP §3) a flipped
+# bfloat16 rounding grows over 54 layers until the two runs are nearly
+# unrelated, so the float32 run is the check of the kernels' arithmetic
+# (the phase also prints the bfloat16 run's distance from a float32 run
+# at the same init).
+ZAMBA_F32_TOL = 5e-5
+ZAMBA_BF16_REL_L2 = 1.6
+# prompt lengths: 208 = 13 chunks of 16 is served; 200 is refused by the
+# SSD (200 % min(16, 200) != 0), as the reference's ssd_chunked asserts
+ZAMBA_SERVED_P, ZAMBA_REFUSED_P = 208, 200
 
 
 def log(*a):
@@ -381,7 +461,7 @@ def phase_device():
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY, FA.LIBRARY,
-            W6.LIBRARY)
+            W6.LIBRARY, SSD.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         list(pool.map(lambda lib: lib.get(), libs))
@@ -1597,11 +1677,12 @@ def flash_inputs(gen, B, S, H, Hkv, hd, dtype, dev):
             for h in (H, Hkv, Hkv)]
 
 
-def check_flash(dev, timer):
-    """The flash kernel against its plain version at the reference's
-    sweep and granite-3-2b's prefill shape; timed at the latter."""
+def check_flash(dev, timer, sweep, main):
+    """The flash kernel against its plain version on the cases of
+    ``sweep`` and at the ``main`` shape (a prefill's); timed at the
+    latter."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    for case in (*FLASH_SWEEP, FLASH_MAIN):
+    for case in (*sweep, main):
         B, S, H, Hkv, hd, win, dtype = case
         q, k, v = flash_inputs(gen, B, S, H, Hkv, hd, dtype, dev)
         out = FA.flash_attention(q, k, v, win)
@@ -1614,7 +1695,7 @@ def check_flash(dev, timer):
         err = float((out.float() - want.float()).abs().max())
         log(f"#   flash (B, S, H, Hkv, hd, window, dtype) = {case}: within "
             f"{tol} of its plain version (max |err| {err:.3g})")
-    B, S, H, Hkv, hd, win, dtype = FLASH_MAIN
+    B, S, H, Hkv, hd, win, dtype = main
     # the library yardstick, timed only: SDPA on (B, H, S, hd) views
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -1696,14 +1777,15 @@ def serve(params, cfg, prompts, use_kernels, lm_head, layer0_of):
                 decode_launches=read_launches())
 
 
-def check_serving_run(run, cfg, what, use_kernels, kernel):
-    """Launches (the prefill's ``kernel`` once a layer on the kernel path,
-    no kernel in decode or on the plain path), the position, finiteness
-    of the hidden state and every cache tensor, token range."""
+def check_serving_run(run, cfg, what, use_kernels, per_prefill):
+    """Launches (each kernel of ``per_prefill`` as many times as it says
+    on the kernel path's prefill, no kernel in decode or on the plain
+    path), the position, finiteness of the hidden state and every cache
+    tensor, token range."""
     want = dict.fromkeys(run["prefill_launches"], 0)
     assert run["decode_launches"] == want, (what, run["decode_launches"])
     if use_kernels:
-        want[kernel] = cfg.num_layers
+        want.update(per_prefill)
     assert run["prefill_launches"] == want, (what, run["prefill_launches"])
     assert int(run["cache"].pos) == LM_P + LM_G, what
     for x in (run["last"], *tensors(tuple(run["cache"][1:]))):
@@ -1716,9 +1798,29 @@ def check_serving_run(run, cfg, what, use_kernels, kernel):
         f"ms ({LM_B * LM_P / run['prefill_s']:.0f} tokens/s), decode "
         f"{step_ms:.2f} ms/step ({LM_B * 1e3 / step_ms:.1f} tokens/s), "
         f"peak device memory "
-        f"{run['peak_gib']:.3f} GiB, {kernel} launches "
-        f"{run['prefill_launches'][kernel]} in prefill, "
-        f"{run['decode_launches'][kernel]} in {LM_G} decode steps")
+        f"{run['peak_gib']:.3f} GiB, launches "
+        + ", ".join(f"{k} {run['prefill_launches'][k]} in prefill and "
+                    f"{run['decode_launches'][k]} in {LM_G} decode steps"
+                    for k in per_prefill))
+
+
+def serve_both(params, cfg, prompts, what, per_prefill, layer0_of):
+    """The plain path's serving run, then the kernel path's, each checked
+    by ``check_serving_run``.  Returns (kernel run, plain run)."""
+    plain = serve(params, cfg, prompts, False, params["lm_head"], layer0_of)
+    check_serving_run(plain, cfg, f"{what} plain", False, per_prefill)
+    kern = serve(params, cfg, prompts, True, params["lm_head"], layer0_of)
+    check_serving_run(kern, cfg, f"{what} kernel", True, per_prefill)
+    return kern, plain
+
+
+def warm_up(params, cfg, prompts):
+    """Untimed: the first prefills of a dtype, on either path, pay
+    cuBLAS's set-up."""
+    for use in (False, True):
+        warm = TFM.init_cache(cfg, LM_B, 64, prompts.device)
+        TFM.prefill(params, cfg, warm, {"tokens": prompts[:, :64]},
+                    use_kernels=use)
 
 
 def rel_l2(a, b) -> float:
@@ -1782,7 +1884,7 @@ def phase_lm(dev, smi, timer):
     plain version, then prefill + greedy decode, kernel against plain,
     float32 and bfloat16.  Returns (the kernel's record row, the launch
     counts of the kernel paths)."""
-    row = check_flash(dev, timer)
+    row = check_flash(dev, timer, FLASH_SWEEP, FLASH_MAIN)
     log(f"# kernel flash_attention: within {FLASH_TOL['bfloat16']} of its "
         f"plain version at {FLASH_MAIN}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -1819,14 +1921,9 @@ def phase_lm(dev, smi, timer):
             TFM.prefill(params, cfg, warm, {"tokens": prompts},
                         use_kernels=False)
             del warm
-            plain = serve(params, cfg, prompts, False, params["lm_head"],
-                          kv_layer0)
-            check_serving_run(plain, cfg, f"lm {dtype} plain", False,
-                              "flash_attention")
-            kern = serve(params, cfg, prompts, True, params["lm_head"],
-                         kv_layer0)
-            check_serving_run(kern, cfg, f"lm {dtype} kernel", True,
-                              "flash_attention")
+            kern, plain = serve_both(
+                params, cfg, prompts, f"lm {dtype}",
+                {"flash_attention": cfg.num_layers}, kv_layer0)
             if dtype == "float32":
                 check_prompt_lengths(params, cfg, prompts)
         paths.append({**kern["prefill_launches"]})
@@ -2009,20 +2106,10 @@ def phase_rwkv(dev, smi, timer):
             + (" (decay, bonus and shift leaves drawn)"
                if dtype == "float32" else " (the reference's init)"))
         with torch.inference_mode():
-            # untimed: the first prefills of a dtype pay cuBLAS's set-up
-            for use in (False, True):
-                warm = TFM.init_cache(cfg, LM_B, 64, dev)
-                TFM.prefill(params, cfg, warm, {"tokens": prompts[:, :64]},
-                            use_kernels=use)
-            del warm
-            plain = serve(params, cfg, prompts, False, params["lm_head"],
-                          rwkv_layer0)
-            check_serving_run(plain, cfg, f"rwkv {dtype} plain", False,
-                              "wkv6_kernel")
-            kern = serve(params, cfg, prompts, True, params["lm_head"],
-                         rwkv_layer0)
-            check_serving_run(kern, cfg, f"rwkv {dtype} kernel", True,
-                              "wkv6_kernel")
+            warm_up(params, cfg, prompts)
+            kern, plain = serve_both(
+                params, cfg, prompts, f"rwkv {dtype}",
+                {"wkv6_kernel": cfg.num_layers}, rwkv_layer0)
         paths.append({**kern["prefill_launches"]})
         del params
         err = rel_l2(kern["last"], plain["last"])
@@ -2052,8 +2139,264 @@ def phase_rwkv(dev, smi, timer):
     return row, paths
 
 
+# --------------------------------------------------------------------------
+# Phase 11: zamba2-2.7b serving on the SSD kernel and the flash kernel at
+# hd 80
+# --------------------------------------------------------------------------
+
+def ssd_inputs(gen, B, S, H, P, N, a_log, dt, state, dev):
+    """x, B, C ~ N(0, 1); dt = softplus(N(0, 1)) or ``dt``; a_log = 0.3
+    N(0, 1) or ``a_log``; state0 ~ N(0, 1) when ``state``, else None."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    x = randn(B, S, H, P)
+    dts = torch.nn.functional.softplus(randn(B, S, H))
+    if dt is not None:
+        dts = torch.full_like(dts, dt)
+    al = 0.3 * randn(H) if a_log is None else torch.full(
+        (H,), a_log, device=dev)
+    return (x, dts, al, randn(B, S, N), randn(B, S, N),
+            randn(B, H, P, N) if state else None)
+
+
+def check_ssd_case(args, chunk, what):
+    """The kernel against its plain version (within SSD_REL_TOL of the
+    largest magnitude) and the scan oracle (the reference's 3e-4) on one
+    case, every output finite; returns (the kernel's output, its largest
+    error)."""
+    out = SSD.ssd_kernel(*args, chunk=chunk)
+    plain = SSD.ssd_chunked(*args, chunk=chunk)
+    oracle = SSD.ssd_scan_oracle(*args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(a).all()) for a in out), what
+    errs = [rel_to_max(a, b) for a, b in zip(out, plain)]
+    assert max(errs) <= SSD_REL_TOL, (what, errs)
+    for a, b in zip(out, oracle):
+        torch.testing.assert_close(a, b, rtol=SSD_ORACLE_TOL,
+                                   atol=SSD_ORACLE_TOL, msg=what)
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+    log(f"#   ssd {what}: finite, y and state within {SSD_REL_TOL} of the "
+        f"plain version's largest magnitude (rel {errs[0]:.3g}, "
+        f"{errs[1]:.3g}; max |err| {abs_err:.3g}) and within "
+        f"{SSD_ORACLE_TOL} of the scan oracle")
+    return out, abs_err
+
+
+def ssd_flops(B, S, H, P, N, C) -> int:
+    """Operations of the kernel's chunked recurrence: per chunk and head,
+    the T = C (C + 1) / 2 scores s <= t (2N + 2 each) and their product
+    with x (2P each), C S^T and its scaling (C P (2N + 2)), the state
+    update (C P (2N + 1) and 2PN for its decay) and the cumsum and
+    decays (6C)."""
+    T = C * (C + 1) // 2
+    return B * H * (S // C) * (T * (2 * N + 2) + 2 * T * P
+                               + C * P * (2 * N + 2) + C * P * (2 * N + 1)
+                               + 2 * P * N + 6 * C)
+
+
+def check_ssd(dev, smi, timer):
+    """The SSD kernel against its plain version and the scan oracle on the
+    reference's sweep and the edge cases, a state carried across two
+    calls, and the zamba2-2.7b prefill shape, timed at the latter.
+    Returns the kernel's record row."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for B, S, H, P, N, chunk, a_log, dt, state in SSD_SWEEP:
+        args = ssd_inputs(gen, B, S, H, P, N, a_log, dt, state, dev)
+        check_ssd_case(args, chunk, f"(B, S, H, P, N, chunk) = "
+                       f"{(B, S, H, P, N, chunk)}, a_log "
+                       f"{'drawn' if a_log is None else a_log}, dt "
+                       f"{'drawn' if dt is None else dt}, state0 "
+                       f"{'drawn' if state else 'zero'}")
+    x, dt, al, bm, cm, _ = ssd_inputs(gen, 2, 128, 4, 64, 64, None, None,
+                                      False, dev)
+    full = SSD.ssd_kernel(x, dt, al, bm, cm)
+    h = 64
+    halves = [SSD.ssd_kernel(*(a[:, :h].contiguous() for a in (x, dt)), al,
+                             *(a[:, :h].contiguous() for a in (bm, cm)))]
+    halves.append(SSD.ssd_kernel(
+        *(a[:, h:].contiguous() for a in (x, dt)), al,
+        *(a[:, h:].contiguous() for a in (bm, cm)), state0=halves[0][1]))
+    errs = (rel_to_max(torch.cat([halves[0][0], halves[1][0]], 1), full[0]),
+            rel_to_max(halves[1][1], full[1]))
+    assert max(errs) <= SSD_REL_TOL, ("state carry", errs)
+    log(f"#   ssd state carry (2, 128, 4, 64, 64): two halves within "
+        f"{SSD_REL_TOL} of one call (rel {errs[0]:.3g}, {errs[1]:.3g})")
+    B, S, H, P, N, chunk, a_log, dt, state = SSD_MAIN
+    args = ssd_inputs(gen, B, S, H, P, N, a_log, dt, state, dev)
+    out, abs_err = check_ssd_case(args, chunk, f"prefill shape "
+                                  f"{(B, S, H, P, N, chunk)}, state0 drawn")
+    moved = nbytes(*args, *out)
+    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+              "operations": ssd_flops(B, S, H, P, N, min(chunk, S))
+              / F32_FLOPS_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    row = dict(max_abs_err=abs_err,
+               ms=timer.ms(lambda: SSD.ssd_kernel(*args, chunk=chunk)),
+               plain_ms=timer.ms(lambda: SSD.ssd_chunked(*args,
+                                                         chunk=chunk)),
+               bound_ms=bounds[bound_by], bound_by=bound_by,
+               library_ms=None)
+    log(f"# kernel ssd_kernel: within {SSD_REL_TOL} of its plain version "
+        f"at {SSD_MAIN[:6]}; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({bound_by}; {moved / 1e6:.1f} MB moved: "
+        f"{bounds['bytes']:.4f} ms, operations: "
+        f"{bounds['operations']:.4f} ms), library none; card {smi}")
+    return row
+
+
+def perturb_mamba(params, gen):
+    """Draw the Mamba2 leaves that the reference's init leaves constant
+    (a_log = dt_bias = conv_b = 0, d_skip = 1 in every head): ``a_log``
+    uniform in [-6, 1], ``dt_bias`` uniform in [-4, 4], ``d_skip`` N(0, 1)
+    and ``conv_b`` N(0, 1)."""
+    blocks = params["blocks"]
+    blocks["a_log"].uniform_(-6.0, 1.0, generator=gen)
+    blocks["dt_bias"].uniform_(-4.0, 4.0, generator=gen)
+    blocks["d_skip"].normal_(0.0, 1.0, generator=gen)
+    blocks["conv_b"].normal_(0.0, 1.0, generator=gen)
+
+
+def zamba_layer0(cache):
+    """Superblock 0's K/V slot (written before any kernel runs) and the
+    first Mamba2 layer's conv carry and SSD state."""
+    return (cache.attn_k[0].clone(), cache.attn_v[0].clone(),
+            cache.mamba[0][0, 0].clone(), cache.mamba[1][0, 0].clone())
+
+
+def check_zamba_prompt_lengths(params, cfg, prompts):
+    """A prompt of ZAMBA_SERVED_P tokens (13 chunks of 16) prefills on
+    the kernels (9 flash and 54 SSD launches) within ZAMBA_F32_TOL of the
+    plain path; one of ZAMBA_REFUSED_P tokens is refused on both paths,
+    as the reference's ssd_chunked asserts S % min(16, S) == 0."""
+    n_sb = cfg.num_layers // cfg.attn_every
+    last = {}
+    for use in (True, False):
+        cache = TFM.init_cache(cfg, LM_B, ZAMBA_SERVED_P, prompts.device)
+        reset_launches()
+        last[use], _ = TFM.prefill(params, cfg, cache,
+                                   {"tokens": prompts[:, :ZAMBA_SERVED_P]},
+                                   use_kernels=use)
+        got = read_launches()
+        assert (got["flash_attention"], got["ssd_kernel"]) == (
+            (n_sb, cfg.num_layers) if use else (0, 0)), (use, got)
+    err = rel_to_max(last[True], last[False])
+    assert err <= ZAMBA_F32_TOL, err
+    for use in (True, False):
+        cache = TFM.init_cache(cfg, LM_B, ZAMBA_REFUSED_P, prompts.device)
+        try:
+            TFM.prefill(params, cfg, cache,
+                        {"tokens": prompts[:, :ZAMBA_REFUSED_P]},
+                        use_kernels=use)
+        except ValueError as e:
+            assert "multiple" in str(e), e
+        else:
+            raise AssertionError(f"a {ZAMBA_REFUSED_P}-token prompt was "
+                                 f"served (use_kernels={use})")
+    log(f"# zamba float32: a {ZAMBA_SERVED_P}-token prompt prefills on the "
+        f"kernels ({n_sb} flash, {cfg.num_layers} SSD launches), last "
+        f"hidden within {ZAMBA_F32_TOL} of the plain path's largest "
+        f"magnitude ({err:.3g}); a {ZAMBA_REFUSED_P}-token prompt is "
+        f"refused on both paths")
+
+
+def phase_zamba(dev, smi, timer):
+    """zamba2-2.7b at full width and depth: the SSD kernel against its
+    plain version, the flash kernel at hd 80 against its plain version,
+    then prefill + greedy decode, kernels against plain, float32 (the
+    Mamba2 leaves drawn) and bfloat16 (the reference's init).  Returns
+    (the SSD kernel's record row, the flash kernel's row at hd 80, the
+    launch counts of the kernel paths)."""
+    ssd_row = check_ssd(dev, smi, timer)
+    flash_row = check_flash(dev, timer, FLASH80_SWEEP, FLASH80_MAIN)
+    log(f"# kernel flash_attention at hd 80: within "
+        f"{FLASH_TOL['bfloat16']} of its plain version at {FLASH80_MAIN}; "
+        f"kernel {flash_row['ms']:.4f} ms, plain "
+        f"{flash_row['plain_ms']:.4f} ms, bound {flash_row['bound_ms']:.4f} "
+        f"ms (operations), library {flash_row['library_ms']:.4f} ms (SDPA); "
+        f"card {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config(ZAMBA_ARCH)
+    n_sb = base.num_layers // base.attn_every
+    specs = []
+    tree_map(specs.append, TFM.abstract_params(base),
+             is_leaf=lambda x: isinstance(x, ParamSpec))
+    n_params = sum(int(np.prod(s.shape)) for s in specs)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, base.vocab_size, (LM_B, LM_P), generator=gen,
+                            dtype=torch.int32, device=dev)
+    log(f"# zamba: {ZAMBA_ARCH} at full width, all {base.num_layers} layers "
+        f"({n_sb} superblocks of the shared attention block and "
+        f"{base.attn_every} Mamba2 layers; d {base.d_model}, "
+        f"{base.num_heads} heads / {base.num_kv_heads} kv of {base.hd}, "
+        f"window {base.sliding_window}, Mamba2 heads of {base.ssm_head_dim} "
+        f"with state {base.ssm_state}, d_ff {base.d_ff}, vocab "
+        f"{base.vocab_size}, {n_params / 1e9:.3f} B parameters made), "
+        f"random weights from seed {LM_SEED}, B = {LM_B}, prompt {LM_P}, "
+        f"{LM_G} greedy steps")
+    per_prefill = {"ssd_kernel": base.num_layers, "flash_attention": n_sb}
+    paths, f32_ref_init = [], None
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        params = TFM.init_params(
+            torch.Generator(device=dev).manual_seed(LM_SEED), cfg, dev)
+        torch.cuda.synchronize()
+        log(f"# zamba {dtype}: weights made on the card in "
+            f"{time.perf_counter() - t0:.2f} s")
+        with torch.inference_mode():
+            warm_up(params, cfg, prompts)
+            if dtype == "float32":
+                # the bfloat16 run's yardstick: a float32 prefill at the
+                # reference's init; then the float32 check's leaves
+                f32_ref_init, _ = TFM.prefill(
+                    params, cfg, TFM.init_cache(cfg, LM_B, LM_P, dev),
+                    {"tokens": prompts})
+                perturb_mamba(params, torch.Generator(
+                    device=dev).manual_seed(LM_SEED + 2))
+                log("# zamba float32: a_log, dt_bias, d_skip and conv_b "
+                    "drawn")
+            kern, plain = serve_both(params, cfg, prompts,
+                                     f"zamba {dtype}", per_prefill,
+                                     zamba_layer0)
+            if dtype == "float32":
+                check_zamba_prompt_lengths(params, cfg, prompts)
+        paths.append({**kern["prefill_launches"]})
+        del params
+        err = rel_l2(kern["last"], plain["last"])
+        if dtype == "float32":
+            for a, b in zip(kern["layer0"][:2], plain["layer0"][:2]):
+                assert torch.equal(a, b), "superblock 0's K/V differ"
+            conv_err, ssd_err = (rel_to_max(a, b) for a, b in zip(
+                kern["layer0"][2:], plain["layer0"][2:]))
+            last_err = rel_to_max(kern["last"], plain["last"])
+            assert max(conv_err, ssd_err, last_err) <= ZAMBA_F32_TOL, (
+                conv_err, ssd_err, last_err)
+            checked, same = check_tokens(kern, plain)
+            log(f"# zamba float32: superblock 0's K/V bitwise equal; the "
+                f"first Mamba2 layer's conv carry and SSD state within "
+                f"{ZAMBA_F32_TOL} of their largest magnitude ({conv_err:.3g}, "
+                f"{ssd_err:.3g}); last hidden within {ZAMBA_F32_TOL} "
+                f"({last_err:.3g}, rel L2 {err:.3g}); greedy tokens equal on "
+                f"{checked} of {LM_B * LM_G} (row, step) pairs whose plain "
+                f"top-2 gap > 1e-2 (all pairs equal: {same}); pos "
+                f"{LM_P + LM_G}")
+        else:
+            assert err < ZAMBA_BF16_REL_L2, (err, ZAMBA_BF16_REL_L2)
+            log(f"# zamba bfloat16: last hidden rel L2 {err:.4g} from the "
+                f"bfloat16 plain run (bound {ZAMBA_BF16_REL_L2}), "
+                f"{rel_l2(kern['last'], f32_ref_init):.4g} from the float32 "
+                f"kernel prefill at the same (the reference's) init; greedy "
+                f"tokens equal to the plain run's: "
+                f"{int((kern['tokens'] == plain['tokens']).sum())} of "
+                f"{LM_B * LM_G}")
+        torch.cuda.empty_cache()
+    return ssd_row, flash_row, paths
+
+
 PHASES = ("kernels", "twin", "main", "hbm", "taskgraph", "block", "rmat18",
-          "lm", "rwkv")
+          "lm", "rwkv", "zamba")
 
 
 def main():
@@ -2099,6 +2442,14 @@ def main():
     if "rwkv" in phases:
         rows["wkv6_kernel"], rwkv_paths = phase_rwkv(dev, smi, timer)
         paths += rwkv_paths
+    if "zamba" in phases:
+        rows["ssd_kernel"], flash80, zamba_paths = phase_zamba(dev, smi,
+                                                               timer)
+        if "flash_attention" in rows:   # hd 64 (granite) and hd 80 (zamba2)
+            rows["flash_attention"]["hd80"] = flash80
+        else:
+            rows["flash_attention"] = flash80
+        paths += zamba_paths
     # each kernel's launches summed over the driven paths
     record = []
     for name, r in rows.items():
@@ -2109,7 +2460,7 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             library_ms=r["library_ms"],
-            **({"calls": r["calls"]} if "calls" in r else {})))
+            **{k: r[k] for k in ("calls", "hd80") if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")
     print(json.dumps({"kernels": record}))

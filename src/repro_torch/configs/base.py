@@ -162,8 +162,6 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 # architectures of the JAX package that the port does not run yet, and the
 # ROADMAP item that brings each
 NOT_PORTED = {
-    "zamba2-2.7b": "ROADMAP §1: zamba2-2.7b serving (models/mamba.py, "
-                   "ssd_pallas)",
     **dict.fromkeys(
         ("granite-34b", "internlm2-20b", "internvl2-76b", "mixtral-8x22b",
          "moonshot-v1-16b-a3b", "musicgen-large", "nemotron-4-15b"),
@@ -182,6 +180,7 @@ def _load_archs():
     # import the arch modules lazily so that each self-registers
     from repro_torch.configs import granite_3_2b  # noqa: F401
     from repro_torch.configs import rwkv6_1_6b  # noqa: F401
+    from repro_torch.configs import zamba2_2_7b  # noqa: F401
 
 
 def get_config(name: str) -> ModelConfig:

@@ -19,10 +19,11 @@
 // the causal mask and the window leave (the Pallas kernel skips the rest
 // with pl.when), staging K transposed and V row-major in shared memory as
 // float32.  Each thread owns a 4 x 4 block of the 64 x 64 score tile and
-// a 4 x (hd / 16) block of the output: both products are float32 FMAs on
-// CUDA cores over float4 reads of shared memory; the row max and row sum
-// of the online softmax reduce over the 16 threads of a row group with
-// warp shuffles.  Rows and keys past S (S need not be a multiple of 64)
+// a 4 x (hd / 16) block of the output (hd in 32, 64, 80, 128): both
+// products are float32 FMAs on CUDA cores over float4 reads of shared
+// memory (float2 and float reads of V at hd 32 and 80); the row max and
+// row sum of the online softmax reduce over the 16 threads of a row group
+// with warp shuffles.  Rows and keys past S (S need not be a multiple of 64)
 // are zero-filled and never written.
 //
 // Plain C interface, built and loaded as the engine kernels are
@@ -48,22 +49,27 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Output columns of thread tx: hd / 16 of them, in float4 (hd >= 64) or
-// float2 (hd = 32) runs, so that the 16 threads of a row group read one
-// contiguous stretch of a V row.
+// Output columns of thread tx: hd / 16 of them, in float4 (hd = 64, 128)
+// or float2 (hd = 32) runs, so that the 16 threads of a row group read one
+// contiguous stretch of a V row.  hd = 80 has no such layout (its 5
+// columns a thread are no float4 run, and 80 is no multiple of 64): thread
+// tx owns columns 5 tx .. 5 tx + 4, read one float at a time (a row stride
+// of 5 puts the 16 threads' reads in 16 different banks).
 template <int HD>
 __device__ __forceinline__ int out_col(int tx, int c) {
-  if constexpr (HD >= 64) {
+  if constexpr (HD % 64 == 0) {
     return (c / 4) * 64 + tx * 4 + (c % 4);
-  } else {
+  } else if constexpr (HD == 32) {
     return tx * 2 + c;
+  } else {
+    return tx * (HD / 16) + c;
   }
 }
 
 template <int HD>
 __device__ __forceinline__ void load_row(const float* row, int tx,
                                          float (&out)[HD / 16]) {
-  if constexpr (HD >= 64) {
+  if constexpr (HD % 64 == 0) {
 #pragma unroll
     for (int g = 0; g < HD / 64; ++g) {
       const float4 x = *reinterpret_cast<const float4*>(row + g * 64 + tx * 4);
@@ -72,10 +78,13 @@ __device__ __forceinline__ void load_row(const float* row, int tx,
       out[4 * g + 2] = x.z;
       out[4 * g + 3] = x.w;
     }
-  } else {
+  } else if constexpr (HD == 32) {
     const float2 x = *reinterpret_cast<const float2*>(row + tx * 2);
     out[0] = x.x;
     out[1] = x.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) out[c] = row[tx * (HD / 16) + c];
   }
 }
 
@@ -242,6 +251,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hkv, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, H, Hkv, window, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, H, Hkv, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

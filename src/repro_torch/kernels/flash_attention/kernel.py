@@ -23,7 +23,8 @@ import torch
 from repro_torch.kernels.cuda_build import I, P, CudaLibrary, check
 from repro_torch.models.layers import blockwise_attention
 
-HEAD_DIMS = (32, 64, 128)   # the head widths of the reference's sweep
+# the head widths of the reference's sweep, and zamba2-2.7b's (2560 / 32)
+HEAD_DIMS = (32, 64, 80, 128)
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     {"repro_flash_attention": [P] * 4 + [I] * 7 + [ctypes.c_float, P]})

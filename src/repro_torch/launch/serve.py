@@ -3,7 +3,8 @@
 
 Prefill + batched greedy decode, on the card unless ``--device cpu``:
 granite-3-2b (the default) with the ring-buffer KV cache, rwkv6-1.6b
-with each layer's recurrent state.  As the reference, it serves the reduced
+with each layer's recurrent state, zamba2-2.7b with both (a ring KV slot
+per superblock, each Mamba2 layer's conv and SSD state).  As the reference, it serves the reduced
 config (``cfg.reduced()``) with random weights from ``--seed``; the first
 decode step feeds the prompt's last token again, as the reference does.
 """

@@ -1,21 +1,28 @@
 """The LMs: specs, params, decode cache, blocks and the serving
-entry points (port of ``repro.models.transformer``, the dense and ssm
-families).
+entry points (port of ``repro.models.transformer``, the dense, ssm and
+hybrid families).
 
-dense — a pre-norm GQA transformer, granite-3-2b's family.
-ssm   — an RWKV6 stack (attention-free), rwkv6-1.6b's family
-        (:mod:`repro_torch.models.rwkv`).
+dense  — a pre-norm GQA transformer, granite-3-2b's family.
+ssm    — an RWKV6 stack (attention-free), rwkv6-1.6b's family
+         (:mod:`repro_torch.models.rwkv`).
+hybrid — zamba2: superblocks of [shared attention + k Mamba2 layers]
+         (:mod:`repro_torch.models.mamba`); the attention block's weights
+         are shared across superblocks, each application has its own KV
+         cache slot.
 
 Parameters are nested dicts of tensors in the reference's layouts, the
 block leaves stacked on a leading layer axis; the layer stack is a Python
 loop.  Dense serving keeps a ring-buffered KV cache (slot = position mod
 C); ssm serving keeps each layer's recurrent state (the two token-shift
 carries and the WKV state), which a prefill continues from, as the
-reference's does.  The ssm prefill's time mix goes through the Hopper
-WKV6 kernel (``use_kernels=True``) or its chunked plain version.  The
-dense prefill's attention
-goes through :func:`repro_torch.kernels.flash_attention.attention`: the
-Hopper flash kernel on the card (``use_kernels=True``), where the
+reference's does; hybrid serving keeps a ring KV cache per superblock and
+each Mamba2 layer's conv and SSD state.  The ssm prefill's time mix goes
+through the Hopper WKV6 kernel (``use_kernels=True``) or its chunked
+plain version, the hybrid prefill's SSD scan through the Hopper SSD
+kernel or its chunked plain version.  The prefill's attention (dense and
+hybrid) goes through
+:func:`repro_torch.kernels.flash_attention.attention`: the Hopper flash
+kernel on the card (``use_kernels=True``), where the
 reference calls ``blockwise_attention`` over K/V repeated to H heads
 (``src/repro/models/transformer.py:270-275``), whose counterpart is the
 kernel's plain version.  Decode attends with :func:`decode_attention`
@@ -25,10 +32,10 @@ The cache tensors are written in place (they are the largest state of a
 serving run); ``prefill``, ``serve_step`` and ``forward`` return a new
 :class:`Cache` whose position has advanced, over the same tensors.
 
-Not ported: the MoE and hybrid (zamba2) families, the vision
-and audio frontends, ring (context-parallel) attention, which needs a
-mesh, and the loss (``lm_loss``, ``chunked_xent``); each raises
-``NotImplementedError`` naming its ROADMAP item.
+Not ported: the MoE family, the vision and audio frontends, ring
+(context-parallel) attention, which needs a mesh, and the loss
+(``lm_loss``, ``chunked_xent``); each raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,21 +49,20 @@ from repro_torch.core.embedding import embed_lookup, padded_vocab
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import (decode_attention, matmul_f32,
                                        mlp_apply, mlp_specs, rms_norm, rope)
+from repro_torch.models.mamba import CONV_K, mamba_block, mamba_block_specs
 from repro_torch.models.rwkv import rwkv_block, rwkv_block_specs
 from repro_torch.parallel.sharding import ParamSpec, init_tree, tree_map
 
 # the ROADMAP items that bring what is not ported
 SUBSTRATE_ITEM = "ROADMAP §1, still to port: the rest of the LM substrate"
-FAMILY_ITEMS = {"hybrid": "ROADMAP §1: zamba2-2.7b serving"}
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 TRAINING_ITEM = "ROADMAP §1: the LM training path"
 
 
 def _check_ported(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: "
-            f"{FAMILY_ITEMS.get(cfg.family, SUBSTRATE_ITEM)}")
+        raise NotImplementedError(f"family {cfg.family!r}: "
+                                  f"{SUBSTRATE_ITEM}")
     if cfg.frontend != "none":
         raise NotImplementedError(f"frontend {cfg.frontend!r}: "
                                   f"{SUBSTRATE_ITEM}")
@@ -96,20 +102,34 @@ def abstract_params(cfg: ModelConfig):
     padded for one shard (the reference's model-axis size without a
     mesh)."""
     _check_ported(cfg)
-    d = cfg.d_model
+    d, L = cfg.d_model, cfg.num_layers
     v_pad = padded_vocab(cfg.vocab_size, 1)
     vocab_axis = "vocab" if cfg.routed_embedding else None
-    if cfg.family == "ssm":
-        blocks = rwkv_block_specs(d, cfg.d_ff, cfg.rwkv_head_dim, cfg.dtype)
-    else:
-        blocks = _dense_block_specs(cfg)
-    return {
+    p = {
         "embed": ParamSpec((v_pad, d), (vocab_axis, None), cfg.dtype,
                            init="embed", scale=0.02),
         "final_norm": ParamSpec((d,), (None,), "float32", init="ones"),
         "lm_head": ParamSpec((d, v_pad), ("fsdp", "vocab"), cfg.dtype),
-        "blocks": _stack(blocks, cfg.num_layers),
     }
+    if cfg.family == "ssm":
+        p["blocks"] = _stack(
+            rwkv_block_specs(d, cfg.d_ff, cfg.rwkv_head_dim, cfg.dtype), L)
+    elif cfg.family == "hybrid":
+        k = cfg.attn_every
+        if L % k:
+            raise ValueError(f"hybrid: {L} layers are not a multiple of "
+                             f"attn_every = {k}")
+        p["shared_attn"] = {
+            **_attn_specs(cfg),
+            "ln2": ParamSpec((d,), (None,), "float32", init="ones"),
+            "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp, cfg.dtype),
+        }
+        p["blocks"] = _stack(_stack(
+            mamba_block_specs(d, cfg.ssm_expand, cfg.ssm_head_dim,
+                              cfg.ssm_state, cfg.dtype), k), L // k)
+    else:
+        p["blocks"] = _stack(_dense_block_specs(cfg), L)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
@@ -124,10 +144,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
 
 class Cache(NamedTuple):
     pos: torch.Tensor              # () int32 — tokens decoded so far
-    attn_k: torch.Tensor | None    # (L, B, C, Hkv, hd)
+    attn_k: torch.Tensor | None    # (n_attn, B, C, Hkv, hd)
     attn_v: torch.Tensor | None
     rwkv: tuple | None             # (last_tm, last_cm, wkv) leading (L, B)
-    mamba: tuple | None            # (not ported: Mamba2 state)
+    mamba: tuple | None            # (conv, ssd) leading (L // k, k, B)
 
 
 def cache_slots(cfg: ModelConfig, seq_len: int) -> int:
@@ -150,11 +170,24 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int):
                         init="zeros")
         return Cache(pos, None, None, (carry, carry, wkv), None)
     C = cache_slots(cfg, seq_len)
-    shape = (L, batch, C, cfg.num_kv_heads, cfg.hd)
+    n_attn, mamba = L, None
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        n_attn = L // k
+        din = cfg.ssm_expand * cfg.d_model
+        H = din // cfg.ssm_head_dim
+        mamba = (
+            ParamSpec((n_attn, k, batch, CONV_K - 1, din + 2 * cfg.ssm_state),
+                      (None, None, "batch", None, None), cfg.dtype,
+                      init="zeros"),
+            ParamSpec((n_attn, k, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                      (None, None, "batch", "heads", None, None), "float32",
+                      init="zeros"))
+    shape = (n_attn, batch, C, cfg.num_kv_heads, cfg.hd)
     kv_axes = (None, "batch", "kv_seq", None, None)
     return Cache(pos, ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
                  ParamSpec(shape, kv_axes, cfg.dtype, init="zeros"),
-                 None, None)
+                 None, mamba)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
@@ -217,30 +250,11 @@ def _dense_block(p, x, cfg, kv_cache, pos, use_kernels: bool):
     return x + mlp_apply(p["mlp"], h, cfg.mlp)
 
 
-# --------------------------------------------------------------------------
-# Forward and serving.
-# --------------------------------------------------------------------------
-
-def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
-            use_kernels: bool = True):
-    """Returns (hidden (B, S, d), new_cache, aux dict).
-
-    batch: {"tokens": (B, S)}.  cache=None -> scoring (no cache written);
-    cache -> prefill (S > 1) or decode (S == 1) into the cache, in place:
-    the ring KV cache (dense) or each layer's recurrent state (ssm, which
-    continues from the cache's state).  ``use_kernels`` reaches the
-    prefill's kernel, the flash attention (dense) or the WKV6 recurrence
-    (ssm): the kernel on CUDA tensors when True, its plain version when
-    False."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x, ovf = embed_lookup(params["embed"], tokens, cfg.routed_embedding)
-    pos = cache.pos if cache is not None else \
-        torch.zeros((), dtype=torch.int32, device=tokens.device)
-    blocks = params["blocks"]
+def _stacked_layers(params, x, cfg, cache, pos, use_kernels: bool):
+    """The dense and ssm layer stacks: one block a layer, its cache
+    entries written in place."""
     for i in range(cfg.num_layers):
-        p_l = tree_map(lambda a: a[i], blocks)
+        p_l = tree_map(lambda a: a[i], params["blocks"])
         if cfg.family == "ssm":
             st = None if cache is None else tuple(a[i] for a in cache.rwkv)
             x, new_st = rwkv_block(p_l, x, st, cfg.rwkv_head_dim,
@@ -252,6 +266,55 @@ def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
             kv_l = None if cache is None else (cache.attn_k[i],
                                                cache.attn_v[i])
             x = _dense_block(p_l, x, cfg, kv_l, pos, use_kernels)
+    return x
+
+
+def _hybrid_layers(params, x, cfg, cache, pos, use_kernels: bool):
+    """zamba2's layer stack: per superblock the shared attention block
+    (the same ``params["shared_attn"]`` each time, with the superblock's
+    K/V slot), then its k Mamba2 layers, their states written in
+    place."""
+    k = cfg.attn_every
+    sa = params["shared_attn"]  # a dense block, its attention leaves on top
+    shared = {"attn": sa, "ln2": sa["ln2"], "mlp": sa["mlp"]}
+    for sb in range(cfg.num_layers // k):
+        kv = None if cache is None else (cache.attn_k[sb], cache.attn_v[sb])
+        x = _dense_block(shared, x, cfg, kv, pos, use_kernels)
+        for j in range(k):
+            p_l = tree_map(lambda a: a[sb, j], params["blocks"])
+            st = None if cache is None else tuple(a[sb, j]
+                                                  for a in cache.mamba)
+            x, new_st = mamba_block(p_l, x, st, cfg, use_kernels)
+            if cache is not None:
+                for a, b in zip(st, new_st):
+                    a.copy_(b)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Forward and serving.
+# --------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
+            use_kernels: bool = True):
+    """Returns (hidden (B, S, d), new_cache, aux dict).
+
+    batch: {"tokens": (B, S)}.  cache=None -> scoring (no cache written);
+    cache -> prefill (S > 1) or decode (S == 1) into the cache, in place:
+    the ring KV cache (dense), each layer's recurrent state (ssm, which
+    continues from the cache's state) or both (hybrid: a prefill restarts
+    the conv and continues the SSD state).  ``use_kernels`` reaches the
+    prefill's kernels, the flash attention (dense, hybrid), the WKV6
+    recurrence (ssm) and the SSD scan (hybrid): the kernel on CUDA tensors
+    when True, its plain version when False."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x, ovf = embed_lookup(params["embed"], tokens, cfg.routed_embedding)
+    pos = cache.pos if cache is not None else \
+        torch.zeros((), dtype=torch.int32, device=tokens.device)
+    layers = _hybrid_layers if cfg.family == "hybrid" else _stacked_layers
+    x = layers(params, x, cfg, cache, pos, use_kernels)
     new_cache = cache
     if cache is not None:
         new_cache = cache._replace(pos=cache.pos + S)
@@ -275,7 +338,9 @@ def prefill(params, cfg: ModelConfig, cache: Cache, batch: dict, *,
             use_kernels: bool = True):
     """Fill the cache with a prompt, as the reference: a dense prompt takes
     positions 0..S-1 whatever ``cache.pos`` is; an ssm prompt continues
-    from the cache's recurrent state (a new cache holds zeros).  Returns
+    from the cache's recurrent state (a new cache holds zeros); a hybrid
+    prompt does both, its attention at positions 0..S-1, its conv from
+    zero padding and its SSD from the cache's state.  Returns
     (last-position hidden, cache)."""
     x, new_cache, _ = forward(params, cfg, batch, cache=cache,
                               use_kernels=use_kernels)

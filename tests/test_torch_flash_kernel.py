@@ -28,6 +28,10 @@ SWEEP = [
     (1, 100, 4, 2, 64, 0, "float32"),      # S not a multiple of 64
     (2, 200, 8, 2, 64, 0, "float32"),      # one 200-row reference block
     (4, 2048, 32, 8, 64, 0, "bfloat16"),   # granite-3-2b's prefill
+    (1, 256, 4, 4, 80, 0, "float32"),      # hd 80: 5 columns a thread
+    (2, 200, 4, 2, 80, 64, "float32"),
+    (1, 256, 4, 4, 80, 0, "bfloat16"),
+    (4, 2048, 32, 32, 80, 0, "bfloat16"),  # zamba2-2.7b's prefill
 ]
 
 
@@ -79,6 +83,18 @@ def test_wrapper_takes_the_lengths_the_reference_prefill_takes(S):
     q, kv = meta((1, S, 8, 64)), meta((1, S, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, kv, kv)
+    assert flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+def test_wrapper_takes_every_head_width_it_has_an_instance_for(hd):
+    """hd 32, 64 and 128 (the reference's sweep) and 80 (zamba2-2.7b,
+    2560 / 32) pass every shape check, in both dtypes, and stop only at
+    the device check."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = meta((4, 208, 32, hd), dtype)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention(q, q, q, window=4096)
     assert flash_attention.launches == 0
 
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's LM serving path goes, on one GPU.
 
-    python3 tools/lm_serve_profile.py [--arch granite-3-2b|rwkv6-1.6b]
-        [--dtype bfloat16] [--batch 4] [--prompt-len 2048] [--steps 8]
-        [--kernels 1 0 0 1] [--top 8]
+    python3 tools/lm_serve_profile.py
+        [--arch granite-3-2b|rwkv6-1.6b|zamba2-2.7b] [--dtype bfloat16]
+        [--batch 4] [--prompt-len 2048] [--steps 8] [--kernels 1 0 0 1]
+        [--top 8]
 
 Builds the arch at full width and depth with random weights (seed 0, as
-``chip_smoke.py`` phases ``lm`` and ``rwkv``) and, once per ``--kernels``
-entry in the order given (``1`` the prefill's kernel, flash attention or
-WKV6, ``0`` its plain version; ``1 0 0 1`` alternates them on one card),
+``chip_smoke.py`` phases ``lm``, ``rwkv`` and ``zamba``) and, once per
+``--kernels`` entry in the order given (``1`` the prefill's kernels:
+flash attention, WKV6, or the SSD scan and flash attention; ``0`` their
+plain versions; ``1 0 0 1`` alternates them on one card),
 runs a prefill of ``--batch`` random prompts
 of ``--prompt-len`` tokens and ``--steps`` greedy ``serve_step``s, each
 timed unprofiled (CUDA-synchronized wall clock), then the same again under
@@ -37,6 +39,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from port_round_profile import device_us  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
+from repro_torch.kernels.mamba2 import ssd_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import wkv6_kernel  # noqa: E402
 from repro_torch.models import transformer as TFM  # noqa: E402
 
@@ -115,10 +118,11 @@ def main():
                     params, cfg, state["cache"], state["tok"])
                 state["tok"] = nxt[:, None]
 
-            flash_attention.launches = wkv6_kernel.launches = 0
+            kernels = (flash_attention, wkv6_kernel, ssd_kernel)
+            for k in kernels:
+                k.launches = 0
             wall = timed(do_prefill)
-            launches = {k.__name__: k.launches
-                        for k in (flash_attention, wkv6_kernel)}
+            launches = {k.__name__: k.launches for k in kernels}
             dev_ms, split, counts = profiled(do_prefill)
             print(f"use_kernels={use}: kernel launches a prefill "
                   f"{launches}", flush=True)
