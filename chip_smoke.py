@@ -10,12 +10,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. device and build — the card's name and power limit (nvidia-smi), and
    the build of the seven kernel sources (``src/repro_torch/kernels/
    {engine,scatter_update,spmv,flash_attention,rwkv6,mamba2}/csrc/*.cu``;
-   one nvcc each, sm_90a, all started together);
+   one nvcc each, sm_90a, all started together), and the tensor-core
+   instructions (HGMMA) in each instance of the built flash library, by
+   ``cuobjdump -sass`` (each bfloat16 instance must have some);
 2. ``kernels`` — each of the eight standalone kernels against its plain
    PyTorch version on the same CUDA tensors, at the main paths' shapes
    plus the edge cases of the CPU sweeps: bitwise equal on every output
    element, except ``spmv_block_ell``, whose sums run in another order
-   (``rtol = atol = 1e-4``).  Prints each kernel's time (CUDA events,
+   (``rtol = atol = 1e-4``; two of its calls bitwise equal; timed beside
+   cuSPARSE's CSR product and, where PyTorch takes it, a BSR tensor of the
+   same blocks).  Prints each kernel's time (CUDA events,
    median of 25 launches with the L2 cache flushed before each), its
    plain version's time, its bound (bytes moved over 3.35 TB/s) and,
    where one PyTorch call computes the same function, that call's time;
@@ -71,9 +75,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
    and the reference's sweep plus G = 4, hd 32 / 128, one-tile and ragged
    S (100, and 200: one 200-row block of the reference's prefill), window
-   128 and float32 at granite's shape (2e-5 float32, 2e-2
+   128 and float32 at granite's shape, and the bfloat16 body's edge cases
+   (S = 8, 64, 100, 200; windows 64 and 128 at G = 1, 4, 8; hd 32, 64,
+   128; a row with no live key in a computed kv tile) (2e-5 float32, 2e-2
    bfloat16), timed with SDPA as the library yardstick (timed only; the
-   port never calls it); bfloat16 projections held to the float32 product
+   port never calls it) and the float32 body at the same shape; bfloat16
+   projections held to the float32 product
    (float32 accumulation).  Then, with random weights from a seed made on
    the card, 4 prompts of 2048 random tokens: ``prefill`` and 16 greedy
    ``serve_step``s with the kernel against the same path with
@@ -115,8 +122,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    float32, and the prefill shape (B 4, S 2048, 80 heads, P 64, N 64),
    timed at the latter (no PyTorch call computes SSD: no library time).
    The flash kernel at hd 80 against its plain version in float32 and
-   bfloat16, timed at zamba2's prefill shape (B 4, S 2048, 32 / 32 heads)
-   with SDPA as the yardstick.  Then, with random weights from a seed made
+   bfloat16 (S = 8, 200, 208, 256, 512; windows 64, 128 and 4096),
+   timed at zamba2's prefill shape (B 4, S 2048, 32 / 32 heads) with SDPA
+   as the yardstick.  Then, with random weights from a seed made
    on the card, 4 prompts of 2048 random tokens: ``prefill`` and 16 greedy
    ``serve_step``s with the kernels against ``use_kernels=False``, in
    float32 with ``a_log``, ``dt_bias``, ``d_skip`` and ``conv_b`` drawn
@@ -165,6 +173,7 @@ from repro_torch.kernels.engine import kernel as K  # noqa: E402
 from repro_torch.core.program import BFS, as_program  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels.cuda_build import cuda_tool  # noqa: E402
 from repro_torch.kernels import mamba2 as SSD  # noqa: E402
 from repro_torch.kernels import rwkv6 as W6  # noqa: E402
 from repro_torch.models import layers as LMLAYERS  # noqa: E402
@@ -269,8 +278,13 @@ LM_ARCH, LM_B, LM_P, LM_G, LM_SEED = "granite-3-2b", 4, 2048, 16, 0
 # (tests/test_kernels.py:24-30), then G = 4 at hd 128 and 32, S one tile
 # of the reference (128) and of the kernel (64), S = 100 and 200 (ragged
 # tiles; 200 is one block of the reference's prefill, min(512, S)),
-# granite's prefill shape with window 128 and in float32; the main shape,
-# granite's bfloat16 prefill, is timed.  Tolerances: the reference's.
+# granite's prefill shape with window 128 and in float32; then for the
+# bfloat16 body (tensor cores, TMA boxes of 64 rows, 128-row query
+# blocks): S = 8 (shorter than a box), 64, 100 and 200, windows 64 and 128
+# at G = 1, 4 and 8, hd 32, 64 and 128, and window 64 at S = 256, where
+# row 191 has no live key in a kv tile its warpgroup computes.  The main
+# shape, granite's bfloat16 prefill, is timed.  Tolerances: the
+# reference's.
 FLASH_SWEEP = (
     (2, 256, 4, 2, 64, 0, "float32"), (1, 256, 4, 1, 64, 64, "float32"),
     (2, 128, 2, 2, 32, 0, "float32"), (1, 512, 8, 8, 64, 128, "float32"),
@@ -279,7 +293,11 @@ FLASH_SWEEP = (
     (1, 64, 4, 1, 64, 0, "float32"), (1, 100, 4, 2, 64, 0, "float32"),
     (2, 200, 32, 8, 64, 0, "float32"), (2, 200, 32, 8, 64, 0, "bfloat16"),
     (LM_B, LM_P, 32, 8, 64, 128, "bfloat16"),
-    (LM_B, LM_P, 32, 8, 64, 0, "float32"))
+    (LM_B, LM_P, 32, 8, 64, 0, "float32"),
+    (1, 8, 4, 4, 64, 0, "bfloat16"), (1, 64, 4, 1, 64, 0, "bfloat16"),
+    (2, 100, 8, 1, 128, 0, "bfloat16"), (2, 100, 4, 4, 32, 0, "bfloat16"),
+    (2, 200, 8, 8, 32, 0, "bfloat16"), (1, 384, 8, 1, 32, 64, "bfloat16"),
+    (1, 512, 8, 8, 128, 128, "bfloat16"), (2, 256, 4, 1, 64, 64, "bfloat16"))
 FLASH_MAIN = (LM_B, LM_P, 32, 8, 64, 0, "bfloat16")
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Largest relative L2 distance of the bfloat16 kernel run's last hidden
@@ -343,11 +361,17 @@ SSD_MAIN = (LM_B, LM_P, 80, 64, 64, 16, None, None, True)
 SSD_REL_TOL = 1e-5
 SSD_ORACLE_TOL = 3e-4
 # flash at zamba2's head width, 80 (2560 / 32): the reference's sweep
-# shapes at hd 80, a ragged windowed S, float32 at the prefill shape; the
-# main shape, zamba2's bfloat16 prefill, is timed
+# shapes at hd 80, a ragged windowed S, float32 at the prefill shape; then
+# for the bfloat16 body (two 64-column boxes a row, columns 80-127 read as
+# zeros; PV at wgmma's N = 80): S = 8 and 200, windows 64 and 128 at G =
+# 1, 4 and 8, and zamba2's window (4096, past S); the main shape, zamba2's
+# bfloat16 prefill, is timed
 FLASH80_SWEEP = (
     (1, 256, 4, 4, 80, 0, "float32"), (2, 200, 4, 2, 80, 64, "float32"),
-    (1, 256, 4, 4, 80, 0, "bfloat16"), (LM_B, LM_P, 32, 32, 80, 0, "float32"))
+    (1, 256, 4, 4, 80, 0, "bfloat16"), (LM_B, LM_P, 32, 32, 80, 0, "float32"),
+    (2, 8, 8, 1, 80, 0, "bfloat16"), (2, 200, 8, 2, 80, 64, "bfloat16"),
+    (1, 512, 8, 8, 80, 128, "bfloat16"), (1, 256, 4, 1, 80, 64, "bfloat16"),
+    (2, 208, 32, 32, 80, 4096, "bfloat16"))
 FLASH80_MAIN = (LM_B, LM_P, 32, 32, 80, 0, "bfloat16")
 # float32 serving, with a_log, dt_bias, d_skip and conv_b drawn (at the
 # reference's init a_log = dt_bias = conv_b = 0 and d_skip = 1 in every
@@ -473,7 +497,31 @@ def phase_device():
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"#   ptxas: {line.strip()}")
-    return smi
+    hgmma = flash_tensor_core_instructions()
+    log("# flash tensor-core instructions (cuobjdump -sass, HGMMA = wgmma): "
+        + ", ".join(f"{k} {v}" for k, v in hgmma.items()))
+    return smi, hgmma
+
+
+def flash_tensor_core_instructions() -> dict:
+    """HGMMA (wgmma) instructions in each instance of the built flash
+    library, by ``cuobjdump -sass``; fails unless every bfloat16 instance
+    runs on the tensor cores."""
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(FA.LIBRARY.path)],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1]
+            body = "bfloat16" if "flash_wgmma_kernel" in fn else "float32"
+            name = f"{body} hd {fn.split('ILi')[1].split('E')[0]}"
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    for hd in FA.HEAD_DIMS:
+        assert counts.get(f"bfloat16 hd {hd}", 0) > 0, counts
+    return dict(sorted(counts.items()))
 
 
 # --------------------------------------------------------------------------
@@ -813,6 +861,9 @@ def check_spmv_block_ell(rng, dev, timer):
     x = torch.from_numpy(rng.normal(size=n_pad).astype(np.float32)).to(dev)
     y = SPMV.spmv_block_ell(bv, bc, x)
     err = spmv_within_tol(y, SPMV.block_ell_matvec(bv, bc, x), "R-MAT-14")
+    # the groups' partials are summed in a fixed order: a second call gives
+    # the same bits
+    assert_bitwise(SPMV.spmv_block_ell(bv, bc, x), y, "spmv_block_ell rerun")
     live = int((bc >= 0).sum())
     log(f"#   block-ELL R-MAT-{BLOCK_SCALE}: {live} nonzero blocks of "
         f"{BLOCK_B}x{BLOCK_B}, S = {bc.shape[1]}, bvals "
@@ -829,10 +880,31 @@ def check_spmv_block_ell(rng, dev, timer):
         .to(dev), torch.from_numpy(g.val[order]).to(dev), (n_pad, n_pad),
         check_invariants=True)
     torch.testing.assert_close(csr @ x, y, rtol=1e-4, atol=1e-4)
-    return dict(
+    row = dict(
         max_abs_err=err, ms=timer.ms(lambda: SPMV.spmv_block_ell(bv, bc, x)),
         plain_ms=timer.ms(lambda: SPMV.block_ell_matvec(bv, bc, x)),
         bound_ms=bound_ms(moved), library_ms=timer.ms(lambda: csr @ x))
+    log(f"#   spmv_block_ell R-MAT-{BLOCK_SCALE}: two calls bitwise equal")
+    # a same-format yardstick: one BSR tensor of the live blocks (the same
+    # bytes the kernel reads) times x; timed only, where PyTorch takes it
+    live_rows = (bc >= 0).sum(dim=1)
+    bsr = torch.sparse_bsr_tensor(
+        torch.cat([live_rows.new_zeros(1), live_rows.cumsum(0)]),
+        bc[bc >= 0].long(), bv[bc >= 0], (n_pad, n_pad),
+        check_invariants=True)
+    try:
+        torch.testing.assert_close((bsr @ x[:, None])[:, 0], y, rtol=1e-4,
+                                   atol=1e-4)
+        row["library_bsr_ms"] = timer.ms(lambda: bsr @ x[:, None])
+        log(f"#   BSR yardstick (torch.sparse_bsr_tensor @ x, "
+            f"{nbytes(bsr.values()) / 1e6:.1f} MB of blocks): "
+            f"{row['library_bsr_ms']:.4f} ms")
+    except (RuntimeError, NotImplementedError) as e:
+        row["library_bsr_ms"] = None
+        log(f"#   BSR yardstick: PyTorch refuses BSR @ x on this card: "
+            f"{str(e).splitlines()[0]}")
+    del bsr
+    return row
 
 
 def phase_kernels(dev, timer):
@@ -1696,6 +1768,11 @@ def check_flash(dev, timer, sweep, main):
         log(f"#   flash (B, S, H, Hkv, hd, window, dtype) = {case}: within "
             f"{tol} of its plain version (max |err| {err:.3g})")
     B, S, H, Hkv, hd, win, dtype = main
+    # the float32 body (CUDA-core FMAs) at the same shape, timed only: the
+    # bfloat16 main shape's record carries it beside the tensor cores' time
+    f32 = [x.float() for x in (q, k, v)]
+    f32_ms = timer.ms(lambda: FA.flash_attention(*f32, win))
+    del f32
     # the library yardstick, timed only: SDPA on (B, H, S, hd) views
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -1712,7 +1789,7 @@ def check_flash(dev, timer, sweep, main):
                 plain_ms=timer.ms(lambda: FA.repeat_kv_attention(
                     q, k, v, pos, win)),
                 bound_ms=bound, library_ms=timer.ms(sdpa),
-                bound_by="operations")
+                bound_by="operations", f32_ms=f32_ms)
 
 
 def check_matmul_f32(dev):
@@ -1888,8 +1965,8 @@ def phase_lm(dev, smi, timer):
     log(f"# kernel flash_attention: within {FLASH_TOL['bfloat16']} of its "
         f"plain version at {FLASH_MAIN}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"(operations), library {row['library_ms']:.4f} ms (SDPA); card "
-        f"{smi}")
+        f"(operations), library {row['library_ms']:.4f} ms (SDPA); float32 "
+        f"body at the same shape {row['f32_ms']:.4f} ms; card {smi}")
     rel = check_matmul_f32(dev)
     log(f"# lm: bfloat16 projections accumulate in float32 (rel L2 "
         f"{rel:.3g} from the float32 product)")
@@ -2314,7 +2391,8 @@ def phase_zamba(dev, smi, timer):
         f"kernel {flash_row['ms']:.4f} ms, plain "
         f"{flash_row['plain_ms']:.4f} ms, bound {flash_row['bound_ms']:.4f} "
         f"ms (operations), library {flash_row['library_ms']:.4f} ms (SDPA); "
-        f"card {smi}")
+        f"float32 body at the same shape {flash_row['f32_ms']:.4f} ms; card "
+        f"{smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     base = get_config(ZAMBA_ARCH)
@@ -2409,7 +2487,7 @@ def main():
     phases = set(args.phases.split(","))
     if phases - set(PHASES):
         raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
-    smi = phase_device()
+    smi, hgmma = phase_device()
     dev = torch.device("cuda", 0)
     timer = Timer(dev)
     rows = phase_kernels(dev, timer) if "kernels" in phases else {}
@@ -2450,6 +2528,8 @@ def main():
         else:
             rows["flash_attention"] = flash80
         paths += zamba_paths
+    if "flash_attention" in rows:
+        rows["flash_attention"]["hgmma"] = hgmma
     # each kernel's launches summed over the driven paths
     record = []
     for name, r in rows.items():
@@ -2460,7 +2540,8 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             library_ms=r["library_ms"],
-            **{k: r[k] for k in ("calls", "hd80") if k in r}))
+            **{k: r[k] for k in ("calls", "hd80", "f32_ms", "hgmma",
+                                 "library_bsr_ms") if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")
     print(json.dumps({"kernels": record}))

@@ -63,7 +63,7 @@ class CudaLibrary:
         out = BUILD_DIR / f"{self.source.stem}_{tag[:16]}.so"
         if out.exists():
             return out
-        nvcc = _nvcc()
+        nvcc = cuda_tool()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
@@ -91,14 +91,16 @@ class CudaLibrary:
                                f"{lib.repro_cuda_error_string(rc).decode()}")
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program: ``nvcc``, or ``cuobjdump`` to read
+    what a built library holds."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(home, "bin", name), shutil.which(name)):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found: the port's kernels are compiled with the CUDA "
-        "toolkit's nvcc at first use (set CUDA_HOME)")
+        f"{name} not found: the port's kernels are compiled with the CUDA "
+        f"toolkit's nvcc at first use (set CUDA_HOME)")
 
 
 def check(*operands):

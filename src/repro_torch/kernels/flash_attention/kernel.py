@@ -6,12 +6,16 @@ grouped-query heads (port of ``repro.kernels.flash_attention.kernel``).
 runs its plain version :func:`repeat_kv_attention`: K/V repeated to the
 query heads, then :func:`repro_torch.models.layers.blockwise_attention`,
 exactly what the reference's prefill runs.  On CUDA tensors it launches
-``csrc/flash_attention.cu`` (one block per 64-row query tile, head and
-batch; query head h reads kv head h // G in place; f32 online softmax over
-the causal and windowed kv tiles only) and raises if the operands or the
-launch are wrong; there is no fallback.  The kernel and the plain version
-sum in different orders: they agree within 2e-5 in float32 and 2e-2 in
-bfloat16, the reference's tolerances (``tests/test_kernels.py:37``).
+``csrc/flash_attention.cu`` and raises if the operands or the launch are
+wrong; there is no fallback.  bfloat16 runs on the tensor cores (a block
+per 128-row query tile, head and batch: K/V tiles by TMA through a 2-stage
+mbarrier ring, wgmma for QK^T and PV, P split into bfloat16 hi and lo
+halves); float32 on CUDA-core FMAs (a block per 64-row tile).  Both read
+query head h's kv head h // G in place and visit only the causal and
+windowed kv tiles, with a float32 online softmax.  The kernel and the
+plain version sum in different orders: they agree within 2e-5 in float32
+and 2e-2 in bfloat16, the reference's tolerances
+(``tests/test_kernels.py:37``).
 """
 from __future__ import annotations
 
@@ -62,6 +66,11 @@ def check_shapes(q, k, v, window: int):
                          f"(blockwise_attention)")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        # the bfloat16 body reads by TMA, from 16-byte-aligned addresses
+        if q.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} starts at an address "
+                             f"that is not a multiple of 16 bytes")
     check(("q", q, q.dtype, (B, S, H, hd)),
           ("k", k, q.dtype, (B, S, Hkv, hd)),
           ("v", v, q.dtype, (B, S, Hkv, hd)))

@@ -32,6 +32,23 @@ SWEEP = [
     (2, 200, 4, 2, 80, 64, "float32"),
     (1, 256, 4, 4, 80, 0, "bfloat16"),
     (4, 2048, 32, 32, 80, 0, "bfloat16"),  # zamba2-2.7b's prefill
+    # bfloat16 runs on the tensor cores (TMA boxes of 64 rows and 32 or 64
+    # columns, 128-row query blocks): S shorter than one box, ragged S,
+    # every head width, windows 64 and 128 at G = 1, 4 and 8
+    (1, 8, 4, 4, 64, 0, "bfloat16"),
+    (2, 8, 8, 1, 80, 0, "bfloat16"),
+    (1, 64, 4, 1, 64, 0, "bfloat16"),
+    (2, 100, 8, 1, 128, 0, "bfloat16"),
+    (2, 100, 4, 4, 32, 0, "bfloat16"),
+    (2, 200, 8, 8, 32, 0, "bfloat16"),
+    (2, 200, 8, 2, 80, 64, "bfloat16"),
+    (1, 384, 8, 1, 32, 64, "bfloat16"),
+    (1, 512, 8, 8, 128, 128, "bfloat16"),
+    (1, 512, 8, 2, 80, 128, "bfloat16"),
+    # window 64: the warpgroup of rows 128-191 computes kv tile 1 (keys
+    # 64-127) for row 128, and row 191 has no live key there (likewise row
+    # 255 in tile 2)
+    (2, 256, 4, 1, 64, 64, "bfloat16"),
 ]
 
 
@@ -72,6 +89,24 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         flash_attention(q, kv, kv)
     with pytest.raises(ValueError, match="positions"):
         attention(q, kv, kv, torch.arange(255), use_kernel=True)
+    assert flash_attention.launches == 0
+
+
+def test_wrapper_refuses_bfloat16_operands_tma_cannot_address():
+    """The bfloat16 body reads q, k and v by TMA, which needs 16-byte
+    aligned addresses: a view that starts 2 bytes in is refused before the
+    device check; a float32 one (the FMA body) is not."""
+    def off(shape, dtype=torch.bfloat16, by=1):
+        n = int(np.prod(shape))
+        return torch.empty(n + by, dtype=dtype,
+                           device="meta")[by:].view(shape)
+    q, kv = meta((2, 256, 8, 64)), meta((2, 256, 2, 64))
+    for args in ((off(q.shape), kv, kv), (q, off(kv.shape), kv),
+                 (q, kv, off(kv.shape))):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            flash_attention(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(off(q.shape, torch.float32), kv.float(), kv.float())
     assert flash_attention.launches == 0
 
 

@@ -30,6 +30,7 @@ ISOLATION_SCRIPT = textwrap.dedent("""
     sys.path.insert(0, "tools")
     import port_round_profile
     import lm_serve_profile
+    import flash_variants
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.") or m == "repro"
                  or m.startswith("repro."))
