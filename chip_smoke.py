@@ -20,7 +20,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (``rtol = atol = 1e-4``; two of its calls bitwise equal; timed beside
    cuSPARSE's CSR product and, where PyTorch takes it, a BSR tensor of the
    same blocks).  Prints each kernel's time (CUDA events,
-   median of 25 launches with the L2 cache flushed before each), its
+   median of 25 launches with the L2 cache flushed before each, behind a
+   device spin that hides the wrapper's host dispatch), its
    plain version's time, its bound (bytes moved over 3.35 TB/s) and,
    where one PyTorch call computes the same function, that call's time;
 3. ``twin`` — R-MAT scale 10 over 16 tiles, ``backend="torch"`` against
@@ -267,9 +268,13 @@ TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
                   cap_route_update=32, cap_rangeq=128, cap_updq=4096,
                   max_rounds=20000)
 SEG_CAP = 4096        # updates per bin and round of the binned scatter
+SEG_EDGE_B = 2050     # b of the column-range edge case: G = 5, b % 4 == 2
 PR_SCALE, PR_ITERS = 18, 5
 INF32 = float(np.finfo(np.float32).max)
 REPS = 25
+# the Timer's spin before each timed launch: ~0.1 ms at the H100's clocks,
+# longer than a kernel wrapper's host dispatch
+SPIN_CYCLES = 200_000
 # The LM serving path: granite-3-2b at full width and all 40 layers, B = 4
 # prompts of 2048 random tokens, 16 greedy steps.
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bfloat16 (NVIDIA data sheet)
@@ -409,7 +414,12 @@ def spmv_x(n: int) -> np.ndarray:
 
 class Timer:
     """Median CUDA-event time of ``fn`` over REPS launches after warm-up,
-    with the 50 MB L2 cache overwritten before each timed launch."""
+    with the 50 MB L2 cache overwritten before each timed launch.  A spin
+    of SPIN_CYCLES clock cycles on the device follows the overwrite, so
+    that the host has enqueued ``fn``'s launches before the first event
+    is reached: a fast kernel's time is its device time, not its
+    wrapper's host dispatch; a function whose host work outlasts the spin
+    (the plain versions) is timed with its host gaps."""
 
     def __init__(self, dev):
         self.flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -420,6 +430,7 @@ class Timer:
         times = []
         for _ in range(REPS):
             self.flush.fill_(1)
+            torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -773,30 +784,56 @@ def check_fold_scatter_add(rng, dev, timer):
 
 
 def seg_inputs(rng, nb, b, cap, dev, kind):
+    """Operands of scatter_segments; ``kind`` a list of column-range
+    boundaries: updates on the slots beside each (its last slot before,
+    its first after, several times each), in random order, a quarter of
+    the rows empty."""
     base = rng.normal(0, 1, (nb, b)).astype(np.float32)
     idx = rng.integers(-1, b, (nb, cap))  # -1 = empty slot
     if kind == "one-slot":
         idx = np.where(rng.random((nb, cap)) < 0.8, 5, -1)
     elif kind == "empty":
         idx[:] = -1
+    elif isinstance(kind, list):
+        edges = np.unique(np.clip(np.array(kind)[:, None] + [-1, 0], 0,
+                                  b - 1))
+        idx = np.where(rng.random((nb, cap)) < 0.25, -1,
+                       rng.choice(edges, (nb, cap)))
     vals = rng.normal(0, 1, (nb, cap)).astype(np.float32)
     return [rng_tensor(rng, a, dev)
             for a in (base, idx.astype(np.int32), vals)]
 
 
+# scatter_segments' yardsticks: one PyTorch call on the slots plus a trash
+# column; the amin computes the same function, the add keeps no order
+SEG_LIBRARY = {"add": "scatter_add (float atomics: not the same bits)",
+               "min": "scatter_reduce amin (the same function)"}
+
+
 def check_scatter_segments(rng, dev, timer):
-    """At the TPU tests' shapes, the edge cases, and the engine's T3 shape
-    (NB = 64 bins of b = 65536 slots, cap = 4096 updates each)."""
+    """At the TPU tests' shapes, the edge cases (among them, at b = 2050
+    over G = 5 column ranges: duplicate slots on both sides of each inner
+    boundary and every range's first and last slot; and 300 bins of 20,000
+    slots, one range each, wider than the add's slot counters), and the
+    engine's T3 shape (NB = 64 bins of b = 65536 slots, cap = 4096
+    updates each)."""
     calls = []
     for op in ("add", "min"):
         for nb, b, cap, kind in ((4, 128, 32, "mixed"), (2, 64, 128, "mixed"),
                                  (3, 32, 200, "one-slot"),
                                  (2, 64, 16, "empty"), (2, 16, 1, "mixed"),
+                                 (300, 20000, 256, "mixed"),
                                  (MAIN_T, MAIN_V_CHUNK, SEG_CAP,
                                   "one-slot")):
             args = seg_inputs(rng, nb, b, cap, dev, kind)
             max_abs_err([SEG.scatter_segments(*args, op=op)],
                         [SEG.binned_scatter(*args, op)])
+        split = K.device_split(2, SEG_EDGE_B, dev)
+        assert split.G > 1, split
+        args = seg_inputs(rng, 2, SEG_EDGE_B, SEG_CAP, dev,
+                          split.bounds(SEG_EDGE_B))
+        max_abs_err([SEG.scatter_segments(*args, op=op)],
+                    [SEG.binned_scatter(*args, op)])
         # timed at the TPU tests' shapes and at the T3 shape
         for nb, b, cap in ((4, 128, 32), (2, 64, 128),
                            (MAIN_T, MAIN_V_CHUNK, SEG_CAP)):
@@ -810,11 +847,12 @@ def check_scatter_segments(rng, dev, timer):
                        if op == "add" else functools.partial(
                            ext.scatter_reduce, 1, slot, vals, "amin"))
             calls.append(dict(
-                call=op, shape=[nb, b, cap], max_abs_err=err,
+                call=op, shape=[nb, b, cap],
+                G=K.device_split(nb, b, dev).G, max_abs_err=err,
                 ms=timer.ms(lambda: SEG.scatter_segments(*args, op=op)),
                 plain_ms=timer.ms(lambda: SEG.binned_scatter(*args, op)),
                 bound_ms=bound_ms(nbytes(*args, out)),
-                library_ms=timer.ms(library)))
+                library_ms=timer.ms(library), library=SEG_LIBRARY[op]))
     t3 = [c for c in calls if c["shape"] == [MAIN_T, MAIN_V_CHUNK, SEG_CAP]]
     # the row's times: the add and the min call at the T3 shape, summed
     total = {key: sum(c[key] for c in t3)
@@ -929,11 +967,12 @@ def phase_kernels(dev, timer):
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes), library {lib}")
         for c in r.get("calls", []):
-            log(f"#   {c['call']} call {c['shape']}: kernel "
-                f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
-                f"{c['bound_ms']:.4f} ms"
-                + (f", library {c['library_ms']:.4f} ms"
-                   if "library_ms" in c else ""))
+            log(f"#   {c['call']} call {c['shape']}"
+                + (f", G = {c['G']}" if "G" in c else "")
+                + f": kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+                f"bound {c['bound_ms']:.4f} ms"
+                + (f", library {c['library_ms']:.4f} ms ({c['library']})"
+                   if "library" in c else ""))
     return rows
 
 
@@ -960,12 +999,14 @@ def scan_words(recv, rv, e_chunk, tmpl) -> int:
 
 def leg_bytes(name: str, tmpl, ops, out) -> int:
     """Bytes a fused leg must move on these operands: each input it reads
-    once, each output once; the data-dependent reads as this call needs
-    them: leg 0's f_pop vertex slots (deg and ptr_start, and the value
-    where the payload reads it), the distinct shard words a scan
-    leg's messages address (4 bytes each, 8 where the emit reads the edge
-    value), the two vertex words of each delivered wedge or close row,
-    and at least one shard word per close row's search."""
+    once, each output once (a queue that the leg appends to in place, as
+    leg 2 does: its count read and written and the rows appended); the
+    data-dependent reads as this call needs them: leg 0's f_pop vertex
+    slots (deg and ptr_start, and the value where the payload reads it),
+    the valid rows of the spill that a leg re-queues, the distinct shard
+    words a scan leg's messages address (4 bytes each, 8 where the emit
+    reads the edge value), the two vertex words of each delivered wedge or
+    close row, and at least one shard word per close row's search."""
     sh, st, new = ops[1], ops[2], out[0]
     small = nbytes(*tensors(out[1:]))
     if leg_index(name) == 0:
@@ -975,10 +1016,17 @@ def leg_bytes(name: str, tmpl, ops, out) -> int:
                        *(q.count for q in st.queues), new.frontier,
                        *new.queues[0])
                 + small + slot * st.frontier.shape[0] * tmpl.f_pop)
-    recv, rv = ops[3], ops[4]
-    moved = small + nbytes(*ops[3:])
-    moved += sum(nbytes(*q, *q2) for q, q2 in zip(st.queues, new.queues)
-                 if q is not q2)
+    recv, rv, sp, spv = ops[3:7]
+    moved = (small + nbytes(*ops[3:]) - nbytes(sp)
+             + int(spv.sum()) * 4 * sp.shape[2])
+    for q, q2 in zip(st.queues, new.queues):
+        if q is q2:
+            continue
+        if q2.data is q.data:  # appended in place: the counts and the rows
+            rows = int((q2.count - q.count).sum())
+            moved += nbytes(q.count, q2.count) + rows * 4 * q.data.shape[2]
+        else:
+            moved += nbytes(*q, *q2)
     if name in ("fused_leg1", "fused_tri_leg1", "fused_tri_leg3"):
         word = 8 if tmpl.emit in ("plus_w", "times_w") and \
             name == "fused_leg1" else 4
@@ -1000,6 +1048,11 @@ def leg_bytes(name: str, tmpl, ops, out) -> int:
 
 EVERY_CHANNEL = "spills on every channel in one round"
 
+# the legs split over G column ranges a tile (kernel.py column_split), and
+# one more block a tile for their spill append; the others run one block a
+# tile
+SPLIT_LEGS = ("fused_leg2", "fused_kcore_leg2")
+
 
 class FusedCheck:
     """A context in which the engine's fused-leg wrappers also run each
@@ -1010,7 +1063,12 @@ class FusedCheck:
     grew by a quarter over the last checked one, the first call of each
     leg with spills, and the first round with spills on every channel.
     Records which edge cases the checked calls covered, and the operands
-    of each wrapper's last checked call (for timing)."""
+    of each wrapper's last checked call (for timing).  The plain stage runs
+    after the kernel on the same operands: leg 2 has then appended its
+    spills in place onto their update queue, and the plain stage's copy of
+    it plus the same rows at the same count is what the kernel returned,
+    so the two still agree bit for bit.  A leg-2 call is also checked to
+    return the update queue it was given (``data_ptr()``)."""
 
     def __init__(self, label, every=False, period=0):
         self.label, self.every, self.period = label, every, period
@@ -1056,6 +1114,9 @@ class FusedCheck:
                      or (every_now and EVERY_CHANNEL not in self.cover))
         got = real(tmpl, plain, *ops)
         if check:
+            if name in SPLIT_LEGS:
+                assert got[0].queues[1].data.data_ptr() == \
+                    st.queues[1].data.data_ptr(), name
             assert_bitwise(got, plain(*ops),
                            f"{self.label} {name} round {self.round}")
             self.checked[name] = self.checked.get(name, 0) + 1
@@ -1136,23 +1197,31 @@ def check_edge_operands(chk: FusedCheck, cap0_legs=()):
 
 def time_legs(chk: FusedCheck, timer, where):
     """Kernel and plain times and the byte bound of each leg, on the
-    operands of its last checked call, in leg order."""
+    operands of its last checked call, in leg order.  Leg 2 appends in
+    place onto the queue of those operands, which its checked call already
+    did: re-running it writes the same rows again (the same bits), and the
+    plain stage, run on the same operands, copies that queue and appends
+    the same rows at the same count."""
     calls = []
     for name in sorted(chk.last, key=leg_index):
         real, tmpl, plain, ops, out = chk.last[name]
+        T, v_chunk = ops[2].frontier.shape
         calls.append(dict(
             kernel=name, call=where, template=dict(
                 payload=tmpl.payload, emit=tmpl.emit, fold=tmpl.fold,
                 k=tmpl.k, mode=tmpl.mode, policy=tmpl.policy,
                 window=tmpl.window),
+            G=(K.device_split(T, v_chunk, ops[2].frontier.device).G
+               if name in SPLIT_LEGS else 1),
             max_abs_err=0.0,
             ms=timer.ms(lambda: real(tmpl, plain, *ops)),
             plain_ms=timer.ms(lambda: plain(*ops)),
             bound_ms=bound_ms(leg_bytes(name, tmpl, ops, out))))
         c = calls[-1]
-        log(f"# kernel {name} ({where}): bitwise equal to its plain "
-            f"version; kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
-            f"ms, bound {c['bound_ms']:.4f} ms (bytes), library none")
+        log(f"# kernel {name} ({where}, G = {c['G']}): bitwise equal to its "
+            f"plain version; kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms (bytes), "
+            f"library none")
     return calls
 
 

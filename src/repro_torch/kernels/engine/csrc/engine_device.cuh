@@ -178,24 +178,64 @@ __device__ inline void fifo_shift(const int32_t* __restrict__ d,
 // ---------------------------------------------------------------------------
 // queue_append (kernel.py:123; the port's queue_push): the valid rows of
 // rows (n, w), in row order, go to slots count, count + 1, ... of the
-// (cap, w) queue q while the slot is < cap.  q must already hold its rows,
-// visible to the block.  Returns the number of valid rows (block-uniform);
-// the caller's pushes are min(that, max(cap - count, 0)), the rest drops.
+// (cap, w) queue q while the slot is < cap.  q may be the caller's queue
+// itself (the fold legs append in place) or a copy that the block made
+// (visible to it); only slots count .. cap - 1 are written.  Rows are at
+// most APPEND_MAX_W words wide.  Each thread takes FT_BYTES consecutive rows
+// a step (their flags one 16-byte vector where aligned), so a block scan
+// ranks blockDim.x * FT_BYTES rows.
+// Returns the number of valid rows (block-uniform); the caller's pushes are
+// min(that, max(cap - count, 0)), the rest drops.
 // ---------------------------------------------------------------------------
-__device__ inline int queue_append_block(int32_t* __restrict__ q, int cap,
-                                         int w, int count,
-                                         const int32_t* rows,
+constexpr int APPEND_BATCH = 4;  // rows copied together
+constexpr int APPEND_MAX_W = 4;  // the widest queue row
+
+__device__ inline int queue_append_block(int32_t* q, int cap, int w,
+                                         int count, const int32_t* rows,
                                          const uint8_t* valid, int n,
                                          int* sm) {
+  const bool vec = (reinterpret_cast<uintptr_t>(valid) & (FT_BYTES - 1)) == 0;
   int nvalid = 0;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < n ? valid[i] != 0 : 0;
+  for (int base = 0; base < n; base += blockDim.x * FT_BYTES) {
+    const int r0 = base + threadIdx.x * FT_BYTES;
+    Bytes16 u;
+    if (vec && r0 + FT_BYTES <= n) {
+      u.v = *reinterpret_cast<const uint4*>(valid + r0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < FT_BYTES; ++i)
+        u.b[i] = r0 + i < n ? valid[r0 + i] : 0;
+    }
+    unsigned mask = 0;  // bit i: row r0 + i is valid
+#pragma unroll
+    for (int i = 0; i < FT_BYTES; ++i) mask |= (u.b[i] != 0 ? 1u : 0u) << i;
     int total;
-    const int pos = count + nvalid + block_excl_scan(v, &total, sm);
-    if (v && pos < cap)
-      for (int c = 0; c < w; ++c)
-        q[(size_t)pos * w + c] = rows[(size_t)i * w + c];
+    int pos = count + nvalid + block_excl_scan(__popc(mask), &total, sm);
+    // the thread's valid rows, APPEND_BATCH at a time: their words read
+    // together, then written
+    while (mask != 0 && pos < cap) {
+      int src[APPEND_BATCH];
+      int k = 0;
+#pragma unroll
+      for (int j = 0; j < APPEND_BATCH; ++j) {
+        src[j] = mask != 0 ? r0 + __ffs(mask) - 1 : -1;
+        if (mask != 0) ++k;
+        mask &= mask - 1;
+      }
+      int32_t x[APPEND_BATCH][APPEND_MAX_W];
+#pragma unroll
+      for (int j = 0; j < APPEND_BATCH; ++j)
+#pragma unroll
+        for (int c = 0; c < APPEND_MAX_W; ++c)
+          if (src[j] >= 0 && c < w) x[j][c] = rows[(size_t)src[j] * w + c];
+#pragma unroll
+      for (int j = 0; j < APPEND_BATCH; ++j)
+#pragma unroll
+        for (int c = 0; c < APPEND_MAX_W; ++c)
+          if (src[j] >= 0 && c < w && pos + j < cap)
+            q[(size_t)(pos + j) * w + c] = x[j][c];
+      pos += k;
+    }
     nvalid += total;
   }
   return nvalid;

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) fused legs of the Dalorex round: each replaces one launch
 // of fused_leg_call (src/repro/kernels/engine/kernel.py:241), whose body is
 // the engine's per-tile stage (src/repro/core/engine.py:500; stages :601,
-// :610, :626).  One block per tile runs the whole leg; its phases are the
-// device functions the standalone kernels use (engine_device.cuh,
+// :610, :626).  One block per tile runs the whole leg (the classic and
+// k-core leg 2: G blocks per tile, one column range each); its phases are
+// the device functions the standalone kernels use (engine_device.cuh,
 // ordered_scatter.cuh), separated by block barriers, so each output element
 // is what the plain stage writes, don't-care slots included.
 //
@@ -12,10 +13,11 @@
 //   leg 1  range-spill re-queue; T2 scan, resident gather or streamed
 //          windows, and emit; update-queue replay turn; replay rows ahead of
 //          the fresh rows in the messages           (template: emit, stream)
-//   leg 2  update-spill re-queue; T3 min fold + re-arm of the flags the
-//          wrapper passes (async: frontier, BSP: next_frontier), ordered add
-//          fold, or k-core's threshold fold (ordered add of the decrements,
-//          then the newly removed vertices' flags)  (template: fold)
+//   leg 2  update-spill re-queue (in place); T3 min fold + re-arm of the
+//          flags the wrapper passes (async: frontier, BSP: next_frontier),
+//          ordered add fold, or k-core's threshold fold (ordered add of the
+//          decrements, then the newly removed vertices' flags), G blocks
+//          a tile on its column ranges, one on its append (template: fold)
 // Triangles (src/repro/core/program.py:698), 4 channels, 5 legs:
 //   leg 0  leg 0 above with the placed-id payload and the TSU over 4 queues
 //   leg 1  leg 1 above, emitting wedges (nb, v) valid iff nb > v
@@ -27,18 +29,24 @@
 //                                                           (close leg)
 //
 // Bound: bytes.  Each leg reads its inputs once and writes its outputs once;
-// the largest are the spill-only queues (the scan leg shifts one, the fold
-// legs copy one before appending: cap_updq * 8 bytes a tile each way), the
-// scan leg's messages (9 bytes a lane) and the (v_chunk,) slices of legs 0
-// and of the fold legs.  Design: every output is a fresh buffer (a queue
-// shifted in place would need a read-barrier-write per element); data that
-// fits stays in shared memory: leg 0's popped tasks and rows (at most
-// LEG0_MAX_ROWS), the scan leg's staging windows, the wedge leg's compacted
-// fresh rows and popped tasks, the fold legs' sort keys.  The messages of the
-// scan leg (T * cap_route_range * max_t2 rows) and the queues go to device
-// memory, as in the standalone kernels.  Occupancy: T blocks (64 on the main
-// path).  The close leg's binary search reads the shard word-random, at most
-// bit_length(e_chunk) + 1 words a row.
+// the largest are the spill-only queues (the scan leg shifts one, the wedge
+// and close legs copy one before appending: cap * 8 bytes a tile each way),
+// the scan leg's messages (9 bytes a lane) and the (v_chunk,) slices of
+// legs 0 and of the fold legs.  Design: outputs are fresh buffers (a queue
+// shifted in place would need a read-barrier-write per element), but for
+// the classic and k-core leg 2, which appends its spills in place onto the
+// update queue that leg 1 of the same round made fresh, so it moves only
+// the rows it appends; data that fits stays in shared memory: leg 0's
+// popped tasks and rows (at most LEG0_MAX_ROWS), the scan leg's staging
+// windows, the wedge leg's compacted fresh rows and popped tasks, the fold
+// legs' sort keys.  The messages of the scan leg (T * cap_route_range *
+// max_t2 rows) and the queues go to device memory, as in the standalone
+// kernels.  Occupancy: T blocks (64 on the main path), but for the classic
+// and k-core leg 2, whose grid (T, G + 1) gives each of G blocks one column
+// range of a tile's slice and one block its spill append (G = 5 on the
+// main path: 384 blocks of 512 threads, kernels/engine/kernel.py
+// column_split).  The close leg's binary search
+// reads the shard word-random, at most bit_length(e_chunk) + 1 words a row.
 //
 // Plain C interface, as engine_kernels.cu: device pointers, sizes, template
 // codes and the caller's cudaStream_t in, cudaGetLastError() out.
@@ -52,6 +60,8 @@
 namespace {
 
 constexpr int LEG_THREADS = 1024;
+constexpr int FOLD_THREADS = 512;    // the fold legs' (T, G + 1) blocks
+static_assert(FOLD_THREADS > repro::COPY_THREADS, "two parts a block");
 constexpr int LEG0_MAX_ROWS = 256;   // kernels/engine/fused.py LEG0_MAX_ROWS
 constexpr int STAGE_SMEM = 48 * 1024;  // leg 1's staging windows
 constexpr int32_t ONE_BITS = 0x3f800000;  // the bits of 1.0f
@@ -353,19 +363,27 @@ fused_leg1_kernel(const int32_t* __restrict__ rq,
 }
 
 // ---------------------------------------------------------------------------
-// Leg 2 (the fold leg).  queue_append of the update spills onto a copy of the
-// update queue; then the fold of the R delivered (vertex, value) rows into
-// the tile's slice `target`: min (float atomics by integer order, exact in
-// any order) and the re-arm flags | (out < target); the ordered add
-// (ordered_scatter.cuh); or k-core's threshold fold: the ordered add of
-// -value, then newly = (acc == 0) & (out < k), acc_out = newly ? 1 : acc and
-// flags | newly.  Invalid rows go to the v_chunk trash slot, which every
-// fold skips.
+// Leg 2 (the fold leg), over a grid (T, G + 1): block (t, g < G) owns the
+// columns [lo, hi) = [g * step, min((g + 1) * step, v_chunk)) of tile t's
+// slice.  It copies that range of `target` to `out`, then folds the tile's
+// R delivered (vertex, value) rows whose slot lies in it: min (float
+// atomics by integer order, exact in any order) and the re-arm flags |
+// (out < target); the ordered add (ordered_scatter.cuh, over the in-range
+// rows only); or k-core's threshold fold: the ordered add of -value, then
+// newly = (acc == 0) & (out < k), acc_out = newly ? 1 : acc and flags |
+// newly.  Invalid rows go
+// to the v_chunk trash slot, which no range holds.  Block (t, G) appends
+// the update spills onto the update queue uq in place, at its count (what
+// the plain stage's copy-and-append gives; leg 1 of the round made that
+// queue, and nothing else reads it), and writes the tile's four counts: a
+// block of its own, since the append's block scans over S spill rows
+// (32,832 on the main path) take as long as a range's fold.  Every write
+// lies in the block's own range, its own tile's queue slots or its own
+// tile's counts, so no block waits on another.
 // ---------------------------------------------------------------------------
 template <int FOLD>
-__global__ void __launch_bounds__(LEG_THREADS)
-fused_leg2_kernel(const int32_t* __restrict__ uq,
-                  const int32_t* __restrict__ uq_count,
+__global__ void __launch_bounds__(FOLD_THREADS)
+fused_leg2_kernel(int32_t* uq, const int32_t* __restrict__ uq_count,
                   const int32_t* __restrict__ sp,
                   const uint8_t* __restrict__ spv,
                   const int32_t* __restrict__ recv,
@@ -373,66 +391,122 @@ fused_leg2_kernel(const int32_t* __restrict__ uq,
                   const float* __restrict__ target,
                   const uint8_t* __restrict__ flags,
                   const float* __restrict__ acc,
-                  int32_t* __restrict__ uq_out,
                   int32_t* __restrict__ uq_count_out,
                   float* __restrict__ out, uint8_t* __restrict__ flags_out,
                   float* __restrict__ acc_out, int32_t* __restrict__ drops,
                   int32_t* __restrict__ applied,
                   int32_t* __restrict__ nspill_out, int cap_u, int S, int R,
-                  int v_chunk, int k) {
+                  int v_chunk, int step, int k) {
   extern __shared__ __align__(16) unsigned char fold_smem[];
   __shared__ int sm[33];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  // update-spill re-queue
-  const int32_t* uqt = uq + (size_t)t * cap_u * 2;
-  int32_t* uqo = uq_out + (size_t)t * cap_u * 2;
-  for (int e = tid; e < cap_u * 2; e += blockDim.x) uqo[e] = uqt[e];
-  const size_t vt = (size_t)t * v_chunk;
-  repro::copy_slice(target + vt, out + vt, v_chunk);
-  __syncthreads();
-  const int c0 = uq_count[t];
-  const int nsp = repro::queue_append_block(
-      uqo, cap_u, 2, c0, sp + (size_t)t * S * 2, spv + (size_t)t * S, S, sm);
-  // T3
   const int32_t* rc = recv + (size_t)t * R * 2;
   const uint8_t* rvt = rv + (size_t)t * R;
-  int my_applied = 0;
-  for (int r = tid; r < R; r += blockDim.x) my_applied += rvt[r] != 0;
+  if (blockIdx.y == gridDim.y - 1) {
+    // the tile's update-spill re-queue, in place, and its counts
+    const int c0 = uq_count[t];
+    const int nsp = repro::queue_append_block(
+        uq + (size_t)t * cap_u * 2, cap_u, 2, c0, sp + (size_t)t * S * 2,
+        spv + (size_t)t * S, S, sm);
+    int my_applied = 0;
+    for (int r = tid; r < R; r += blockDim.x) my_applied += rvt[r] != 0;
+    const int n_applied = repro::block_sum(my_applied, sm);
+    if (tid == 0) {
+      const int n_push = imin(nsp, imax(cap_u - c0, 0));
+      uq_count_out[t] = c0 + n_push;
+      drops[t] = nsp - n_push;
+      applied[t] = n_applied;
+      nspill_out[t] = nsp;
+    }
+    return;
+  }
+  // T3 on the rows of this block's range, while half the block copies the
+  // range of the target (ordered_scatter.cuh *_fold_beside)
+  const int lo = blockIdx.y * step, hi = imin(lo + step, v_chunk);
+  const size_t vt = (size_t)t * v_chunk;
+  // the flag passes read 4 slots a thread, as vectors where the tile's
+  // slices are aligned (then lo and hi are multiples of 4)
+  const uintptr_t f32s = reinterpret_cast<uintptr_t>(target) |
+                         reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(acc) |
+                         reinterpret_cast<uintptr_t>(acc_out);
+  const uintptr_t u8s = reinterpret_cast<uintptr_t>(flags) |
+                        reinterpret_cast<uintptr_t>(flags_out);
+  const bool vec = v_chunk % 4 == 0 && (f32s & 15) == 0 && (u8s & 3) == 0;
+  const bool rc_vec = (reinterpret_cast<uintptr_t>(rc) & 7) == 0;
+  const auto load = [&](int r) {
+    const int2 m = rc_vec ? reinterpret_cast<const int2*>(rc)[r]
+                          : make_int2(rc[2 * r], rc[2 * r + 1]);
+    const float x = __int_as_float(m.y);
+    return repro::SlotValue{rvt[r] ? repro::floor_mod(m.x, v_chunk) : v_chunk,
+                            FOLD == FOLD_KCORE ? -x : x};
+  };
+  const auto copy = [&](const repro::Team& part) {
+    repro::copy_range(target + vt, out + vt, lo, hi, part);
+  };
   if (FOLD == FOLD_MIN) {
-    for (int r = tid; r < R; r += blockDim.x)
-      if (rvt[r])
-        repro::atomic_min_f32(out + vt + repro::floor_mod(rc[2 * r], v_chunk),
-                              __int_as_float(rc[2 * r + 1]));
-    __syncthreads();
-    for (int i = tid; i < v_chunk; i += blockDim.x)
-      flags_out[vt + i] = flags[vt + i] | (out[vt + i] < target[vt + i]);
-  } else {
-    repro::ordered_add_rows_by(
-        out + vt, v_chunk, R, fold_smem, [&](int i, int* s, float* v) {
-          const bool ok = rvt[i] != 0;
-          const float x = __int_as_float(rc[2 * i + 1]);
-          *s = ok ? repro::floor_mod(rc[2 * i], v_chunk) : v_chunk;
-          *v = ok ? (FOLD == FOLD_KCORE ? -x : x) : 0.0f;
-        });
-    if (FOLD == FOLD_KCORE) {
-      __syncthreads();
-      const float kf = __int2float_rn(k);
-      for (int i = tid; i < v_chunk; i += blockDim.x) {
-        const float a = acc[vt + i];
-        const bool newly = a == 0.0f && out[vt + i] < kf;
-        acc_out[vt + i] = newly ? 1.0f : a;
-        flags_out[vt + i] = flags[vt + i] | newly;
+    repro::min_fold_beside(out + vt, lo, hi, R, fold_smem, load, copy);
+    for (int i = lo + 4 * tid; i < hi; i += 4 * blockDim.x) {
+      const size_t o = vt + i;
+      if (vec) {  // out after the atomics: read past L1
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(out + o));
+        const float4 y = *reinterpret_cast<const float4*>(target + o);
+        uchar4 f = *reinterpret_cast<const uchar4*>(flags + o);
+        f.x |= x.x < y.x;
+        f.y |= x.y < y.y;
+        f.z |= x.z < y.z;
+        f.w |= x.w < y.w;
+        *reinterpret_cast<uchar4*>(flags_out + o) = f;
+      } else {
+        for (int j = 0; j < 4 && i + j < hi; ++j)
+          flags_out[o + j] =
+              flags[o + j] | (__ldcg(out + o + j) < target[o + j]);
       }
     }
-  }
-  const int n_applied = repro::block_sum(my_applied, sm);
-  if (tid == 0) {
-    const int n_push = imin(nsp, imax(cap_u - c0, 0));
-    uq_count_out[t] = c0 + n_push;
-    drops[t] = nsp - n_push;
-    applied[t] = n_applied;
-    nspill_out[t] = nsp;
+  } else {
+    repro::add_fold_beside(out + vt, lo, hi, step, R, fold_smem, load,
+                           copy);
+    if (FOLD == FOLD_KCORE) {
+      const float kf = __int2float_rn(k);
+      for (int i = lo + 4 * tid; i < hi; i += 4 * blockDim.x) {
+        const size_t o = vt + i;
+        float a[4] = {}, x[4] = {};
+        uint8_t f[4] = {};
+        const int m = imin(4, hi - i);
+        if (vec) {
+          const float4 av = *reinterpret_cast<const float4*>(acc + o);
+          const float4 xv = __ldcg(reinterpret_cast<const float4*>(out + o));
+          const uchar4 fv = *reinterpret_cast<const uchar4*>(flags + o);
+          a[0] = av.x, a[1] = av.y, a[2] = av.z, a[3] = av.w;
+          x[0] = xv.x, x[1] = xv.y, x[2] = xv.z, x[3] = xv.w;
+          f[0] = fv.x, f[1] = fv.y, f[2] = fv.z, f[3] = fv.w;
+        } else {
+          for (int j = 0; j < m; ++j) {
+            a[j] = acc[o + j];
+            x[j] = __ldcg(out + o + j);
+            f[j] = flags[o + j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool newly = a[j] == 0.0f && x[j] < kf;
+          a[j] = newly ? 1.0f : a[j];
+          f[j] |= newly;
+        }
+        if (vec) {
+          *reinterpret_cast<float4*>(acc_out + o) =
+              make_float4(a[0], a[1], a[2], a[3]);
+          *reinterpret_cast<uchar4*>(flags_out + o) =
+              make_uchar4(f[0], f[1], f[2], f[3]);
+        } else {
+          for (int j = 0; j < m; ++j) {
+            acc_out[o + j] = a[j];
+            flags_out[o + j] = f[j];
+          }
+        }
+      }
+    }
   }
 }
 
@@ -625,7 +699,7 @@ fused_close_leg_kernel(const int32_t* __restrict__ cq,
   const int32_t* ed = edge_dst + (size_t)t * e_chunk;
   int my_found = 0;
   repro::ordered_add_rows_by(
-      acc_out + vt, v_chunk, R, fold_smem, [&](int i, int* s, float* v) {
+      acc_out + vt, 0, v_chunk, R, fold_smem, [&](int i, int* s, float* v) {
         int slot = v_chunk;
         bool found = false;
         if (rvt[i]) {
@@ -719,27 +793,27 @@ cudaError_t launch_leg1(Leg1Kernel kernel, int T, size_t smem,
 
 using Leg2Kernel = decltype(&fused_leg2_kernel<FOLD_MIN>);
 
-cudaError_t launch_leg2(Leg2Kernel kernel, int T, size_t smem,
-                        cudaStream_t stream, const void* uq,
-                        const void* uq_count, const void* sp, const void* spv,
-                        const void* recv, const void* rv, const void* target,
-                        const void* flags, const void* acc, void* uq_out,
-                        void* uq_count_out, void* out, void* flags_out,
-                        void* acc_out, void* drops, void* applied,
-                        void* nspill, int cap_u, int S, int R, int v_chunk,
-                        int k) {
+cudaError_t launch_leg2(Leg2Kernel kernel, int T, int G, size_t smem,
+                        cudaStream_t stream, void* uq, const void* uq_count,
+                        const void* sp, const void* spv, const void* recv,
+                        const void* rv, const void* target, const void* flags,
+                        const void* acc, void* uq_count_out, void* out,
+                        void* flags_out, void* acc_out, void* drops,
+                        void* applied, void* nspill, int cap_u, int S, int R,
+                        int v_chunk, int step, int k) {
+  if (!repro::valid_split(v_chunk, G, step)) return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<T, LEG_THREADS, smem, stream>>>(
-      static_cast<const int32_t*>(uq), static_cast<const int32_t*>(uq_count),
+  kernel<<<dim3(T, G + 1), FOLD_THREADS, smem, stream>>>(
+      static_cast<int32_t*>(uq), static_cast<const int32_t*>(uq_count),
       static_cast<const int32_t*>(sp), static_cast<const uint8_t*>(spv),
       static_cast<const int32_t*>(recv), static_cast<const uint8_t*>(rv),
       static_cast<const float*>(target), static_cast<const uint8_t*>(flags),
-      static_cast<const float*>(acc), static_cast<int32_t*>(uq_out),
-      static_cast<int32_t*>(uq_count_out), static_cast<float*>(out),
-      static_cast<uint8_t*>(flags_out), static_cast<float*>(acc_out),
-      static_cast<int32_t*>(drops), static_cast<int32_t*>(applied),
-      static_cast<int32_t*>(nspill), cap_u, S, R, v_chunk, k);
+      static_cast<const float*>(acc), static_cast<int32_t*>(uq_count_out),
+      static_cast<float*>(out), static_cast<uint8_t*>(flags_out),
+      static_cast<float*>(acc_out), static_cast<int32_t*>(drops),
+      static_cast<int32_t*>(applied), static_cast<int32_t*>(nspill), cap_u,
+      S, R, v_chunk, step, k);
   return cudaGetLastError();
 }
 
@@ -891,42 +965,45 @@ int repro_fused_leg1_chain(
       scan_warps(0), nchan, chan));
 }
 
-// Leg 2 of the classic program: the min or the add fold.
-int repro_fused_leg2(const void* uq, const void* uq_count, const void* sp,
+// Leg 2 of the classic program: the min or the add fold, over a grid (T, G)
+// of column ranges of `step` slots; the spills append to uq in place.
+int repro_fused_leg2(void* uq, const void* uq_count, const void* sp,
                      const void* spv, const void* recv, const void* rv,
-                     const void* target, const void* flags, void* uq_out,
+                     const void* target, const void* flags,
                      void* uq_count_out, void* out, void* flags_out,
                      void* drops, void* applied, void* nspill, int T,
-                     int cap_u, int S, int R, int v_chunk, int fold,
-                     void* stream) {
+                     int cap_u, int S, int R, int v_chunk, int G, int step,
+                     int fold, void* stream) {
   Leg2Kernel kernel = fused_leg2_kernel<FOLD_MIN>;
-  size_t smem = 0;
+  size_t smem = repro::min_fold_smem(R);
   if (fold == FOLD_ADD) {
     kernel = fused_leg2_kernel<FOLD_ADD>;
-    smem = repro::ordered_add_smem(R);
+    smem = repro::ordered_add_smem(R, step);
   } else if (fold != FOLD_MIN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch_leg2(
-      kernel, T, smem, static_cast<cudaStream_t>(stream), uq, uq_count, sp,
-      spv, recv, rv, target, flags, nullptr, uq_out, uq_count_out, out,
-      flags_out, nullptr, drops, applied, nspill, cap_u, S, R, v_chunk, 0));
+      kernel, T, G, smem, static_cast<cudaStream_t>(stream), uq, uq_count,
+      sp, spv, recv, rv, target, flags, nullptr, uq_count_out, out,
+      flags_out, nullptr, drops, applied, nspill, cap_u, S, R, v_chunk, step,
+      0));
 }
 
-// Leg 2 of k-core: the threshold fold into value, acc and the flags.
-int repro_fused_kcore_leg2(const void* uq, const void* uq_count,
-                           const void* sp, const void* spv, const void* recv,
-                           const void* rv, const void* value,
-                           const void* flags, const void* acc, void* uq_out,
-                           void* uq_count_out, void* value_out,
-                           void* flags_out, void* acc_out, void* drops,
-                           void* applied, void* nspill, int T, int cap_u,
-                           int S, int R, int v_chunk, int k, void* stream) {
+// Leg 2 of k-core: the threshold fold into value, acc and the flags, over
+// the same grid; the spills append to uq in place.
+int repro_fused_kcore_leg2(void* uq, const void* uq_count, const void* sp,
+                           const void* spv, const void* recv, const void* rv,
+                           const void* value, const void* flags,
+                           const void* acc, void* uq_count_out,
+                           void* value_out, void* flags_out, void* acc_out,
+                           void* drops, void* applied, void* nspill, int T,
+                           int cap_u, int S, int R, int v_chunk, int G,
+                           int step, int k, void* stream) {
   return static_cast<int>(launch_leg2(
-      fused_leg2_kernel<FOLD_KCORE>, T, repro::ordered_add_smem(R),
+      fused_leg2_kernel<FOLD_KCORE>, T, G, repro::ordered_add_smem(R, step),
       static_cast<cudaStream_t>(stream), uq, uq_count, sp, spv, recv, rv,
-      value, flags, acc, uq_out, uq_count_out, value_out, flags_out, acc_out,
-      drops, applied, nspill, cap_u, S, R, v_chunk, k));
+      value, flags, acc, uq_count_out, value_out, flags_out, acc_out, drops,
+      applied, nspill, cap_u, S, R, v_chunk, step, k));
 }
 
 // Leg 2 of triangles: wedge re-queue, wedge_to_range, range2 turn and split.

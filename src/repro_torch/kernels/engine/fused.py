@@ -4,10 +4,12 @@
 The reference's ``fused_leg_call(fn, *operands)`` makes the per-tile
 stage ``fn`` itself the body of one ``pallas_call``.  Here each leg of the
 repository's programs is a hand-written CUDA kernel
-(``csrc/fused_legs.cu``), one block per tile, templated on the
-:class:`LegTemplate`.  Leg ``i`` of a K-channel program is channel
-``i - 1``'s handler plus channel ``i``'s ingest (leg 0: the source plus
-channel 0's ingest; leg K: channel K-1's handler):
+(``csrc/fused_legs.cu``), one block per tile (the classic and k-core
+leg 2: G blocks per tile, each owning one column range of its slice, and
+one more for its spill append), templated on the :class:`LegTemplate`.
+Leg ``i`` of a K-channel program is channel ``i - 1``'s handler plus
+channel ``i``'s ingest (leg 0: the source plus channel 0's ingest; leg K:
+channel K-1's handler):
 
 ========================  ===============================================
 wrapper                   one launch computes, per tile
@@ -19,11 +21,12 @@ wrapper                   one launch computes, per tile
                           streamed windows) and emit, update-queue replay
                           turn, replay + fresh rows into the messages
                           (classic and k-core leg 1)
-:func:`fused_leg2`        update-spill re-queue, T3 min fold + frontier
-                          re-arm (async or BSP) or ordered add fold
-:func:`fused_kcore_leg2`  decrement-spill re-queue, ordered add of the
-                          decrements into ``value``, the newly removed
-                          vertices into ``acc`` and the re-armed flags
+:func:`fused_leg2`        update-spill re-queue (in place), T3 min fold +
+                          frontier re-arm (async or BSP) or ordered add fold
+:func:`fused_kcore_leg2`  decrement-spill re-queue (in place), ordered add
+                          of the decrements into ``value``, the newly
+                          removed vertices into ``acc`` and the re-armed
+                          flags
 :func:`fused_tri_leg0`    leg 0 with the placed-id payload and the TSU over
                           the four queues of the triangles chain
 :func:`fused_tri_leg1`    leg 1 emitting wedges ``(nb, v)``, valid iff
@@ -67,7 +70,8 @@ from repro_torch.kernels.cuda_build import CudaLibrary, check as _check
 from repro_torch.kernels.engine.kernel import (CSRC, ENGINE_DEVICE,
                                                FOLD_ADD_MAX_ROWS,
                                                ORDERED_SCATTER,
-                                               STREAM_MAX_WINDOW)
+                                               STREAM_MAX_WINDOW,
+                                               device_split)
 from repro_torch.kernels.engine.launches import record
 
 SOURCE = CSRC / "fused_legs.cu"
@@ -76,8 +80,8 @@ LIBRARY = CudaLibrary(SOURCE, {
     "repro_fused_leg0_chain": [_P] * 19 + [_I] * 16 + [_P],
     "repro_fused_leg1": [_P] * 22 + [_I] * 10 + [_P],
     "repro_fused_leg1_chain": [_P] * 22 + [_I] * 11 + [_P],
-    "repro_fused_leg2": [_P] * 15 + [_I] * 6 + [_P],
-    "repro_fused_kcore_leg2": [_P] * 17 + [_I] * 6 + [_P],
+    "repro_fused_leg2": [_P] * 14 + [_I] * 8 + [_P],
+    "repro_fused_kcore_leg2": [_P] * 16 + [_I] * 8 + [_P],
     "repro_fused_wedge_leg": [_P] * 22 + [_I] * 12 + [_P],
     "repro_fused_close_leg": [_P] * 16 + [_I] * 7 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
@@ -316,10 +320,21 @@ def fused_tri_leg3(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
 
 def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     """Leg 2 of a classic round (the engine's ``stage_last``):
-    update-spill re-queue, then the T3 fold.  Returns ``(state, drops,
-    applied, nspill)``; the state's update queue is new, and so are
-    ``value`` and the re-armed frontier (min fold; ``next_frontier`` in
-    BSP mode) or ``acc`` (add fold)."""
+    update-spill re-queue, then the T3 fold, over a grid (T, G + 1): G
+    column ranges of each tile's slice (:func:`~repro_torch.kernels.
+    engine.kernel.column_split`) and the tile's spill append.  Returns
+    ``(state, drops, applied, nspill)``; ``value``
+    and the re-armed frontier (min fold; ``next_frontier`` in BSP mode)
+    or ``acc`` (add fold) are new.
+
+    The kernel appends the spill rows onto the update queue it is given,
+    in place, at its count, and copies nothing: the returned state's queue
+    shares that storage (``data``), and holds what the plain stage's
+    copy-and-append holds, bit for bit.  The input queue changes with it,
+    in slots from its count on: the engine's round always gives the leg
+    the queue that leg 1 of the same round has just made, which nothing
+    else reads.  A second call on the same operands writes the same rows
+    again and gives the same bits."""
     if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv)
@@ -338,19 +353,18 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
         raise ValueError(f"fused_leg2 (add fold) sorts at most "
                          f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
                          f"memory; got {R}")
-    dev = uq.data.device
-    udata = torch.empty_like(uq.data)
-    counts = torch.empty((4, T), dtype=torch.int32, device=dev)
+    counts = torch.empty((4, T), dtype=torch.int32, device=uq.data.device)
     # queue count, drops, applied, nspill
     out = torch.empty_like(target)
     new_flags = torch.empty_like(flags) if is_min else flags
     _launch("repro_fused_leg2", uq.data, uq.count, sp, spv, recv, rv,
-            target, flags, udata, counts[0], out, new_flags, counts[1],
-            counts[2], counts[3], T, cap_u, S, R, v_chunk,
+            target, flags, counts[0], out, new_flags, counts[1], counts[2],
+            counts[3], T, cap_u, S, R, v_chunk,
+            *device_split(T, v_chunk, uq.data.device),
             _code(FOLDS, tmpl.fold))
     _count("fused_leg2")
     record()
-    st = st._replace(queues=(rq, Queue(udata, counts[0])))
+    st = st._replace(queues=(rq, Queue(uq.data, counts[0])))
     if not is_min:
         st = st._replace(acc=out)
     elif tmpl.mode == "async":
@@ -369,9 +383,11 @@ def fused_kcore_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp,
     """Leg 2 of a k-core round: decrement-spill re-queue; the ordered add
     of ``-dec`` into ``value``; ``newly = (acc == 0) & (value' < k)``;
     ``acc`` set to 1 where newly, and newly re-armed in the frontier
-    (async) or ``next_frontier`` (BSP).  Returns ``(state, drops,
-    applied, nspill)``; the update queue, ``value``, ``acc`` and the
-    re-armed flags are new."""
+    (async) or ``next_frontier`` (BSP); over the grid of
+    :func:`fused_leg2`.  Returns ``(state, drops, applied, nspill)``;
+    ``value``, ``acc`` and the re-armed flags are new; the spill rows
+    append in place onto the update queue it is given, as in
+    :func:`fused_leg2`."""
     if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv)
@@ -389,17 +405,17 @@ def fused_kcore_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp,
         raise ValueError(f"fused_kcore_leg2 sorts at most "
                          f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
                          f"memory; got {R}")
-    udata = torch.empty_like(uq.data)
     counts = torch.empty((4, T), dtype=torch.int32, device=uq.data.device)
     # queue count, drops, applied, nspill
     value, acc = torch.empty_like(st.value), torch.empty_like(st.acc)
     new_flags = torch.empty_like(flags)
     _launch("repro_fused_kcore_leg2", uq.data, uq.count, sp, spv, recv, rv,
-            st.value, flags, st.acc, udata, counts[0], value, new_flags, acc,
-            counts[1], counts[2], counts[3], T, cap_u, S, R, v_chunk, tmpl.k)
+            st.value, flags, st.acc, counts[0], value, new_flags, acc,
+            counts[1], counts[2], counts[3], T, cap_u, S, R, v_chunk,
+            *device_split(T, v_chunk, uq.data.device), tmpl.k)
     _count("fused_kcore_leg2")
     record()
-    st = st._replace(queues=(rq, Queue(udata, counts[0])), value=value,
+    st = st._replace(queues=(rq, Queue(uq.data, counts[0])), value=value,
                      acc=acc, **{_flags_field(tmpl): new_flags})
     return st, counts[1], counts[2], counts[3]
 

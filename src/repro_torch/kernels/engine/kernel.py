@@ -44,7 +44,9 @@ with ``ctypes``).  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +70,46 @@ _QP_MAX_ROWS = 8192
 FOLD_ADD_MAX_ROWS = 16384
 # a streamed T2 stages 2 * window (dst, val) pairs per warp in shared memory
 STREAM_MAX_WINDOW = 2048
+# The column-owning split of the T3 folds over a grid (NB, G) (the
+# scatter_segments kernel and the fused leg 2): G aims at SPLIT_BLOCKS_PER_SM
+# blocks on each SM, with at most one block per SPLIT_MIN_COLS slots, and
+# every inner boundary a multiple of SPLIT_QUANTUM slots (a 16-byte vector).
+SPLIT_BLOCKS_PER_SM, SPLIT_MIN_COLS, SPLIT_QUANTUM = 2, 512, 4
+
+
+class Split(NamedTuple):
+    """G column ranges of ``step`` slots: block ``j`` owns the slots
+    ``[j * step, min((j + 1) * step, b))`` of its bin."""
+
+    G: int
+    step: int
+
+    def bounds(self, b: int) -> list:
+        """The G + 1 boundaries of the ranges over ``b`` slots."""
+        return [min(j * self.step, b) for j in range(self.G)] + [b]
+
+
+def column_split(nb: int, b: int, sms: int) -> Split:
+    """The split of ``nb`` bins of ``b`` slots each over ``sms`` SMs: G
+    ranges a bin, as many as give every SM SPLIT_BLOCKS_PER_SM blocks
+    but at most one per SPLIT_MIN_COLS slots, of equal width rounded up
+    to SPLIT_QUANTUM (the last takes the remainder), none empty."""
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // max(nb, 1))
+    G = max(1, min(want, -(-b // SPLIT_MIN_COLS)))
+    step = SPLIT_QUANTUM * max(1, -(-b // (SPLIT_QUANTUM * G)))
+    return Split(max(1, -(-b // step)), step)
+
+
+def device_split(nb: int, b: int, dev) -> Split:
+    """:func:`column_split` over the SMs of CUDA device ``dev``."""
+    return column_split(nb, b, _sm_count(torch.device(dev).index or 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 LIBRARY = CudaLibrary(SOURCE, {
     "repro_frontier_pop": [_P] * 5 + [_I] * 3 + [_P],
     "repro_queue_push_pop": [_P] * 10 + [_I] * 5 + [_P],

@@ -10,12 +10,22 @@
 // Hopper has no reason to: the scatter is a few bytes per update, so the
 // kernel is bound by bytes (the (b,) block read and written once, each
 // update read once), and a one-hot product would spend cap*b operations on
-// it.  Design: one block per bin copies its block of the value array, then
-// adds through the order-keeping sort of ../../engine/csrc/ordered_scatter.cuh
-// (bitwise equal to scatter_ref, where the TPU's matmul order agrees only
-// within rounding) or takes the min with float atomics in the integer-order
-// trick.  Every write lands in the bin's own block: atomic-free by ownership
-// for the add, and exact in any order for the min.
+// it.  Design: a grid (NB, G) of column-owning blocks, so that a few bins
+// still fill the card (G = 5 at 64 bins of 65,536 slots: 320 blocks, ~2.4 a
+// SM; kernels/engine/kernel.py column_split).  Block (i, g) owns the slots
+// [g * step, min((g + 1) * step, b)) of bin i, and applies only the updates
+// whose slot lies there.  Half of its threads copy that range of the value
+// array with 16-byte vectors (a stream of device memory) while the other
+// half read the bin's `cap` updates (from L2 after the first block of the
+// bin) and gather those in range into shared memory: for the add, their
+// (slot, row) keys, sorted by the order-keeping sort of
+// ../../engine/csrc/ordered_scatter.cuh (bitwise equal to scatter_ref, where
+// the TPU's matmul order agrees only within rounding); for the min, their
+// (slot, value) pairs.  Then the whole block folds them in: the add at the
+// head of each slot's run, in row order; the min with float atomics in the
+// integer-order trick.  Every write lands in the block's own range:
+// atomic-free by ownership for the add, and exact in any order for the
+// min.
 //
 // Plain C interface, built and loaded as the engine kernels are
 // (repro_torch/kernels/cuda_build.py).
@@ -27,36 +37,49 @@
 
 namespace {
 
-constexpr int SS_THREADS = 1024;
+constexpr int SS_THREADS = 512;
+static_assert(SS_THREADS > repro::COPY_THREADS, "two parts a block");
 
 __global__ void __launch_bounds__(SS_THREADS)
 scatter_segments_add_kernel(const float* __restrict__ base,
                             const int32_t* __restrict__ idx,
                             const float* __restrict__ vals,
-                            float* __restrict__ out, int b, int cap) {
+                            float* __restrict__ out, int b, int cap,
+                            int step) {
   extern __shared__ __align__(16) unsigned char ss_smem[];
   const int i = blockIdx.x;
+  const int lo = blockIdx.y * step, hi = min(lo + step, b);
   float* o = out + (size_t)i * b;
-  repro::copy_slice(base + (size_t)i * b, o, b);
-  __syncthreads();
-  repro::ordered_add_rows(o, b, idx + (size_t)i * cap, vals + (size_t)i * cap,
-                          nullptr, cap, ss_smem);
+  const float* bs = base + (size_t)i * b;
+  const int32_t* ix = idx + (size_t)i * cap;
+  const float* vx = vals + (size_t)i * cap;
+  repro::add_fold_beside(
+      o, lo, hi, step, cap, ss_smem,
+      [&](int r) { return repro::SlotValue{ix[r], vx[r]}; },
+      [&](const repro::Team& part) {
+        repro::copy_range(bs, o, lo, hi, part);
+      });
 }
 
 __global__ void __launch_bounds__(SS_THREADS)
 scatter_segments_min_kernel(const float* __restrict__ base,
                             const int32_t* __restrict__ idx,
                             const float* __restrict__ vals,
-                            float* __restrict__ out, int b, int cap) {
+                            float* __restrict__ out, int b, int cap,
+                            int step) {
+  extern __shared__ __align__(16) unsigned char ss_smem[];
   const int i = blockIdx.x;
+  const int lo = blockIdx.y * step, hi = min(lo + step, b);
   float* o = out + (size_t)i * b;
-  repro::copy_slice(base + (size_t)i * b, o, b);
-  __syncthreads();
-  for (int c = threadIdx.x; c < cap; c += blockDim.x) {
-    const size_t q = (size_t)i * cap + c;
-    const int j = idx[q];
-    if (j >= 0 && j < b) repro::atomic_min_f32(o + j, vals[q]);
-  }
+  const float* bs = base + (size_t)i * b;
+  const int32_t* ix = idx + (size_t)i * cap;
+  const float* vx = vals + (size_t)i * cap;
+  repro::min_fold_beside(
+      o, lo, hi, cap, ss_smem,
+      [&](int r) { return repro::SlotValue{ix[r], vx[r]}; },
+      [&](const repro::Team& part) {
+        repro::copy_range(bs, o, lo, hi, part);
+      });
 }
 
 }  // namespace
@@ -69,28 +92,35 @@ const char* repro_cuda_error_string(int code) {
 
 int repro_scatter_segments_add(const void* base, const void* idx,
                                const void* vals, void* out, int nb, int b,
-                               int cap, void* stream) {
-  const size_t smem = repro::ordered_add_smem(cap);
+                               int cap, int G, int step, void* stream) {
+  if (!repro::valid_split(b, G, step))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = repro::ordered_add_smem(cap, step);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         scatter_segments_add_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  scatter_segments_add_kernel<<<nb, SS_THREADS, smem,
+  scatter_segments_add_kernel<<<dim3(nb, G), SS_THREADS, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(vals), static_cast<float*>(out), b, cap);
+      static_cast<const float*>(vals), static_cast<float*>(out), b, cap,
+      step);
   return static_cast<int>(cudaGetLastError());
 }
 
 int repro_scatter_segments_min(const void* base, const void* idx,
                                const void* vals, void* out, int nb, int b,
-                               int cap, void* stream) {
-  scatter_segments_min_kernel<<<nb, SS_THREADS, 0,
+                               int cap, int G, int step, void* stream) {
+  if (!repro::valid_split(b, G, step))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = repro::min_fold_smem(cap);  // under 48 KiB
+  scatter_segments_min_kernel<<<dim3(nb, G), SS_THREADS, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(vals), static_cast<float*>(out), b, cap);
+      static_cast<const float*>(vals), static_cast<float*>(out), b, cap,
+      step);
   return static_cast<int>(cudaGetLastError());
 }
 

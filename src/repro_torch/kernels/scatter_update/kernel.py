@@ -6,12 +6,16 @@ of ``repro.kernels.scatter_update.kernel``).
 ``cap`` updates into its own ``(b,)`` block of the value array, ``idx ==
 -1`` marking an empty slot.  On CPU tensors it runs its plain version
 :func:`binned_scatter`; on CUDA tensors it launches
-``csrc/scatter_segments.cu`` (one block per bin: an order-keeping sort for
-the add, float atomics for the min) and raises if the launch failed.  Both
-add each slot's updates in row order, so both are bitwise equal to the
-serial :func:`repro_torch.kernels.scatter_update.ref.scatter_ref`; the
-TPU kernel's one-hot matrix product sums in another order and agrees
-within rounding.
+``csrc/scatter_segments.cu`` over a grid (NB, G) of column-owning blocks
+(:func:`repro_torch.kernels.engine.kernel.column_split`: block ``(i,
+j)`` owns a range of bin ``i``'s slots and applies only the updates that
+land there; the add sorts, order-keeping, the updates of the slots that
+get more than one, the min folds with float atomics) and raises if the
+launch failed.  Both add each slot's updates in row order, so both are
+bitwise equal to the serial
+:func:`repro_torch.kernels.scatter_update.ref.scatter_ref`; the TPU
+kernel's one-hot matrix product sums in another order and agrees within
+rounding.
 """
 from __future__ import annotations
 
@@ -22,14 +26,14 @@ import torch
 
 from repro_torch.kernels.cuda_build import I, P, CudaLibrary, check
 from repro_torch.kernels.engine.kernel import (FOLD_ADD_MAX_ROWS,
-                                               ORDERED_SCATTER,
+                                               ORDERED_SCATTER, device_split,
                                                ordered_scatter_add)
 
 _INF = float(np.finfo(np.float32).max)
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "scatter_segments.cu",
-    {"repro_scatter_segments_add": [P] * 4 + [I] * 3 + [P],
-     "repro_scatter_segments_min": [P] * 4 + [I] * 3 + [P]},
+    {"repro_scatter_segments_add": [P] * 4 + [I] * 5 + [P],
+     "repro_scatter_segments_min": [P] * 4 + [I] * 5 + [P]},
     headers=(ORDERED_SCATTER,))
 
 
@@ -62,8 +66,9 @@ def scatter_segments(base, idx, vals, op: str = "min"):
           ("idx", idx, torch.int32, (NB, cap)),
           ("vals", vals, torch.float32, (NB, cap)))
     out = torch.empty_like(base)
+    split = device_split(NB, b, base.device)
     LIBRARY.launch(f"repro_scatter_segments_{op}", base, idx, vals, out, NB,
-                   b, cap)
+                   b, cap, *split)
     scatter_segments.launches += 1
     return out
 

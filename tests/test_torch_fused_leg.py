@@ -16,6 +16,7 @@ re-queue phase runs.  The port's defaults equal the reference's
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core import algorithms as ja
 from repro.core.engine import EngineConfig as JConfig
@@ -30,6 +31,19 @@ from test_torch_engine import SMALL, TIGHT, assert_stats_equal, \
     port_partition
 
 pytestmark = pytest.mark.torch_port
+
+
+def tensors(x):
+    """The tensors of a (nested) tuple of stage outputs, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in tensors(y)]
+    return []
+
+
+def bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 # name: (app, rmat scale, T, knobs)
 CASES = {
@@ -208,3 +222,74 @@ def test_default_config_equals_jax_pallas_default(gs, program):
     assert_all_stats_equal(jr.stats, tr.stats, f"{program} defaults")
     per_round = 5 if program == "triangles" else 3
     assert int(tr.stats.launches) == per_round * int(tr.stats.rounds) > 0
+
+
+# --------------------------------------------------------------------------
+# Leg 2 appends in place on the card: the idempotence its checks rely on
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def twin_graph():
+    # chip_smoke.py's twin phase: R-MAT-10, edge factor 10, seed 1
+    n, src, dst, val = rmat_edges(10, edge_factor=10, seed=1)
+    return CSRGraph.from_edges(n, src, dst, val)
+
+
+def write_appended(q_in, q_out):
+    """Write the rows that ``q_out`` appended after ``q_in``'s count into
+    ``q_in``'s own buffer, as the leg-2 kernel appends in place."""
+    for t, (c0, c1) in enumerate(zip(q_in.count.tolist(),
+                                     q_out.count.tolist())):
+        q_in.data[t, c0:c1] = q_out.data[t, c0:c1]
+
+
+@pytest.mark.parametrize("app", ["bfs", "bfs_bsp", "spmv", "kcore5"])
+def test_leg2_stage_appending_in_place_is_idempotent(monkeypatch,
+                                                     twin_graph, app):
+    """At every leg-2 call with spills of a fused run on the twin's R-MAT-10
+    over 16 tiles (the tight knobs), the plain stage's appended rows,
+    written into its input queue as the kernel writes them, make that queue
+    the stage's own output queue, don't-care slots included; the stage run
+    again on the same operands gives every output of the first run,
+    bitwise (chip_smoke.py's checks re-run the leg after the kernel); and
+    the run, carried on in the queue appended in place, still equals the
+    JAX package's, values and every Stats field but launches."""
+    from repro_torch.core.queues import Queue
+    g = ja.symmetrize(twin_graph) if app == "kcore5" else twin_graph
+    T = 16
+    pg = ja.prepare(g, T=T)
+    name = "fused_kcore_leg2" if app == "kcore5" else "fused_leg2"
+    real = getattr(fused, name)
+    spilled = []
+
+    def in_place(tmpl, plain, *ops):
+        st = ops[2]
+        first = real(tmpl, plain, *ops)
+        if not bool(ops[6].any()):
+            return first
+        spilled.append(1)
+        q_in, q_out = st.queues[1], first[0].queues[1]
+        write_appended(q_in, q_out)
+        assert torch.equal(q_in.data, q_out.data)
+        second = plain(*ops)
+        for i, (a, b) in enumerate(zip(tensors(first), tensors(second))):
+            assert torch.equal(bits(a), bits(b)), (name, i)
+        return (second[0]._replace(queues=(second[0].queues[0],
+                                           Queue(q_in.data,
+                                                 second[0].queues[1].count))),
+                *second[1:])
+
+    monkeypatch.setattr(fused, name, in_place)
+    knobs = dict(TIGHT)
+    if app == "kcore5":
+        tf = run_program(ta, app, port_partition(pg), TConfig(**knobs))
+        jx = run_program(ja, app, pg, JConfig(backend="xla", **knobs))
+    else:
+        if app == "bfs_bsp":
+            knobs["mode"] = "bsp"
+        tf = run(ta, app, port_partition(pg), g, TConfig(**knobs))
+        jx = run(ja, app, pg, g, JConfig(backend="xla", **knobs))
+    assert spilled, "no leg-2 call spilled"
+    np.testing.assert_array_equal(jx.values, tf.values)
+    assert_stats_equal(jx.stats, tf.stats, f"{app} in place")
+    assert int(tf.stats.launches) == 3 * int(tf.stats.rounds)
