@@ -31,11 +31,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    k-core (k = 2, 5; async and BSP) and triangles, unfused
    (``fuse=False``); then every one of them with ``fuse=True`` (each leg
    one kernel: 3 calls a round, 5 for triangles; every leg call also held
-   bitwise against its plain stage, with the edge cases: empty frontier,
-   a leg 0 that pops nothing, a cap-0 update queue, spills on every
-   channel, the four of triangles included), k-core also with the edge
-   shard streamed, and BFS, SSSP and SpMV with the edge shard streamed
-   (``edge_space="hbm"``), unfused and fused;
+   against its plain stage by the legs' contract, ``fused.contract``:
+   bitwise below each queue's count and on the valid message rows, the
+   popped rows past the pop 0 in the kernel's; with the edge cases: empty
+   frontier, a leg 0 that pops nothing, a cap-0 update queue, spills on
+   every channel, the four of triangles included), k-core also with the
+   edge shard streamed, and BFS, SSSP and SpMV with the edge shard
+   streamed (``edge_space="hbm"``), unfused and fused; then 9
+   configurations past the kernels' shared-memory staging (T = 257,
+   pops of 512, 16,640 fresh rows, windows of 4,096, and stagings in the
+   device scratch: 65,536 frontier pops, 16,384 popped ranges), fused and
+   unfused, with the path each kernel took;
 4. ``main`` — the main paths over R-MAT-22 (edge factor 10, seed 1) on 64
    tiles, fused, the partition built once: one BFS query from vertex 0
    (the highest out-degree) with ``EngineConfig(cap_updq=262144)``, hop
@@ -46,9 +52,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    doubled hub term must exceed).  Each: no drops, three kernel calls a
    round, each leg kernel launched once a round (counts read just after
    the path).  Then short runs of the same paths (and BFS in BSP mode)
-   whose fused legs are held bitwise against their plain stages at the
-   main shapes and timed (bound, plain time; no library call computes a
-   leg);
+   whose fused legs are held against their plain stages at the main
+   shapes and timed (bound, the whole-queue bound of the earlier design,
+   the live share of a turned queue, plain time; no library call computes
+   a leg);
 5. ``hbm`` (with ``main``) — fused BFS on the same partition with the
    edge shard streamed and the tile budget at 4 MiB, under the resident
    footprint: ``edge_space="vmem"`` must fail validation; hop counts
@@ -148,6 +155,7 @@ any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -272,9 +280,14 @@ SEG_EDGE_B = 2050     # b of the column-range edge case: G = 5, b % 4 == 2
 PR_SCALE, PR_ITERS = 18, 5
 INF32 = float(np.finfo(np.float32).max)
 REPS = 25
-# the Timer's spin before each timed launch: ~0.1 ms at the H100's clocks,
-# longer than a kernel wrapper's host dispatch
-SPIN_CYCLES = 200_000
+# the Timer's spin before each timed launch: ~0.5 ms at the H100's clocks,
+# longer than any kernel wrapper's host dispatch (the fused legs' wrappers
+# take over 0.1 ms: a shorter spin adds what is left of it to their times)
+SPIN_CYCLES = 1_000_000
+# the shorter spin (~0.1 ms) that the fused legs are also timed under, so
+# that their times compare with readings taken under it; the two readings
+# differ where a wrapper's host dispatch outlasts the short spin
+SHORT_SPIN_CYCLES = 200_000
 # The LM serving path: granite-3-2b at full width and all 40 layers, B = 4
 # prompts of 2048 random tokens, 16 greedy steps.
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bfloat16 (NVIDIA data sheet)
@@ -425,20 +438,29 @@ class Timer:
         self.flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
 
     def ms(self, fn) -> float:
+        return self.reading(fn)["ms"]
+
+    def reading(self, fn, spin=None) -> dict:
+        """``ms`` as above, under ``spin`` cycles (default SPIN_CYCLES),
+        and ``host_ms``: the median host time of the ``fn`` calls, which the
+        spin keeps from waiting on the device."""
         for _ in range(3):
             fn()
-        times = []
+        times, host = [], []
         for _ in range(REPS):
             self.flush.fill_(1)
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(SPIN_CYCLES if spin is None else spin)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
+            h0 = time.perf_counter()
             fn()
+            host.append((time.perf_counter() - h0) * 1e3)
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
-        return float(np.median(times))
+        return dict(ms=float(np.median(times)),
+                    host_ms=float(np.median(host)))
 
 
 def nbytes(*ts) -> int:
@@ -580,8 +602,10 @@ def queue_inputs(rng, T, cap, w, m, max_n, dev, full_rows=False):
 
 
 def check_queue_push_pop(rng, dev, timer):
+    # the last: 16,448 fresh rows, 64 KiB of indices (past the 48 KiB of
+    # shared memory a block gets without opting in)
     for T, cap, w, m, max_n in ((3, 16, 3, 8, 6), (4, 8, 2, 8, 8),
-                                (2, 32, 4, 1, 8)):
+                                (2, 32, 4, 1, 8), (3, 20000, 4, 16448, 32)):
         args = queue_inputs(rng, T, cap, w, m, max_n, dev, full_rows=True)
         max_abs_err(K.queue_push_pop(*args, max_n), K.fifo_turn(*args, max_n))
     cfg = MAIN_CFG
@@ -662,11 +686,15 @@ def check_edge_scan_stream(rng, dev, timer):
     """Edge cases (windows of 1, 2 and 16 times max_t2, shards shorter
     than two windows), then the main path's T2 shape with the auto window
     (128) and the max_t2-tight one (32), as fig13's ladder runs them."""
+    # the last two: windows past STREAM_MAX_WINDOW, read from device memory
     for T, e_chunk, R, mt, win in ((2, 64, 10, 8, 8), (2, 33, 24, 4, 8),
-                                   (3, 128, 1, 16, 256), (2, 300, 40, 8, 8)):
+                                   (3, 128, 1, 16, 256), (2, 300, 40, 8, 8),
+                                   (2, 9000, 40, 8, 4096),
+                                   (2, 300, 40, 32, 4096)):
         args = scan_inputs(rng, T, e_chunk, R, mt, dev)
         max_abs_err(K.edge_scan_stream(*args, mt, win),
                     K.segment_stream(*args, mt, win))
+        assert K.edge_scan_stream.path == K.window_path(win)
     max_t2 = MAIN_CFG.max_t2
     R = MAIN_T * MAIN_CFG.cap_route_range
     args = scan_inputs(rng, MAIN_T, MAIN_E_CHUNK, R, max_t2, dev)
@@ -764,9 +792,11 @@ def check_fold_scatter_add(rng, dev, timer):
                           (2, 16, 40, "invalid"),
                           (3, 4, 64, "invalid-on-real-slots"),
                           (MAIN_T, MAIN_V_CHUNK, R, "dups"),
-                          (MAIN_T, MAIN_V_CHUNK, R, "one-slot")):
+                          (MAIN_T, MAIN_V_CHUNK, R, "one-slot"),
+                          (2, 64, 40000, "dups"), (2, 4096, 20000, "path")):
         args = add_fold_inputs(rng, T, v, r, dev, kind)
         max_abs_err([fold(*args)], [plain(*args)])
+        assert fold.path == K.add_chunks(r)  # past 16,384 rows: chunks
     tgt, lidx, vals, valid = args = add_fold_inputs(
         rng, MAIN_T, MAIN_V_CHUNK, R, dev, "path")
     out = fold(*args)
@@ -823,6 +853,7 @@ def check_scatter_segments(rng, dev, timer):
                                  (3, 32, 200, "one-slot"),
                                  (2, 64, 16, "empty"), (2, 16, 1, "mixed"),
                                  (300, 20000, 256, "mixed"),
+                                 (2, SEG_EDGE_B, 40000, "mixed"),
                                  (MAIN_T, MAIN_V_CHUNK, SEG_CAP,
                                   "one-slot")):
             args = seg_inputs(rng, nb, b, cap, dev, kind)
@@ -997,16 +1028,19 @@ def scan_words(recv, rv, e_chunk, tmpl) -> int:
                for t in range(eidx.shape[0]))
 
 
-def leg_bytes(name: str, tmpl, ops, out) -> int:
+def leg_bytes(name: str, tmpl, ops, out, whole=False) -> int:
     """Bytes a fused leg must move on these operands: each input it reads
-    once, each output once (a queue that the leg appends to in place, as
-    leg 2 does: its count read and written and the rows appended); the
-    data-dependent reads as this call needs them: leg 0's f_pop vertex
-    slots (deg and ptr_start, and the value where the payload reads it),
-    the valid rows of the spill that a leg re-queues, the distinct shard
-    words a scan leg's messages address (4 bytes each, 8 where the emit
-    reads the edge value), the two vertex words of each delivered wedge or
-    close row, and at least one shard word per close row's search."""
+    once, each output once (a queue that the leg appends to in place: its
+    count read and written and the rows appended; a queue turned keeping
+    its live rows: the rows below the old count read, those below the new
+    one written); the data-dependent reads as this call needs them: leg 0's
+    f_pop vertex slots (deg and ptr_start, and the value where the payload
+    reads it), the valid rows of the spill that a leg re-queues, the
+    distinct shard words a scan leg's messages address (4 bytes each, 8
+    where the emit reads the edge value), the two vertex words of each
+    delivered wedge or close row, and at least one shard word per close
+    row's search.  ``whole``: the bound of the earlier design, which copied
+    or shifted those queues whole (every slot read and written)."""
     sh, st, new = ops[1], ops[2], out[0]
     small = nbytes(*tensors(out[1:]))
     if leg_index(name) == 0:
@@ -1019,12 +1053,18 @@ def leg_bytes(name: str, tmpl, ops, out) -> int:
     recv, rv, sp, spv = ops[3:7]
     moved = (small + nbytes(*ops[3:]) - nbytes(sp)
              + int(spv.sum()) * 4 * sp.shape[2])
-    for q, q2 in zip(st.queues, new.queues):
+    for i, (q, q2) in enumerate(zip(st.queues, new.queues)):
         if q is q2:
             continue
-        if q2.data is q.data:  # appended in place: the counts and the rows
-            rows = int((q2.count - q.count).sum())
-            moved += nbytes(q.count, q2.count) + rows * 4 * q.data.shape[2]
+        row = 4 * q.data.shape[2]
+        if whole:
+            moved += nbytes(*q, *q2)
+        elif q2.data is q.data:  # appended in place: the counts and the rows
+            moved += nbytes(q.count, q2.count) + row * int(
+                (q2.count - q.count).sum())
+        elif F.LIVE_TURN.get(name) == i:  # the live rows only
+            moved += nbytes(q.count, q2.count) + row * int(
+                q.count.sum() + q2.count.sum())
         else:
             moved += nbytes(*q, *q2)
     if name in ("fused_leg1", "fused_tri_leg1", "fused_tri_leg3"):
@@ -1048,10 +1088,30 @@ def leg_bytes(name: str, tmpl, ops, out) -> int:
 
 EVERY_CHANNEL = "spills on every channel in one round"
 
-# the legs split over G column ranges a tile (kernel.py column_split), and
-# one more block a tile for their spill append; the others run one block a
-# tile
-SPLIT_LEGS = ("fused_leg2", "fused_kcore_leg2")
+
+def leg_split(name, tmpl, ops) -> int:
+    """G, the blocks a tile of a fused leg shares its work over (the
+    column split of kernel.py; one more block a tile appends, two for the
+    wedge leg); 1 for the legs that run one block a tile."""
+    st, dev = ops[2], ops[2].frontier.device
+    T, v_chunk = st.frontier.shape
+    if name in ("fused_leg2", "fused_kcore_leg2"):
+        return K.device_split(T, v_chunk, dev).G
+    if name in ("fused_leg1", "fused_tri_leg1", "fused_tri_leg3"):
+        return F.scan_split(T, ops[3].shape[1], tmpl.max_t2, dev).G
+    if name == "fused_tri_leg2":
+        return F.wedge_split(T, ops[3].shape[1], dev).G
+    return 1
+
+
+def check_leg(name, tmpl, ops, got, want, where):
+    """A fused leg's outputs against its plain stage's, by the kernels'
+    contract (kernels/engine/fused.py ``contract``): what both define
+    bitwise, and the kernel's popped message rows past the pop 0."""
+    defined, past = F.contract(name, tmpl, ops[2], got)
+    assert_bitwise(defined, F.contract(name, tmpl, ops[2], want)[0], where)
+    assert not bool(past.any()), f"{where}: a popped message row past " \
+        f"the pop is not 0"
 
 
 class FusedCheck:
@@ -1063,12 +1123,14 @@ class FusedCheck:
     grew by a quarter over the last checked one, the first call of each
     leg with spills, and the first round with spills on every channel.
     Records which edge cases the checked calls covered, and the operands
-    of each wrapper's last checked call (for timing).  The plain stage runs
-    after the kernel on the same operands: leg 2 has then appended its
-    spills in place onto their update queue, and the plain stage's copy of
-    it plus the same rows at the same count is what the kernel returned,
-    so the two still agree bit for bit.  A leg-2 call is also checked to
-    return the update queue it was given (``data_ptr()``)."""
+    of each wrapper's last checked call (for timing), and the paths
+    (``path``) the checked launches took.  The comparison is the kernels'
+    contract (:func:`check_leg`).  The plain stage runs after the kernel
+    on the same operands: a leg of F.IN_PLACE has then appended its spills
+    in place onto that queue, and the plain stage's copy of it plus the
+    same rows at the same count is what the kernel returned, so the two
+    still agree bit for bit; such a call is also checked to return the
+    queue it was given (``data_ptr()``)."""
 
     def __init__(self, label, every=False, period=0):
         self.label, self.every, self.period = label, every, period
@@ -1078,6 +1140,7 @@ class FusedCheck:
         self.checked = {}     # wrapper name: checked calls
         self.cover = set()
         self.last = {}        # wrapper name: its last checked call
+        self.paths = set()    # (wrapper name, path) of the checked calls
         self.busy0 = None     # (name, call) of leg 0 on a live frontier
 
     def __enter__(self):
@@ -1114,11 +1177,13 @@ class FusedCheck:
                      or (every_now and EVERY_CHANNEL not in self.cover))
         got = real(tmpl, plain, *ops)
         if check:
-            if name in SPLIT_LEGS:
-                assert got[0].queues[1].data.data_ptr() == \
-                    st.queues[1].data.data_ptr(), name
-            assert_bitwise(got, plain(*ops),
-                           f"{self.label} {name} round {self.round}")
+            self.paths.add((name, F._WRAPPERS[name].path))
+            if name in F.IN_PLACE:
+                i = F.IN_PLACE[name]
+                assert got[0].queues[i].data.data_ptr() == \
+                    st.queues[i].data.data_ptr(), name
+            check_leg(name, tmpl, ops, got, plain(*ops),
+                      f"{self.label} {name} round {self.round}")
             self.checked[name] = self.checked.get(name, 0) + 1
             self.last[name] = (real, tmpl, plain, ops, got)
             if leg == 0 and not bool(st.frontier.any()):
@@ -1137,7 +1202,8 @@ class FusedCheck:
         log(f"#   {self.label}: fused legs held bitwise against their plain "
             f"versions at {self.checked} calls of {self.round + 1} rounds; "
             f"peak checked spill-queue fill {self.fill}; covered: "
-            f"{sorted(self.cover)}")
+            f"{sorted(self.cover)}; paths {sorted(map(str, self.paths))}")
+
 
 
 def cap0_update_queue(st):
@@ -1163,7 +1229,7 @@ def check_edge_operands(chk: FusedCheck, cap0_legs=()):
                                                    tmpl.plimit + 1))
     ops = (*ops0[:2], hot)
     got = real(tmpl, plain, *ops)
-    assert_bitwise(got, plain(*ops), f"{name} with the fabric hot")
+    check_leg(name, tmpl, ops, got, plain(*ops), f"{name} with the fabric hot")
     assert bool(st.frontier.any()) and torch.equal(got[0].frontier,
                                                    st.frontier)
     chk.cover.add(f"{name}: pops nothing")
@@ -1181,7 +1247,8 @@ def check_edge_operands(chk: FusedCheck, cap0_legs=()):
                            queues=queues)
         ops = (*ops0[:2], cold)
         got = real(tmpl, plain, *ops)
-        assert_bitwise(got, plain(*ops), f"{name} with queue 2 congested")
+        check_leg(name, tmpl, ops, got, plain(*ops),
+                  f"{name} with queue 2 congested")
         pops = got[4][jam]
         assert bool((pops[:, :2] == 0).all()) and \
             bool((pops[:, 2:] > 0).all()), pops.tolist()
@@ -1190,38 +1257,58 @@ def check_edge_operands(chk: FusedCheck, cap0_legs=()):
         real, tmpl, plain, ops, _ = chk.last[leg]
         ops = (*ops[:2], cap0_update_queue(ops[2]), *ops[3:])
         got = real(tmpl, plain, *ops)
-        assert_bitwise(got, plain(*ops), f"cap-0 update queue, {leg}")
+        check_leg(leg, tmpl, ops, got, plain(*ops), f"cap-0 update queue, {leg}")
     if cap0_legs:
         chk.cover.add("cap-0 update queue")
 
 
 def time_legs(chk: FusedCheck, timer, where):
-    """Kernel and plain times and the byte bound of each leg, on the
-    operands of its last checked call, in leg order.  Leg 2 appends in
-    place onto the queue of those operands, which its checked call already
-    did: re-running it writes the same rows again (the same bits), and the
-    plain stage, run on the same operands, copies that queue and appends
-    the same rows at the same count."""
+    """Kernel and plain times and the byte bounds of each leg, on the
+    operands of its last checked call, in leg order: the kernel's time
+    under the Timer's spin (``ms``) and under SHORT_SPIN_CYCLES
+    (``short_spin_ms``), its wrapper's host time a call (``host_ms``), the
+    bound of this design and the whole-capacity one of the earlier
+    (``bound_whole_ms``),
+    and, for a leg of F.LIVE_TURN, the live share of its turned queue (the
+    rows below the old count over its capacity).  A leg of F.IN_PLACE
+    appends onto the queue of those operands, which its checked call
+    already did: re-running it writes the same rows again (the same bits),
+    and the plain stage, run on the same operands, copies that queue and
+    appends the same rows at the same count."""
     calls = []
     for name in sorted(chk.last, key=leg_index):
         real, tmpl, plain, ops, out = chk.last[name]
-        T, v_chunk = ops[2].frontier.shape
+        live = None
+        if name in F.LIVE_TURN:
+            q = ops[2].queues[F.LIVE_TURN[name]]
+            live = int(q.count.sum()) / max(q.data.shape[0] * q.data.shape[1],
+                                            1)
+        kernel = timer.reading(lambda: real(tmpl, plain, *ops))
+        short = timer.reading(lambda: real(tmpl, plain, *ops),
+                              SHORT_SPIN_CYCLES)
         calls.append(dict(
             kernel=name, call=where, template=dict(
                 payload=tmpl.payload, emit=tmpl.emit, fold=tmpl.fold,
                 k=tmpl.k, mode=tmpl.mode, policy=tmpl.policy,
                 window=tmpl.window),
-            G=(K.device_split(T, v_chunk, ops[2].frontier.device).G
-               if name in SPLIT_LEGS else 1),
-            max_abs_err=0.0,
-            ms=timer.ms(lambda: real(tmpl, plain, *ops)),
+            G=leg_split(name, tmpl, ops), path=F._WRAPPERS[name].path,
+            max_abs_err=0.0, ms=kernel["ms"], short_spin_ms=short["ms"],
+            host_ms=kernel["host_ms"],
             plain_ms=timer.ms(lambda: plain(*ops)),
-            bound_ms=bound_ms(leg_bytes(name, tmpl, ops, out))))
+            bound_ms=bound_ms(leg_bytes(name, tmpl, ops, out)),
+            bound_whole_ms=bound_ms(leg_bytes(name, tmpl, ops, out,
+                                              whole=True)),
+            live_share=live))
         c = calls[-1]
-        log(f"# kernel {name} ({where}, G = {c['G']}): bitwise equal to its "
-            f"plain version; kernel {c['ms']:.4f} ms, plain "
-            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms (bytes), "
-            f"library none")
+        log(f"# kernel {name} ({where}, G = {c['G']}, {c['path']}): bitwise "
+            f"equal to its plain version by the legs' contract; kernel "
+            f"{c['ms']:.4f} ms ({c['short_spin_ms']:.4f} under the short "
+            f"spin; host {c['host_ms']:.4f} ms a call), plain "
+            f"{c['plain_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ms (bytes; whole queues "
+            f"{c['bound_whole_ms']:.4f} ms)"
+            + ("" if live is None else f", live share of the turned queue "
+               f"{live:.4f}") + ", library none")
     return calls
 
 
@@ -1396,6 +1483,116 @@ def phase_twin(dev):
                 128 * int(st.hbm_windows)
             if fuse:
                 chk.report()
+    check_past_staging(dev, g, gs, pg, pgs, root, x)
+
+
+@contextlib.contextmanager
+def unfused_paths(seen: set):
+    """Record in ``seen`` the (wrapper, path) of every launch of the
+    unfused kernels that have two paths, and the most fresh rows a
+    ``queue_push_pop`` launch took, at the names the engine calls them
+    by."""
+    from repro_torch.core import program as PROG
+    # (module, name the engine calls, the wrapper whose path it notes)
+    spots = ((E, "queue_push_pop", K.queue_push_pop),
+             (PROG, "edge_scan_stream", K.edge_scan_stream),
+             (PROG, "fold_scatter", K.fold_scatter_add))
+    saved = [getattr(mod, n) for mod, n, _ in spots]
+
+    def spy(fn, noted):
+        def call(*a, **kw):
+            noted.path = None
+            out = fn(*a, **kw)
+            if noted.path is not None and a[0].device.type == "cuda":
+                seen.add((noted.__name__, noted.path))
+                if noted is K.queue_push_pop:
+                    seen.add(("queue_push_pop", f"{a[2].shape[1]} rows"))
+            return out
+        return call
+
+    for (mod, n, noted), fn in zip(spots, saved):
+        setattr(mod, n, spy(fn, noted))
+    try:
+        yield
+    finally:
+        for (mod, n, _), fn in zip(spots, saved):
+            setattr(mod, n, fn)
+
+
+def check_past_staging(dev, g, gs, pg, pgs, root, x):
+    """The configurations whose kernels stage more than shared memory
+    holds, which the card refused before: each one end to end, "torch"
+    against "kernels" (values and Stats bitwise, every fused-leg call held
+    against its plain stage), with the path each kernel took: 16,448 rows
+    a tile into the add folds (T = 257, the default cap_route_update of
+    64), leg 0 and the wedge leg at f_pop = r_pop = 512, 16,640 fresh rows
+    into the wedge leg and the unfused range2 turn (triangles on
+    symmetrized R-MAT-8), streamed windows of 4,096, and stagings past
+    STAGE_SMEM_MAX bytes in the device scratch: 65,536 frontier pops into
+    leg 0 and the unfused range-queue turn, 16,384 popped ranges into the
+    triangles' leg 0 and wedge leg."""
+    oracle = ref.bfs_ref(g, root)
+    pg257 = alg.prepare(g, 257, "low_order", device=dev)
+    pgs257 = alg.prepare(gs, 257, device=dev)
+    # triangles on symmetrized R-MAT-8: a tenth of the twin's rounds
+    n8, src8, dst8, val8 = rmat_edges(8, edge_factor=10, seed=1)
+    gs8 = alg.symmetrize(CSRGraph.from_edges(n8, src8, dst8, val8))
+    pgt = alg.prepare_triangles(gs8, 16, device=dev)
+    knobs257 = dict(cap_route_range=2, max_t2=8)
+    tri_want = ref.triangles_ref(gs8, key=pgt.place)
+    spmv_tol = dict(rtol=2e-4, atol=1e-4)
+    runs = [
+        # (label, run(cfg), oracle, tol, knobs, paths wanted)
+        ("spmv T=257", lambda c: alg.spmv(pg257, x, c),
+         ref.spmv_ref(g, x.astype(np.float64)), spmv_tol, knobs257,
+         {("fused_leg2", "2 chunks"), ("fold_scatter_add", "2 chunks")}),
+        ("kcore5 T=257", lambda c: alg.kcore(pgs257, 5, c),
+         ref.kcore_ref(gs, 5), None, knobs257,
+         {("fused_kcore_leg2", "2 chunks")}),
+        ("triangles 16,640 wedges", lambda c: alg.triangles(pgt, c),
+         tri_want, None, dict(cap_route_update=1040),
+         {("fused_tri_leg4", "2 chunks"), ("queue_push_pop", "16640 rows"),
+          ("queue_push_pop", "shared memory")}),
+        ("bfs pops 512", lambda c: alg.bfs(pg, root, c), oracle, None,
+         dict(f_pop=512, r_pop=512), {("fused_leg0", "shared memory")}),
+        ("triangles pops 512", lambda c: alg.triangles(pgt, c), tri_want,
+         None, dict(f_pop=512, r_pop=512),
+         {("fused_tri_leg0", "shared memory"),
+          ("fused_tri_leg2", "shared memory")}),
+        ("bfs window 4096", lambda c: alg.bfs(pg, root, c), oracle, None,
+         dict(edge_space="hbm", hbm_window=4096),
+         {("fused_leg1", "device window"),
+          ("edge_scan_stream", "device window")}),
+        ("kcore5 window 4096", lambda c: alg.kcore(pgs, 5, c),
+         ref.kcore_ref(gs, 5), None,
+         dict(edge_space="hbm", hbm_window=4096),
+         {("fused_leg1", "device window")}),
+        ("bfs pops 65,536", lambda c: alg.bfs(pg, root, c), oracle, None,
+         dict(f_pop=65536, cap_rangeq=262144),
+         {("fused_leg0", "device scratch"),
+          ("queue_push_pop", "65536 rows"),
+          ("queue_push_pop", "device scratch")}),
+        ("triangles pops 16,384", lambda c: alg.triangles(pgt, c), tri_want,
+         None, dict(r_pop=16384, cap_rangeq=65536),
+         {("fused_tri_leg0", "device scratch"),
+          ("fused_tri_leg2", "device scratch")}),
+    ]
+    for label, run, want, tol, knobs, wanted in runs:
+        seen = set()
+        for fuse in (True, False):
+            tri = label.startswith("triangles")
+            per_round = (5 if tri else 3) if fuse else (8 if tri else 5)
+            with FusedCheck(f"past staging: {label}", every=True) as chk, \
+                    unfused_paths(seen):
+                twin_run(lambda c: run(dataclasses.replace(c, **knobs)),
+                         want, tol, f"{label} fuse={fuse}",
+                         dict(fuse=fuse), per_round)
+            seen |= chk.paths
+        missing = wanted - seen
+        assert not missing, f"{label}: paths not taken: {missing} ({seen})"
+        log(f"# past staging {label}: fused and unfused bitwise equal to "
+            f"the torch backend and their plain stages; paths "
+            f"{sorted(p for p in seen if p[1] not in (None, 'resident'))}")
 
 
 FUSED_EDGE_CASES = {"fused_leg0: empty frontier", "fused_leg0: pops nothing",

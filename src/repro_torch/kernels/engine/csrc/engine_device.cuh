@@ -2,7 +2,8 @@
 // kernels (engine_kernels.cu) and the fused legs (fused_legs.cu).  Each
 // function is one pure body of src/repro/kernels/engine/kernel.py, run by
 // one block (or one warp) for one tile, and writes what that body writes,
-// don't-care slots included.
+// don't-care slots included, but for fifo_live_turn, which writes a turned
+// queue's live rows only.
 //
 // Integer arithmetic follows torch's on int32 tensors: // and % round
 // toward negative infinity (floor_div, floor_mod) and + and * wrap (done
@@ -18,6 +19,16 @@
 #include <stdint.h>
 
 namespace repro {
+
+// The thresholds between a kernel's two paths (kernels/engine/kernel.py
+// reads them from here).  A streamed T2 stages a warp's 2 * window (dst,
+// val) pairs in shared memory up to STREAM_MAX_WINDOW and reads a wider
+// window from device memory.  queue_push_pop's fresh-row indices and the
+// fused legs' popped rows take dynamic shared memory up to STAGE_SMEM_MAX
+// bytes a block (of the 227 KiB a block may opt in to), and past it a
+// device-memory scratch that the wrapper allocates.
+constexpr int STREAM_MAX_WINDOW = 2048;
+constexpr size_t STAGE_SMEM_MAX = 204800;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
@@ -176,6 +187,52 @@ __device__ inline void fifo_shift(const int32_t* __restrict__ d,
 }
 
 // ---------------------------------------------------------------------------
+// fifo_turn's live rows (kernel.py:95), without fifo_shift's whole-capacity
+// shift: a pop of n_pop rows off the front of the (cap, W) queue d moves its
+// live rows [n_pop, c) to [0, c - n_pop) of the turned queue nd, nd[i] =
+// d[i + n_pop]; this call moves the rows i in [lo, hi) (hi + n_pop <= c),
+// the caller splitting the live rows over blocks.  The slots from the new
+// count on are not written: fifo_turn makes them don't-care, and every
+// consumer reads a queue below its count (queue_append writes slots from
+// the count on; a popped row past the count is an invalid message, and
+// bin_by_owner sends invalid rows to its trash slot).  So the bytes follow
+// the queue's occupancy, not its capacity.  Fresh rows appended before the
+// pop are the caller's to place (they land at c - n_pop on).  d and nd are
+// different buffers.  Rows are W = 2 or 4 words: each moves as one 8- or
+// 16-byte vector (a queue's tiles lie at multiples of its row size),
+// ROW_MOVES rows of a thread in flight together.
+// ---------------------------------------------------------------------------
+template <int W>
+struct RowVec;
+template <>
+struct RowVec<2> {
+  using T = int2;
+};
+template <>
+struct RowVec<4> {
+  using T = int4;
+};
+constexpr int ROW_MOVES = 4;
+
+template <int W>
+__device__ inline void fifo_live_turn(const int32_t* __restrict__ d,
+                                      int32_t* __restrict__ nd, int n_pop,
+                                      int lo, int hi, int tid, int nthreads) {
+  using V = typename RowVec<W>::T;
+  const V* dv = reinterpret_cast<const V*>(d) + n_pop;
+  V* nv = reinterpret_cast<V*>(nd);
+  for (int i0 = lo + tid; i0 < hi; i0 += ROW_MOVES * nthreads) {
+    V x[ROW_MOVES];
+#pragma unroll
+    for (int u = 0; u < ROW_MOVES; ++u)
+      if (i0 + u * nthreads < hi) x[u] = dv[i0 + u * nthreads];
+#pragma unroll
+    for (int u = 0; u < ROW_MOVES; ++u)
+      if (i0 + u * nthreads < hi) nv[i0 + u * nthreads] = x[u];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // queue_append (kernel.py:123; the port's queue_push): the valid rows of
 // rows (n, w), in row order, go to slots count, count + 1, ... of the
 // (cap, w) queue q while the slot is < cap.  q may be the caller's queue
@@ -296,6 +353,20 @@ __device__ __forceinline__ Lane stream_lane(const int32_t* sd, const float* sv,
   const int off = off0 < 2 * window - 1 ? off0 : 2 * window - 1;
   const int32_t dst = sd[off];
   return Lane{dst, sv[off], j < length && dst >= 0};
+}
+
+// The same lane of a window too wide to stage: the shard word the staging
+// buffer would hold at that offset, shard[min(base + off, e_chunk - 1)],
+// read from device memory (base = local0 / window * window).
+__device__ __forceinline__ Lane stream_lane_global(
+    const int32_t* __restrict__ ed, const float* __restrict__ ev, int e_chunk,
+    int window, int length, int local0, int j) {
+  const int base = local0 / window * window;
+  const int off0 = local0 - base + j;
+  const int off = off0 < 2 * window - 1 ? off0 : 2 * window - 1;
+  const int si = base + off < e_chunk - 1 ? base + off : e_chunk - 1;
+  const int32_t dst = ed[si];
+  return Lane{dst, ev[si], j < length && dst >= 0};
 }
 
 }  // namespace repro

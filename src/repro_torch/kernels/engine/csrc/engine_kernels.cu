@@ -63,11 +63,12 @@ frontier_pop_kernel(const uint8_t* __restrict__ mask,
 // Bound: bytes — the shift reads and writes the whole buffer (stale rows
 // included, as the reference body does), 2*cap*w*4 bytes per tile; the
 // update channel's (65536, 2) buffer makes this the largest byte mover of
-// the round.  Design: one block per tile compacts the valid-row indices into
-// shared memory with a block scan, then streams the shift with coalesced
-// 4-byte accesses, reading each element of data' from either the old
-// buffer or the fresh rows; the shifted buffer is a second allocation
-// because the shift overlaps itself.
+// the round.  Design: one block per tile compacts the valid-row indices
+// with a block scan into dynamic shared memory (into the tile's part of the
+// wrapper's device-memory scratch, `scratch` != nullptr, where n indices do
+// not fit), then streams the shift with coalesced 4-byte accesses, reading
+// each element of data' from either the old buffer or the fresh rows; the
+// shifted buffer is a second allocation because the shift overlaps itself.
 // ---------------------------------------------------------------------------
 constexpr int QP_THREADS = 1024;
 
@@ -80,11 +81,13 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
                       int32_t* __restrict__ taken, uint8_t* __restrict__ tvalid,
                       int32_t* __restrict__ ndata,
                       int32_t* __restrict__ ncount,
-                      int32_t* __restrict__ drops, int cap, int w, int n,
-                      int max_n) {
-  extern __shared__ int src_row[];  // source row of the j-th valid row
+                      int32_t* __restrict__ drops, int* scratch, int cap,
+                      int w, int n, int max_n) {
+  extern __shared__ int qp_smem[];
   __shared__ int sm[33];
   const int t = blockIdx.x;
+  // source row of the j-th valid row
+  int* src_row = scratch != nullptr ? scratch + (size_t)t * n : qp_smem;
   int nvalid = 0;
   for (int base = 0; base < n; base += blockDim.x) {
     const int i = base + threadIdx.x;
@@ -168,7 +171,10 @@ edge_scan_gather_kernel(const int32_t* __restrict__ edge_dst,
 // message (hbm_edges), against max_t2 for the resident gather; the staging
 // reads are coalesced 128-byte lines.  Design: a (T, R / warps) grid of
 // blocks of `warps` warps, each warp with its own 16 * window bytes of
-// shared memory (warps = 48 KiB / that, at most 8).
+// shared memory (warps = 48 KiB / that, at most 8).  A window wider than
+// STREAM_MAX_WINDOW (engine_device.cuh) is not staged:
+// edge_scan_stream_global_kernel reads each lane's word where the staging
+// buffer would hold it, one thread a lane as the resident gather.
 // ---------------------------------------------------------------------------
 constexpr int STAGE_SMEM = 48 * 1024;
 
@@ -206,6 +212,33 @@ __global__ void edge_scan_stream_kernel(
     wout[o] = l.w;
     jvalid[o] = l.valid;
   }
+}
+
+__global__ void __launch_bounds__(ES_THREADS)
+edge_scan_stream_global_kernel(const int32_t* __restrict__ edge_dst,
+                               const float* __restrict__ edge_val,
+                               const int32_t* __restrict__ start,
+                               const int32_t* __restrict__ stop,
+                               const uint8_t* __restrict__ rv,
+                               int32_t* __restrict__ nb,
+                               float* __restrict__ wout,
+                               uint8_t* __restrict__ jvalid, int e_chunk, int R,
+                               int max_t2, int window) {
+  const int t = blockIdx.x;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (e >= R * max_t2) return;
+  const int r = e / max_t2, j = e - r * max_t2;
+  const size_t row = (size_t)t * R + r;
+  int length, local0;
+  repro::message_bounds(rv[row] != 0, start[row], stop[row], e_chunk,
+                        &length, &local0);
+  const repro::Lane l = repro::stream_lane_global(
+      edge_dst + (size_t)t * e_chunk, edge_val + (size_t)t * e_chunk,
+      e_chunk, window, length, local0, j);
+  const size_t o = (size_t)t * R * max_t2 + e;
+  nb[o] = l.dst;
+  wout[o] = l.w;
+  jvalid[o] = l.valid;
 }
 
 // ---------------------------------------------------------------------------
@@ -251,10 +284,11 @@ fold_scatter_min_kernel(const float* __restrict__ target,
 //
 // Bound: bytes — as the min fold: the slice read and written once, each row
 // read once.  Design: one block per tile copies its slice, then sorts the
-// (slot, row) keys of its R rows in shared memory (R <= 16384: 12 bytes a
-// row) and the head thread of each slot's run adds the run in row order
-// (ordered_scatter.cuh).  A slot hit by many rows is one thread's serial
-// chain, which is what the reference's order asks for.
+// (slot, row) keys of its R rows in shared memory (12 bytes a row; past
+// FOLD_ADD_MAX_ROWS rows, chunk by chunk in row order) and the head thread
+// of each slot's run adds the run in row order (ordered_scatter.cuh).  A
+// slot hit by many rows is one thread's serial chain, which is what the
+// reference's order asks for.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(FS_THREADS)
 fold_scatter_add_kernel(const float* __restrict__ target,
@@ -290,19 +324,31 @@ int repro_frontier_pop(const void* mask, const void* k, void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fresh-row indices in dynamic shared memory, or past STAGE_SMEM_MAX
+// bytes in `scratch`, n ints a tile.
 int repro_queue_push_pop(const void* data, const void* count, const void* rows,
                          const void* pvalid, const void* npop, void* taken,
                          void* tvalid, void* ndata, void* ncount, void* drops,
-                         int T, int cap, int w, int n, int max_n,
-                         void* stream) {
-  queue_push_pop_kernel<<<T, QP_THREADS, n * sizeof(int),
+                         void* scratch, int T, int cap, int w, int n,
+                         int max_n, void* stream) {
+  const bool in_scratch = (size_t)n * sizeof(int) > repro::STAGE_SMEM_MAX;
+  const size_t smem = in_scratch ? 0 : (size_t)n * sizeof(int);
+  if (n < 0 || (in_scratch && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        queue_push_pop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  queue_push_pop_kernel<<<T, QP_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(data), static_cast<const int32_t*>(count),
       static_cast<const int32_t*>(rows), static_cast<const uint8_t*>(pvalid),
       static_cast<const int32_t*>(npop), static_cast<int32_t*>(taken),
       static_cast<uint8_t*>(tvalid), static_cast<int32_t*>(ndata),
-      static_cast<int32_t*>(ncount), static_cast<int32_t*>(drops), cap, w, n,
-      max_n);
+      static_cast<int32_t*>(ncount), static_cast<int32_t*>(drops),
+      in_scratch ? static_cast<int*>(scratch) : nullptr, cap, w, n, max_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -321,10 +367,27 @@ int repro_edge_scan_gather(const void* edge_dst, const void* edge_val,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The windows staged in shared memory up to STREAM_MAX_WINDOW, wider ones
+// read from device memory.
 int repro_edge_scan_stream(const void* edge_dst, const void* edge_val,
                            const void* start, const void* stop, const void* rv,
                            void* nb, void* w, void* jvalid, int T, int e_chunk,
                            int R, int max_t2, int window, void* stream) {
+  static_assert(16 * repro::STREAM_MAX_WINDOW <= STAGE_SMEM,
+                "a staged window fits the staging");
+  if (window < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (window > repro::STREAM_MAX_WINDOW) {
+    const dim3 grid(T, (R * max_t2 + ES_THREADS - 1) / ES_THREADS);
+    edge_scan_stream_global_kernel<<<grid, ES_THREADS, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(edge_dst),
+        static_cast<const float*>(edge_val),
+        static_cast<const int32_t*>(start), static_cast<const int32_t*>(stop),
+        static_cast<const uint8_t*>(rv), static_cast<int32_t*>(nb),
+        static_cast<float*>(w), static_cast<uint8_t*>(jvalid), e_chunk, R,
+        max_t2, window);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int warps = stage_warps(window, 8);
   const dim3 grid(T, (R + warps - 1) / warps);
   edge_scan_stream_kernel<<<grid, 32 * warps, (size_t)warps * 16 * window,
@@ -337,6 +400,7 @@ int repro_edge_scan_stream(const void* edge_dst, const void* edge_val,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ordered add in row-order chunks of FOLD_ADD_MAX_ROWS rows.
 int repro_fold_scatter_add(const void* target, const void* lidx,
                            const void* vals, const void* valid, void* out,
                            int T, int v_chunk, int R, void* stream) {

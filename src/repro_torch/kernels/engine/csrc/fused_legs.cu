@@ -1,18 +1,22 @@
 // Hopper (sm_90a) fused legs of the Dalorex round: each replaces one launch
 // of fused_leg_call (src/repro/kernels/engine/kernel.py:241), whose body is
 // the engine's per-tile stage (src/repro/core/engine.py:500; stages :601,
-// :610, :626).  One block per tile runs the whole leg (the classic and
-// k-core leg 2: G blocks per tile, one column range each); its phases are
-// the device functions the standalone kernels use (engine_device.cuh,
-// ordered_scatter.cuh), separated by block barriers, so each output element
-// is what the plain stage writes, don't-care slots included.
+// :610, :626).  Each leg's phases are the device functions the standalone
+// kernels use (engine_device.cuh, ordered_scatter.cuh), separated by block
+// barriers.  Every output element below a queue's count, every valid
+// message row and every other output is what the plain stage writes; the
+// scan and wedge legs leave a turned queue's slots from its count on
+// unwritten and write 0 into the popped message rows past the pop
+// (invalid), where the plain stage keeps the reference's stale rows: both
+// are don't-care to every consumer (fifo_live_turn, engine_device.cuh).
 //
 // Classic program (and k-core, which has its shape), 2 channels, 3 legs:
 //   leg 0  TSU budgets; T4 frontier pop + payload; range-queue turn; T1
 //          range split; remainder re-push           (template: payload, policy)
-//   leg 1  range-spill re-queue; T2 scan, resident gather or streamed
-//          windows, and emit; update-queue replay turn; replay rows ahead of
-//          the fresh rows in the messages           (template: emit, stream)
+//   leg 1  range-spill re-queue (in place); T2 scan, resident gather or
+//          streamed windows, and emit; update-queue replay turn (live rows);
+//          replay rows ahead of the fresh rows in the messages
+//                                                   (template: emit, scan)
 //   leg 2  update-spill re-queue (in place); T3 min fold + re-arm of the
 //          flags the wrapper passes (async: frontier, BSP: next_frontier),
 //          ordered add fold, or k-core's threshold fold (ordered add of the
@@ -21,32 +25,39 @@
 // Triangles (src/repro/core/program.py:698), 4 channels, 5 legs:
 //   leg 0  leg 0 above with the placed-id payload and the TSU over 4 queues
 //   leg 1  leg 1 above, emitting wedges (nb, v) valid iff nb > v
-//   leg 2  wedge-spill re-queue; wedge_to_range; range2-queue turn of the
-//          width-4 rows; T1 range split; remainder re-push   (wedge leg)
+//   leg 2  wedge-spill re-queue (in place); wedge_to_range; range2-queue
+//          turn of the width-4 rows (live rows); T1 range split; remainder
+//          re-push                                          (wedge leg)
 //   leg 3  leg 1 above on width-4 messages, emitting (v, nb) valid iff nb > u
 //   leg 4  close-spill re-queue; bounded binary search of the closing edge
 //          in the sorted local segment; ordered add of found into acc
 //                                                           (close leg)
 //
 // Bound: bytes.  Each leg reads its inputs once and writes its outputs once;
-// the largest are the spill-only queues (the scan leg shifts one, the wedge
-// and close legs copy one before appending: cap * 8 bytes a tile each way),
-// the scan leg's messages (9 bytes a lane) and the (v_chunk,) slices of
-// legs 0 and of the fold legs.  Design: outputs are fresh buffers (a queue
-// shifted in place would need a read-barrier-write per element), but for
-// the classic and k-core leg 2, which appends its spills in place onto the
-// update queue that leg 1 of the same round made fresh, so it moves only
-// the rows it appends; data that fits stays in shared memory: leg 0's
-// popped tasks and rows (at most LEG0_MAX_ROWS), the scan leg's staging
-// windows, the wedge leg's compacted fresh rows and popped tasks, the fold
-// legs' sort keys.  The messages of the scan leg (T * cap_route_range *
-// max_t2 rows) and the queues go to device memory, as in the standalone
-// kernels.  Occupancy: T blocks (64 on the main path), but for the classic
-// and k-core leg 2, whose grid (T, G + 1) gives each of G blocks one column
-// range of a tile's slice and one block its spill append (G = 5 on the
-// main path: 384 blocks of 512 threads, kernels/engine/kernel.py
-// column_split).  The close leg's binary search
-// reads the shard word-random, at most bit_length(e_chunk) + 1 words a row.
+// the largest are the scan leg's messages (9 bytes a lane), the (v_chunk,)
+// slices of leg 0 and of the fold legs, leg 0's range-queue turn and the
+// close leg's queue copy (cap * 12 and cap * 8 bytes a tile each way), and
+// the live rows of the turned spill queues.  Design: a leg that appends
+// spills onto a queue that the previous leg of the same round made (leg 1:
+// the range queue of leg 0; leg 2 and k-core's leg 2: the update queue of
+// leg 1; the wedge leg: the wedge queue of leg 1) appends in place, moving
+// only the rows it appends; a turned spill queue (the scan legs' update,
+// wedge and close queues, the wedge leg's range2 queue) is a fresh buffer
+// that receives its live rows only (fifo_live_turn), so those bytes follow
+// the queues' occupancy, not their capacity; leg 0 and the close leg still
+// shift or copy their queue's whole capacity.  Data that fits stays in
+// shared memory: leg 0's and the wedge leg's popped tasks and rows (dynamic
+// shared memory sized from the pops; past STAGE_SMEM_MAX bytes, a device-
+// memory scratch from the wrapper), the scan leg's staging windows (a window
+// too wide for them is read from device memory), the fold legs' sort keys
+// (in chunks of rows past what fits).  Occupancy: leg 0 and the close leg
+// run T blocks (64 on the main path); the others a grid (T, G + 1) or (T, G
+// + 2) of 512-thread blocks: G blocks a tile share its work (leg 2: column
+// ranges; the scan leg: messages and live rows; the wedge leg: wedges and
+// live rows; G = 5 on the main paths, kernels/engine/kernel.py
+// column_split), one more its append (and the wedge leg's pop).  The close
+// leg's binary search reads the shard word-random, at most bit_length(
+// e_chunk) + 1 words a row.
 //
 // Plain C interface, as engine_kernels.cu: device pointers, sizes, template
 // codes and the caller's cudaStream_t in, cudaGetLastError() out.
@@ -62,12 +73,15 @@ namespace {
 constexpr int LEG_THREADS = 1024;
 constexpr int FOLD_THREADS = 512;    // the fold legs' (T, G + 1) blocks
 static_assert(FOLD_THREADS > repro::COPY_THREADS, "two parts a block");
-constexpr int LEG0_MAX_ROWS = 256;   // kernels/engine/fused.py LEG0_MAX_ROWS
-constexpr int STAGE_SMEM = 48 * 1024;  // leg 1's staging windows
+constexpr int SPLIT_THREADS = 512;   // the scan and wedge legs' grid blocks
+constexpr int STAGE_SMEM = 48 * 1024;  // the scan leg's staging windows
 constexpr int32_t ONE_BITS = 0x3f800000;  // the bits of 1.0f
 
 // template codes (kernels/engine/fused.py PAYLOADS, EMITS, FOLDS, POLICIES)
+// and the scan leg's ways to read the shard (resident gather; streamed
+// windows staged in shared memory, or read from device memory)
 enum { PAY_VALUE = 0, PAY_VALUE_OVER_DEG = 1, PAY_ONE = 2, PAY_PLACED = 3 };
+enum { SCAN_GATHER = 0, SCAN_STAGED = 1, SCAN_GLOBAL = 2 };
 enum {
   EMIT_PLUS1 = 0, EMIT_PLUS_W = 1, EMIT_COPY = 2, EMIT_TIMES_W = 3,
   EMIT_ONE = 4, EMIT_WEDGE = 5, EMIT_CLOSE = 6
@@ -106,11 +120,56 @@ struct Downstream {
 // ---------------------------------------------------------------------------
 // Leg 0.  Budgets as core/engine.py _budgets for K channels (integer math of
 // one thread; a throttled producer gets pop / 4 when K == 2 and 0 on deeper
-// chains); frontier_take into shared memory; the source rows (start, start +
+// chains); frontier_take into the staging; the source rows (start, start +
 // deg, payload) of the popped vertices, valid where deg > 0; fifo_turn of the
 // range queue with them; range_split of the popped tasks into the messages;
-// queue_append of the remainders onto the shifted queue.
+// queue_append of the remainders onto the shifted queue.  The staging
+// (Leg0Stage: f_pop and eff rows) is dynamic shared memory, or the tile's
+// part of the wrapper's device-memory scratch where it does not fit.
 // ---------------------------------------------------------------------------
+__host__ __device__ inline size_t pad16(size_t b) { return (b + 15) / 16 * 16; }
+
+struct Leg0Stage {
+  int32_t* idx;    // f_pop popped vertex slots
+  int* src;        // f_pop compacted source rows
+  int32_t* rows;   // max(f_pop, eff) rows of 3: source rows, then remainders
+  int32_t* taken;  // eff popped tasks of 3
+  uint8_t* valid;  // max(f_pop, eff) flags of `rows`
+};
+
+// kernels/engine/fused.py leg0_stage_bytes
+__host__ __device__ inline size_t leg0_stage_bytes(int f_pop, int eff) {
+  const size_t n = f_pop > eff ? f_pop : eff;
+  return 2 * pad16(4 * (size_t)f_pop) + pad16(12 * n) +
+         pad16(12 * (size_t)eff) + pad16(n);
+}
+
+__device__ inline Leg0Stage leg0_stage(unsigned char* base, int f_pop,
+                                       int eff) {
+  const size_t n = f_pop > eff ? f_pop : eff;
+  Leg0Stage s;
+  s.idx = reinterpret_cast<int32_t*>(base);
+  base += pad16(4 * (size_t)f_pop);
+  s.src = reinterpret_cast<int*>(base);
+  base += pad16(4 * (size_t)f_pop);
+  s.rows = reinterpret_cast<int32_t*>(base);
+  base += pad16(12 * n);
+  s.taken = reinterpret_cast<int32_t*>(base);
+  base += pad16(12 * (size_t)eff);
+  s.valid = base;
+  return s;
+}
+
+// A block's staging: dynamic shared memory, or its tile's `bytes` of the
+// wrapper's device-memory scratch (scratch != nullptr) where the staging
+// does not fit in shared memory.  Both are read through generic pointers,
+// so one body serves both, and block barriers order them alike.
+__device__ __forceinline__ unsigned char* stage_of(unsigned char* smem,
+                                                   unsigned char* scratch,
+                                                   size_t bytes, int tile) {
+  return scratch != nullptr ? scratch + (size_t)tile * bytes : smem;
+}
+
 template <int PAYLOAD, int POLICY, int K>
 __global__ void __launch_bounds__(LEG_THREADS)
 fused_leg0_kernel(const uint8_t* __restrict__ frontier,
@@ -126,17 +185,17 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
                   int32_t* __restrict__ msgs, uint8_t* __restrict__ mvalid,
                   int32_t* __restrict__ drops, int32_t* __restrict__ dyn_pops,
                   int32_t* __restrict__ npop_out,
-                  int32_t* __restrict__ npush_out, int v_chunk, int e_chunk,
-                  int cap_r, int f_pop, int r_pop, int max_t2, int plimit) {
+                  int32_t* __restrict__ npush_out, unsigned char* scratch,
+                  size_t stage_bytes, int v_chunk, int e_chunk, int cap_r,
+                  int f_pop, int r_pop, int max_t2, int plimit) {
+  extern __shared__ __align__(16) unsigned char leg0_smem[];
   __shared__ int sm[33];
   __shared__ int s_budget[2];  // frontier budget, range-channel pops
-  __shared__ int32_t s_idx[LEG0_MAX_ROWS];
-  __shared__ int32_t s_rows[LEG0_MAX_ROWS * 3];  // source rows, then rem
-  __shared__ uint8_t s_valid[LEG0_MAX_ROWS];     // their validity
-  __shared__ int s_src[LEG0_MAX_ROWS];           // compacted source rows
-  __shared__ int32_t s_taken[LEG0_MAX_ROWS * 3];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
+  const int eff = imin(r_pop, cap_r);
+  const Leg0Stage sg =
+      leg0_stage(stage_of(leg0_smem, scratch, stage_bytes, t), f_pop, eff);
   if (tid == 0) {
     const long long occ0 = rq_count[t];
     const long long free0 = cap_r - occ0;
@@ -167,52 +226,54 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
   const size_t vt = (size_t)t * v_chunk;
   const int n_take =
       repro::frontier_take_block(frontier + vt, frontier_out + vt, v_chunk,
-                                 s_budget[0], f_pop, s_idx, sm);
+                                 s_budget[0], f_pop, sg.idx, sm);
   __syncthreads();
   // T4: the popped vertices' tasks (invalid slots read vertex 0)
-  if (tid < f_pop) {
-    const size_t o = vt + s_idx[tid];
+  for (int i = tid; i < f_pop; i += blockDim.x) {
+    const size_t o = vt + sg.idx[i];
     const int dg = deg[o], st = ptr_start[o];
     int32_t pay;
     if (PAYLOAD == PAY_ONE) {
       pay = ONE_BITS;
     } else if (PAYLOAD == PAY_PLACED) {  // me * v_chunk + vidx
-      pay = repro::wrap_add(repro::wrap_mul(t, v_chunk), s_idx[tid]);
+      pay = repro::wrap_add(repro::wrap_mul(t, v_chunk), sg.idx[i]);
     } else {
       float p = value[o];
       if (PAYLOAD == PAY_VALUE_OVER_DEG)
         p = __fdiv_rn(p, __int2float_rn(imax(dg, 1)));
       pay = __float_as_int(p);
     }
-    s_rows[3 * tid] = st;
-    s_rows[3 * tid + 1] = repro::wrap_add(st, dg);
-    s_rows[3 * tid + 2] = pay;
-    s_valid[tid] = tid < n_take && dg > 0;
+    sg.rows[3 * i] = st;
+    sg.rows[3 * i + 1] = repro::wrap_add(st, dg);
+    sg.rows[3 * i + 2] = pay;
+    sg.valid[i] = i < n_take && dg > 0;
   }
   __syncthreads();
   // fifo_turn: compact the valid rows, append, pop, shift
-  int nvalid;
-  {
-    const int v = tid < f_pop ? s_valid[tid] : 0;
-    const int pos = repro::block_excl_scan(v, &nvalid, sm);
-    if (v) s_src[pos] = tid;
+  int nvalid = 0;  // block-uniform
+  for (int base = 0; base < f_pop; base += blockDim.x) {
+    const int i = base + tid;
+    const int v = i < f_pop ? sg.valid[i] : 0;
+    int total;
+    const int pos = nvalid + repro::block_excl_scan(v, &total, sm);
+    if (v) sg.src[pos] = i;
+    nvalid += total;
   }
   __syncthreads();
   const int c0 = rq_count[t];
   const int n_push0 = imin(nvalid, imax(cap_r - c0, 0));
   const int c2 = c0 + n_push0;
   const int n_pop = imin(s_budget[1], c2);
-  const int eff = imin(r_pop, cap_r);
   int32_t* rqo = rq_out + (size_t)t * cap_r * 3;
-  repro::fifo_shift(rq + (size_t)t * cap_r * 3, rqo, s_taken, cap_r, 3, c0,
+  repro::fifo_shift(rq + (size_t)t * cap_r * 3, rqo, sg.taken, cap_r, 3, c0,
                     n_push0, n_pop, eff, [&](int j, int col) {
-                      return s_rows[3 * s_src[j] + col];
+                      return sg.rows[3 * sg.src[j] + col];
                     });
   __syncthreads();
   // T1: range split of the popped tasks; the remainders replace the rows
   for (int i = tid; i < eff; i += blockDim.x) {
-    const int ts = s_taken[3 * i], te = s_taken[3 * i + 1];
-    const int pay = s_taken[3 * i + 2];
+    const int ts = sg.taken[3 * i], te = sg.taken[3 * i + 1];
+    const int pay = sg.taken[3 * i + 2];
     const int stop = range_stop(ts, te, e_chunk, max_t2);
     const bool tv = i < n_pop;
     int32_t* m = msgs + ((size_t)t * eff + i) * 3;
@@ -220,15 +281,15 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
     m[1] = stop;
     m[2] = pay;
     mvalid[(size_t)t * eff + i] = tv;
-    s_rows[3 * i] = stop;
-    s_rows[3 * i + 1] = te;
-    s_rows[3 * i + 2] = pay;
-    s_valid[i] = tv && stop < te;
+    sg.rows[3 * i] = stop;
+    sg.rows[3 * i + 1] = te;
+    sg.rows[3 * i + 2] = pay;
+    sg.valid[i] = tv && stop < te;
   }
   __syncthreads();
   const int c3 = c2 - n_pop;
-  const int nrem =
-      repro::queue_append_block(rqo, cap_r, 3, c3, s_rows, s_valid, eff, sm);
+  const int nrem = repro::queue_append_block(rqo, cap_r, 3, c3, sg.rows,
+                                             sg.valid, eff, sm);
   if (tid == 0) {
     const int n_push1 = imin(nrem, imax(cap_r - c3, 0));
     rq_count_out[t] = c3 + n_push1;
@@ -239,23 +300,33 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
 }
 
 // ---------------------------------------------------------------------------
-// Leg 1 (the scan leg).  queue_append of the range spills onto a copy of the
-// range queue (rows of W = 3 or 4 words); T2 for the R delivered messages,
-// one warp per message (STREAM: the warp first stages its two windows in
-// shared memory), each lane emitting a width-2 row into message row eff +
-// r * max_t2 + j; then fifo_turn of the spill-only queue of channel `chan`
-// (its pop is dyn_pops[nchan * t + chan]) with no fresh rows, its popped
-// rows being message rows [0, eff).  The emit:
+// Leg 1 (the scan leg), over a grid (T, G + 1).  Blocks (t, g < G) run T2 on
+// the messages [g * R / G, (g + 1) * R / G) of tile t's R delivered range
+// messages (rows of W = 3 or 4 words), one warp per message (SCAN_STAGED:
+// the warp first stages its two windows in shared memory; SCAN_GLOBAL: a
+// window too wide to stage is read from device memory, the words the
+// staging would hold), each lane emitting a width-2 row into message row
+// eff + r * max_t2 + j; then they move the rows [g * L / G, (g + 1) * L / G)
+// of the live-row turn of the spill-only queue of channel `chan`
+// (fifo_live_turn; its pop is n_pop = min(dyn_pops[nchan * t + chan],
+// count), L = count - n_pop, no fresh rows).  Their edge counts add up in
+// `tally` (T sums, then T tickets, cleared on the stream before the launch:
+// the tile's last block to finish writes the sum; integers, exact in any
+// order).  Block (t, G) appends the range spills onto the range queue rq
+// in place, at its count (what the plain stage's copy-and-append gives; leg
+// 0 of the round made that queue, and nothing else reads it), writes the
+// popped rows [0, eff) of the spill-only queue into the messages (valid
+// below n_pop; the rows past it, which may lie past the queue's count, are
+// 0), and the tile's other counts.  The emit:
 //   EMIT_PLUS1 .. EMIT_TIMES_W  (dst, f2i(emit(i2f(recv[2]), w)))
 //   EMIT_ONE    (dst, bits of 1.0f)                    k-core's decrement
 //   EMIT_WEDGE  (dst, recv[2]), valid iff dst > recv[2]  triangles' wedge
 //   EMIT_CLOSE  (recv[2], dst), valid iff dst > recv[3]  triangles' close
 // The edge count is the scanned lanes, before the wedge/close narrowing.
 // ---------------------------------------------------------------------------
-template <int EMIT, bool STREAM, int W>
-__global__ void __launch_bounds__(LEG_THREADS)
-fused_leg1_kernel(const int32_t* __restrict__ rq,
-                  const int32_t* __restrict__ rq_count,
+template <int EMIT, int SCAN, int W>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fused_leg1_kernel(int32_t* rq, const int32_t* __restrict__ rq_count,
                   const int32_t* __restrict__ sp,
                   const uint8_t* __restrict__ spv,
                   const int32_t* __restrict__ recv,
@@ -265,7 +336,6 @@ fused_leg1_kernel(const int32_t* __restrict__ rq,
                   const int32_t* __restrict__ uq,
                   const int32_t* __restrict__ uq_count,
                   const int32_t* __restrict__ dyn_pops,
-                  int32_t* __restrict__ rq_out,
                   int32_t* __restrict__ rq_count_out,
                   int32_t* __restrict__ uq_out,
                   int32_t* __restrict__ uq_count_out,
@@ -273,26 +343,48 @@ fused_leg1_kernel(const int32_t* __restrict__ rq,
                   int32_t* __restrict__ drops, int32_t* __restrict__ edges,
                   int32_t* __restrict__ npop_out,
                   int32_t* __restrict__ npush_out,
-                  int32_t* __restrict__ nspill_out, int cap_r, int S, int R,
-                  int e_chunk, int max_t2, int window, int cap_u, int u_pop,
-                  int scan_warps, int nchan, int chan) {
+                  int32_t* __restrict__ nspill_out, int* tally, int cap_r,
+                  int S, int R, int e_chunk, int max_t2, int window,
+                  int cap_u, int u_pop, int scan_warps, int nchan, int chan) {
   extern __shared__ __align__(16) unsigned char stage_smem[];
   __shared__ int sm[33];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x, g = blockIdx.y, G = gridDim.y - 1;
   const int tid = threadIdx.x;
-  // range-spill re-queue
-  const int32_t* rqt = rq + (size_t)t * cap_r * W;
-  int32_t* rqo = rq_out + (size_t)t * cap_r * W;
-  for (int e = tid; e < cap_r * W; e += blockDim.x) rqo[e] = rqt[e];
-  __syncthreads();
-  const int c0 = rq_count[t];
-  const int nsp = repro::queue_append_block(
-      rqo, cap_r, W, c0, sp + (size_t)t * S * W, spv + (size_t)t * S, S, sm);
-  // T2 and emit
   const int eff = imin(u_pop, cap_u);
   const size_t n_msgs = eff + (size_t)R * max_t2;
   int32_t* mt = msgs + (size_t)t * n_msgs * 2;
   uint8_t* mvt = mvalid + (size_t)t * n_msgs;
+  const int cu = uq_count[t];
+  const int n_pop = imin(dyn_pops[nchan * t + chan], cu);
+  const int32_t* uqt = uq + (size_t)t * cap_u * 2;
+  if (g == G) {
+    // the range-spill re-queue, in place; the replayed rows; the counts
+    const int c0 = rq_count[t];
+    const int nsp = repro::queue_append_block(
+        rq + (size_t)t * cap_r * W, cap_r, W, c0, sp + (size_t)t * S * W,
+        spv + (size_t)t * S, S, sm);
+    for (int i = tid; i < eff; i += blockDim.x) {
+      const bool v = i < n_pop;
+      reinterpret_cast<int2*>(mt)[i] =
+          v ? reinterpret_cast<const int2*>(uqt)[i] : make_int2(0, 0);
+      mvt[i] = v;
+    }
+    if (tid == 0) {
+      const int n_push = imin(nsp, imax(cap_r - c0, 0));
+      rq_count_out[t] = c0 + n_push;
+      uq_count_out[t] = cu - n_pop;
+      drops[t] = nsp - n_push;
+      npop_out[t] = n_pop;
+      npush_out[t] = 0;
+      nspill_out[t] = nsp;
+    }
+    return;
+  }
+  // T2 and emit on this block's messages, MU a warp in flight (one at a time
+  // where the warp stages its windows)
+  constexpr int MU = SCAN == SCAN_STAGED ? 1 : 4;
+  const int r_lo = (int)((long long)g * R / G);
+  const int r_hi = (int)((long long)(g + 1) * R / G);
   const int32_t* ed = edge_dst + (size_t)t * e_chunk;
   const float* ev = edge_val + (size_t)t * e_chunk;
   const int warp = tid >> 5, lane = tid & 31;
@@ -300,65 +392,78 @@ fused_leg1_kernel(const int32_t* __restrict__ rq,
   if (warp < scan_warps) {
     int32_t* sd = reinterpret_cast<int32_t*>(stage_smem) + warp * 4 * window;
     float* sv = reinterpret_cast<float*>(sd + 2 * window);
-    for (int r = warp; r < R; r += scan_warps) {
-      const size_t q = (size_t)t * R + r;
-      const int32_t* m = recv + q * W;
-      int length, local0;
-      repro::message_bounds(rv[q] != 0, m[0], m[1], e_chunk, &length,
-                            &local0);
-      const int32_t p2 = m[2];
-      const int32_t p3 = W > 3 ? m[3] : 0;
-      const float parent = __int_as_float(p2);
-      int base = 0;
-      if (STREAM) {
-        base = repro::stage_windows(ed, ev, e_chunk, local0, window, sd, sv);
-        __syncwarp();
-      }
-      for (int j = lane; j < max_t2; j += 32) {
-        const repro::Lane l =
-            STREAM ? repro::stream_lane(sd, sv, window, length, local0, base,
-                                        j)
-                   : repro::gather_lane(ed, ev, e_chunk, length, local0, j);
-        const size_t o = eff + (size_t)r * max_t2 + j;
-        int32_t a = l.dst, b;
-        bool ok = l.valid;
-        if (EMIT == EMIT_ONE) {
-          b = ONE_BITS;
-        } else if (EMIT == EMIT_WEDGE) {
-          b = p2;
-          ok = ok && l.dst > p2;
-        } else if (EMIT == EMIT_CLOSE) {
-          a = p2;
-          b = l.dst;
-          ok = ok && l.dst > p3;
-        } else {
-          b = __float_as_int(emit<EMIT>(parent, l.w));
+    for (int r0 = r_lo + warp; r0 < r_hi; r0 += MU * scan_warps) {
+      int length[MU], local0[MU];
+      int32_t p2[MU], p3[MU];
+#pragma unroll
+      for (int u = 0; u < MU; ++u) {
+        const int r = r0 + u * scan_warps;
+        length[u] = local0[u] = p2[u] = p3[u] = 0;
+        if (r < r_hi) {
+          const size_t q = (size_t)t * R + r;
+          const int32_t* m = recv + q * W;
+          repro::message_bounds(rv[q] != 0, m[0], m[1], e_chunk, &length[u],
+                                &local0[u]);
+          p2[u] = m[2];
+          p3[u] = W > 3 ? m[3] : 0;
         }
-        mt[2 * o] = a;
-        mt[2 * o + 1] = b;
-        mvt[o] = ok;
-        my_edges += l.valid;
       }
-      if (STREAM) __syncwarp();
+#pragma unroll
+      for (int u = 0; u < MU; ++u) {
+        const int r = r0 + u * scan_warps;
+        if (r >= r_hi) break;  // warp-uniform
+        int base = 0;
+        if (SCAN == SCAN_STAGED) {
+          base = repro::stage_windows(ed, ev, e_chunk, local0[u], window, sd,
+                                      sv);
+          __syncwarp();
+        }
+        const float parent = __int_as_float(p2[u]);
+        for (int j = lane; j < max_t2; j += 32) {
+          const repro::Lane l =
+              SCAN == SCAN_GATHER
+                  ? repro::gather_lane(ed, ev, e_chunk, length[u], local0[u],
+                                       j)
+              : SCAN == SCAN_STAGED
+                  ? repro::stream_lane(sd, sv, window, length[u], local0[u],
+                                       base, j)
+                  : repro::stream_lane_global(ed, ev, e_chunk, window,
+                                              length[u], local0[u], j);
+          const size_t o = eff + (size_t)r * max_t2 + j;
+          int32_t a = l.dst, b;
+          bool ok = l.valid;
+          if (EMIT == EMIT_ONE) {
+            b = ONE_BITS;
+          } else if (EMIT == EMIT_WEDGE) {
+            b = p2[u];
+            ok = ok && l.dst > p2[u];
+          } else if (EMIT == EMIT_CLOSE) {
+            a = p2[u];
+            b = l.dst;
+            ok = ok && l.dst > p3[u];
+          } else {
+            b = __float_as_int(emit<EMIT>(parent, l.w));
+          }
+          reinterpret_cast<int2*>(mt)[o] = make_int2(a, b);
+          mvt[o] = ok;
+          my_edges += l.valid;
+        }
+        if (SCAN == SCAN_STAGED) __syncwarp();
+      }
     }
   }
-  // spill-only queue's replay turn (no fresh rows)
-  const int cu = uq_count[t];
-  const int n_pop = imin(dyn_pops[nchan * t + chan], cu);
-  repro::fifo_shift(uq + (size_t)t * cap_u * 2, uq_out + (size_t)t * cap_u * 2,
-                    mt, cap_u, 2, cu, 0, n_pop, eff,
-                    [](int, int) { return 0; });
-  for (int i = tid; i < eff; i += blockDim.x) mvt[i] = i < n_pop;
-  const int n_edges = repro::block_sum(my_edges, sm);
+  // this block's share of the spill-only queue's live rows
+  const int L = cu - n_pop;
+  repro::fifo_live_turn<2>(uqt, uq_out + (size_t)t * cap_u * 2, n_pop,
+                           (int)((long long)g * L / G),
+                           (int)((long long)(g + 1) * L / G), tid,
+                           blockDim.x);
+  const int part = repro::block_sum(my_edges, sm);
   if (tid == 0) {
-    const int n_push = imin(nsp, imax(cap_r - c0, 0));
-    rq_count_out[t] = c0 + n_push;
-    uq_count_out[t] = cu - n_pop;
-    drops[t] = nsp - n_push;
-    edges[t] = n_edges;
-    npop_out[t] = n_pop;
-    npush_out[t] = 0;
-    nspill_out[t] = nsp;
+    atomicAdd(&tally[t], part);
+    __threadfence();
+    if (atomicAdd(&tally[gridDim.x + t], 1) == G - 1)  // the tile's last
+      edges[t] = atomicAdd(&tally[t], 0);
   }
 }
 
@@ -369,7 +474,9 @@ fused_leg1_kernel(const int32_t* __restrict__ rq,
 // R delivered (vertex, value) rows whose slot lies in it: min (float
 // atomics by integer order, exact in any order) and the re-arm flags |
 // (out < target); the ordered add (ordered_scatter.cuh, over the in-range
-// rows only); or k-core's threshold fold: the ordered add of -value, then
+// rows only, in row-order chunks of FOLD_ADD_MAX_ROWS rows); or k-core's
+// threshold
+// fold: the ordered add of -value, then
 // newly = (acc == 0) & (out < k), acc_out = newly ? 1 : acc and flags |
 // newly.  Invalid rows go
 // to the v_chunk trash slot, which no range holds.  Block (t, G) appends
@@ -465,8 +572,7 @@ fused_leg2_kernel(int32_t* uq, const int32_t* __restrict__ uq_count,
       }
     }
   } else {
-    repro::add_fold_beside(out + vt, lo, hi, step, R, fold_smem, load,
-                           copy);
+    repro::add_fold_beside(out + vt, lo, hi, step, R, fold_smem, load, copy);
     if (FOLD == FOLD_KCORE) {
       const float kf = __int2float_rn(k);
       for (int i = lo + 4 * tid; i < hi; i += 4 * blockDim.x) {
@@ -511,18 +617,42 @@ fused_leg2_kernel(int32_t* uq, const int32_t* __restrict__ uq_count,
 }
 
 // ---------------------------------------------------------------------------
-// Triangles leg 2 (the wedge leg).  queue_append of the wedge spills onto a
-// copy of the wedge queue; wedge_to_range of the R delivered wedges (u, v):
-// rows (start, start + deg, v, u) of u's adjacency, valid iff the wedge is
-// valid and deg > 0, compacted in row order into shared memory (only the
-// rows that fit the range2 queue are kept; the others drop); fifo_turn of
-// the width-4 range2 queue with them (pop dyn_pops[nchan * t + chan]);
-// range_split of the popped tasks into the messages; queue_append of the
-// remainders.  Work is 0 (the wedge channel counts none).
+// Triangles leg 2 (the wedge leg), over a grid (T, G + 2).  wedge_to_range of
+// the R delivered wedges (u, v) gives the rows (start, start + deg, v, u) of
+// u's adjacency, valid iff the wedge is valid and deg > 0; the first `room`
+// of them in row order append onto the width-4 range2 queue (the others
+// drop), the queue pops n_pop = min(dyn_pops[nchan * t + chan], count') rows,
+// range_split turns the popped tasks into the messages, and their
+// remainders append after the queue's live rows.  Every block but (t, G)
+// first counts the tile's valid rows, all R of them (from L2 after the
+// first block): that fixes the append, the pop and every row's place.
+// Blocks (t, g < G) then rank the valid rows among their recv rows [g * R /
+// G, (g + 1) * R / G) in row order (a block scan, from the count of valid
+// rows before theirs, taken in the same pass), place those that stay in the
+// queue, and move their share of the queue's old live rows
+// (fifo_live_turn): the turned queue gets its live rows only.  Block (t, G)
+// appends the wedge spills onto the wedge queue wq in place, at its count
+// (leg 1 of the round made that queue, and nothing else reads it).  Block
+// (t, G + 1) gathers the popped rows (old rows, then the first fresh ones)
+// into its staging (WedgeStage: dynamic shared memory, or the tile's part of
+// the wrapper's device-memory scratch), writes the messages (rows past n_pop:
+// 0, invalid), appends the remainders after the moved rows, and writes the
+// tile's counts.  Work is 0 (the wedge channel counts none).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(LEG_THREADS)
-fused_wedge_leg_kernel(const int32_t* __restrict__ wq,
-                       const int32_t* __restrict__ wq_count,
+struct WedgeStage {
+  int32_t* taken;  // eff popped tasks of 4, then their remainders
+  uint8_t* remv;   // eff remainder flags
+};
+
+// kernels/engine/fused.py wedge_stage_bytes
+__host__ __device__ inline size_t wedge_stage_bytes(int eff) {
+  return pad16(16 * (size_t)eff) + pad16(eff);
+}
+
+constexpr int WEDGE_UNROLL = 4;  // rows a thread reads at once when counting
+
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fused_wedge_leg_kernel(int32_t* wq, const int32_t* __restrict__ wq_count,
                        const int32_t* __restrict__ sp,
                        const uint8_t* __restrict__ spv,
                        const int32_t* __restrict__ recv,
@@ -532,7 +662,6 @@ fused_wedge_leg_kernel(const int32_t* __restrict__ wq,
                        const int32_t* __restrict__ rq,
                        const int32_t* __restrict__ rq_count,
                        const int32_t* __restrict__ dyn_pops,
-                       int32_t* __restrict__ wq_out,
                        int32_t* __restrict__ wq_count_out,
                        int32_t* __restrict__ rq_out,
                        int32_t* __restrict__ rq_count_out,
@@ -542,94 +671,149 @@ fused_wedge_leg_kernel(const int32_t* __restrict__ wq,
                        int32_t* __restrict__ work,
                        int32_t* __restrict__ npop_out,
                        int32_t* __restrict__ npush_out,
-                       int32_t* __restrict__ nspill_out, int cap_w, int S,
-                       int R, int v_chunk, int e_chunk, int cap_r, int r_pop,
-                       int max_t2, int nchan, int chan) {
+                       int32_t* __restrict__ nspill_out,
+                       unsigned char* scratch, size_t stage_bytes, int cap_w,
+                       int S, int R, int v_chunk, int cap_r, int r_pop,
+                       int max_t2, int e_chunk, int nchan, int chan) {
   extern __shared__ __align__(16) unsigned char wedge_smem[];
-  int32_t* s_fresh = reinterpret_cast<int32_t*>(wedge_smem);  // rows of 4
   __shared__ int sm[33];
-  __shared__ int32_t s_taken[LEG0_MAX_ROWS * 4];  // popped tasks, then rem
-  __shared__ uint8_t s_remv[LEG0_MAX_ROWS];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x, g = blockIdx.y, G = gridDim.y - 2;
   const int tid = threadIdx.x;
-  // wedge-spill re-queue
-  const int32_t* wqt = wq + (size_t)t * cap_w * 2;
-  int32_t* wqo = wq_out + (size_t)t * cap_w * 2;
-  for (int e = tid; e < cap_w * 2; e += blockDim.x) wqo[e] = wqt[e];
-  __syncthreads();
   const int cw = wq_count[t];
-  const int nsp = repro::queue_append_block(
-      wqo, cap_w, 2, cw, sp + (size_t)t * S * 2, spv + (size_t)t * S, S, sm);
-  // wedge_to_range, compacted: row pos of s_fresh for pos < room
-  const int c0 = rq_count[t];
-  const int room = imax(cap_r - c0, 0);
+  if (g == G) {
+    // the wedge-spill re-queue, in place
+    const int nsp = repro::queue_append_block(
+        wq + (size_t)t * cap_w * 2, cap_w, 2, cw, sp + (size_t)t * S * 2,
+        spv + (size_t)t * S, S, sm);
+    if (tid == 0) {
+      wq_count_out[t] = cw + imin(nsp, imax(cap_w - cw, 0));
+      nspill_out[t] = nsp;
+    }
+    return;
+  }
   const int32_t* rc = recv + (size_t)t * R * 2;
   const uint8_t* rvt = rv + (size_t)t * R;
   const size_t vt = (size_t)t * v_chunk;
-  int nvalid = 0;  // block-uniform
-  for (int base = 0; base < R; base += blockDim.x) {
-    const int r = base + tid;
-    int st = 0, dg = 0, u = 0, v = 0;
-    if (r < R && rvt[r]) {
-      u = rc[2 * r];
-      v = rc[2 * r + 1];
-      const size_t o = vt + repro::floor_mod(u, v_chunk);
-      st = ptr_start[o];
-      dg = deg[o];
+  // row r's task (start, start + deg, v, u); valid iff dg > 0
+  const auto task = [&](int r, int* st, int* dg, int* u, int* v) {
+    *st = *dg = *u = *v = 0;
+    if (rvt[r]) {
+      *u = rc[2 * r];
+      *v = rc[2 * r + 1];
+      const size_t o = vt + repro::floor_mod(*u, v_chunk);
+      *st = ptr_start[o];
+      *dg = deg[o];
     }
-    const int ok = dg > 0;
-    int total;
-    const int pos = nvalid + repro::block_excl_scan(ok, &total, sm);
-    if (ok && pos < room) {
-      int32_t* f = s_fresh + 4 * (size_t)pos;
-      f[0] = st;
-      f[1] = repro::wrap_add(st, dg);
-      f[2] = v;
-      f[3] = u;
+  };
+  const int r_lo = g < G ? (int)((long long)g * R / G) : 0;
+  const int r_hi = g < G ? (int)((long long)(g + 1) * R / G) : 0;
+  // the tile's valid rows, and those before r_lo
+  int mine = 0, before = 0;
+  for (int r0 = tid; r0 < R; r0 += WEDGE_UNROLL * (int)blockDim.x) {
+    int dg[WEDGE_UNROLL];
+#pragma unroll
+    for (int k = 0; k < WEDGE_UNROLL; ++k) {
+      const int r = r0 + k * (int)blockDim.x;
+      dg[k] = 0;
+      if (r < R && rvt[r])
+        dg[k] = deg[vt + repro::floor_mod(rc[2 * r], v_chunk)];
     }
-    nvalid += total;
+#pragma unroll
+    for (int k = 0; k < WEDGE_UNROLL; ++k) {
+      mine += dg[k] > 0;
+      before += dg[k] > 0 && r0 + k * (int)blockDim.x < r_lo;
+    }
   }
-  __syncthreads();
-  const int n_push0 = imin(nvalid, room);
+  const int nvalid = repro::block_sum(mine, sm);
+  const int n_before = repro::block_sum(before, sm);
+  const int c0 = rq_count[t];
+  const int n_push0 = imin(nvalid, imax(cap_r - c0, 0));
   const int c2 = c0 + n_push0;
   const int n_pop = imin(dyn_pops[nchan * t + chan], c2);
-  const int eff = imin(r_pop, cap_r);
+  const int c3 = c2 - n_pop;
+  const int32_t* rqt = rq + (size_t)t * cap_r * 4;
   int32_t* rqo = rq_out + (size_t)t * cap_r * 4;
-  repro::fifo_shift(rq + (size_t)t * cap_r * 4, rqo, s_taken, cap_r, 4, c0,
-                    n_push0, n_pop, eff, [&](int j, int col) {
-                      return s_fresh[4 * (size_t)j + col];
-                    });
+  if (g < G) {
+    // the fresh rows of [r_lo, r_hi) that stay in the queue: row c0 + k of
+    // the appended queue is row c0 + k - n_pop of the turned one
+    int rank = n_before;  // block-uniform
+    for (int base = r_lo; base < r_hi; base += blockDim.x) {
+      const int r = base + tid;
+      int st = 0, dg = 0, u = 0, v = 0;
+      if (r < r_hi) task(r, &st, &dg, &u, &v);
+      const int ok = dg > 0;
+      int total;
+      const int k = rank + repro::block_excl_scan(ok, &total, sm);
+      if (ok && k < n_push0 && c0 + k >= n_pop)
+        reinterpret_cast<int4*>(rqo)[c0 + k - n_pop] =
+            make_int4(st, repro::wrap_add(st, dg), v, u);
+      rank += total;
+    }
+    // this block's share of the old live rows [n_pop, c0)
+    const int L = imax(c0 - n_pop, 0);
+    repro::fifo_live_turn<4>(rqt, rqo, n_pop, (int)((long long)g * L / G),
+                             (int)((long long)(g + 1) * L / G), tid,
+                             blockDim.x);
+    return;
+  }
+  // block (t, G + 1): the pop
+  const int eff = imin(r_pop, cap_r);
+  unsigned char* base = stage_of(wedge_smem, scratch, stage_bytes, t);
+  const WedgeStage sg{reinterpret_cast<int32_t*>(base),
+                      base + pad16(16 * (size_t)eff)};
+  const int p_old = imin(n_pop, c0);
+  for (int i = tid; i < p_old; i += blockDim.x)
+    reinterpret_cast<int4*>(sg.taken)[i] =
+        reinterpret_cast<const int4*>(rqt)[i];
+  const int need = n_pop - p_old;  // fresh rows popped: the first `need`
+  int rank = 0;                    // block-uniform
+  for (int b0 = 0; b0 < R && rank < need; b0 += blockDim.x) {
+    const int r = b0 + tid;
+    int st = 0, dg = 0, u = 0, v = 0;
+    if (r < R) task(r, &st, &dg, &u, &v);
+    const int ok = dg > 0;
+    int total;
+    const int k = rank + repro::block_excl_scan(ok, &total, sm);
+    if (ok && k < need)
+      reinterpret_cast<int4*>(sg.taken)[p_old + k] =
+          make_int4(st, repro::wrap_add(st, dg), v, u);
+    rank += total;
+  }
   __syncthreads();
   // T1 on the popped tasks; the remainders replace them
   for (int i = tid; i < eff; i += blockDim.x) {
-    int32_t* tk = s_taken + 4 * i;
-    const int ts = tk[0], te = tk[1];
-    const int stop = range_stop(ts, te, e_chunk, max_t2);
+    int4* m = reinterpret_cast<int4*>(msgs) + (size_t)t * eff + i;
+    int32_t* tk = sg.taken + 4 * i;
     const bool tv = i < n_pop;
-    int32_t* m = msgs + ((size_t)t * eff + i) * 4;
-    m[0] = ts;
-    m[1] = stop;
-    m[2] = tk[2];
-    m[3] = tk[3];
+    bool rem = false;
+    if (tv) {
+      const int ts = tk[0], te = tk[1];
+      const int stop = range_stop(ts, te, e_chunk, max_t2);
+      *m = make_int4(ts, stop, tk[2], tk[3]);
+      tk[0] = stop;
+      tk[1] = te;
+      rem = stop < te;
+    } else {
+      *m = make_int4(0, 0, 0, 0);
+    }
     mvalid[(size_t)t * eff + i] = tv;
-    tk[0] = stop;
-    tk[1] = te;
-    s_remv[i] = tv && stop < te;
+    sg.remv[i] = rem;
   }
   __syncthreads();
-  const int c3 = c2 - n_pop;
   const int nrem =
-      repro::queue_append_block(rqo, cap_r, 4, c3, s_taken, s_remv, eff, sm);
+      repro::queue_append_block(rqo, cap_r, 4, c3, sg.taken, sg.remv, eff, sm);
+  // the wedge spills' count, for the drops (block (t, G) appends them)
+  int my_sp = 0;
+  for (int i = tid; i < S; i += blockDim.x) my_sp += spv[(size_t)t * S + i];
+  const int nsp = repro::block_sum(my_sp, sm);
   if (tid == 0) {
     const int n_wpush = imin(nsp, imax(cap_w - cw, 0));
     const int n_push1 = imin(nrem, imax(cap_r - c3, 0));
-    wq_count_out[t] = cw + n_wpush;
     rq_count_out[t] = c3 + n_push1;
     drops[t] = (nsp - n_wpush) + (nvalid - n_push0) + (nrem - n_push1);
     work[t] = 0;
     npop_out[t] = n_pop;
     npush_out[t] = nvalid + nrem;
-    nspill_out[t] = nsp;
   }
 }
 
@@ -657,8 +841,9 @@ __device__ __forceinline__ bool segment_contains(const int32_t* __restrict__ ed,
 // Triangles leg 4 (the close leg).  queue_append of the close spills onto a
 // copy of the close queue; for each delivered (v, w): found = the closing
 // edge (v, w) is in v's sorted local segment; the ordered add of found (0 or
-// 1) into acc at v's slot (invalid rows: the trash slot); work = the found
-// count.  acc holds integers below 2^24, so the adds are exact in any order;
+// 1) into acc at v's slot (invalid rows: the trash slot), in row-order
+// chunks of FOLD_ADD_MAX_ROWS rows; work = the found count.  acc holds
+// integers below 2^24, so the adds are exact in any order;
 // the ordered add keeps the plain version's order all the same.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(LEG_THREADS)
@@ -699,7 +884,8 @@ fused_close_leg_kernel(const int32_t* __restrict__ cq,
   const int32_t* ed = edge_dst + (size_t)t * e_chunk;
   int my_found = 0;
   repro::ordered_add_rows_by(
-      acc_out + vt, 0, v_chunk, R, fold_smem, [&](int i, int* s, float* v) {
+      acc_out + vt, 0, v_chunk, R, fold_smem,
+      [&](int i, int* s, float* v) {
         int slot = v_chunk;
         bool found = false;
         if (rvt[i]) {
@@ -732,6 +918,24 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// A staging of `need` bytes a tile, `bytes` of it (at least `need`): in
+// dynamic shared memory up to STAGE_SMEM_MAX bytes, past it in the
+// wrapper's device-memory scratch of `bytes` a tile.  Sets *smem and *stage
+// to what the launch takes; false where the request does not cover the
+// need.
+bool staging(size_t need, size_t bytes, void* scratch, size_t* smem,
+             unsigned char** stage) {
+  if (bytes < need || bytes % 16 != 0) return false;
+  if (bytes > repro::STAGE_SMEM_MAX) {
+    *smem = 0;
+    *stage = static_cast<unsigned char*>(scratch);
+    return scratch != nullptr;
+  }
+  *smem = bytes;
+  *stage = nullptr;
+  return true;
+}
+
 // Every instantiation of a leg kernel has the same signature.
 using Leg0Kernel = decltype(&fused_leg0_kernel<PAY_VALUE, POLICY_TRAFFIC, 2>);
 
@@ -742,9 +946,19 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, cudaStream_t stream,
                         const void* pressure, void* frontier_out, void* rq_out,
                         void* rq_count_out, void* msgs, void* mvalid,
                         void* drops, void* dyn_pops, void* npop, void* npush,
-                        int v_chunk, int e_chunk, int cap_r, int f_pop,
-                        int r_pop, int max_t2, int plimit) {
-  kernel<<<T, LEG_THREADS, 0, stream>>>(
+                        void* scratch, int v_chunk, int e_chunk, int cap_r,
+                        int f_pop, int r_pop, int max_t2, int plimit,
+                        long long stage_bytes) {
+  size_t smem;
+  unsigned char* stage;
+  const int eff = r_pop < cap_r ? r_pop : cap_r;
+  if (f_pop < 0 || r_pop < 0 ||
+      !staging(leg0_stage_bytes(f_pop, eff), (size_t)stage_bytes, scratch,
+               &smem, &stage))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<T, LEG_THREADS, smem, stream>>>(
       static_cast<const uint8_t*>(frontier), static_cast<const float*>(value),
       static_cast<const int32_t*>(deg), static_cast<const int32_t*>(ptr_start),
       static_cast<const int32_t*>(rq), static_cast<const int32_t*>(rq_count),
@@ -753,41 +967,45 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, cudaStream_t stream,
       static_cast<int32_t*>(rq_count_out), static_cast<int32_t*>(msgs),
       static_cast<uint8_t*>(mvalid), static_cast<int32_t*>(drops),
       static_cast<int32_t*>(dyn_pops), static_cast<int32_t*>(npop),
-      static_cast<int32_t*>(npush), v_chunk, e_chunk, cap_r, f_pop, r_pop,
-      max_t2, plimit);
+      static_cast<int32_t*>(npush), stage, (size_t)stage_bytes, v_chunk,
+      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit);
   return cudaGetLastError();
 }
 
-using Leg1Kernel = decltype(&fused_leg1_kernel<EMIT_PLUS1, false, 3>);
+using Leg1Kernel = decltype(&fused_leg1_kernel<EMIT_PLUS1, SCAN_GATHER, 3>);
 
-cudaError_t launch_leg1(Leg1Kernel kernel, int T, size_t smem,
-                        cudaStream_t stream, const void* rq,
-                        const void* rq_count, const void* sp, const void* spv,
-                        const void* recv, const void* rv, const void* edge_dst,
+cudaError_t launch_leg1(Leg1Kernel kernel, int T, int G, size_t smem,
+                        cudaStream_t stream, void* rq, const void* rq_count,
+                        const void* sp, const void* spv, const void* recv,
+                        const void* rv, const void* edge_dst,
                         const void* edge_val, const void* uq,
                         const void* uq_count, const void* dyn_pops,
-                        void* rq_out, void* rq_count_out, void* uq_out,
-                        void* uq_count_out, void* msgs, void* mvalid,
-                        void* drops, void* edges, void* npop, void* npush,
-                        void* nspill, int cap_r, int S, int R, int e_chunk,
-                        int max_t2, int window, int cap_u, int u_pop,
-                        int warps, int nchan, int chan) {
-  const cudaError_t e = allow_smem(kernel, smem);
+                        void* rq_count_out, void* uq_out, void* uq_count_out,
+                        void* msgs, void* mvalid, void* drops, void* edges,
+                        void* npop, void* npush, void* nspill, void* tally,
+                        int cap_r, int S, int R, int e_chunk, int max_t2,
+                        int window, int cap_u, int u_pop, int warps, int nchan,
+                        int chan) {
+  if (G < 1 || warps < 1) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<T, LEG_THREADS, smem, stream>>>(
-      static_cast<const int32_t*>(rq), static_cast<const int32_t*>(rq_count),
+  e = cudaMemsetAsync(tally, 0, 2 * (size_t)T * sizeof(int), stream);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(T, G + 1), SPLIT_THREADS, smem, stream>>>(
+      static_cast<int32_t*>(rq), static_cast<const int32_t*>(rq_count),
       static_cast<const int32_t*>(sp), static_cast<const uint8_t*>(spv),
       static_cast<const int32_t*>(recv), static_cast<const uint8_t*>(rv),
       static_cast<const int32_t*>(edge_dst),
       static_cast<const float*>(edge_val), static_cast<const int32_t*>(uq),
       static_cast<const int32_t*>(uq_count),
-      static_cast<const int32_t*>(dyn_pops), static_cast<int32_t*>(rq_out),
+      static_cast<const int32_t*>(dyn_pops),
       static_cast<int32_t*>(rq_count_out), static_cast<int32_t*>(uq_out),
       static_cast<int32_t*>(uq_count_out), static_cast<int32_t*>(msgs),
       static_cast<uint8_t*>(mvalid), static_cast<int32_t*>(drops),
       static_cast<int32_t*>(edges), static_cast<int32_t*>(npop),
-      static_cast<int32_t*>(npush), static_cast<int32_t*>(nspill), cap_r, S,
-      R, e_chunk, max_t2, window, cap_u, u_pop, warps, nchan, chan);
+      static_cast<int32_t*>(npush), static_cast<int32_t*>(nspill),
+      static_cast<int*>(tally), cap_r, S, R, e_chunk, max_t2, window, cap_u,
+      u_pop, warps, nchan, chan);
   return cudaGetLastError();
 }
 
@@ -817,11 +1035,21 @@ cudaError_t launch_leg2(Leg2Kernel kernel, int T, int G, size_t smem,
   return cudaGetLastError();
 }
 
-int scan_warps(int window) {  // warps of the scan leg; 0: window too wide
-  const int warps = LEG_THREADS / 32;
-  if (window == 0) return warps;
+// The scan leg's shard reads: resident (window 0), or streamed windows
+// staged by `warps` warps of a block (16 * window bytes each, STAGE_SMEM in
+// all) up to STREAM_MAX_WINDOW, or read from device memory by every warp.
+// Returns the mode, the warps that scan and the dynamic shared memory.
+int scan_mode(int window, int* warps, size_t* smem) {
+  static_assert(16 * repro::STREAM_MAX_WINDOW <= STAGE_SMEM,
+                "a staged window fits the staging");
+  *warps = SPLIT_THREADS / 32;
+  *smem = 0;
+  if (window == 0) return SCAN_GATHER;
+  if (window > repro::STREAM_MAX_WINDOW) return SCAN_GLOBAL;
   const int fit = STAGE_SMEM / (16 * window);
-  return fit < warps ? fit : warps;
+  if (fit < *warps) *warps = fit;
+  *smem = (size_t)*warps * 16 * window;
+  return SCAN_STAGED;
 }
 
 }  // namespace
@@ -832,18 +1060,18 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Leg 0 of the 2-channel programs (classic, k-core).
+// Leg 0 of the 2-channel programs (classic, k-core); the staging in dynamic
+// shared memory or, past STAGE_SMEM_MAX, in `scratch` (stage_bytes a tile).
 int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
                      const void* ptr_start, const void* rq,
                      const void* rq_count, const void* uq_count,
                      const void* pressure, void* frontier_out, void* rq_out,
                      void* rq_count_out, void* msgs, void* mvalid, void* drops,
-                     void* dyn_pops, void* npop, void* npush, int T,
-                     int v_chunk, int e_chunk, int cap_r, int cap_u, int f_pop,
-                     int r_pop, int u_pop, int max_t2, int plimit, int payload,
-                     int policy, void* stream) {
-  if (f_pop > LEG0_MAX_ROWS || r_pop > LEG0_MAX_ROWS)
-    return static_cast<int>(cudaErrorInvalidValue);
+                     void* dyn_pops, void* npop, void* npush, void* scratch,
+                     int T, int v_chunk, int e_chunk, int cap_r, int cap_u,
+                     int f_pop, int r_pop, int u_pop, int max_t2, int plimit,
+                     int payload, int policy, long long stage_bytes,
+                     void* stream) {
   Leg0Kernel kernel = nullptr;
   const bool traffic = policy == POLICY_TRAFFIC;
   switch (payload) {
@@ -869,8 +1097,8 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
   return static_cast<int>(launch_leg0(
       kernel, T, static_cast<cudaStream_t>(stream), frontier, value, deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
-      rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, v_chunk,
-      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit));
+      rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
+      v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes));
 }
 
 // Leg 0 of the 4-channel triangles chain (placed-id payload).
@@ -880,11 +1108,11 @@ int repro_fused_leg0_chain(
     const void* count1, const void* count2, const void* count3,
     const void* pressure, void* frontier_out, void* rq_out,
     void* rq_count_out, void* msgs, void* mvalid, void* drops, void* dyn_pops,
-    void* npop, void* npush, int T, int v_chunk, int e_chunk, int cap_r,
-    int cap1, int cap2, int cap3, int f_pop, int r_pop, int pop1, int pop2,
-    int pop3, int max_t2, int plimit, int payload, int policy, void* stream) {
-  if (f_pop > LEG0_MAX_ROWS || r_pop > LEG0_MAX_ROWS || payload != PAY_PLACED)
-    return static_cast<int>(cudaErrorInvalidValue);
+    void* npop, void* npush, void* scratch, int T, int v_chunk, int e_chunk,
+    int cap_r, int cap1, int cap2, int cap3, int f_pop, int r_pop, int pop1,
+    int pop2, int pop3, int max_t2, int plimit, int payload, int policy,
+    long long stage_bytes, void* stream) {
+  if (payload != PAY_PLACED) return static_cast<int>(cudaErrorInvalidValue);
   const Leg0Kernel kernel =
       policy == POLICY_TRAFFIC
           ? fused_leg0_kernel<PAY_PLACED, POLICY_TRAFFIC, 4>
@@ -897,76 +1125,85 @@ int repro_fused_leg0_chain(
   return static_cast<int>(launch_leg0(
       kernel, T, static_cast<cudaStream_t>(stream), frontier, value, deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
-      rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, v_chunk,
-      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit));
+      rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
+      v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes));
 }
 
-// Leg 1 of the 2-channel programs: resident or streamed (window > 0).
-int repro_fused_leg1(const void* rq, const void* rq_count, const void* sp,
+// Leg 1 of the 2-channel programs: resident or streamed (window > 0; its
+// windows staged or not), over a grid (T, G + 1); the range spills append
+// to rq in place.  `tally` (2 T ints) is cleared on the stream first.
+int repro_fused_leg1(void* rq, const void* rq_count, const void* sp,
                      const void* spv, const void* recv, const void* rv,
                      const void* edge_dst, const void* edge_val,
                      const void* uq, const void* uq_count,
-                     const void* dyn_pops, void* rq_out, void* rq_count_out,
-                     void* uq_out, void* uq_count_out, void* msgs,
-                     void* mvalid, void* drops, void* edges, void* npop,
-                     void* npush, void* nspill, int T, int cap_r, int S, int R,
-                     int e_chunk, int max_t2, int window, int cap_u,
-                     int u_pop, int emit_code, void* stream) {
-  const bool streamed = window > 0;
-  const int warps = scan_warps(window);
-  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = streamed ? (size_t)warps * 16 * window : 0;
+                     const void* dyn_pops, void* rq_count_out, void* uq_out,
+                     void* uq_count_out, void* msgs, void* mvalid, void* drops,
+                     void* edges, void* npop, void* npush, void* nspill,
+                     void* tally, int T, int cap_r, int S, int R, int e_chunk,
+                     int max_t2, int window, int cap_u, int u_pop,
+                     int emit_code, int G, void* stream) {
+  int warps;
+  size_t smem;
+  const int mode = scan_mode(window, &warps, &smem);
+  if (window < 0 || warps < 1) return static_cast<int>(cudaErrorInvalidValue);
   Leg1Kernel kernel = nullptr;
-  switch (2 * emit_code + (streamed ? 1 : 0)) {
-    case 0: kernel = fused_leg1_kernel<EMIT_PLUS1, false, 3>; break;
-    case 1: kernel = fused_leg1_kernel<EMIT_PLUS1, true, 3>; break;
-    case 2: kernel = fused_leg1_kernel<EMIT_PLUS_W, false, 3>; break;
-    case 3: kernel = fused_leg1_kernel<EMIT_PLUS_W, true, 3>; break;
-    case 4: kernel = fused_leg1_kernel<EMIT_COPY, false, 3>; break;
-    case 5: kernel = fused_leg1_kernel<EMIT_COPY, true, 3>; break;
-    case 6: kernel = fused_leg1_kernel<EMIT_TIMES_W, false, 3>; break;
-    case 7: kernel = fused_leg1_kernel<EMIT_TIMES_W, true, 3>; break;
-    case 8: kernel = fused_leg1_kernel<EMIT_ONE, false, 3>; break;
-    case 9: kernel = fused_leg1_kernel<EMIT_ONE, true, 3>; break;
+  switch (3 * emit_code + mode) {
+#define LEG1_CASES(E)                                              \
+  case 3 * E + SCAN_GATHER:                                        \
+    kernel = fused_leg1_kernel<E, SCAN_GATHER, 3>;                 \
+    break;                                                         \
+  case 3 * E + SCAN_STAGED:                                        \
+    kernel = fused_leg1_kernel<E, SCAN_STAGED, 3>;                 \
+    break;                                                         \
+  case 3 * E + SCAN_GLOBAL:                                        \
+    kernel = fused_leg1_kernel<E, SCAN_GLOBAL, 3>;                 \
+    break;
+    LEG1_CASES(EMIT_PLUS1)
+    LEG1_CASES(EMIT_PLUS_W)
+    LEG1_CASES(EMIT_COPY)
+    LEG1_CASES(EMIT_TIMES_W)
+    LEG1_CASES(EMIT_ONE)
+#undef LEG1_CASES
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch_leg1(
-      kernel, T, smem, static_cast<cudaStream_t>(stream), rq, rq_count, sp,
-      spv, recv, rv, edge_dst, edge_val, uq, uq_count, dyn_pops, rq_out,
+      kernel, T, G, smem, static_cast<cudaStream_t>(stream), rq, rq_count,
+      sp, spv, recv, rv, edge_dst, edge_val, uq, uq_count, dyn_pops,
       rq_count_out, uq_out, uq_count_out, msgs, mvalid, drops, edges, npop,
-      npush, nspill, cap_r, S, R, e_chunk, max_t2, window, cap_u, u_pop,
-      warps, 2, 1));
+      npush, nspill, tally, cap_r, S, R, e_chunk, max_t2, window, cap_u,
+      u_pop, warps, 2, 1));
 }
 
 // Legs 1 and 3 of the triangles chain (resident shard): the range channel
 // chan - 1 of width 3 (wedge emit) or 4 (close emit), the spill-only
 // channel chan.
 int repro_fused_leg1_chain(
-    const void* rq, const void* rq_count, const void* sp, const void* spv,
+    void* rq, const void* rq_count, const void* sp, const void* spv,
     const void* recv, const void* rv, const void* edge_dst,
     const void* edge_val, const void* uq, const void* uq_count,
-    const void* dyn_pops, void* rq_out, void* rq_count_out, void* uq_out,
+    const void* dyn_pops, void* rq_count_out, void* uq_out,
     void* uq_count_out, void* msgs, void* mvalid, void* drops, void* edges,
-    void* npop, void* npush, void* nspill, int T, int cap_r, int S, int R,
-    int e_chunk, int max_t2, int cap_u, int u_pop, int nchan, int chan,
-    int emit_code, void* stream) {
+    void* npop, void* npush, void* nspill, void* tally, int T, int cap_r,
+    int S, int R, int e_chunk, int max_t2, int cap_u, int u_pop, int nchan,
+    int chan, int emit_code, int G, void* stream) {
   Leg1Kernel kernel = nullptr;
   if (emit_code == EMIT_WEDGE)
-    kernel = fused_leg1_kernel<EMIT_WEDGE, false, 3>;
+    kernel = fused_leg1_kernel<EMIT_WEDGE, SCAN_GATHER, 3>;
   else if (emit_code == EMIT_CLOSE)
-    kernel = fused_leg1_kernel<EMIT_CLOSE, false, 4>;
+    kernel = fused_leg1_kernel<EMIT_CLOSE, SCAN_GATHER, 4>;
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_leg1(
-      kernel, T, 0, static_cast<cudaStream_t>(stream), rq, rq_count, sp, spv,
-      recv, rv, edge_dst, edge_val, uq, uq_count, dyn_pops, rq_out,
+      kernel, T, G, 0, static_cast<cudaStream_t>(stream), rq, rq_count, sp,
+      spv, recv, rv, edge_dst, edge_val, uq, uq_count, dyn_pops,
       rq_count_out, uq_out, uq_count_out, msgs, mvalid, drops, edges, npop,
-      npush, nspill, cap_r, S, R, e_chunk, max_t2, 0, cap_u, u_pop,
-      scan_warps(0), nchan, chan));
+      npush, nspill, tally, cap_r, S, R, e_chunk, max_t2, 0, cap_u, u_pop,
+      SPLIT_THREADS / 32, nchan, chan));
 }
 
-// Leg 2 of the classic program: the min or the add fold, over a grid (T, G)
-// of column ranges of `step` slots; the spills append to uq in place.
+// Leg 2 of the classic program: the min or the add fold (in chunks of
+// FOLD_ADD_MAX_ROWS rows), over a grid (T, G) of column ranges of `step`
+// slots; the spills append to uq in place.
 int repro_fused_leg2(void* uq, const void* uq_count, const void* sp,
                      const void* spv, const void* recv, const void* rv,
                      const void* target, const void* flags,
@@ -1000,46 +1237,55 @@ int repro_fused_kcore_leg2(void* uq, const void* uq_count, const void* sp,
                            int cap_u, int S, int R, int v_chunk, int G,
                            int step, int k, void* stream) {
   return static_cast<int>(launch_leg2(
-      fused_leg2_kernel<FOLD_KCORE>, T, G, repro::ordered_add_smem(R, step),
+      fused_leg2_kernel<FOLD_KCORE>, T, G,
+      repro::ordered_add_smem(R, step),
       static_cast<cudaStream_t>(stream), uq, uq_count, sp, spv, recv, rv,
       value, flags, acc, uq_count_out, value_out, flags_out, acc_out, drops,
       applied, nspill, cap_u, S, R, v_chunk, step, k));
 }
 
-// Leg 2 of triangles: wedge re-queue, wedge_to_range, range2 turn and split.
+// Leg 2 of triangles, over a grid (T, G + 2): the wedge spills append to wq
+// in place; wedge_to_range, the range2 turn (live rows) and split; the
+// popped rows staged in dynamic shared memory or in `scratch`.
 int repro_fused_wedge_leg(
-    const void* wq, const void* wq_count, const void* sp, const void* spv,
+    void* wq, const void* wq_count, const void* sp, const void* spv,
     const void* recv, const void* rv, const void* ptr_start, const void* deg,
-    const void* rq, const void* rq_count, const void* dyn_pops, void* wq_out,
+    const void* rq, const void* rq_count, const void* dyn_pops,
     void* wq_count_out, void* rq_out, void* rq_count_out, void* msgs,
     void* mvalid, void* drops, void* work, void* npop, void* npush,
-    void* nspill, int T, int cap_w, int S, int R, int v_chunk, int e_chunk,
-    int cap_r, int r_pop, int max_t2, int nchan, int chan, int fresh_rows,
-    void* stream) {
-  if (r_pop > LEG0_MAX_ROWS || fresh_rows < (R < cap_r ? R : cap_r))
+    void* nspill, void* scratch, int T, int cap_w, int S, int R, int v_chunk,
+    int e_chunk, int cap_r, int r_pop, int max_t2, int nchan, int chan,
+    int G, long long stage_bytes, void* stream) {
+  size_t smem;
+  unsigned char* stage;
+  const int eff = r_pop < cap_r ? r_pop : cap_r;
+  if (G < 1 || r_pop < 0 ||
+      !staging(wedge_stage_bytes(eff), (size_t)stage_bytes, scratch, &smem,
+               &stage))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)fresh_rows * 16;
   const cudaError_t e = allow_smem(fused_wedge_leg_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_wedge_leg_kernel<<<T, LEG_THREADS, smem,
+  fused_wedge_leg_kernel<<<dim3(T, G + 2), SPLIT_THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(wq), static_cast<const int32_t*>(wq_count),
+      static_cast<int32_t*>(wq), static_cast<const int32_t*>(wq_count),
       static_cast<const int32_t*>(sp), static_cast<const uint8_t*>(spv),
       static_cast<const int32_t*>(recv), static_cast<const uint8_t*>(rv),
       static_cast<const int32_t*>(ptr_start),
       static_cast<const int32_t*>(deg), static_cast<const int32_t*>(rq),
       static_cast<const int32_t*>(rq_count),
-      static_cast<const int32_t*>(dyn_pops), static_cast<int32_t*>(wq_out),
+      static_cast<const int32_t*>(dyn_pops),
       static_cast<int32_t*>(wq_count_out), static_cast<int32_t*>(rq_out),
       static_cast<int32_t*>(rq_count_out), static_cast<int32_t*>(msgs),
       static_cast<uint8_t*>(mvalid), static_cast<int32_t*>(drops),
       static_cast<int32_t*>(work), static_cast<int32_t*>(npop),
-      static_cast<int32_t*>(npush), static_cast<int32_t*>(nspill), cap_w, S,
-      R, v_chunk, e_chunk, cap_r, r_pop, max_t2, nchan, chan);
+      static_cast<int32_t*>(npush), static_cast<int32_t*>(nspill), stage,
+      (size_t)stage_bytes, cap_w, S, R, v_chunk, cap_r, r_pop, max_t2,
+      e_chunk, nchan, chan);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Leg 4 of triangles: close re-queue, the search and the ordered add.
+// Leg 4 of triangles: close re-queue, the search and the ordered add (in
+// chunks of FOLD_ADD_MAX_ROWS rows).
 int repro_fused_close_leg(
     const void* cq, const void* cq_count, const void* sp, const void* spv,
     const void* recv, const void* rv, const void* ptr_start, const void* deg,

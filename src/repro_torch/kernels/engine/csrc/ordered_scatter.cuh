@@ -12,7 +12,10 @@
 // (slot in the high word, row in the low word, so keys are unique and the
 // sort needs no stability), sorts them, then the first thread of each run
 // of one slot adds the run in row order.  The adds are __fadd_rn, so no
-// contraction can change a bit.
+// contraction can change a bit.  Rows past what shared memory holds are
+// taken in row-order chunks of FOLD_ADD_MAX_ROWS rows: chunk c is gathered,
+// sorted and added before chunk c + 1, so each slot's adds keep row order
+// across chunks too.
 //
 // The min is exact in any order, so it folds with float atomics through the
 // integer-order trick.
@@ -32,17 +35,28 @@ __host__ __device__ inline int next_pow2(int n) {
 }
 
 // A fold block whose range holds at most SINGLE_MAX_SLOTS slots counts the
-// rows of each slot first (16-bit counters, two a word), and adds the rows
-// of a slot that has one at once, sorting only the others (add_fold_beside).
+// rows of each slot of a chunk first (16-bit counters, two a word: a chunk
+// has at most FOLD_ADD_MAX_ROWS rows), and adds the rows of a slot that has one
+// in the chunk at once, sorting only the others (add_fold_beside).
 constexpr int SINGLE_MAX_SLOTS = 16384;
+// The most rows one chunk of an ordered add sorts in shared memory: 12
+// bytes a row, beside the counters of SINGLE_MAX_SLOTS slots, in the 227
+// KiB a block may opt in to.  kernels/engine/kernel.py reads it from here.
+constexpr int FOLD_ADD_MAX_ROWS = 16384;
 
-// Shared memory an ordered add of R rows needs: R padded keys, R values and
-// the count of rows in range; and, for a fold block of `slots` slots (at
-// most SINGLE_MAX_SLOTS), their counters.  All of it is dynamic shared
-// memory, so that the callers' test of its size against the default 48 KiB
-// is the whole test.
+// The rows of one chunk of an ordered add of R rows.
+__host__ __device__ inline int chunk_rows(int R) {
+  return R < FOLD_ADD_MAX_ROWS ? R : FOLD_ADD_MAX_ROWS;
+}
+
+// Shared memory an ordered add of R rows needs: a
+// chunk's padded keys, its values and the count of its rows in range; and,
+// for a fold block of `slots` slots (at most SINGLE_MAX_SLOTS), their
+// counters.  All of it is dynamic shared memory, so that the callers' test
+// of its size against the default 48 KiB is the whole test.
 __host__ __device__ inline size_t ordered_add_smem(int R, int slots = 0) {
-  const int P = next_pow2(R > 0 ? R : 1);
+  const int C = chunk_rows(R);
+  const int P = next_pow2(C > 0 ? C : 1);
   const size_t counters =
       slots > 0 && slots <= SINGLE_MAX_SLOTS ? (size_t)(slots + 1) / 2 * 4
                                              : 0;
@@ -224,13 +238,14 @@ __device__ inline int gather_rows(int lo, int hi, int R, Load load,
   return *count;
 }
 
-// The ordered add in two steps, over ordered_add_smem(R) bytes of shared
-// memory: ordered_add_sort gathers the rows r < R with lo <= s_r < hi,
-// where load(r) reads row r's SlotValue (once, whatever its slot), and
-// sorts their (slot, row) keys, returning their count; ordered_add_fold
-// then adds each slot's rows in increasing r: out[s_r] += v_r.  A barrier
-// of the whole block between the two makes the sort, and the writes of
-// out[lo:hi) that any team made, visible to the fold's team.
+// The ordered add of one chunk in two steps, over ordered_add_smem(R)
+// bytes of shared memory (R at most FOLD_ADD_MAX_ROWS): ordered_add_sort
+// gathers the rows r < R with lo <= s_r < hi, where load(r) reads row r's
+// SlotValue (once, whatever its slot), and sorts their (slot, row) keys,
+// returning their count; ordered_add_fold then adds each slot's rows in
+// increasing r: out[s_r] += v_r.  A barrier of the whole block between the
+// two makes the sort, and the writes of out[lo:hi) that any team made,
+// visible to the fold's team.
 struct OrderedSmem {
   unsigned long long* key;
   float* sval;  // by row
@@ -280,79 +295,112 @@ __device__ inline void ordered_add_fold(float* __restrict__ out, int n,
   }
 }
 
-// Both steps by the whole block: out[s_r] += v_r for the rows r < R with
-// lo <= s_r < hi, each slot's rows in increasing r, where row(r, &s_r,
-// &v_r) reads row r.  The writes of out[lo:hi) that the block made before
-// the call are visible to it (the call starts with a barrier).
+// Both steps by the whole block, chunk by chunk: out[s_r] += v_r for the
+// rows r < R with lo <= s_r < hi, each slot's rows in increasing r, where
+// row(r, &s_r, &v_r) reads row r (once).  `smem` holds ordered_add_smem(R)
+// bytes.  The writes of out[lo:hi) that the block made before the
+// call are visible to it (the call starts with a barrier), and so are each
+// chunk's to the next; the call ends with a barrier.
 template <class Row>
 __device__ inline void ordered_add_rows_by(float* __restrict__ out, int lo,
-                                           int hi, int R,
-                                           unsigned char* smem, Row row) {
+                                           int hi, int R, unsigned char* smem,
+                                           Row row) {
   const Team tm = whole_block();
-  const int n = ordered_add_sort(
-      lo, hi, R, smem,
-      [&](int i) {
-        SlotValue x;
-        row(i, &x.s, &x.v);
-        return x;
-      },
-      tm);
-  ordered_add_fold(out, n, smem, R, tm);
+  for (int c0 = 0; c0 < R; c0 += FOLD_ADD_MAX_ROWS) {
+    const int m = chunk_rows(R - c0);
+    const int n = ordered_add_sort(
+        lo, hi, m, smem,
+        [&](int i) {
+          SlotValue x;
+          row(c0 + i, &x.s, &x.v);
+          return x;
+        },
+        tm);
+    ordered_add_fold(out, n, smem, m, tm);
+    tm.sync();  // the next chunk's layout overlaps this one's keys
+  }
 }
 
 // A fold of the rows r < R into out[lo:hi) while the block's copy part runs
 // copy(part) (block_part): the copy of the range that the fold reads.
-// add: out[s_r] += v_r in row order, the rest of the block counting the
-// rows of each slot as the copy runs (ranges of `step` <= SINGLE_MAX_SLOTS
-// slots), then the whole block adding the rows of the slots that have one
-// and sorting the others; min: out[s_r] = min(out[s_r], v_r), the rest of
-// the block gathering the first MIN_CHUNK rows' (slot, value) pairs as the
-// copy runs, then the whole block applying them with float atomics (then
-// the next MIN_CHUNK rows, gathered by the whole block).  load(r) returns
-// row r's SlotValue; rows outside [lo, hi) are skipped.  Ends with a
-// barrier of the whole block; `smem` holds ordered_add_smem(R, step) (add)
-// or min_fold_smem(R) (min) bytes.
+// add: out[s_r] += v_r in row order, chunk by chunk:
+// for each chunk, the block counts the rows of each slot (ranges of `step`
+// <= SINGLE_MAX_SLOTS slots; for the first chunk only the rest of the block,
+// as the copy runs), then the whole block adds the rows of the slots that
+// have one in the chunk and sorts the others; min: out[s_r] =
+// min(out[s_r], v_r), the rest of the block gathering the first MIN_CHUNK
+// rows' (slot, value) pairs as the copy runs, then the whole block applying
+// them with float atomics (then the next MIN_CHUNK rows, gathered by the
+// whole block).  load(r) returns row r's SlotValue; rows outside [lo, hi)
+// are skipped.  Ends with a barrier of the whole block; `smem` holds
+// ordered_add_smem(R, step) (add) or min_fold_smem(R) (min) bytes.
+// One chunk of add_fold_beside: the rows [c0, c0 + m), the first chunk
+// (first) beside the copy.
 template <class Load, class Copy>
-__device__ inline void add_fold_beside(float* __restrict__ out, int lo,
-                                       int hi, int step, int R,
-                                       unsigned char* smem, Load load,
-                                       Copy copy) {
-  const bool counts = step <= SINGLE_MAX_SLOTS;
-  const OrderedSmem m = ordered_smem(smem, R);
-  unsigned* cnt = reinterpret_cast<unsigned*>(m.count + 4);
-  const auto single = [&](int s) {
-    return counts && s >= lo && s < hi &&
-           ((cnt[(s - lo) >> 1] >> (16 * ((s - lo) & 1))) & 0xffffu) == 1;
-  };
-  const Team part = block_part();
-  if (threadIdx.x < COPY_THREADS) {
-    copy(part);
-  } else if (counts) {
-    for (int i = part.tid; i < (hi - lo + 1) / 2; i += part.size) cnt[i] = 0;
-    part.sync();
+__device__ __forceinline__ void add_fold_chunk(float* __restrict__ out,
+                                               int lo, int hi, bool counts,
+                                               int c0, int m, bool first,
+                                               unsigned char* smem,
+                                               Load load, Copy copy) {
+  const auto ld = [&](int i) { return load(c0 + i); };
+  unsigned* cnt =
+      reinterpret_cast<unsigned*>(ordered_smem(smem, m).count + 4);
+  const auto count_rows = [&](const Team& tm) {
+    for (int i = tm.tid; i < (hi - lo + 1) / 2; i += tm.size) cnt[i] = 0;
+    tm.sync();
     for_rows(
-        R, load,
+        m, ld,
         [&](int, bool live, const SlotValue& x) {
           if (live && x.s >= lo && x.s < hi)
             atomicAdd(&cnt[(x.s - lo) >> 1], 1u << (16 * ((x.s - lo) & 1)));
         },
-        part);
+        tm);
+  };
+  if (first) {
+    const Team part = block_part();
+    if (threadIdx.x < COPY_THREADS)
+      copy(part);
+    else if (counts)
+      count_rows(part);
+  } else if (counts) {
+    count_rows(whole_block());
   }
   __syncthreads();
-  // a slot's only row is added at once (re-read from L2); the rest sorted
+  // a slot's only row in the chunk is added at once (re-read from L2); the
+  // rest sorted
   const int n = ordered_add_sort(
-      lo, hi, R, smem,
+      lo, hi, m, smem,
       [&](int i) {
-        SlotValue x = load(i);
-        if (single(x.s)) {
+        SlotValue x = ld(i);
+        if (counts && x.s >= lo && x.s < hi &&
+            ((cnt[(x.s - lo) >> 1] >> (16 * ((x.s - lo) & 1))) & 0xffffu) ==
+                1) {
           out[x.s] = __fadd_rn(out[x.s], x.v);
           x.s = lo - 1;
         }
         return x;
       },
       whole_block());
-  ordered_add_fold(out, n, smem, R, whole_block());
+  ordered_add_fold(out, n, smem, m, whole_block());
   __syncthreads();
+}
+
+template <class Load, class Copy>
+__device__ inline void add_fold_beside(float* __restrict__ out, int lo,
+                                       int hi, int step, int R,
+                                       unsigned char* smem, Load load,
+                                       Copy copy) {
+  const bool counts = step <= SINGLE_MAX_SLOTS;
+  // One chunk takes a straight line of its own: on an H100, SpMV's leg 2
+  // took 4 % longer through the loop alone, and 8 % with the first chunk
+  // peeled off in front of it, in paired runs (tools/leg_times.py).
+  if (R <= FOLD_ADD_MAX_ROWS) {
+    add_fold_chunk(out, lo, hi, counts, 0, R, true, smem, load, copy);
+    return;
+  }
+  for (int c0 = 0; c0 < R; c0 += FOLD_ADD_MAX_ROWS)
+    add_fold_chunk(out, lo, hi, counts, c0, chunk_rows(R - c0), c0 == 0,
+                   smem, load, copy);
 }
 
 template <class Load, class Copy>
@@ -392,10 +440,10 @@ __device__ inline void min_fold_beside(float* __restrict__ out, int lo,
 }
 
 // out[slot[r]] += (valid ? (valid[r] ? val[r] : 0) : val[r]) for the rows r
-// with 0 <= slot[r] < n_slots, each slot's rows in increasing r.  Rows that
-// are not valid still add 0.0 at their slot, as the reference's masked
-// scatter does (-0.0 + 0.0 is +0.0), so the caller maps them to an
-// out-of-range slot to skip them.
+// with 0 <= slot[r] < n_slots, each slot's rows in increasing r, in chunks
+// of FOLD_ADD_MAX_ROWS rows.  Rows that are not valid still add 0.0 at
+// their slot, as the reference's masked scatter does (-0.0 + 0.0 is +0.0),
+// so the caller maps them to an out-of-range slot to skip them.
 __device__ inline void ordered_add_rows(float* __restrict__ out, int n_slots,
                                         const int32_t* __restrict__ slot,
                                         const float* __restrict__ val,

@@ -4,9 +4,12 @@
 The reference's ``fused_leg_call(fn, *operands)`` makes the per-tile
 stage ``fn`` itself the body of one ``pallas_call``.  Here each leg of the
 repository's programs is a hand-written CUDA kernel
-(``csrc/fused_legs.cu``), one block per tile (the classic and k-core
-leg 2: G blocks per tile, each owning one column range of its slice, and
-one more for its spill append), templated on the :class:`LegTemplate`.
+(``csrc/fused_legs.cu``), templated on the :class:`LegTemplate`: leg 0
+and the close leg run one block per tile; the scan legs, the wedge leg and
+the fold legs run G blocks per tile (messages and live rows, wedges and
+live rows, or column ranges of the slice: :func:`~repro_torch.kernels.
+engine.kernel.column_split`) and one more for the append (the wedge leg:
+two, its append and its pop).
 Leg ``i`` of a K-channel program is channel ``i - 1``'s handler plus
 channel ``i``'s ingest (leg 0: the source plus channel 0's ingest; leg K:
 channel K-1's handler):
@@ -54,12 +57,29 @@ launch failed, with no fallback.  Each call is one
 launch per leg (3 for the classic and k-core programs, 5 for triangles),
 as the reference's fused round.
 
-The kernels write every output element as the plain stage does,
-including the don't-care slots (the whole shifted queues, the messages of
-invalid rows), so the two are compared element for element.
+The kernels write what the plain stage writes where the reference
+defines it: every queue row below its count, every valid message row,
+every other output.  Two kinds of don't-care element differ.  A queue that
+a scan or wedge leg turns holds its live rows only: its slots from the
+new count on are left unwritten (the plain stage's shift keeps stale rows
+there).  And the popped message rows past the pop, which are invalid, hold
+0 (the plain stage keeps the stale queue rows).  No consumer reads either:
+``tests/test_torch_dont_care.py`` poisons both after every plain stage
+and the runs keep every bit.  Four legs append their spills in place onto
+the queue the previous leg of the same round made fresh (leg 1: the range
+queue; leg 2 and k-core's leg 2: the update queue; the wedge leg: the
+wedge queue): the returned state's queue shares that storage.
+
+Past what shared memory holds, each kernel takes a second path with the
+same bits (``path`` on the wrapper names the last launch's): leg 0 and the
+wedge leg stage their popped rows in a device-memory scratch past
+``STAGE_SMEM_MAX`` bytes, the add folds sort in row-order chunks of
+``FOLD_ADD_MAX_ROWS`` rows, and a streamed scan leg reads a window wider
+than ``STREAM_MAX_WINDOW`` from device memory.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -68,21 +88,21 @@ from repro_torch.core.queues import Queue
 from repro_torch.kernels.cuda_build import I as _I, P as _P
 from repro_torch.kernels.cuda_build import CudaLibrary, check as _check
 from repro_torch.kernels.engine.kernel import (CSRC, ENGINE_DEVICE,
-                                               FOLD_ADD_MAX_ROWS,
-                                               ORDERED_SCATTER,
-                                               STREAM_MAX_WINDOW,
-                                               device_split)
+                                               ORDERED_SCATTER, add_chunks,
+                                               device_split, staging,
+                                               window_path)
 from repro_torch.kernels.engine.launches import record
 
+_L = ctypes.c_longlong  # a staging's bytes a tile
 SOURCE = CSRC / "fused_legs.cu"
 LIBRARY = CudaLibrary(SOURCE, {
-    "repro_fused_leg0": [_P] * 17 + [_I] * 12 + [_P],
-    "repro_fused_leg0_chain": [_P] * 19 + [_I] * 16 + [_P],
-    "repro_fused_leg1": [_P] * 22 + [_I] * 10 + [_P],
-    "repro_fused_leg1_chain": [_P] * 22 + [_I] * 11 + [_P],
+    "repro_fused_leg0": [_P] * 18 + [_I] * 12 + [_L, _P],
+    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 16 + [_L, _P],
+    "repro_fused_leg1": [_P] * 22 + [_I] * 11 + [_P],
+    "repro_fused_leg1_chain": [_P] * 22 + [_I] * 12 + [_P],
     "repro_fused_leg2": [_P] * 14 + [_I] * 8 + [_P],
     "repro_fused_kcore_leg2": [_P] * 16 + [_I] * 8 + [_P],
-    "repro_fused_wedge_leg": [_P] * 22 + [_I] * 12 + [_P],
+    "repro_fused_wedge_leg": [_P] * 22 + [_I] * 12 + [_L, _P],
     "repro_fused_close_leg": [_P] * 16 + [_I] * 7 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
@@ -93,10 +113,36 @@ PAYLOADS = ("value", "value_over_deg", "one", "placed")
 EMITS = ("plus1", "plus_w", "copy", "times_w", "one", "wedge", "close")
 FOLDS = ("min", "add", "kcore")
 POLICIES = ("traffic", "static")
-# leg 0 and the wedge leg keep their popped tasks in shared memory
-LEG0_MAX_ROWS = 256
-# the wedge leg keeps its compacted fresh rows (16 bytes each) there too
-WEDGE_MAX_ROWS = 8192
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def leg0_stage_bytes(f_pop: int, eff: int) -> int:
+    """Leg 0's staging a tile (csrc/fused_legs.cu ``leg0_stage_bytes``):
+    the f_pop popped slots and compacted rows, max(f_pop, eff) rows of 3
+    and their flags, the eff popped tasks of 3."""
+    n = max(f_pop, eff)
+    return (2 * _pad16(4 * f_pop) + _pad16(12 * n) + _pad16(12 * eff)
+            + _pad16(n))
+
+
+def wedge_stage_bytes(eff: int) -> int:
+    """The wedge leg's staging a tile (``wedge_stage_bytes``): the eff
+    popped tasks of 4 and their remainder flags."""
+    return _pad16(16 * eff) + _pad16(eff)
+
+
+def scan_split(T: int, R: int, max_t2: int, dev):
+    """The scan leg's G blocks a tile: the column split of its R * max_t2
+    message lanes."""
+    return device_split(T, R * max_t2, dev)
+
+
+def wedge_split(T: int, R: int, dev):
+    """The wedge leg's G blocks a tile: the column split of its R wedges."""
+    return device_split(T, R, dev)
 
 
 class LegTemplate(NamedTuple):
@@ -124,11 +170,12 @@ def _code(options, value):
     return options.index(value)
 
 
-def _count(name: str) -> None:
-    """One CUDA launch of wrapper ``name``, on the wrapper itself (looked
-    up in :data:`KERNELS`, so a caller that wraps the module's functions
-    does not hide it)."""
+def _count(name: str, path=None) -> None:
+    """One CUDA launch of wrapper ``name`` on ``path``, on the wrapper
+    itself (looked up in :data:`KERNELS`, so a caller that wraps the
+    module's functions does not hide it)."""
     _WRAPPERS[name].launches += 1
+    _WRAPPERS[name].path = path
 
 
 def _on_cpu(st) -> bool:
@@ -177,11 +224,9 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
            *((f"queue {i} count", q.count, torch.int32, (T,))
              for i, q in enumerate(queues)),
            ("net_pressure", st.net_pressure, torch.int32, (T,)))
-    if tmpl.f_pop > LEG0_MAX_ROWS or eff > LEG0_MAX_ROWS:
-        raise ValueError(f"fused leg 0 holds at most {LEG0_MAX_ROWS} "
-                         f"popped rows; got f_pop={tmpl.f_pop}, r_pop="
-                         f"{tmpl.pops[0]}")
     dev = st.frontier.device
+    nbytes = leg0_stage_bytes(tmpl.f_pop, eff)
+    path, scratch = staging(T, nbytes, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     frontier = torch.empty_like(st.frontier)
     qdata = torch.empty_like(rq.data)
@@ -192,10 +237,10 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
     dyn_pops = torch.empty((T, K), **i32)
     ins = (st.frontier, st.value, sh.deg, sh.ptr_start, rq.data, rq.count)
     outs = (st.net_pressure, frontier, qdata, qcount, msgs, mvalid,
-            counts[0], dyn_pops, counts[1], counts[2], T, v_chunk, e_chunk,
-            cap_r)
+            counts[0], dyn_pops, counts[1], counts[2], scratch, T, v_chunk,
+            e_chunk, cap_r)
     codes = (tmpl.max_t2, tmpl.plimit, _code(PAYLOADS, tmpl.payload),
-             _code(POLICIES, tmpl.policy))
+             _code(POLICIES, tmpl.policy), nbytes)
     if K == 2:
         uq = queues[1]
         _launch("repro_fused_leg0", *ins, uq.count, *outs, uq.data.shape[1],
@@ -208,7 +253,7 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
     else:
         raise ValueError(f"fused leg 0 runs 2- or 4-channel programs; got "
                          f"{K} channels")
-    _count(name)
+    _count(name, path)
     record()
     st = _with_queues(st._replace(frontier=frontier), 0,
                       Queue(qdata, qcount))
@@ -235,7 +280,10 @@ def fused_tri_leg0(tmpl: LegTemplate, plain, me, sh, st):
 def _scan_leg(name: str, chan: int, emit: str, tmpl: LegTemplate, plain, me,
               sh, st, recv, rv, sp, spv, dyn_pops):
     """Channel ``chan - 1`` (a range channel)'s handler, then the replay
-    turn of the spill-only channel ``chan``."""
+    turn of the spill-only channel ``chan``, over a grid (T, G + 1)
+    (:func:`scan_split`).  The range spills append in place onto queue
+    ``chan - 1``, which the previous leg of the round made; queue ``chan``
+    is new and holds its live rows only."""
     if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv, dyn_pops)
@@ -252,34 +300,37 @@ def _scan_leg(name: str, chan: int, emit: str, tmpl: LegTemplate, plain, me,
            ("update queue", uq.data, torch.int32, (T, cap_u, 2)),
            ("update count", uq.count, torch.int32, (T,)),
            ("dyn_pops", dyn_pops, torch.int32, (T, K)))
-    if tmpl.window and not tmpl.max_t2 <= tmpl.window <= STREAM_MAX_WINDOW:
-        raise ValueError(f"fused leg 1: window {tmpl.window} must lie in "
-                         f"[max_t2={tmpl.max_t2}, {STREAM_MAX_WINDOW}]")
+    if tmpl.window and tmpl.window < tmpl.max_t2:
+        raise ValueError(f"fused leg 1: window {tmpl.window} must be at "
+                         f"least max_t2={tmpl.max_t2}")
     u_pop = tmpl.pops[chan]
     eff = min(u_pop, cap_u)
     n_msgs = eff + R * tmpl.max_t2
     dev = rq.data.device
     i32 = dict(dtype=torch.int32, device=dev)
-    rdata, udata = torch.empty_like(rq.data), torch.empty_like(uq.data)
-    # queue counts (range, update), drops, edges, npop, npush, nspill
-    counts = torch.empty((7, T), **i32)
+    udata = torch.empty_like(uq.data)
+    # queue counts (range, update), drops, edges, npop, npush, nspill; then
+    # the G blocks' edge sums and tickets, which the launch clears
+    counts = torch.empty((9, T), **i32)
     msgs = torch.empty((T, n_msgs, 2), **i32)
     mvalid = torch.empty((T, n_msgs), dtype=torch.bool, device=dev)
+    G = scan_split(T, R, tmpl.max_t2, dev).G
+    path = window_path(tmpl.window) if tmpl.window else "resident"
     args = (rq.data, rq.count, sp, spv, recv, rv, sh.edge_dst, sh.edge_val,
-            uq.data, uq.count, dyn_pops, rdata, counts[0], udata, counts[1],
-            msgs, mvalid, counts[2], counts[3], counts[4], counts[5],
-            counts[6], T, cap_r, S, R, e_chunk, tmpl.max_t2)
+            uq.data, uq.count, dyn_pops, counts[0], udata, counts[1], msgs,
+            mvalid, counts[2], counts[3], counts[4], counts[5], counts[6],
+            counts[7:], T, cap_r, S, R, e_chunk, tmpl.max_t2)
     if K == 2:
         _launch("repro_fused_leg1", *args, tmpl.window, cap_u, u_pop,
-                _code(EMITS, emit))
+                _code(EMITS, emit), G)
     else:  # the chain's shard is resident (triangles pins it)
         if tmpl.window:
             raise ValueError("the triangles chain scans a resident shard")
         _launch("repro_fused_leg1_chain", *args, cap_u, u_pop, K, chan,
-                _code(EMITS, emit))
-    _count(name)
+                _code(EMITS, emit), G)
+    _count(name, path)
     record()
-    st = _with_queues(st, chan - 1, Queue(rdata, counts[0]),
+    st = _with_queues(st, chan - 1, Queue(rq.data, counts[0]),
                       Queue(udata, counts[1]))
     return (st, msgs, mvalid, counts[2], counts[3], counts[4], counts[5],
             counts[6])
@@ -288,9 +339,12 @@ def _scan_leg(name: str, chan: int, emit: str, tmpl: LegTemplate, plain, me,
 def fused_leg1(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
                dyn_pops):
     """Leg 1 of a classic or k-core round (the engine's mid stage): range-
-    spill re-queue, T2 with ``tmpl.emit``, update-queue replay.  Returns
-    ``(state, msgs (T, u_pop + R * max_t2, 2), mvalid, drops, edges, npop,
-    npush, nspill)``; both queues of the state are new."""
+    spill re-queue (in place), T2 with ``tmpl.emit``, update-queue replay.
+    Returns ``(state, msgs (T, u_pop + R * max_t2, 2), mvalid, drops,
+    edges, npop, npush, nspill)``; the state's update queue is new, its
+    range queue the one it was given, with the spills appended.  A second
+    call on the same operands appends the same rows again and gives the
+    same bits."""
     return _scan_leg("fused_leg1", 1, tmpl.emit, tmpl, plain, me, sh, st,
                      recv, rv, sp, spv, dyn_pops)
 
@@ -299,7 +353,8 @@ def fused_tri_leg1(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
                    dyn_pops):
     """Leg 1 of a triangles round: range-spill re-queue, T2 emitting the
     wedges ``(nb, v)`` valid iff ``nb > v``, wedge-queue replay; the
-    returns of :func:`fused_leg1`, queues 0 and 1 new."""
+    returns of :func:`fused_leg1`: queue 0 appended in place, queue 1
+    new."""
     return _scan_leg("fused_tri_leg1", 1, "wedge", tmpl, plain, me, sh, st,
                      recv, rv, sp, spv, dyn_pops)
 
@@ -308,8 +363,8 @@ def fused_tri_leg3(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
                    dyn_pops):
     """Leg 3 of a triangles round: range2-spill re-queue, T2 of the width-4
     messages ``(start, stop, v, u)`` emitting ``(v, nb)`` valid iff ``nb >
-    u``, close-queue replay; the returns of :func:`fused_leg1`, queues 2
-    and 3 new."""
+    u``, close-queue replay; the returns of :func:`fused_leg1`: queue 2
+    appended in place, queue 3 new."""
     return _scan_leg("fused_tri_leg3", 3, "close", tmpl, plain, me, sh, st,
                      recv, rv, sp, spv, dyn_pops)
 
@@ -349,10 +404,6 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     _check(*_spill_checks(uq, sp, spv, recv, rv, T, 2),
            ("target", target, torch.float32, (T, v_chunk)),
            ("flags", flags, torch.bool, (T, v_chunk)))
-    if not is_min and R > FOLD_ADD_MAX_ROWS:
-        raise ValueError(f"fused_leg2 (add fold) sorts at most "
-                         f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
-                         f"memory; got {R}")
     counts = torch.empty((4, T), dtype=torch.int32, device=uq.data.device)
     # queue count, drops, applied, nspill
     out = torch.empty_like(target)
@@ -362,7 +413,7 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
             counts[3], T, cap_u, S, R, v_chunk,
             *device_split(T, v_chunk, uq.data.device),
             _code(FOLDS, tmpl.fold))
-    _count("fused_leg2")
+    _count("fused_leg2", None if is_min else add_chunks(R))
     record()
     st = st._replace(queues=(rq, Queue(uq.data, counts[0])))
     if not is_min:
@@ -401,10 +452,6 @@ def fused_kcore_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp,
            ("value", st.value, torch.float32, (T, v_chunk)),
            ("acc", st.acc, torch.float32, (T, v_chunk)),
            ("flags", flags, torch.bool, (T, v_chunk)))
-    if R > FOLD_ADD_MAX_ROWS:
-        raise ValueError(f"fused_kcore_leg2 sorts at most "
-                         f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
-                         f"memory; got {R}")
     counts = torch.empty((4, T), dtype=torch.int32, device=uq.data.device)
     # queue count, drops, applied, nspill
     value, acc = torch.empty_like(st.value), torch.empty_like(st.acc)
@@ -413,7 +460,7 @@ def fused_kcore_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp,
             st.value, flags, st.acc, counts[0], value, new_flags, acc,
             counts[1], counts[2], counts[3], T, cap_u, S, R, v_chunk,
             *device_split(T, v_chunk, uq.data.device), tmpl.k)
-    _count("fused_kcore_leg2")
+    _count("fused_kcore_leg2", add_chunks(R))
     record()
     st = st._replace(queues=(rq, Queue(uq.data, counts[0])), value=value,
                      acc=acc, **{_flags_field(tmpl): new_flags})
@@ -422,12 +469,14 @@ def fused_kcore_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp,
 
 def fused_tri_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
                    dyn_pops):
-    """Leg 2 of a triangles round: wedge-spill re-queue; at u's owner the
-    second-hop tasks ``(start, start + deg, v, u)`` of the delivered
-    wedges ``(u, v)``, valid where ``deg > 0``; the range2-queue turn
-    with them; T1 range split; remainder re-push.  Returns ``(state, msgs
-    (T, r_pop, 4), mvalid, drops, work (0), npop, npush, nspill)``; queues
-    1 and 2 are new."""
+    """Leg 2 of a triangles round: wedge-spill re-queue (in place, onto the
+    wedge queue leg 1 made); at u's owner the second-hop tasks ``(start,
+    start + deg, v, u)`` of the delivered wedges ``(u, v)``, valid where
+    ``deg > 0``; the range2-queue turn with them (the new queue holds its
+    live rows only); T1 range split; remainder re-push; over a grid (T, G
+    + 2) (:func:`wedge_split`).  Returns ``(state, msgs (T, r_pop, 4),
+    mvalid, drops, work (0), npop, npush, nspill)``; queue 2 is new, queue
+    1 the one it was given, with the spills appended."""
     if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv, dyn_pops)
@@ -446,26 +495,25 @@ def fused_tri_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
            ("dyn_pops", dyn_pops, torch.int32, (T, K)))
     r_pop = tmpl.pops[2]
     eff = min(r_pop, cap_r)
-    fresh = min(R, cap_r)
-    if eff > LEG0_MAX_ROWS or fresh > WEDGE_MAX_ROWS:
-        raise ValueError(f"fused_tri_leg2 holds at most {LEG0_MAX_ROWS} "
-                         f"popped and {WEDGE_MAX_ROWS} fresh rows; got "
-                         f"{eff} and {fresh}")
     dev = rq.data.device
     i32 = dict(dtype=torch.int32, device=dev)
-    wdata, rdata = torch.empty_like(wq.data), torch.empty_like(rq.data)
+    nbytes = wedge_stage_bytes(eff)
+    path, scratch = staging(T, nbytes, dev)
+    rdata = torch.empty_like(rq.data)
     # queue counts (wedge, range2), drops, work, npop, npush, nspill
     counts = torch.empty((7, T), **i32)
     msgs = torch.empty((T, eff, 4), **i32)
     mvalid = torch.empty((T, eff), dtype=torch.bool, device=dev)
     _launch("repro_fused_wedge_leg", wq.data, wq.count, sp, spv, recv, rv,
-            sh.ptr_start, sh.deg, rq.data, rq.count, dyn_pops, wdata,
-            counts[0], rdata, counts[1], msgs, mvalid, counts[2], counts[3],
-            counts[4], counts[5], counts[6], T, cap_w, S, R, v_chunk,
-            sh.edge_dst.shape[1], cap_r, r_pop, tmpl.max_t2, K, 2, fresh)
-    _count("fused_tri_leg2")
+            sh.ptr_start, sh.deg, rq.data, rq.count, dyn_pops, counts[0],
+            rdata, counts[1], msgs, mvalid, counts[2], counts[3], counts[4],
+            counts[5], counts[6], scratch, T, cap_w, S, R, v_chunk,
+            sh.edge_dst.shape[1], cap_r, r_pop, tmpl.max_t2, K, 2,
+            wedge_split(T, R, dev).G, nbytes)
+    _count("fused_tri_leg2", path)
     record()
-    st = _with_queues(st, 1, Queue(wdata, counts[0]), Queue(rdata, counts[1]))
+    st = _with_queues(st, 1, Queue(wq.data, counts[0]),
+                      Queue(rdata, counts[1]))
     return (st, msgs, mvalid, counts[2], counts[3], counts[4], counts[5],
             counts[6])
 
@@ -496,9 +544,6 @@ def fused_tri_leg4(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
            ("deg", sh.deg, torch.int32, (T, v_chunk)),
            ("edge_dst", sh.edge_dst, torch.int32, (T, e_chunk)),
            ("acc", st.acc, torch.float32, (T, v_chunk)))
-    if R > FOLD_ADD_MAX_ROWS:
-        raise ValueError(f"fused_tri_leg4 sorts at most {FOLD_ADD_MAX_ROWS} "
-                         f"rows per tile in shared memory; got {R}")
     cdata = torch.empty_like(cq.data)
     counts = torch.empty((4, T), dtype=torch.int32, device=cq.data.device)
     # queue count, drops, found, nspill
@@ -507,7 +552,7 @@ def fused_tri_leg4(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
             sh.ptr_start, sh.deg, sh.edge_dst, st.acc, cdata, counts[0], acc,
             counts[1], counts[2], counts[3], T, cap_c, S, R, v_chunk,
             e_chunk, search_steps(e_chunk))
-    _count("fused_tri_leg4")
+    _count("fused_tri_leg4", add_chunks(R))
     record()
     st = _with_queues(st._replace(acc=acc), 3, Queue(cdata, counts[0]))
     return st, counts[1], counts[2], counts[3]
@@ -518,7 +563,53 @@ KERNELS = (fused_leg0, fused_leg1, fused_leg2, fused_kcore_leg2,
            fused_tri_leg4)
 for _k in KERNELS:
     _k.launches = 0
+    _k.path = None
 _WRAPPERS = {k.__name__: k for k in KERNELS}
+
+# Each fused leg's queue that it appends its spills onto in place (the one
+# the previous leg of the round made), and the spill queue it turns keeping
+# its live rows only (its popped message rows past the pop: 0).
+IN_PLACE = {"fused_leg1": 0, "fused_leg2": 1, "fused_kcore_leg2": 1,
+            "fused_tri_leg1": 0, "fused_tri_leg2": 1, "fused_tri_leg3": 2}
+LIVE_TURN = {"fused_leg1": 1, "fused_tri_leg1": 1, "fused_tri_leg2": 2,
+             "fused_tri_leg3": 3}
+STATE_SLICES = ("value", "acc", "frontier", "next_frontier", "net_pressure")
+
+
+def popped_rows(name: str, tmpl: LegTemplate, st) -> int:
+    """The message rows that the pop of a LIVE_TURN leg's queue fills (of
+    its state operand ``st``): min(pop budget, capacity)."""
+    i = LIVE_TURN[name]
+    return min(tmpl.pops[i], st.queues[i].data.shape[1])
+
+
+def contract(name: str, tmpl: LegTemplate, st, out):
+    """The outputs ``out`` of fused leg ``name`` on state operand ``st``,
+    split by the kernels' contract: ``(defined, popped_past)``.
+    ``defined`` lists the elements that the kernel and the plain stage
+    share bit for bit: the state's slices, each queue's count and its rows
+    below the count, the message flags, the message rows that are valid or
+    lie past the pop's, and every other output.  ``popped_past`` holds the
+    popped message rows past the pop (invalid): 0 in the kernel's, stale
+    queue rows in the plain stage's."""
+    new = out[0]
+    defined = [getattr(new, f) for f in STATE_SLICES]
+    for q in new.queues:
+        live = torch.arange(q.data.shape[1], device=q.count.device)[None] \
+            < q.count[:, None]
+        defined += [q.count, q.data[live]]
+    rest = list(out[1:])
+    popped_past = new.net_pressure[:0]
+    if name in LIVE_TURN:
+        msgs, mvalid = rest[:2]
+        head = torch.arange(msgs.shape[1], device=mvalid.device)[None] \
+            < popped_rows(name, tmpl, st)
+        keep = mvalid | ~head
+        defined += [mvalid, msgs[keep]]
+        popped_past = msgs[~keep]
+        rest = rest[2:]
+    return defined + rest, popped_past
+
 
 # each program family's wrappers, leg by leg (Program.fused.family)
 LEGS = {

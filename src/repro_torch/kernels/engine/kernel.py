@@ -34,9 +34,18 @@ for ``Stats.launches`` through
 ``launches`` attribute counts real CUDA launches only.
 
 The add fold keeps the reference's serial order per slot on every
-device: the kernel sorts each tile's rows by slot, and the plain version
-adds one occurrence rank per pass (:func:`ordered_scatter_add`), so no
-float atomics decide an order.
+device: the kernel sorts each tile's rows by slot (in row-order chunks of
+``FOLD_ADD_MAX_ROWS`` rows past what shared memory holds), and the plain
+version adds one occurrence rank per pass (:func:`ordered_scatter_add`),
+so no float atomics decide an order.
+
+No wrapper refuses a shape for its kernel's shared memory: where the
+staging does not fit, the kernel takes a second path that gives the same
+bits (the add folds sort in chunks; ``queue_push_pop`` and the fused legs
+stage in a device-memory scratch past ``STAGE_SMEM_MAX`` bytes; a
+streamed window wider than ``STREAM_MAX_WINDOW`` is read from device
+memory, not staged).  Each such wrapper notes the path of its last launch
+in its ``path`` attribute.
 
 The CUDA source is built at first use (:mod:`repro_torch.kernels.
 cuda_build`: ``nvcc`` for ``sm_90a`` into ``build/repro_torch/``, loaded
@@ -45,6 +54,7 @@ with ``ctypes``).  A failed build raises with nvcc's output.
 from __future__ import annotations
 
 import functools
+import re
 from pathlib import Path
 from typing import NamedTuple
 
@@ -64,12 +74,29 @@ SOURCE = CSRC / "engine_kernels.cu"
 ENGINE_DEVICE = CSRC / "engine_device.cuh"
 ORDERED_SCATTER = CSRC / "ordered_scatter.cuh"
 
-# queue_push_pop keeps the compacted fresh-row indices in shared memory
-_QP_MAX_ROWS = 8192
-# the add fold sorts one 8-byte key and one value per row in shared memory
-FOLD_ADD_MAX_ROWS = 16384
-# a streamed T2 stages 2 * window (dst, val) pairs per warp in shared memory
-STREAM_MAX_WINDOW = 2048
+
+
+def _constant(header: Path, name: str) -> int:
+    """The value of ``constexpr <type> name = <integer>;`` in ``header``."""
+    m = re.search(rf"constexpr \w+ {name} = (\d+);", header.read_text())
+    if m is None:
+        raise ValueError(f"{name} is not defined in {header}")
+    return int(m.group(1))
+
+
+# The thresholds between each kernel's two paths, compiled into the kernels
+# and read here from their headers.  The add folds sort one 8-byte key and
+# one value a row in shared memory, at most FOLD_ADD_MAX_ROWS rows at a
+# time: more rows a tile are sorted and added chunk after chunk, in row
+# order (csrc/ordered_scatter.cuh).  A streamed T2 stages a warp's 2 *
+# window (dst, val) pairs in shared memory up to STREAM_MAX_WINDOW; a wider
+# window is read from device memory.  queue_push_pop's fresh-row indices
+# and the fused legs' popped rows take at most STAGE_SMEM_MAX bytes of
+# dynamic shared memory a block; a larger staging goes to a device-memory
+# scratch the wrapper allocates (csrc/engine_device.cuh).
+FOLD_ADD_MAX_ROWS = _constant(ORDERED_SCATTER, "FOLD_ADD_MAX_ROWS")
+STREAM_MAX_WINDOW = _constant(ENGINE_DEVICE, "STREAM_MAX_WINDOW")
+STAGE_SMEM_MAX = _constant(ENGINE_DEVICE, "STAGE_SMEM_MAX")
 # The column-owning split of the T3 folds over a grid (NB, G) (the
 # scatter_segments kernel and the fused leg 2): G aims at SPLIT_BLOCKS_PER_SM
 # blocks on each SM, with at most one block per SPLIT_MIN_COLS slots, and
@@ -112,13 +139,38 @@ def _sm_count(index: int) -> int:
 
 LIBRARY = CudaLibrary(SOURCE, {
     "repro_frontier_pop": [_P] * 5 + [_I] * 3 + [_P],
-    "repro_queue_push_pop": [_P] * 10 + [_I] * 5 + [_P],
+    "repro_queue_push_pop": [_P] * 11 + [_I] * 5 + [_P],
     "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
     "repro_edge_scan_stream": [_P] * 8 + [_I] * 5 + [_P],
     "repro_fold_scatter_min": [_P] * 5 + [_I] * 3 + [_P],
     "repro_fold_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
+
+
+def add_chunks(R: int) -> str:
+    """The path of an ordered add of ``R`` rows a tile: how many row-order
+    chunks of ``FOLD_ADD_MAX_ROWS`` it sorts."""
+    n = max(1, -(-R // FOLD_ADD_MAX_ROWS))
+    return "one chunk" if n == 1 else f"{n} chunks"
+
+
+def staging(T: int, nbytes: int, dev):
+    """Where a kernel stages ``nbytes`` a tile: ``(path, scratch)``, in
+    dynamic shared memory up to ``STAGE_SMEM_MAX`` bytes (``scratch`` then
+    None, a null pointer), else in a device-memory scratch of ``nbytes`` a
+    tile."""
+    if nbytes <= STAGE_SMEM_MAX:
+        return "shared memory", None
+    return ("device scratch",
+            torch.empty((T, nbytes), dtype=torch.uint8, device=dev))
+
+
+def window_path(window: int) -> str:
+    """How a streamed T2 reads its windows: staged in shared memory up to
+    ``STREAM_MAX_WINDOW``, else from device memory."""
+    return ("staged window" if window <= STREAM_MAX_WINDOW
+            else "device window")
 
 
 # ==========================================================================
@@ -296,7 +348,9 @@ def queue_push_pop(data, count, rows, valid, n, max_n: int):
     ``min(n, count')`` in one kernel.  data (T, cap, w) int32, count (T,),
     rows (T, m, w), valid (T, m), n (T,) int32 (<= max_n <= cap).  Returns
     (taken (T, max_n, w), taken_valid, new_data, new_count, drops).  A
-    cap-0 queue returns at once, with no launch."""
+    cap-0 queue returns at once, with no launch.  The kernel compacts the
+    fresh rows' indices (4 bytes each) in shared memory or, past
+    ``STAGE_SMEM_MAX`` bytes, in a device-memory scratch (``path``)."""
     T, cap, w = data.shape
     if cap == 0:
         return fifo_turn(data, count, rows, valid, n, max_n)
@@ -311,18 +365,19 @@ def queue_push_pop(data, count, rows, valid, n, max_n: int):
            ("rows", rows, torch.int32, (T, m, w)),
            ("valid", valid, torch.bool, (T, m)),
            ("n", n, torch.int32, (T,)))
-    if m > _QP_MAX_ROWS or cap * w >= 2 ** 31:
-        raise ValueError(f"queue_push_pop takes at most {_QP_MAX_ROWS} "
-                         f"fresh rows and cap*w < 2**31; got {m}, "
-                         f"{cap}*{w}")
+    if cap * w >= 2 ** 31:
+        raise ValueError(f"queue_push_pop indexes a tile's queue with an "
+                         f"int: cap*w < 2**31; got {cap}*{w}")
     dev = data.device
     taken = torch.empty((T, max_n, w), dtype=torch.int32, device=dev)
     tvalid = torch.empty((T, max_n), dtype=torch.bool, device=dev)
     ndata = torch.empty_like(data)
     ncount = torch.empty_like(count)
     drops = torch.empty_like(count)
+    path, scratch = staging(T, 4 * m, dev)
     _launch("repro_queue_push_pop", data, count, rows, valid, n, taken,
-            tvalid, ndata, ncount, drops, T, cap, w, m, max_n)
+            tvalid, ndata, ncount, drops, scratch, T, cap, w, m, max_n)
+    queue_push_pop.path = path
     queue_push_pop.launches += 1
     record()
     return taken, tvalid, ndata, ncount, drops
@@ -361,10 +416,12 @@ def edge_scan_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
                      window: int):
     """T2 over a streamed edge shard (:func:`segment_stream`): the
     operands and outputs of :func:`edge_scan_gather`, plus the static
-    ``window`` (``max_t2 <= window <= STREAM_MAX_WINDOW``)."""
-    if not max_t2 <= window <= STREAM_MAX_WINDOW:
-        raise ValueError(f"edge_scan_stream: window {window} must lie in "
-                         f"[max_t2={max_t2}, {STREAM_MAX_WINDOW}]")
+    ``window`` (``window >= max_t2``, as the reference's
+    ``resolve_window`` asks); a window wider than ``STREAM_MAX_WINDOW`` is
+    read from device memory instead of staged (``path``)."""
+    if window < max(max_t2, 1):
+        raise ValueError(f"edge_scan_stream: window {window} must be at "
+                         f"least max_t2={max_t2}")
     if edge_dst.device.type == "cpu":
         record()
         return segment_stream(edge_dst, edge_val, start, stop, rv, max_t2,
@@ -382,6 +439,7 @@ def edge_scan_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
     jvalid = torch.empty((T, R, max_t2), dtype=torch.bool, device=dev)
     _launch("repro_edge_scan_stream", edge_dst, edge_val, start, stop, rv,
             nb, w, jvalid, T, e_chunk, R, max_t2, window)
+    edge_scan_stream.path = window_path(window)
     edge_scan_stream.launches += 1
     record()
     return nb, w, jvalid
@@ -420,21 +478,18 @@ def fold_scatter(target, lidx, vals, valid, op: str = "min"):
 
 
 def fold_scatter_add(target, lidx, vals, valid):
-    """T3's scatter-add, each slot's rows added in row order; the
-    arguments of :func:`fold_scatter`.  A wrapper of its own, so that its
-    kernel's launches are counted apart from the min fold's."""
+    """T3's scatter-add, each slot's rows added in row order (in chunks of
+    ``FOLD_ADD_MAX_ROWS`` rows a tile: ``path``); the arguments of
+    :func:`fold_scatter`.  A wrapper of its own, so that its kernel's
+    launches are counted apart from the min fold's."""
     if target.device.type == "cpu":
         record()
         return scatter_body(target, lidx, vals, valid, "add")
-    R = lidx.shape[1]
-    if R > FOLD_ADD_MAX_ROWS:
-        raise ValueError(f"fold_scatter(op='add') sorts at most "
-                         f"{FOLD_ADD_MAX_ROWS} rows per tile in shared "
-                         f"memory; got {R}")
     T, v_chunk, R = _fold_checked(target, lidx, vals, valid)
     out = torch.empty_like(target)
     _launch("repro_fold_scatter_add", target, lidx, vals, valid, out, T,
             v_chunk, R)
+    fold_scatter_add.path = add_chunks(R)
     fold_scatter_add.launches += 1
     record()
     return out
@@ -444,3 +499,5 @@ KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, edge_scan_stream,
            fold_scatter, fold_scatter_add)
 for _k in KERNELS:
     _k.launches = 0
+for _k in (queue_push_pop, edge_scan_stream, fold_scatter_add):
+    _k.path = None

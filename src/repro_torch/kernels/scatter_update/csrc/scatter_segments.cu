@@ -18,7 +18,8 @@
 // array with 16-byte vectors (a stream of device memory) while the other
 // half read the bin's `cap` updates (from L2 after the first block of the
 // bin) and gather those in range into shared memory: for the add, their
-// (slot, row) keys, sorted by the order-keeping sort of
+// (slot, row) keys (in row-order chunks of FOLD_ADD_MAX_ROWS updates), sorted
+// by the order-keeping sort of
 // ../../engine/csrc/ordered_scatter.cuh (bitwise equal to scatter_ref, where
 // the TPU's matmul order agrees only within rounding); for the min, their
 // (slot, value) pairs.  Then the whole block folds them in: the add at the
@@ -90,6 +91,7 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The add in row-order chunks of FOLD_ADD_MAX_ROWS updates a bin.
 int repro_scatter_segments_add(const void* base, const void* idx,
                                const void* vals, void* out, int nb, int b,
                                int cap, int G, int step, void* stream) {

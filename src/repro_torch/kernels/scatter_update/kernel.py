@@ -10,9 +10,10 @@ of ``repro.kernels.scatter_update.kernel``).
 (:func:`repro_torch.kernels.engine.kernel.column_split`: block ``(i,
 j)`` owns a range of bin ``i``'s slots and applies only the updates that
 land there; the add sorts, order-keeping, the updates of the slots that
-get more than one, the min folds with float atomics) and raises if the
-launch failed.  Both add each slot's updates in row order, so both are
-bitwise equal to the serial
+get more than one, in row-order chunks of ``FOLD_ADD_MAX_ROWS`` updates a
+bin where there are more: ``scatter_segments.path``; the min folds with
+float atomics) and raises if the launch failed.  Both add each slot's
+updates in row order, so both are bitwise equal to the serial
 :func:`repro_torch.kernels.scatter_update.ref.scatter_ref`; the TPU
 kernel's one-hot matrix product sums in another order and agrees within
 rounding.
@@ -25,8 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.cuda_build import I, P, CudaLibrary, check
-from repro_torch.kernels.engine.kernel import (FOLD_ADD_MAX_ROWS,
-                                               ORDERED_SCATTER, device_split,
+from repro_torch.kernels.engine.kernel import (ORDERED_SCATTER, add_chunks,
+                                               device_split,
                                                ordered_scatter_add)
 
 _INF = float(np.finfo(np.float32).max)
@@ -58,10 +59,6 @@ def scatter_segments(base, idx, vals, op: str = "min"):
         return binned_scatter(base, idx, vals, op)
     NB, b = base.shape
     cap = idx.shape[1]
-    if op == "add" and cap > FOLD_ADD_MAX_ROWS:
-        raise ValueError(f"scatter_segments(op='add') sorts at most "
-                         f"{FOLD_ADD_MAX_ROWS} updates per bin in shared "
-                         f"memory; got {cap}")
     check(("base", base, torch.float32, (NB, b)),
           ("idx", idx, torch.int32, (NB, cap)),
           ("vals", vals, torch.float32, (NB, cap)))
@@ -69,8 +66,10 @@ def scatter_segments(base, idx, vals, op: str = "min"):
     split = device_split(NB, b, base.device)
     LIBRARY.launch(f"repro_scatter_segments_{op}", base, idx, vals, out, NB,
                    b, cap, *split)
+    scatter_segments.path = add_chunks(cap) if op == "add" else None
     scatter_segments.launches += 1
     return out
 
 
 scatter_segments.launches = 0
+scatter_segments.path = None

@@ -160,6 +160,47 @@ def test_scatter_segments_plain_matches_pallas_and_ref(op, nb, b, cap,
         same(got, base, "all-empty is the identity")
 
 
+def test_scatter_segments_min_keeps_bases_above_the_pallas_clamp():
+    """The min fold at bases of float32 max (the engine's "unreached",
+    ``src/repro/core/program.py:58``) and +inf, in slots that no update
+    touches and in slots that an update of float32 max or +inf touches:
+    the port (wrapper and plain version) keeps the base, bitwise equal to
+    the oracle ``scatter_ref``.  The reference's Pallas body returns
+    3.3999999521e38 in those slots, because it clamps with its neutral
+    ``INF = 3.4e38`` (``src/repro/kernels/scatter_update/kernel.py:23``,
+    ``:43-44``: ``min(base, min over rows of where(onehot, vals, INF))``).
+    That is a fault of the reference against its own oracle (ROADMAP §3),
+    recorded here and not copied: the engine's min fold needs its neutral
+    to be float32 max.  Slots whose update lies below 3.4e38, and finite
+    bases below it, agree on all three."""
+    fmax = np.finfo(np.float32).max
+    base = np.array([[fmax, np.inf, fmax, np.inf, 1.0, fmax, np.inf, 5.0],
+                     [np.inf, fmax, np.inf, fmax, fmax, -1.0, 2.0, fmax]],
+                    np.float32)
+    idx = np.array([[2, 3, 5, 6, -1, -1],
+                    [0, 1, 5, -1, 6, 6]], np.int32)
+    vals = np.array([[fmax, np.inf, 3.0, -2.0, 0.0, 0.0],
+                     [np.inf, fmax, 4.0, 0.0, 9.0, 1.5]], np.float32)
+    want = np.array([[fmax, np.inf, fmax, np.inf, 1.0, 3.0, -2.0, 5.0],
+                     [np.inf, fmax, np.inf, fmax, fmax, -1.0, 1.5, fmax]],
+                    np.float32)
+    same(scatter_ref(base, idx, vals, "min"), want, "port scatter_ref")
+    same(j_scatter_ref(base, idx, vals, "min"), want, "reference oracle")
+    same(scatter_segments(t(base), t(idx), t(vals), op="min"), want,
+         "port wrapper")
+    same(binned_scatter(t(base), t(idx), t(vals), "min"), want,
+         "port plain version")
+    pallas = np.asarray(j_seg(jnp.asarray(base), jnp.asarray(idx),
+                              jnp.asarray(vals), op="min"))
+    clamp = np.float32(3.4e38)
+    assert float(clamp) == 3.3999999521443642e38
+    high = want >= clamp  # float32 max and +inf
+    assert int(high.sum()) == 10
+    same(pallas[high], np.full(int(high.sum()), clamp, np.float32),
+         "the Pallas body's clamp")
+    same(pallas[~high], want[~high], "the other slots")
+
+
 # --------------------------------------------------------------------------
 # spmv_block_ell and to_block_ell
 # --------------------------------------------------------------------------

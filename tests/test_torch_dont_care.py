@@ -1,0 +1,162 @@
+"""The don't-care elements of the fused legs: nothing reads them.
+
+The scan legs and the wedge leg (``kernels/engine/fused.py``) leave a
+turned queue's slots from its count on unwritten, and write 0 into the
+popped message rows past the pop, where their plain stages keep the
+reference's stale rows.  The reference's ``fifo_turn`` makes both
+don't-care (``src/repro/kernels/engine/kernel.py:95-121``).  Here the
+fused engine's plain stages run with every queue slot past its count and
+every invalid message row poisoned after each leg, and every value and
+Stats field must keep its bits: against the unpoisoned run, and against
+the JAX package's run.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import algorithms as ja
+from repro.core.engine import EngineConfig as JConfig
+from repro.core.graph import CSRGraph, rmat_edges
+from repro_torch.core import algorithms as ta
+from repro_torch.core import reference as tref
+from repro_torch.core.engine import EngineConfig as TConfig
+from repro_torch.core.graph import CSRGraph as TCSRGraph
+from repro_torch.kernels.engine import fused
+from test_torch_apps import run
+from test_torch_engine import TIGHT, assert_stats_equal, port_partition
+from test_torch_fused_leg import (assert_all_stats_equal, run_program,
+                                  tri_graph)
+
+pytestmark = pytest.mark.torch_port
+
+# poison words: a head flit far past every tile's range, and an empty one
+POISON = (0x7F7FFFFF, -1)
+
+
+def words(n, w):
+    """n rows of w words, the two poison words row by row in turn."""
+    even = torch.arange(n) % 2 == 0
+    return torch.where(even, POISON[0], POISON[1]).to(torch.int32)[
+        :, None].expand(n, w)
+
+
+def poison(out):
+    """Overwrite, in place, what a fused leg's kernel may leave other than
+    the plain stage does: every queue slot from its count on, and every
+    invalid message row."""
+    for q in out[0].queues:
+        T, cap, w = q.data.shape
+        dead = torch.arange(cap)[None] >= q.count[:, None]
+        q.data.copy_(torch.where(dead[:, :, None], words(cap, w), q.data))
+    if len(out) > 2 and out[1].dim() == 3:  # the messages of legs 0 .. K-1
+        msgs, mvalid = out[1], out[2]
+        n, w = msgs.shape[1:]
+        msgs.copy_(torch.where(mvalid[:, :, None], msgs, words(n, w)))
+
+
+def test_poison_reaches_every_dont_care_element():
+    """The poison covers exactly the queue slots from each count on and
+    the invalid message rows, with both words."""
+    T, cap, n = 2, 6, 5
+    q = torch.arange(T * cap * 2, dtype=torch.int32).reshape(T, cap, 2)
+    count = torch.tensor([2, 5], dtype=torch.int32)
+    from repro_torch.core.queues import Queue
+    from repro_torch.core.engine import EngineState
+    z = torch.zeros((T, 3))
+    st = EngineState(z, z, z.bool(), z.bool(), (Queue(q.clone(), count),),
+                     torch.zeros(T, dtype=torch.int32))
+    msgs = torch.arange(T * n * 3, dtype=torch.int32).reshape(T, n, 3)
+    mvalid = torch.tensor([[1, 0, 1, 0, 0], [0, 1, 1, 1, 1]]).bool()
+    out = (st, msgs.clone(), mvalid)
+    poison(out)
+    qd = out[0].queues[0].data
+    for t in range(T):
+        c = int(count[t])
+        assert torch.equal(qd[t, :c], q[t, :c])
+        assert torch.equal(qd[t, c:], words(cap, 2)[c:])
+    assert torch.equal(out[1][mvalid], msgs[mvalid])
+    assert set(out[1][~mvalid].unique().tolist()) == set(POISON)
+
+
+@pytest.fixture(scope="module")
+def twin_graph():
+    # chip_smoke.py's twin phase: R-MAT-10, edge factor 10, seed 1
+    n, src, dst, val = rmat_edges(10, edge_factor=10, seed=1)
+    return CSRGraph.from_edges(n, src, dst, val)
+
+
+# app: knobs.  The defaults spill on both channels of the classic apps on
+# the twin's R-MAT-10 in 9-72 rounds (the tight knobs take thousands);
+# k-core needs the tight knobs for spills, and k = 2 spills on its range
+# channel only.  "triangles" runs on the twin's R-MAT-10 with the defaults,
+# spilling on all four channels (its 404 rounds take the JAX package three
+# minutes on the CPU, so it is held to the unpoisoned run and the oracle);
+# "triangles-rmat8" on symmetrized R-MAT-8 with the tight knobs, held to
+# the JAX package too.
+POISON_APPS = {"bfs": {}, "bfs_bsp": dict(mode="bsp"), "sssp": {}, "wcc": {},
+               "spmv": {}, "pagerank": {}, "kcore2": TIGHT, "kcore5": TIGHT,
+               "kcore5_bsp": dict(TIGHT, mode="bsp"), "triangles": {},
+               "triangles-rmat8": TIGHT}
+
+
+@pytest.mark.parametrize("app", sorted(POISON_APPS))
+def test_poisoned_dont_care_slots_change_no_bit(monkeypatch, twin_graph,
+                                                app):
+    """The fused engine's plain stages over 16 tiles (the twin's R-MAT-10,
+    the knobs of POISON_APPS), with every queue slot
+    from its count on and every invalid message row poisoned after each
+    leg, give the values and every Stats field of the unpoisoned run,
+    launches included (three or five a round, as the JAX package's fused
+    round), and of the JAX package's run but for launches.  So no consumer
+    reads what the scan and wedge legs' kernels leave unwritten (a turned
+    queue's slots past its count) or write as 0 (the popped message rows
+    past the pop).  Every channel spills (k = 2: the range channel), so
+    every re-queue reads a poisoned queue."""
+    calls = []
+    for k in fused.KERNELS:
+        def hooked(tmpl, plain, *ops, real=k):
+            out = real(tmpl, plain, *ops)
+            poison(out)
+            calls.append(1)
+            return out
+        monkeypatch.setattr(fused, k.__name__, hooked)
+    prog = app.split("_")[0].split("-")[0]
+    g = twin_graph
+    if prog in ("kcore2", "kcore5", "triangles", "wcc"):
+        g = ja.symmetrize(twin_graph)
+    knobs = POISON_APPS[app]
+    if app == "triangles-rmat8":
+        g = tri_graph()
+    T = 16
+    pg = ja.prepare_triangles(g, T=T) if prog == "triangles" \
+        else ja.prepare(g, T=T)
+    tpg = port_partition(pg)
+    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+
+    def drive(pkg, cfg, p):
+        if prog.startswith("kcore") or prog == "triangles":
+            return run_program(pkg, prog, p, cfg)
+        if prog == "bfs":
+            return pkg.bfs(p, root, cfg)
+        return run(pkg, app, p, g, cfg)
+
+    poisoned = drive(ta, TConfig(**knobs), tpg)
+    assert calls
+    monkeypatch.undo()
+    clean = drive(ta, TConfig(**knobs), tpg)
+    np.testing.assert_array_equal(clean.values, poisoned.values)
+    assert_all_stats_equal(clean.stats, poisoned.stats, f"{app} unpoisoned")
+    if app == "triangles":
+        tg = TCSRGraph(g.ptr, g.dst, g.val)
+        np.testing.assert_array_equal(
+            poisoned.values, tref.triangles_ref(tg, key=pg.place))
+    else:
+        jx = drive(ja, JConfig(backend="xla", **knobs), pg)
+        np.testing.assert_array_equal(jx.values, poisoned.values)
+        assert_stats_equal(jx.stats, poisoned.stats, f"{app} jax")
+    st = poisoned.stats
+    assert int(st.drops) == 0 and int(st.rounds) > 1
+    assert int(st.launches) == (5 if prog == "triangles" else 3) * int(
+        st.rounds)
+    spilling = st.spills[:1] if app == "kcore2" else st.spills
+    assert bool((spilling > 0).all()), st.spills  # every re-queue ran

@@ -235,6 +235,13 @@ def twin_graph():
     return CSRGraph.from_edges(n, src, dst, val)
 
 
+def tri_graph():
+    """Symmetrized R-MAT-8 (edge factor 5, seed 2): under the tight knobs
+    over 16 tiles, triangles spill on all four channels in 292 rounds."""
+    n, src, dst, val = rmat_edges(8, edge_factor=5, seed=2)
+    return ja.symmetrize(CSRGraph.from_edges(n, src, dst, val))
+
+
 def write_appended(q_in, q_out):
     """Write the rows that ``q_out`` appended after ``q_in``'s count into
     ``q_in``'s own buffer, as the leg-2 kernel appends in place."""
@@ -243,22 +250,38 @@ def write_appended(q_in, q_out):
         q_in.data[t, c0:c1] = q_out.data[t, c0:c1]
 
 
-@pytest.mark.parametrize("app", ["bfs", "bfs_bsp", "spmv", "kcore5"])
+# app, or app:wrapper for the legs other than leg 2 that append in place:
+# leg 1 onto the range queue (and triangles' leg 3 onto the range2 queue),
+# the wedge leg onto the wedge queue
+IN_PLACE_CASES = ["bfs", "bfs_bsp", "spmv", "kcore5", "sssp:fused_leg1",
+                  "kcore5:fused_leg1", "triangles:fused_tri_leg1",
+                  "triangles:fused_tri_leg2", "triangles:fused_tri_leg3"]
+
+
+@pytest.mark.parametrize("app", IN_PLACE_CASES)
 def test_leg2_stage_appending_in_place_is_idempotent(monkeypatch,
                                                      twin_graph, app):
-    """At every leg-2 call with spills of a fused run on the twin's R-MAT-10
-    over 16 tiles (the tight knobs), the plain stage's appended rows,
-    written into its input queue as the kernel writes them, make that queue
-    the stage's own output queue, don't-care slots included; the stage run
-    again on the same operands gives every output of the first run,
-    bitwise (chip_smoke.py's checks re-run the leg after the kernel); and
-    the run, carried on in the queue appended in place, still equals the
-    JAX package's, values and every Stats field but launches."""
+    """At every call with spills of a leg that appends in place (leg 2 by
+    default; leg 1, the triangles legs 1 and 3 and the wedge leg where the
+    case names them) in a fused run on the twin's R-MAT-10 over 16 tiles
+    (triangles: symmetrized R-MAT-8; the tight knobs), the plain stage's
+    appended rows, written into its
+    input queue as the kernel writes them, make that queue the stage's own
+    output queue, don't-care slots included; the stage run again on the
+    same operands gives every output of the first run, bitwise
+    (chip_smoke.py's checks re-run the leg after the kernel); and the run,
+    carried on in the queue appended in place, still equals the JAX
+    package's, values and every Stats field but launches."""
     from repro_torch.core.queues import Queue
+    app, _, name = app.partition(":")
+    tri = app == "triangles"
     g = ja.symmetrize(twin_graph) if app == "kcore5" else twin_graph
+    if tri:  # R-MAT-10 runs 4,000 tight rounds of triangles: R-MAT-8
+        g = tri_graph()
     T = 16
-    pg = ja.prepare(g, T=T)
-    name = "fused_kcore_leg2" if app == "kcore5" else "fused_leg2"
+    pg = ja.prepare_triangles(g, T=T) if tri else ja.prepare(g, T=T)
+    name = name or ("fused_kcore_leg2" if app == "kcore5" else "fused_leg2")
+    qi = fused.IN_PLACE[name]
     real = getattr(fused, name)
     spilled = []
 
@@ -268,20 +291,19 @@ def test_leg2_stage_appending_in_place_is_idempotent(monkeypatch,
         if not bool(ops[6].any()):
             return first
         spilled.append(1)
-        q_in, q_out = st.queues[1], first[0].queues[1]
+        q_in, q_out = st.queues[qi], first[0].queues[qi]
         write_appended(q_in, q_out)
         assert torch.equal(q_in.data, q_out.data)
         second = plain(*ops)
         for i, (a, b) in enumerate(zip(tensors(first), tensors(second))):
             assert torch.equal(bits(a), bits(b)), (name, i)
-        return (second[0]._replace(queues=(second[0].queues[0],
-                                           Queue(q_in.data,
-                                                 second[0].queues[1].count))),
-                *second[1:])
+        queues = list(second[0].queues)
+        queues[qi] = Queue(q_in.data, queues[qi].count)
+        return (second[0]._replace(queues=tuple(queues)), *second[1:])
 
     monkeypatch.setattr(fused, name, in_place)
     knobs = dict(TIGHT)
-    if app == "kcore5":
+    if app in ("kcore5", "triangles"):
         tf = run_program(ta, app, port_partition(pg), TConfig(**knobs))
         jx = run_program(ja, app, pg, JConfig(backend="xla", **knobs))
     else:
@@ -289,7 +311,7 @@ def test_leg2_stage_appending_in_place_is_idempotent(monkeypatch,
             knobs["mode"] = "bsp"
         tf = run(ta, app, port_partition(pg), g, TConfig(**knobs))
         jx = run(ja, app, pg, g, JConfig(backend="xla", **knobs))
-    assert spilled, "no leg-2 call spilled"
+    assert spilled, f"no {name} call spilled"
     np.testing.assert_array_equal(jx.values, tf.values)
-    assert_stats_equal(jx.stats, tf.stats, f"{app} in place")
-    assert int(tf.stats.launches) == 3 * int(tf.stats.rounds)
+    assert_stats_equal(jx.stats, tf.stats, f"{app} {name} in place")
+    assert int(tf.stats.launches) == (5 if tri else 3) * int(tf.stats.rounds)
