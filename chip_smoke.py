@@ -1043,13 +1043,15 @@ def leg_bytes(name: str, tmpl, ops, out, whole=False) -> int:
     or shifted those queues whole (every slot read and written)."""
     sh, st, new = ops[1], ops[2], out[0]
     small = nbytes(*tensors(out[1:]))
-    if leg_index(name) == 0:
-        rq = st.queues[0]
+    if leg_index(name) == 0:  # its range queue turned keeping live rows
+        rq, rq2 = st.queues[0], new.queues[0]
         slot = 12 if tmpl.payload in ("value", "value_over_deg") else 8
-        return (nbytes(st.frontier, rq.data, st.net_pressure,
+        queue = nbytes(rq.data, rq2.data) if whole else 12 * int(
+            rq.count.sum() + rq2.count.sum())
+        return (nbytes(st.frontier, st.net_pressure,
                        *(q.count for q in st.queues), new.frontier,
-                       *new.queues[0])
-                + small + slot * st.frontier.shape[0] * tmpl.f_pop)
+                       rq2.count)
+                + queue + small + slot * st.frontier.shape[0] * tmpl.f_pop)
     recv, rv, sp, spv = ops[3:7]
     moved = (small + nbytes(*ops[3:]) - nbytes(sp)
              + int(spv.sum()) * 4 * sp.shape[2])
@@ -1091,8 +1093,8 @@ EVERY_CHANNEL = "spills on every channel in one round"
 
 def leg_split(name, tmpl, ops) -> int:
     """G, the blocks a tile of a fused leg shares its work over (the
-    column split of kernel.py; one more block a tile appends, two for the
-    wedge leg); 1 for the legs that run one block a tile."""
+    column split of kernel.py; one more block a tile appends, or takes
+    the frontier in leg 0; two more for the wedge leg)."""
     st, dev = ops[2], ops[2].frontier.device
     T, v_chunk = st.frontier.shape
     if name in ("fused_leg2", "fused_kcore_leg2"):
@@ -1101,7 +1103,9 @@ def leg_split(name, tmpl, ops) -> int:
         return F.scan_split(T, ops[3].shape[1], tmpl.max_t2, dev).G
     if name == "fused_tri_leg2":
         return F.wedge_split(T, ops[3].shape[1], dev).G
-    return 1
+    if name == "fused_tri_leg4":
+        return F.close_split(T, ops[3].shape[1], dev).G
+    return F.leg0_split(T, st.queues[0].data.shape[1], dev)
 
 
 def check_leg(name, tmpl, ops, got, want, where):
@@ -1551,7 +1555,7 @@ def check_past_staging(dev, g, gs, pg, pgs, root, x):
          {("fused_kcore_leg2", "2 chunks")}),
         ("triangles 16,640 wedges", lambda c: alg.triangles(pgt, c),
          tri_want, None, dict(cap_route_update=1040),
-         {("fused_tri_leg4", "2 chunks"), ("queue_push_pop", "16640 rows"),
+         {("fused_tri_leg4", F.CLOSE_PATH), ("queue_push_pop", "16640 rows"),
           ("queue_push_pop", "shared memory")}),
         ("bfs pops 512", lambda c: alg.bfs(pg, root, c), oracle, None,
          dict(f_pop=512, r_pop=512), {("fused_leg0", "shared memory")}),

@@ -95,12 +95,15 @@ __device__ inline int block_sum(int v, int* sm) {
 // taken bits cleared.  Returns n_take (block-uniform); ix is complete once
 // the caller has passed a barrier.  k <= k_max.
 //
-// The block walks the bitmap in steps of blockDim.x * 16 bytes, each thread
-// owning 16 consecutive bytes read and written as one 16-byte vector; a
-// block scan of the per-thread popcounts gives each thread the rank of its
-// first set bit.  Once k bits are ranked the block only copies.
+// The block walks the bitmap in passes of blockDim.x * FT_VECS * 16 bytes,
+// each thread owning FT_VECS * 16 consecutive bytes, read together as
+// FT_VECS 16-byte vectors before one block scan of the per-thread popcounts
+// gives each thread the rank of its first set bit (so a pass costs one load
+// latency and one scan: 64 KiB at 1024 threads).  Once k bits are ranked
+// the block only copies.
 // ---------------------------------------------------------------------------
 constexpr int FT_BYTES = 16;
+constexpr int FT_VECS = 4;
 
 union Bytes16 {
   uint4 v;
@@ -111,43 +114,61 @@ __device__ inline int frontier_take_block(const uint8_t* __restrict__ m,
                                           uint8_t* __restrict__ r, int n,
                                           int k, int k_max, int32_t* ix,
                                           int* sm) {
+  constexpr int SPAN = FT_VECS * FT_BYTES;  // a thread's bytes a pass
   const bool vec =
       ((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(r)) &
        (FT_BYTES - 1)) == 0;
   int seen = 0;  // set bits ranked so far; identical in every thread
-  for (int base = 0; base < n; base += blockDim.x * FT_BYTES) {
-    const int p0 = base + threadIdx.x * FT_BYTES;
-    const bool full = vec && p0 + FT_BYTES <= n;
-    Bytes16 u;
-    if (full) {
-      u.v = *reinterpret_cast<const uint4*>(m + p0);
-    } else {
+  for (int base = 0; base < n; base += blockDim.x * SPAN) {
+    const int p0 = base + threadIdx.x * SPAN;
+    Bytes16 u[FT_VECS];
 #pragma unroll
-      for (int i = 0; i < FT_BYTES; ++i) u.b[i] = p0 + i < n ? m[p0 + i] : 0;
+    for (int q = 0; q < FT_VECS; ++q) {
+      const int p = p0 + q * FT_BYTES;
+      if (vec && p + FT_BYTES <= n) {
+        u[q].v = *reinterpret_cast<const uint4*>(m + p);
+      } else {
+#pragma unroll
+        for (int i = 0; i < FT_BYTES; ++i) u[q].b[i] = p + i < n ? m[p + i] : 0;
+      }
     }
     if (seen < k) {  // block-uniform branch
       int cnt = 0;
 #pragma unroll
-      for (int i = 0; i < FT_BYTES; ++i) cnt += u.b[i] != 0;
+      for (int q = 0; q < FT_VECS; ++q)
+#pragma unroll
+        for (int i = 0; i < FT_BYTES; ++i) cnt += u[q].b[i] != 0;
       int total;
       int rank = seen + block_excl_scan(cnt, &total, sm);
 #pragma unroll
-      for (int i = 0; i < FT_BYTES; ++i) {
-        if (u.b[i]) {
-          if (rank < k) {
-            if (rank < k_max) ix[rank] = p0 + i;
-            u.b[i] = 0;
+      for (int q = 0; q < FT_VECS; ++q) {
+        const uint32_t w[4] = {u[q].v.x, u[q].v.y, u[q].v.z, u[q].v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (w[j] == 0 || rank >= k) continue;
+#pragma unroll
+          for (int i = 4 * j; i < 4 * j + 4; ++i) {
+            if (u[q].b[i]) {
+              if (rank < k) {
+                if (rank < k_max) ix[rank] = p0 + q * FT_BYTES + i;
+                u[q].b[i] = 0;
+              }
+              ++rank;
+            }
           }
-          ++rank;
         }
       }
       seen += total;
     }
-    if (full) {
-      *reinterpret_cast<uint4*>(r + p0) = u.v;
-    } else {
-      for (int i = 0; i < FT_BYTES; ++i)
-        if (p0 + i < n) r[p0 + i] = u.b[i];
+#pragma unroll
+    for (int q = 0; q < FT_VECS; ++q) {
+      const int p = p0 + q * FT_BYTES;
+      if (vec && p + FT_BYTES <= n) {
+        *reinterpret_cast<uint4*>(r + p) = u[q].v;
+      } else {
+        for (int i = 0; i < FT_BYTES; ++i)
+          if (p + i < n) r[p + i] = u[q].b[i];
+      }
     }
   }
   int n_take = seen < k ? seen : k;
@@ -198,9 +219,10 @@ __device__ inline void fifo_shift(const int32_t* __restrict__ d,
 // bin_by_owner sends invalid rows to its trash slot).  So the bytes follow
 // the queue's occupancy, not its capacity.  Fresh rows appended before the
 // pop are the caller's to place (they land at c - n_pop on).  d and nd are
-// different buffers.  Rows are W = 2 or 4 words: each moves as one 8- or
-// 16-byte vector (a queue's tiles lie at multiples of its row size),
-// ROW_MOVES rows of a thread in flight together.
+// different buffers.  Rows of W = 2 or 4 words move as one 8- or 16-byte
+// vector each (a queue's tiles lie at multiples of its row size), rows of 3
+// words (the range queue) word by word; ROW_MOVES moves of a thread in
+// flight together.
 // ---------------------------------------------------------------------------
 template <int W>
 struct RowVec;
@@ -229,6 +251,25 @@ __device__ inline void fifo_live_turn(const int32_t* __restrict__ d,
 #pragma unroll
     for (int u = 0; u < ROW_MOVES; ++u)
       if (i0 + u * nthreads < hi) nv[i0 + u * nthreads] = x[u];
+  }
+}
+
+// rows of 3 words (the range queue): the words [3 lo, 3 hi) of the rows
+// past the pop
+template <>
+__device__ inline void fifo_live_turn<3>(const int32_t* __restrict__ d,
+                                         int32_t* __restrict__ nd, int n_pop,
+                                         int lo, int hi, int tid,
+                                         int nthreads) {
+  const int32_t* dw = d + (size_t)n_pop * 3;
+  for (int i0 = 3 * lo + tid; i0 < 3 * hi; i0 += ROW_MOVES * nthreads) {
+    int32_t x[ROW_MOVES];
+#pragma unroll
+    for (int u = 0; u < ROW_MOVES; ++u)
+      if (i0 + u * nthreads < 3 * hi) x[u] = dw[i0 + u * nthreads];
+#pragma unroll
+    for (int u = 0; u < ROW_MOVES; ++u)
+      if (i0 + u * nthreads < 3 * hi) nd[i0 + u * nthreads] = x[u];
   }
 }
 

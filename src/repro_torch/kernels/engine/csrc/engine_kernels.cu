@@ -31,11 +31,11 @@ namespace {
 //
 // Bound: bytes — the bitmap is read once and its cleared copy written once
 // (2n bytes per tile); the ranking is a few integer ops per byte.  Design:
-// one block per tile walks the bitmap in 8 KiB steps, each thread owning 16
-// consecutive bytes read and written as one 16-byte vector; a block scan of
-// the per-thread popcounts gives each thread the rank of its first set bit.
-// Once k bits are ranked the block only copies.  Occupancy: T blocks (64 on
-// the main path, under half of the 132 SMs).
+// one block per tile walks the bitmap in 32 KiB passes, each thread owning
+// 64 consecutive bytes read and written as four 16-byte vectors; a block
+// scan of the per-thread popcounts gives each thread the rank of its first
+// set bit.  Once k bits are ranked the block only copies.  Occupancy: T
+// blocks (64 on the main path, under half of the 132 SMs).
 // ---------------------------------------------------------------------------
 constexpr int FP_THREADS = 512;
 

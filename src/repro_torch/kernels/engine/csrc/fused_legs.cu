@@ -4,15 +4,16 @@
 // :610, :626).  Each leg's phases are the device functions the standalone
 // kernels use (engine_device.cuh, ordered_scatter.cuh), separated by block
 // barriers.  Every output element below a queue's count, every valid
-// message row and every other output is what the plain stage writes; the
-// scan and wedge legs leave a turned queue's slots from its count on
-// unwritten and write 0 into the popped message rows past the pop
+// message row and every other output is what the plain stage writes; leg
+// 0, the scan legs and the wedge leg leave a turned queue's slots from its
+// count on unwritten and write 0 into the popped message rows past the pop
 // (invalid), where the plain stage keeps the reference's stale rows: both
 // are don't-care to every consumer (fifo_live_turn, engine_device.cuh).
 //
 // Classic program (and k-core, which has its shape), 2 channels, 3 legs:
-//   leg 0  TSU budgets; T4 frontier pop + payload; range-queue turn; T1
-//          range split; remainder re-push           (template: payload, policy)
+//   leg 0  TSU budgets; T4 frontier pop + payload; range-queue turn (live
+//          rows); T1 range split; remainder re-push
+//                                                   (template: payload, policy)
 //   leg 1  range-spill re-queue (in place); T2 scan, resident gather or
 //          streamed windows, and emit; update-queue replay turn (live rows);
 //          replay rows ahead of the fresh rows in the messages
@@ -29,35 +30,35 @@
 //          turn of the width-4 rows (live rows); T1 range split; remainder
 //          re-push                                          (wedge leg)
 //   leg 3  leg 1 above on width-4 messages, emitting (v, nb) valid iff nb > u
-//   leg 4  close-spill re-queue; bounded binary search of the closing edge
-//          in the sorted local segment; ordered add of found into acc
-//                                                           (close leg)
+//   leg 4  close-spill re-queue (in place); bounded binary search of the
+//          closing edge in the sorted local segment; the hits into acc by
+//          per-slot counts                                  (close leg)
 //
 // Bound: bytes.  Each leg reads its inputs once and writes its outputs once;
 // the largest are the scan leg's messages (9 bytes a lane), the (v_chunk,)
-// slices of leg 0 and of the fold legs, leg 0's range-queue turn and the
-// close leg's queue copy (cap * 12 and cap * 8 bytes a tile each way), and
-// the live rows of the turned spill queues.  Design: a leg that appends
-// spills onto a queue that the previous leg of the same round made (leg 1:
-// the range queue of leg 0; leg 2 and k-core's leg 2: the update queue of
-// leg 1; the wedge leg: the wedge queue of leg 1) appends in place, moving
-// only the rows it appends; a turned spill queue (the scan legs' update,
-// wedge and close queues, the wedge leg's range2 queue) is a fresh buffer
-// that receives its live rows only (fifo_live_turn), so those bytes follow
-// the queues' occupancy, not their capacity; leg 0 and the close leg still
-// shift or copy their queue's whole capacity.  Data that fits stays in
-// shared memory: leg 0's and the wedge leg's popped tasks and rows (dynamic
-// shared memory sized from the pops; past STAGE_SMEM_MAX bytes, a device-
-// memory scratch from the wrapper), the scan leg's staging windows (a window
-// too wide for them is read from device memory), the fold legs' sort keys
-// (in chunks of rows past what fits).  Occupancy: leg 0 and the close leg
-// run T blocks (64 on the main path); the others a grid (T, G + 1) or (T, G
-// + 2) of 512-thread blocks: G blocks a tile share its work (leg 2: column
-// ranges; the scan leg: messages and live rows; the wedge leg: wedges and
-// live rows; G = 5 on the main paths, kernels/engine/kernel.py
-// column_split), one more its append (and the wedge leg's pop).  The close
-// leg's binary search reads the shard word-random, at most bit_length(
-// e_chunk) + 1 words a row.
+// slices of leg 0 and of the fold legs, and the live rows of the turned
+// queues.  Design: a leg that appends spills onto a queue that the previous
+// leg of the same round made (leg 1: the range queue of leg 0; leg 2 and
+// k-core's leg 2: the update queue of leg 1; the wedge leg: the wedge queue
+// of leg 1; the close leg: the close queue of leg 3) appends in place,
+// moving only the rows it appends; a turned queue (leg 0's range queue, the
+// scan legs' update, wedge and close queues, the wedge leg's range2 queue)
+// is a fresh buffer that receives its live rows only (fifo_live_turn), so
+// those bytes follow the queues' occupancy, not their capacity.  Data that
+// fits stays in shared memory: leg 0's and the wedge leg's popped tasks and
+// rows (dynamic shared memory sized from the pops; past STAGE_SMEM_MAX
+// bytes, a device-memory scratch from the wrapper), the scan leg's staging
+// windows (a window too wide for them is read from device memory), the fold
+// legs' sort keys (in chunks of rows past what fits).  Occupancy: every leg
+// runs a grid (T, G + 1) or (T, G + 2): G blocks a tile share its work (leg
+// 0: the range queue's old live rows, one block a 32,768 rows of its
+// capacity, kernels/engine/fused.py leg0_split; leg 2: column ranges; the
+// scan leg: messages and live rows; the wedge leg: wedges and live rows;
+// the close leg: its searches; G = 5 on the main paths,
+// kernels/engine/kernel.py column_split), one more its append (leg 0: its
+// frontier take and pop; the wedge leg: also its pop).  The close leg's
+// binary search reads the shard word-random, at most bit_length(e_chunk) +
+// 1 words a row, CLOSE_ROWS searches of a thread in flight together.
 //
 // Plain C interface, as engine_kernels.cu: device pointers, sizes, template
 // codes and the caller's cudaStream_t in, cudaGetLastError() out.
@@ -118,42 +119,50 @@ struct Downstream {
 };
 
 // ---------------------------------------------------------------------------
-// Leg 0.  Budgets as core/engine.py _budgets for K channels (integer math of
-// one thread; a throttled producer gets pop / 4 when K == 2 and 0 on deeper
-// chains); frontier_take into the staging; the source rows (start, start +
-// deg, payload) of the popped vertices, valid where deg > 0; fifo_turn of the
-// range queue with them; range_split of the popped tasks into the messages;
-// queue_append of the remainders onto the shifted queue.  The staging
-// (Leg0Stage: f_pop and eff rows) is dynamic shared memory, or the tile's
-// part of the wrapper's device-memory scratch where it does not fit.
+// Leg 0, over a grid (T, G + 1).  Budgets as core/engine.py _budgets for K
+// channels (integer math on the queue counts and the net pressure alone; a
+// throttled producer gets pop / 4 when K == 2 and 0 on deeper chains);
+// frontier_take into the staging; the source rows (start, start + deg,
+// payload) of the popped vertices, valid where deg > 0; fifo_turn of the
+// range queue with them, keeping its live rows only; range_split of the
+// popped tasks into the messages; queue_append of the remainders onto the
+// turned queue.  The pop is n_pop = min(pops[0], c0 + n_push0), so where
+// pops[0] < c0 it is pops[0] whatever the frontier gives, and the old rows
+// [n_pop, c0) survive: blocks (t, 1 + g), g < G, compute the budgets
+// themselves and move share g of those rows (fifo_live_turn); otherwise no
+// old row survives.  Block (t, 0), which the scheduler starts first (its
+// chain is the tile's longest; a grid of 1024-thread blocks may not be
+// resident at once), does the rest: the budgets, the take, the T4
+// gathers (each valid row written at its compacted place by the scan that
+// ranks it), the fresh rows that stay in the queue (at c0 - n_pop on), the
+// pop into the messages with T1 (rows past n_pop: 0, invalid; T1 of a zero
+// row is (0, 0, 0)), the remainders after them, dyn_pops and the counts.
+// The two parts write disjoint slots.  The staging (Leg0Stage: f_pop and
+// eff rows) is dynamic shared memory, or the tile's part of the wrapper's
+// device-memory scratch where it does not fit.
 // ---------------------------------------------------------------------------
 __host__ __device__ inline size_t pad16(size_t b) { return (b + 15) / 16 * 16; }
 
 struct Leg0Stage {
   int32_t* idx;    // f_pop popped vertex slots
-  int* src;        // f_pop compacted source rows
-  int32_t* rows;   // max(f_pop, eff) rows of 3: source rows, then remainders
-  int32_t* taken;  // eff popped tasks of 3
-  uint8_t* valid;  // max(f_pop, eff) flags of `rows`
+  int32_t* rows;   // f_pop rows of 3: the compacted source rows
+  int32_t* taken;  // eff popped tasks of 3, then their remainders
+  uint8_t* valid;  // eff flags of the remainders
 };
 
 // kernels/engine/fused.py leg0_stage_bytes
 __host__ __device__ inline size_t leg0_stage_bytes(int f_pop, int eff) {
-  const size_t n = f_pop > eff ? f_pop : eff;
-  return 2 * pad16(4 * (size_t)f_pop) + pad16(12 * n) +
-         pad16(12 * (size_t)eff) + pad16(n);
+  return pad16(4 * (size_t)f_pop) + pad16(12 * (size_t)f_pop) +
+         pad16(12 * (size_t)eff) + pad16(eff);
 }
 
 __device__ inline Leg0Stage leg0_stage(unsigned char* base, int f_pop,
                                        int eff) {
-  const size_t n = f_pop > eff ? f_pop : eff;
   Leg0Stage s;
   s.idx = reinterpret_cast<int32_t*>(base);
   base += pad16(4 * (size_t)f_pop);
-  s.src = reinterpret_cast<int*>(base);
-  base += pad16(4 * (size_t)f_pop);
   s.rows = reinterpret_cast<int32_t*>(base);
-  base += pad16(12 * n);
+  base += pad16(12 * (size_t)f_pop);
   s.taken = reinterpret_cast<int32_t*>(base);
   base += pad16(12 * (size_t)eff);
   s.valid = base;
@@ -168,6 +177,36 @@ __device__ __forceinline__ unsigned char* stage_of(unsigned char* smem,
                                                    unsigned char* scratch,
                                                    size_t bytes, int tile) {
   return scratch != nullptr ? scratch + (size_t)tile * bytes : smem;
+}
+
+// The TSU of tile t (core/engine.py _budgets): each channel's pop into
+// pops[0 .. K-1]; returns the frontier budget.  Every thread that calls it
+// gets the same numbers.
+template <int POLICY, int K>
+__device__ inline int tsu_budgets(int t, int occ, const Downstream& down,
+                                  const int32_t* __restrict__ pressure,
+                                  int cap_r, int f_pop, int r_pop, int plimit,
+                                  int* pops) {
+  const long long free0 = (long long)cap_r - occ;
+  long long fp;
+  pops[0] = r_pop;
+  for (int i = 1; i < K; ++i) pops[i] = down.pop[i - 1];
+  if (POLICY == POLICY_STATIC) {
+    fp = free0 < 0 ? 0 : free0;
+  } else {
+    const bool hot = pressure[t] > imax(plimit, 1);
+    bool below = false;  // a congested queue downstream of channel i
+    for (int i = K - 1; i >= 1; --i) {
+      if (i < K - 1 && (below || hot)) pops[i] = K == 2 ? pops[i] / 4 : 0;
+      below = below || down.count[i - 1][t] > (3LL * down.cap[i - 1]) / 4;
+    }
+    if (below || hot) pops[0] = K == 2 ? r_pop / 4 : 0;
+    const bool half0 = occ > cap_r / 2;
+    fp = free0 - 2LL * f_pop;
+    if (fp < 0 || half0 || hot || below) fp = 0;
+  }
+  if (fp > f_pop) fp = f_pop;
+  return static_cast<int>(fp);
 }
 
 template <int PAYLOAD, int POLICY, int K>
@@ -190,90 +229,91 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
                   int f_pop, int r_pop, int max_t2, int plimit) {
   extern __shared__ __align__(16) unsigned char leg0_smem[];
   __shared__ int sm[33];
-  __shared__ int s_budget[2];  // frontier budget, range-channel pops
-  const int t = blockIdx.x;
+  const int t = blockIdx.x, g = blockIdx.y - 1, G = gridDim.y - 1;
   const int tid = threadIdx.x;
+  const int c0 = rq_count[t];
+  int pops[K];
+  const int fp = tsu_budgets<POLICY, K>(t, c0, down, pressure, cap_r, f_pop,
+                                        r_pop, plimit, pops);
+  const int32_t* rqt = rq + (size_t)t * cap_r * 3;
+  int32_t* rqo = rq_out + (size_t)t * cap_r * 3;
+  if (g >= 0) {
+    // this block's share of the old live rows [n_pop, c0), n_pop = pops[0]
+    const int L = imax(c0 - pops[0], 0);
+    repro::fifo_live_turn<3>(rqt, rqo, pops[0], (int)((long long)g * L / G),
+                             (int)((long long)(g + 1) * L / G), tid,
+                             blockDim.x);
+    return;
+  }
   const int eff = imin(r_pop, cap_r);
   const Leg0Stage sg =
       leg0_stage(stage_of(leg0_smem, scratch, stage_bytes, t), f_pop, eff);
-  if (tid == 0) {
-    const long long occ0 = rq_count[t];
-    const long long free0 = cap_r - occ0;
-    long long fp;
-    int pops[K];
-    pops[0] = r_pop;
-    for (int i = 1; i < K; ++i) pops[i] = down.pop[i - 1];
-    if (POLICY == POLICY_STATIC) {
-      fp = free0 < 0 ? 0 : free0;
-    } else {
-      const bool hot = pressure[t] > imax(plimit, 1);
-      bool below = false;  // a congested queue downstream of channel i
-      for (int i = K - 1; i >= 1; --i) {
-        if (i < K - 1 && (below || hot)) pops[i] = K == 2 ? pops[i] / 4 : 0;
-        below = below || down.count[i - 1][t] > (3LL * down.cap[i - 1]) / 4;
-      }
-      if (below || hot) pops[0] = K == 2 ? r_pop / 4 : 0;
-      const bool half0 = occ0 > cap_r / 2;
-      fp = free0 - 2LL * f_pop;
-      if (fp < 0 || half0 || hot || below) fp = 0;
-    }
-    if (fp > f_pop) fp = f_pop;
-    s_budget[0] = static_cast<int>(fp);
-    s_budget[1] = pops[0];
+  if (tid == 0)
     for (int i = 0; i < K; ++i) dyn_pops[K * t + i] = pops[i];
-  }
-  __syncthreads();
   const size_t vt = (size_t)t * v_chunk;
-  const int n_take =
-      repro::frontier_take_block(frontier + vt, frontier_out + vt, v_chunk,
-                                 s_budget[0], f_pop, sg.idx, sm);
+  const int n_take = repro::frontier_take_block(
+      frontier + vt, frontier_out + vt, v_chunk, fp, f_pop, sg.idx, sm);
   __syncthreads();
-  // T4: the popped vertices' tasks (invalid slots read vertex 0)
-  for (int i = tid; i < f_pop; i += blockDim.x) {
-    const size_t o = vt + sg.idx[i];
-    const int dg = deg[o], st = ptr_start[o];
-    int32_t pay;
-    if (PAYLOAD == PAY_ONE) {
-      pay = ONE_BITS;
-    } else if (PAYLOAD == PAY_PLACED) {  // me * v_chunk + vidx
-      pay = repro::wrap_add(repro::wrap_mul(t, v_chunk), sg.idx[i]);
-    } else {
-      float p = value[o];
-      if (PAYLOAD == PAY_VALUE_OVER_DEG)
-        p = __fdiv_rn(p, __int2float_rn(imax(dg, 1)));
-      pay = __float_as_int(p);
-    }
-    sg.rows[3 * i] = st;
-    sg.rows[3 * i + 1] = repro::wrap_add(st, dg);
-    sg.rows[3 * i + 2] = pay;
-    sg.valid[i] = i < n_take && dg > 0;
-  }
-  __syncthreads();
-  // fifo_turn: compact the valid rows, append, pop, shift
+  // T4: the popped vertices' tasks, each valid one (i < n_take, deg > 0)
+  // written at its rank among them
   int nvalid = 0;  // block-uniform
   for (int base = 0; base < f_pop; base += blockDim.x) {
     const int i = base + tid;
-    const int v = i < f_pop ? sg.valid[i] : 0;
+    int st = 0, dg = 0;
+    int32_t pay = 0;
+    if (i < n_take) {
+      const int vi = sg.idx[i];
+      const size_t o = vt + vi;
+      dg = deg[o];
+      st = ptr_start[o];
+      if (PAYLOAD == PAY_ONE) {
+        pay = ONE_BITS;
+      } else if (PAYLOAD == PAY_PLACED) {  // me * v_chunk + vidx
+        pay = repro::wrap_add(repro::wrap_mul(t, v_chunk), vi);
+      } else {
+        float x = value[o];
+        if (PAYLOAD == PAY_VALUE_OVER_DEG)
+          x = __fdiv_rn(x, __int2float_rn(imax(dg, 1)));
+        pay = __float_as_int(x);
+      }
+    }
+    const int v = i < n_take && dg > 0;
     int total;
     const int pos = nvalid + repro::block_excl_scan(v, &total, sm);
-    if (v) sg.src[pos] = i;
+    if (v) {
+      sg.rows[3 * pos] = st;
+      sg.rows[3 * pos + 1] = repro::wrap_add(st, dg);
+      sg.rows[3 * pos + 2] = pay;
+    }
     nvalid += total;
   }
   __syncthreads();
-  const int c0 = rq_count[t];
   const int n_push0 = imin(nvalid, imax(cap_r - c0, 0));
   const int c2 = c0 + n_push0;
-  const int n_pop = imin(s_budget[1], c2);
-  int32_t* rqo = rq_out + (size_t)t * cap_r * 3;
-  repro::fifo_shift(rq + (size_t)t * cap_r * 3, rqo, sg.taken, cap_r, 3, c0,
-                    n_push0, n_pop, eff, [&](int j, int col) {
-                      return sg.rows[3 * sg.src[j] + col];
-                    });
-  __syncthreads();
-  // T1: range split of the popped tasks; the remainders replace the rows
+  const int n_pop = imin(pops[0], c2);
+  const int c3 = c2 - n_pop;
+  // the fresh rows that stay: row c0 + j of the appended queue is row
+  // c0 + j - n_pop of the turned one
+  for (int j = imax(n_pop - c0, 0) + tid; j < n_push0; j += blockDim.x) {
+    int32_t* o = rqo + (size_t)(c0 + j - n_pop) * 3;
+    o[0] = sg.rows[3 * j];
+    o[1] = sg.rows[3 * j + 1];
+    o[2] = sg.rows[3 * j + 2];
+  }
+  // the pop (old rows, then fresh ones) and T1; the remainders replace the
+  // popped tasks
   for (int i = tid; i < eff; i += blockDim.x) {
-    const int ts = sg.taken[3 * i], te = sg.taken[3 * i + 1];
-    const int pay = sg.taken[3 * i + 2];
+    int ts = 0, te = 0, pay = 0;
+    if (i < imin(n_pop, c0)) {
+      ts = rqt[3 * i];
+      te = rqt[3 * i + 1];
+      pay = rqt[3 * i + 2];
+    } else if (i < n_pop) {
+      const int j = i - c0;
+      ts = sg.rows[3 * j];
+      te = sg.rows[3 * j + 1];
+      pay = sg.rows[3 * j + 2];
+    }
     const int stop = range_stop(ts, te, e_chunk, max_t2);
     const bool tv = i < n_pop;
     int32_t* m = msgs + ((size_t)t * eff + i) * 3;
@@ -281,14 +321,13 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
     m[1] = stop;
     m[2] = pay;
     mvalid[(size_t)t * eff + i] = tv;
-    sg.rows[3 * i] = stop;
-    sg.rows[3 * i + 1] = te;
-    sg.rows[3 * i + 2] = pay;
+    sg.taken[3 * i] = stop;
+    sg.taken[3 * i + 1] = te;
+    sg.taken[3 * i + 2] = pay;
     sg.valid[i] = tv && stop < te;
   }
   __syncthreads();
-  const int c3 = c2 - n_pop;
-  const int nrem = repro::queue_append_block(rqo, cap_r, 3, c3, sg.rows,
+  const int nrem = repro::queue_append_block(rqo, cap_r, 3, c3, sg.taken,
                                              sg.valid, eff, sm);
   if (tid == 0) {
     const int n_push1 = imin(nrem, imax(cap_r - c3, 0));
@@ -817,38 +856,52 @@ fused_wedge_leg_kernel(int32_t* wq, const int32_t* __restrict__ wq_count,
   }
 }
 
-// program.py _segment_contains: is `target` in the sorted segment
-// ed[lo : lo + dg]?  The bounded binary search of `steps` =
-// max(1, bit_length(e_chunk)) steps, every probe clamped to the shard.  Once
-// left >= right no step changes anything, so the loop may stop there.
-__device__ __forceinline__ bool segment_contains(const int32_t* __restrict__ ed,
-                                                 int e_chunk, int lo, int dg,
-                                                 int target, int steps) {
-  const int end = repro::wrap_add(lo, dg);
-  int left = lo, right = end;
-  for (int s = 0; s < steps && left < right; ++s) {
-    const int mid = repro::floor_div(repro::wrap_add(left, right), 2);
-    const int at = ed[imin(imax(mid, 0), e_chunk - 1)];
-    if (at < target)
-      left = repro::wrap_add(mid, 1);
-    else
-      right = mid;
+// ---------------------------------------------------------------------------
+// Triangles leg 4 (the close leg), over a grid (T, G + 1).  Block (t, G)
+// appends the close spills onto the close queue cq in place, at its count
+// (what the plain stage's copy-and-append gives; leg 3 of the round made that
+// queue, and nothing else reads it), and writes the tile's queue count,
+// drops and spill count.  Blocks (t, g < G) take the rows [g * R / G, (g + 1)
+// * R / G) of tile t's R delivered (v, w) rows: found = the closing edge (v,
+// w) is in v's sorted local segment, by program.py _segment_contains's
+// bounded binary search of `steps` = max(1, bit_length(e_chunk)) steps,
+// every probe clamped to the shard (once left >= right no step changes
+// anything, so a search stops there), CLOSE_ROWS rows of a thread searched
+// side by side so that their dependent shard reads overlap; then each valid
+// row adds (1 << 32) + found to its slot's count, a 64-bit integer atomic
+// (the valid rows in the high word, the hits in the low one: exact in any
+// order).  Their found counts add up in `tally` (T sums, then T tickets; the
+// slot counts and `tally` are cleared on the stream before the launch).  The
+// tile's last block to finish folds the counts into acc: out = acc, + 0.0f
+// once where a valid row touched the slot, then + 1.0f once a hit, each a
+// __fadd_rn.  That is the plain stage's ordered add of found (0.0f or 1.0f)
+// bit for bit: f(x) = x + 1 and z(x) = x + 0 commute under round-to-nearest
+// (x + 1 is never -0, and z changes -0 only), and z(z(x)) = z(x); so no sort
+// and no float atomic (atom / red .add.f32 flushes subnormals).  acc stays
+// a fresh output, copied slot by slot in that pass.
+// ---------------------------------------------------------------------------
+constexpr int CLOSE_ROWS = 4;        // searches a thread keeps in flight
+constexpr float TWO24 = 16777216.0f;  // above it x + 1 no longer counts
+
+// x + 1.0f, h times, each rounded to nearest.  An integer in [-2^24, 2^24]
+// counts exactly up to 2^24 and stays there (2^24 + 1 rounds to 2^24);
+// other values step until they reach such an integer or a fixed point
+// (inf, NaN, a float too large for + 1 to change).
+__device__ inline float add_ones(float x, unsigned h) {
+  for (; h > 0; --h) {
+    if (fabsf(x) <= TWO24 && x == truncf(x)) {
+      const long long r = (long long)x + h;
+      return (float)(r < (long long)TWO24 ? r : (long long)TWO24);
+    }
+    const float y = __fadd_rn(x, 1.0f);
+    if (__float_as_int(y) == __float_as_int(x)) return x;
+    x = y;
   }
-  return left < end && ed[imin(imax(left, 0), e_chunk - 1)] == target;
+  return x;
 }
 
-// ---------------------------------------------------------------------------
-// Triangles leg 4 (the close leg).  queue_append of the close spills onto a
-// copy of the close queue; for each delivered (v, w): found = the closing
-// edge (v, w) is in v's sorted local segment; the ordered add of found (0 or
-// 1) into acc at v's slot (invalid rows: the trash slot), in row-order
-// chunks of FOLD_ADD_MAX_ROWS rows; work = the found count.  acc holds
-// integers below 2^24, so the adds are exact in any order;
-// the ordered add keeps the plain version's order all the same.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(LEG_THREADS)
-fused_close_leg_kernel(const int32_t* __restrict__ cq,
-                       const int32_t* __restrict__ cq_count,
+__global__ void __launch_bounds__(SPLIT_THREADS)
+fused_close_leg_kernel(int32_t* cq, const int32_t* __restrict__ cq_count,
                        const int32_t* __restrict__ sp,
                        const uint8_t* __restrict__ spv,
                        const int32_t* __restrict__ recv,
@@ -857,62 +910,110 @@ fused_close_leg_kernel(const int32_t* __restrict__ cq,
                        const int32_t* __restrict__ deg,
                        const int32_t* __restrict__ edge_dst,
                        const float* __restrict__ acc,
-                       int32_t* __restrict__ cq_out,
                        int32_t* __restrict__ cq_count_out,
                        float* __restrict__ acc_out,
                        int32_t* __restrict__ drops,
                        int32_t* __restrict__ found_out,
-                       int32_t* __restrict__ nspill_out, int cap_c, int S,
-                       int R, int v_chunk, int e_chunk, int steps) {
-  extern __shared__ __align__(16) unsigned char fold_smem[];
+                       int32_t* __restrict__ nspill_out,
+                       unsigned long long* slots, int* tally, int cap_c,
+                       int S, int R, int v_chunk, int e_chunk, int steps) {
   __shared__ int sm[33];
-  const int t = blockIdx.x;
+  __shared__ int s_last;
+  const int t = blockIdx.x, g = blockIdx.y, G = gridDim.y - 1;
   const int tid = threadIdx.x;
-  // close-spill re-queue
-  const int32_t* cqt = cq + (size_t)t * cap_c * 2;
-  int32_t* cqo = cq_out + (size_t)t * cap_c * 2;
-  for (int e = tid; e < cap_c * 2; e += blockDim.x) cqo[e] = cqt[e];
-  const size_t vt = (size_t)t * v_chunk;
-  repro::copy_slice(acc + vt, acc_out + vt, v_chunk);
-  __syncthreads();
-  const int c0 = cq_count[t];
-  const int nsp = repro::queue_append_block(
-      cqo, cap_c, 2, c0, sp + (size_t)t * S * 2, spv + (size_t)t * S, S, sm);
-  // the search of each row, inside the ordered add's row reader
+  if (g == G) {
+    // the close-spill re-queue, in place, and the counts
+    const int c0 = cq_count[t];
+    const int nsp = repro::queue_append_block(
+        cq + (size_t)t * cap_c * 2, cap_c, 2, c0, sp + (size_t)t * S * 2,
+        spv + (size_t)t * S, S, sm);
+    if (tid == 0) {
+      const int n_push = imin(nsp, imax(cap_c - c0, 0));
+      cq_count_out[t] = c0 + n_push;
+      drops[t] = nsp - n_push;
+      nspill_out[t] = nsp;
+    }
+    return;
+  }
   const int32_t* rc = recv + (size_t)t * R * 2;
   const uint8_t* rvt = rv + (size_t)t * R;
   const int32_t* ed = edge_dst + (size_t)t * e_chunk;
+  const size_t vt = (size_t)t * v_chunk;
+  unsigned long long* st = slots + vt;
+  const int r_lo = (int)((long long)g * R / G);
+  const int r_hi = (int)((long long)(g + 1) * R / G);
+  const int step = CLOSE_ROWS * (int)blockDim.x;
+  const auto probe = [&](int i) {
+    return ed[imin(imax(i, 0), e_chunk - 1)];
+  };
   int my_found = 0;
-  repro::ordered_add_rows_by(
-      acc_out + vt, 0, v_chunk, R, fold_smem,
-      [&](int i, int* s, float* v) {
-        int slot = v_chunk;
-        bool found = false;
-        if (rvt[i]) {
-          slot = repro::floor_mod(rc[2 * i], v_chunk);
-          const int lo = repro::floor_mod(ptr_start[vt + slot], e_chunk);
-          found = segment_contains(ed, e_chunk, lo, deg[vt + slot],
-                                   rc[2 * i + 1], steps);
+  for (int r0 = r_lo + tid; r0 < r_hi; r0 += step) {
+    int left[CLOSE_ROWS], right[CLOSE_ROWS], end[CLOSE_ROWS];
+    int target[CLOSE_ROWS], slot[CLOSE_ROWS];
+#pragma unroll
+    for (int u = 0; u < CLOSE_ROWS; ++u) {
+      const int r = r0 + u * (int)blockDim.x;
+      left[u] = right[u] = end[u] = target[u] = 0;
+      slot[u] = -1;  // invalid: counts nowhere
+      if (r < r_hi && rvt[r]) {
+        slot[u] = repro::floor_mod(rc[2 * r], v_chunk);
+        target[u] = rc[2 * r + 1];
+        left[u] = repro::floor_mod(ptr_start[vt + slot[u]], e_chunk);
+        right[u] = end[u] = repro::wrap_add(left[u], deg[vt + slot[u]]);
+      }
+    }
+    for (int s = 0; s < steps; ++s) {
+      bool busy = false;
+#pragma unroll
+      for (int u = 0; u < CLOSE_ROWS; ++u) {
+        if (left[u] < right[u]) {
+          const int mid = repro::floor_div(repro::wrap_add(left[u], right[u]),
+                                           2);
+          if (probe(mid) < target[u])
+            left[u] = repro::wrap_add(mid, 1);
+          else
+            right[u] = mid;
+          busy = true;
         }
-        my_found += found;
-        *s = slot;
-        *v = found ? 1.0f : 0.0f;
-      });
-  const int n_found = repro::block_sum(my_found, sm);
+      }
+      if (!busy) break;
+    }
+#pragma unroll
+    for (int u = 0; u < CLOSE_ROWS; ++u) {
+      if (slot[u] < 0) continue;
+      const bool found = left[u] < end[u] && probe(left[u]) == target[u];
+      my_found += found;
+      atomicAdd(st + slot[u], (1ULL << 32) + (found ? 1ULL : 0ULL));
+    }
+  }
+  __threadfence();  // this thread's slot counts, before the tile's ticket
+  const int part = repro::block_sum(my_found, sm);
   if (tid == 0) {
-    const int n_push = imin(nsp, imax(cap_c - c0, 0));
-    cq_count_out[t] = c0 + n_push;
-    drops[t] = nsp - n_push;
-    found_out[t] = n_found;
-    nspill_out[t] = nsp;
+    atomicAdd(&tally[t], part);
+    __threadfence();
+    s_last = atomicAdd(&tally[gridDim.x + t], 1) == G - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the tile's last block: every block's counts are in; fold them into acc
+  __threadfence();
+  if (tid == 0) found_out[t] = atomicAdd(&tally[t], 0);
+  for (int i = tid; i < v_chunk; i += blockDim.x) {
+    const unsigned long long c = __ldcg(st + i);
+    float x = acc[vt + i];
+    if (c != 0) x = add_ones(__fadd_rn(x, 0.0f), (unsigned)(c & 0xffffffffu));
+    acc_out[vt + i] = x;
   }
 }
 
-// Dynamic shared memory beside the kernels' static arrays: above 48 KiB in
-// all it needs the opt-in, so every launch that takes some sets it.
+// Dynamic shared memory beside the kernels' static arrays (a few hundred
+// bytes): above 48 KiB in all it needs the opt-in, a host call, so a launch
+// that takes more than SMEM_NO_OPT_IN sets it and the others skip the call.
+constexpr size_t SMEM_NO_OPT_IN = 40 * 1024;
+
 template <class K>
 cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem == 0) return cudaSuccess;
+  if (smem <= SMEM_NO_OPT_IN) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -939,7 +1040,7 @@ bool staging(size_t need, size_t bytes, void* scratch, size_t* smem,
 // Every instantiation of a leg kernel has the same signature.
 using Leg0Kernel = decltype(&fused_leg0_kernel<PAY_VALUE, POLICY_TRAFFIC, 2>);
 
-cudaError_t launch_leg0(Leg0Kernel kernel, int T, cudaStream_t stream,
+cudaError_t launch_leg0(Leg0Kernel kernel, int T, int G, cudaStream_t stream,
                         const void* frontier, const void* value,
                         const void* deg, const void* ptr_start, const void* rq,
                         const void* rq_count, const Downstream& down,
@@ -952,13 +1053,13 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, cudaStream_t stream,
   size_t smem;
   unsigned char* stage;
   const int eff = r_pop < cap_r ? r_pop : cap_r;
-  if (f_pop < 0 || r_pop < 0 ||
+  if (G < 1 || f_pop < 0 || r_pop < 0 ||
       !staging(leg0_stage_bytes(f_pop, eff), (size_t)stage_bytes, scratch,
                &smem, &stage))
     return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<T, LEG_THREADS, smem, stream>>>(
+  kernel<<<dim3(T, G + 1), LEG_THREADS, smem, stream>>>(
       static_cast<const uint8_t*>(frontier), static_cast<const float*>(value),
       static_cast<const int32_t*>(deg), static_cast<const int32_t*>(ptr_start),
       static_cast<const int32_t*>(rq), static_cast<const int32_t*>(rq_count),
@@ -1070,7 +1171,7 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
                      void* dyn_pops, void* npop, void* npush, void* scratch,
                      int T, int v_chunk, int e_chunk, int cap_r, int cap_u,
                      int f_pop, int r_pop, int u_pop, int max_t2, int plimit,
-                     int payload, int policy, long long stage_bytes,
+                     int payload, int policy, int G, long long stage_bytes,
                      void* stream) {
   Leg0Kernel kernel = nullptr;
   const bool traffic = policy == POLICY_TRAFFIC;
@@ -1095,7 +1196,7 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
                         {cap_u},
                         {u_pop}};
   return static_cast<int>(launch_leg0(
-      kernel, T, static_cast<cudaStream_t>(stream), frontier, value, deg,
+      kernel, T, G, static_cast<cudaStream_t>(stream), frontier, value, deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
       rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
       v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes));
@@ -1111,7 +1212,7 @@ int repro_fused_leg0_chain(
     void* npop, void* npush, void* scratch, int T, int v_chunk, int e_chunk,
     int cap_r, int cap1, int cap2, int cap3, int f_pop, int r_pop, int pop1,
     int pop2, int pop3, int max_t2, int plimit, int payload, int policy,
-    long long stage_bytes, void* stream) {
+    int G, long long stage_bytes, void* stream) {
   if (payload != PAY_PLACED) return static_cast<int>(cudaErrorInvalidValue);
   const Leg0Kernel kernel =
       policy == POLICY_TRAFFIC
@@ -1123,7 +1224,7 @@ int repro_fused_leg0_chain(
                         {cap1, cap2, cap3},
                         {pop1, pop2, pop3}};
   return static_cast<int>(launch_leg0(
-      kernel, T, static_cast<cudaStream_t>(stream), frontier, value, deg,
+      kernel, T, G, static_cast<cudaStream_t>(stream), frontier, value, deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
       rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
       v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes));
@@ -1284,29 +1385,36 @@ int repro_fused_wedge_leg(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Leg 4 of triangles: close re-queue, the search and the ordered add (in
-// chunks of FOLD_ADD_MAX_ROWS rows).
+// Leg 4 of triangles, over a grid (T, G + 1): the close spills append to cq
+// in place; the search and the fold of the hits by slot counts.  `scratch`
+// starts with T * v_chunk slot counts (64 bits each), then the G blocks'
+// found sums and tickets (2 T ints), cleared on the stream first.
 int repro_fused_close_leg(
-    const void* cq, const void* cq_count, const void* sp, const void* spv,
+    void* cq, const void* cq_count, const void* sp, const void* spv,
     const void* recv, const void* rv, const void* ptr_start, const void* deg,
-    const void* edge_dst, const void* acc, void* cq_out, void* cq_count_out,
-    void* acc_out, void* drops, void* found, void* nspill, int T, int cap_c,
-    int S, int R, int v_chunk, int e_chunk, int steps, void* stream) {
-  const size_t smem = repro::ordered_add_smem(R);
-  const cudaError_t e = allow_smem(fused_close_leg_kernel, smem);
+    const void* edge_dst, const void* acc, void* cq_count_out, void* acc_out,
+    void* drops, void* found, void* nspill, void* scratch, int T, int cap_c,
+    int S, int R, int v_chunk, int e_chunk, int steps, int G, void* stream) {
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t nslots = (size_t)T * v_chunk;
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0, nslots * sizeof(unsigned long long) + 2 * T * sizeof(int),
+      st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_close_leg_kernel<<<T, LEG_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cq), static_cast<const int32_t*>(cq_count),
+  unsigned long long* slots = static_cast<unsigned long long*>(scratch);
+  fused_close_leg_kernel<<<dim3(T, G + 1), SPLIT_THREADS, 0, st>>>(
+      static_cast<int32_t*>(cq), static_cast<const int32_t*>(cq_count),
       static_cast<const int32_t*>(sp), static_cast<const uint8_t*>(spv),
       static_cast<const int32_t*>(recv), static_cast<const uint8_t*>(rv),
       static_cast<const int32_t*>(ptr_start),
       static_cast<const int32_t*>(deg),
       static_cast<const int32_t*>(edge_dst), static_cast<const float*>(acc),
-      static_cast<int32_t*>(cq_out), static_cast<int32_t*>(cq_count_out),
-      static_cast<float*>(acc_out), static_cast<int32_t*>(drops),
-      static_cast<int32_t*>(found), static_cast<int32_t*>(nspill), cap_c, S,
-      R, v_chunk, e_chunk, steps);
+      static_cast<int32_t*>(cq_count_out), static_cast<float*>(acc_out),
+      static_cast<int32_t*>(drops), static_cast<int32_t*>(found),
+      static_cast<int32_t*>(nspill), slots,
+      reinterpret_cast<int*>(slots + nslots), cap_c, S, R, v_chunk, e_chunk,
+      steps);
   return static_cast<int>(cudaGetLastError());
 }
 

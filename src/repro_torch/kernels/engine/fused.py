@@ -4,12 +4,14 @@
 The reference's ``fused_leg_call(fn, *operands)`` makes the per-tile
 stage ``fn`` itself the body of one ``pallas_call``.  Here each leg of the
 repository's programs is a hand-written CUDA kernel
-(``csrc/fused_legs.cu``), templated on the :class:`LegTemplate`: leg 0
-and the close leg run one block per tile; the scan legs, the wedge leg and
-the fold legs run G blocks per tile (messages and live rows, wedges and
-live rows, or column ranges of the slice: :func:`~repro_torch.kernels.
-engine.kernel.column_split`) and one more for the append (the wedge leg:
-two, its append and its pop).
+(``csrc/fused_legs.cu``), templated on the :class:`LegTemplate`, over a
+grid of G blocks a tile and one or two more: leg 0's G blocks move the
+range queue's old live rows while one more takes the frontier; the scan
+legs' share messages and live rows, the wedge leg's wedges and live rows,
+the close leg's the searched rows, the fold legs' column ranges of the
+slice (:func:`~repro_torch.kernels.engine.kernel.column_split`); one more
+block a tile appends the spills (the wedge leg: two, its append and its
+pop).
 Leg ``i`` of a K-channel program is channel ``i - 1``'s handler plus
 channel ``i``'s ingest (leg 0: the source plus channel 0's ingest; leg K:
 channel K-1's handler):
@@ -18,8 +20,8 @@ channel K-1's handler):
 wrapper                   one launch computes, per tile
 ========================  ===============================================
 :func:`fused_leg0`        TSU budgets, T4 frontier pop and payload, range-
-                          queue turn, T1 range split, remainder re-push
-                          (classic and k-core leg 0)
+                          queue turn (live rows), T1 range split, remainder
+                          re-push (classic and k-core leg 0)
 :func:`fused_leg1`        range-spill re-queue, T2 scan (resident gather or
                           streamed windows) and emit, update-queue replay
                           turn, replay + fresh rows into the messages
@@ -39,8 +41,9 @@ wrapper                   one launch computes, per tile
                           remainder re-push
 :func:`fused_tri_leg3`    leg 1 on width-4 messages emitting ``(v, nb)``,
                           valid iff ``nb > u``; close-queue replay
-:func:`fused_tri_leg4`    close-spill re-queue, bounded binary search of the
-                          closing edge, ordered add of the hits into ``acc``
+:func:`fused_tri_leg4`    close-spill re-queue (in place), bounded binary
+                          search of the closing edge, the hits added into
+                          ``acc`` by slot counts
 ========================  ===============================================
 
 :data:`LEGS` names each program family's wrappers, leg by leg
@@ -60,22 +63,24 @@ as the reference's fused round.
 The kernels write what the plain stage writes where the reference
 defines it: every queue row below its count, every valid message row,
 every other output.  Two kinds of don't-care element differ.  A queue that
-a scan or wedge leg turns holds its live rows only: its slots from the
-new count on are left unwritten (the plain stage's shift keeps stale rows
-there).  And the popped message rows past the pop, which are invalid, hold
-0 (the plain stage keeps the stale queue rows).  No consumer reads either:
-``tests/test_torch_dont_care.py`` poisons both after every plain stage
-and the runs keep every bit.  Four legs append their spills in place onto
-the queue the previous leg of the same round made fresh (leg 1: the range
-queue; leg 2 and k-core's leg 2: the update queue; the wedge leg: the
-wedge queue): the returned state's queue shares that storage.
+leg 0, a scan leg or the wedge leg turns holds its live rows only: its
+slots from the new count on are left unwritten (the plain stage's shift
+keeps stale rows there).  And the popped message rows past the pop, which
+are invalid, hold 0 (the plain stage keeps the stale queue rows).  No
+consumer reads either: ``tests/test_torch_dont_care.py`` poisons both
+after every plain stage and the runs keep every bit.  Five legs append
+their spills in place onto the queue the previous leg of the same round
+made fresh (leg 1: the range queue; leg 2 and k-core's leg 2: the update
+queue; the wedge leg: the wedge queue; the close leg: the close queue):
+the returned state's queue shares that storage.
 
 Past what shared memory holds, each kernel takes a second path with the
 same bits (``path`` on the wrapper names the last launch's): leg 0 and the
 wedge leg stage their popped rows in a device-memory scratch past
-``STAGE_SMEM_MAX`` bytes, the add folds sort in row-order chunks of
-``FOLD_ADD_MAX_ROWS`` rows, and a streamed scan leg reads a window wider
-than ``STREAM_MAX_WINDOW`` from device memory.
+``STAGE_SMEM_MAX`` bytes, the add folds of leg 2 sort in row-order chunks
+of ``FOLD_ADD_MAX_ROWS`` rows, and a streamed scan leg reads a window
+wider than ``STREAM_MAX_WINDOW`` from device memory.  The close leg sorts
+nothing and has one path at any row count (:data:`CLOSE_PATH`).
 """
 from __future__ import annotations
 
@@ -96,14 +101,14 @@ from repro_torch.kernels.engine.launches import record
 _L = ctypes.c_longlong  # a staging's bytes a tile
 SOURCE = CSRC / "fused_legs.cu"
 LIBRARY = CudaLibrary(SOURCE, {
-    "repro_fused_leg0": [_P] * 18 + [_I] * 12 + [_L, _P],
-    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 16 + [_L, _P],
+    "repro_fused_leg0": [_P] * 18 + [_I] * 13 + [_L, _P],
+    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 17 + [_L, _P],
     "repro_fused_leg1": [_P] * 22 + [_I] * 11 + [_P],
     "repro_fused_leg1_chain": [_P] * 22 + [_I] * 12 + [_P],
     "repro_fused_leg2": [_P] * 14 + [_I] * 8 + [_P],
     "repro_fused_kcore_leg2": [_P] * 16 + [_I] * 8 + [_P],
     "repro_fused_wedge_leg": [_P] * 22 + [_I] * 12 + [_L, _P],
-    "repro_fused_close_leg": [_P] * 16 + [_I] * 7 + [_P],
+    "repro_fused_close_leg": [_P] * 16 + [_I] * 8 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
 
@@ -121,17 +126,37 @@ def _pad16(n: int) -> int:
 
 def leg0_stage_bytes(f_pop: int, eff: int) -> int:
     """Leg 0's staging a tile (csrc/fused_legs.cu ``leg0_stage_bytes``):
-    the f_pop popped slots and compacted rows, max(f_pop, eff) rows of 3
-    and their flags, the eff popped tasks of 3."""
-    n = max(f_pop, eff)
-    return (2 * _pad16(4 * f_pop) + _pad16(12 * n) + _pad16(12 * eff)
-            + _pad16(n))
+    the f_pop popped slots and compacted rows of 3, the eff popped tasks of
+    3 and their remainder flags."""
+    return (_pad16(4 * f_pop) + _pad16(12 * f_pop) + _pad16(12 * eff)
+            + _pad16(eff))
 
 
 def wedge_stage_bytes(eff: int) -> int:
     """The wedge leg's staging a tile (``wedge_stage_bytes``): the eff
     popped tasks of 4 and their remainder flags."""
     return _pad16(16 * eff) + _pad16(eff)
+
+
+# The range-queue rows one of leg 0's G blocks may have to move: 32,768
+# rows of 12 bytes take each of its 1,024 threads 24 steps of 4 moves,
+# about the source block's own chain.  A grid of more 1,024-thread blocks
+# than the SMs hold at once runs in waves, so the main paths' queues
+# (2,048 and 32,768 rows) take one block.
+LEG0_BLOCK_ROWS = 32768
+
+
+def leg0_split(T: int, cap_r: int, dev) -> int:
+    """Leg 0's G blocks a tile that move the range queue's old live rows:
+    one per LEG0_BLOCK_ROWS rows of its capacity, at most the column
+    split's."""
+    return max(1, min(device_split(T, cap_r, dev).G,
+                      -(-cap_r // LEG0_BLOCK_ROWS)))
+
+
+def close_split(T: int, R: int, dev):
+    """The close leg's G blocks a tile: the column split of its R rows."""
+    return device_split(T, R, dev)
 
 
 def scan_split(T: int, R: int, max_t2: int, dev):
@@ -230,17 +255,18 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
     i32 = dict(dtype=torch.int32, device=dev)
     frontier = torch.empty_like(st.frontier)
     qdata = torch.empty_like(rq.data)
-    qcount = torch.empty_like(rq.count)
     msgs = torch.empty((T, eff, 3), **i32)
     mvalid = torch.empty((T, eff), dtype=torch.bool, device=dev)
-    counts = torch.empty((3, T), **i32)  # drops, npop, npush
-    dyn_pops = torch.empty((T, K), **i32)
+    # the queue count, drops, npop, npush and dyn_pops in one allocation
+    ints = torch.empty((4 + K) * T, **i32)
+    qcount, counts = ints[:T], ints[T:4 * T].view(3, T)
+    dyn_pops = ints[4 * T:].view(T, K)
     ins = (st.frontier, st.value, sh.deg, sh.ptr_start, rq.data, rq.count)
     outs = (st.net_pressure, frontier, qdata, qcount, msgs, mvalid,
             counts[0], dyn_pops, counts[1], counts[2], scratch, T, v_chunk,
             e_chunk, cap_r)
     codes = (tmpl.max_t2, tmpl.plimit, _code(PAYLOADS, tmpl.payload),
-             _code(POLICIES, tmpl.policy), nbytes)
+             _code(POLICIES, tmpl.policy), leg0_split(T, cap_r, dev), nbytes)
     if K == 2:
         uq = queues[1]
         _launch("repro_fused_leg0", *ins, uq.count, *outs, uq.data.shape[1],
@@ -518,6 +544,10 @@ def fused_tri_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv,
             counts[6])
 
 
+# the close leg's one path: its hits folded by slot counts, at any R
+CLOSE_PATH = "slot counts"
+
+
 def search_steps(e_chunk: int) -> int:
     """The close fold's binary-search steps: ``max(1, bit_length(e_chunk))``
     (program.py ``_segment_contains``)."""
@@ -525,11 +555,14 @@ def search_steps(e_chunk: int) -> int:
 
 
 def fused_tri_leg4(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
-    """Leg 4 of a triangles round: close-spill re-queue; for each delivered
-    ``(v, w)`` whether the closing edge is in v's sorted local segment;
-    the ordered add of the hits into ``acc`` at v's slot.  Returns
-    ``(state, drops, found, nspill)``; the close queue and ``acc`` are
-    new."""
+    """Leg 4 of a triangles round: close-spill re-queue (in place, onto the
+    close queue leg 3 made); for each delivered ``(v, w)`` whether the
+    closing edge is in v's sorted local segment; the hits added into
+    ``acc`` at v's slot, as the plain stage's ordered add, by counts of
+    each slot's valid rows and hits (no sort: its addends are 0.0 and 1.0,
+    whose adds commute); over a grid (T, G + 1) (:func:`close_split`).
+    Returns ``(state, drops, found, nspill)``; ``acc`` is new, queue 3 the
+    one it was given, with the spills appended."""
     if _on_cpu(st):
         record()
         return plain(me, sh, st, recv, rv, sp, spv)
@@ -544,17 +577,22 @@ def fused_tri_leg4(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
            ("deg", sh.deg, torch.int32, (T, v_chunk)),
            ("edge_dst", sh.edge_dst, torch.int32, (T, e_chunk)),
            ("acc", st.acc, torch.float32, (T, v_chunk)))
-    cdata = torch.empty_like(cq.data)
-    counts = torch.empty((4, T), dtype=torch.int32, device=cq.data.device)
-    # queue count, drops, found, nspill
+    dev = cq.data.device
     acc = torch.empty_like(st.acc)
+    # each slot's counts (two words), the G blocks' found sums and tickets
+    # (the launch clears these), then the queue count, drops, found and
+    # nspill
+    scratch = torch.empty(2 * T * (v_chunk + 3), dtype=torch.int32,
+                          device=dev)
+    counts = scratch[2 * T * (v_chunk + 1):].view(4, T)
     _launch("repro_fused_close_leg", cq.data, cq.count, sp, spv, recv, rv,
-            sh.ptr_start, sh.deg, sh.edge_dst, st.acc, cdata, counts[0], acc,
-            counts[1], counts[2], counts[3], T, cap_c, S, R, v_chunk,
-            e_chunk, search_steps(e_chunk))
-    _count("fused_tri_leg4", add_chunks(R))
+            sh.ptr_start, sh.deg, sh.edge_dst, st.acc, counts[0], acc,
+            counts[1], counts[2], counts[3], scratch, T, cap_c, S, R,
+            v_chunk, e_chunk, search_steps(e_chunk),
+            close_split(T, R, dev).G)
+    _count("fused_tri_leg4", CLOSE_PATH)
     record()
-    st = _with_queues(st._replace(acc=acc), 3, Queue(cdata, counts[0]))
+    st = _with_queues(st._replace(acc=acc), 3, Queue(cq.data, counts[0]))
     return st, counts[1], counts[2], counts[3]
 
 
@@ -567,12 +605,13 @@ for _k in KERNELS:
 _WRAPPERS = {k.__name__: k for k in KERNELS}
 
 # Each fused leg's queue that it appends its spills onto in place (the one
-# the previous leg of the round made), and the spill queue it turns keeping
-# its live rows only (its popped message rows past the pop: 0).
+# the previous leg of the round made), and the queue it turns keeping its
+# live rows only (its popped message rows past the pop: 0).
 IN_PLACE = {"fused_leg1": 0, "fused_leg2": 1, "fused_kcore_leg2": 1,
-            "fused_tri_leg1": 0, "fused_tri_leg2": 1, "fused_tri_leg3": 2}
-LIVE_TURN = {"fused_leg1": 1, "fused_tri_leg1": 1, "fused_tri_leg2": 2,
-             "fused_tri_leg3": 3}
+            "fused_tri_leg1": 0, "fused_tri_leg2": 1, "fused_tri_leg3": 2,
+            "fused_tri_leg4": 3}
+LIVE_TURN = {"fused_leg0": 0, "fused_tri_leg0": 0, "fused_leg1": 1,
+             "fused_tri_leg1": 1, "fused_tri_leg2": 2, "fused_tri_leg3": 3}
 STATE_SLICES = ("value", "acc", "frontier", "next_frontier", "net_pressure")
 
 

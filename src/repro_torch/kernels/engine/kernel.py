@@ -127,8 +127,10 @@ def column_split(nb: int, b: int, sms: int) -> Split:
     return Split(max(1, -(-b // step)), step)
 
 
+@functools.lru_cache(maxsize=None)
 def device_split(nb: int, b: int, dev) -> Split:
-    """:func:`column_split` over the SMs of CUDA device ``dev``."""
+    """:func:`column_split` over the SMs of CUDA device ``dev`` (kept per
+    shape: the legs' wrappers ask for it every call)."""
     return column_split(nb, b, _sm_count(torch.device(dev).index or 0))
 
 
@@ -289,9 +291,11 @@ def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
 
     Pass ``k`` adds every row that is the k-th of its slot (its rank from
     :func:`occurrence_index`).  Within one pass no two rows share a slot,
-    so each ``scatter_add_`` is exact, with or without atomics, and the
-    passes together are the serial sum.  The rows of other passes go to a
-    spare column, which is dropped.
+    so each pass reads its slots, adds and writes them back, and the
+    passes together are the serial sum.  No float atomic adds (CUDA's
+    flush subnormal inputs and results to zero; the kernels' adds do
+    not).  The rows of other passes go to a spare column, which is
+    dropped.
     """
     T, n = target.shape
     live = (idx >= 0) & (idx < n)
@@ -299,8 +303,8 @@ def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
     ext = torch.cat([target, target.new_zeros((T, 1))], dim=1)
     for k in range(int(occ.max()) + 1 if occ.numel() else 0):
         hit = occ == k
-        ext.scatter_add_(1, torch.where(hit, idx, n).to(torch.int64),
-                         torch.where(hit, vals, 0.0))
+        at = torch.where(hit, idx, n).to(torch.int64)
+        ext.scatter_(1, at, ext.gather(1, at) + torch.where(hit, vals, 0.0))
     return ext[:, :n].contiguous()
 
 

@@ -1,9 +1,12 @@
 """The don't-care elements of the fused legs: nothing reads them.
 
-The scan legs and the wedge leg (``kernels/engine/fused.py``) leave a
-turned queue's slots from its count on unwritten, and write 0 into the
-popped message rows past the pop, where their plain stages keep the
-reference's stale rows.  The reference's ``fifo_turn`` makes both
+Leg 0 (its range queue's live-row turn), the scan legs and the wedge leg
+(``kernels/engine/fused.py``) leave a turned queue's slots from its count
+on unwritten, and write 0 into the popped message rows past the pop,
+where their plain stages keep the reference's stale rows; the legs that
+append in place (leg 1, leg 2, the wedge leg and the close leg) write
+their spills after the count of a queue whose slots past it are the
+previous leg's don't-care.  The reference's ``fifo_turn`` makes both
 don't-care (``src/repro/kernels/engine/kernel.py:95-121``).  Here the
 fused engine's plain stages run with every queue slot past its count and
 every invalid message row poisoned after each leg, and every value and

@@ -252,20 +252,21 @@ def write_appended(q_in, q_out):
 
 # app, or app:wrapper for the legs other than leg 2 that append in place:
 # leg 1 onto the range queue (and triangles' leg 3 onto the range2 queue),
-# the wedge leg onto the wedge queue
+# the wedge leg onto the wedge queue, the close leg onto the close queue
 IN_PLACE_CASES = ["bfs", "bfs_bsp", "spmv", "kcore5", "sssp:fused_leg1",
                   "kcore5:fused_leg1", "triangles:fused_tri_leg1",
-                  "triangles:fused_tri_leg2", "triangles:fused_tri_leg3"]
+                  "triangles:fused_tri_leg2", "triangles:fused_tri_leg3",
+                  "triangles:fused_tri_leg4"]
 
 
 @pytest.mark.parametrize("app", IN_PLACE_CASES)
 def test_leg2_stage_appending_in_place_is_idempotent(monkeypatch,
                                                      twin_graph, app):
     """At every call with spills of a leg that appends in place (leg 2 by
-    default; leg 1, the triangles legs 1 and 3 and the wedge leg where the
-    case names them) in a fused run on the twin's R-MAT-10 over 16 tiles
-    (triangles: symmetrized R-MAT-8; the tight knobs), the plain stage's
-    appended rows, written into its
+    default; leg 1, the triangles legs 1 and 3, the wedge leg and the
+    close leg where the case names them) in a fused run on the twin's
+    R-MAT-10 over 16 tiles (triangles: symmetrized R-MAT-8; the tight
+    knobs), the plain stage's appended rows, written into its
     input queue as the kernel writes them, make that queue the stage's own
     output queue, don't-care slots included; the stage run again on the
     same operands gives every output of the first run, bitwise

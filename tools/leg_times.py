@@ -4,7 +4,7 @@ checkout, so that two checkouts compare in one call on one card.
 
     python3 tools/leg_times.py [--src DIR] [--spin CYCLES]
         [--short-spin CYCLES] [--paths BFS,SpMV,BFS-hbm,k-core,triangles]
-        [--out FILE]
+        [--variants DIR[,DIR...]] [--out FILE]
 
 ``--src`` is the root of a checkout (default: this one), e.g. a parent
 unpacked by ``git archive`` under ``build/``.  The tool imports that
@@ -21,9 +21,18 @@ enqueues the launch.  The kernel is timed under ``--spin`` clock cycles
 host dispatch, so ``ms`` is device time) and under ``--short-spin``
 (default 200,000, ~0.1 ms: ``short_spin_ms`` adds what is left of a host
 dispatch that outlasts it); ``host_ms`` and ``short_host_ms`` are the
-median host times of the wrapper's calls under each, and ``plain_ms`` the
-plain stage's time under the long spin.  Prints one JSON line a leg and
-call (and appends them to ``--out``).  Needs a CUDA device.
+median host times of the wrapper's calls under each, ``host_loop_ms`` the
+median over HOST_BATCHES batches of HOST_REPS calls back to back of the
+host time a call (the device keeps up, so this is the wrapper's own host
+work, with no spin between calls), and ``plain_ms`` the plain stage's
+time under the long spin.  ``--variants`` names directories
+that each hold another version of the checkout's ``csrc/fused_legs.cu``
+beside copies of its headers (the same launchers, e.g. a leg with one of
+its phases run twice, to read what that phase costs): each leg is then
+also timed with the library built from each of them, on the same operands,
+after its outputs are held against the plain stage as the checkout's
+are (``variant`` names the directory).  Prints one JSON line a leg, call
+and build (and appends them to ``--out``).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,8 +41,12 @@ import importlib
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+
+
+HOST_BATCHES, HOST_REPS = 7, 200
 
 
 def main():
@@ -42,6 +55,7 @@ def main():
     ap.add_argument("--spin", type=int, default=1_000_000)
     ap.add_argument("--short-spin", type=int, default=200_000)
     ap.add_argument("--paths", default="BFS,SpMV,BFS-hbm,k-core,triangles")
+    ap.add_argument("--variants", default="")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     root = Path(args.src).resolve()
@@ -77,6 +91,21 @@ def main():
             times.append(a.elapsed_time(b))
         return float(np.median(times)), float(np.median(host))
 
+    def host_loop(fn):
+        """Median host ms a call of ``fn`` over HOST_BATCHES batches of
+        HOST_REPS calls back to back."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(HOST_BATCHES):
+            h0 = time.perf_counter()
+            for _ in range(HOST_REPS):
+                fn()
+            per.append((time.perf_counter() - h0) * 1e3 / HOST_REPS)
+            torch.cuda.synchronize()
+        return float(np.median(per))
+
     class Untimed:
         """The checkout's Timer, replaced: its times are this tool's."""
 
@@ -86,17 +115,45 @@ def main():
         def reading(self, fn, spin=None):
             return dict(ms=float("nan"), host_ms=float("nan"))
 
+    from repro_torch.kernels.cuda_build import CudaLibrary
+    F = cs.F
+    variants = {}  # directory: the fused-leg library built from it
+    for d in filter(None, args.variants.split(",")):
+        d = Path(d).resolve()
+        variants[str(d)] = CudaLibrary(
+            d / F.SOURCE.name, F.LIBRARY.signatures,
+            headers=tuple(d / h.name for h in F.LIBRARY.headers))
+    builds = [threading.Thread(target=lib.get) for lib in variants.values()]
+    for b in builds:  # one nvcc each, all started together
+        b.start()
+    for b in builds:
+        b.join()
     checkout_time_legs = cs.time_legs
+
+    def time_leg(c, leg):
+        c["ms"], c["host_ms"] = reading(leg, args.spin)
+        c["short_spin_ms"], c["short_host_ms"] = reading(leg,
+                                                         args.short_spin)
 
     def time_legs(chk, _timer, where):
         calls = checkout_time_legs(chk, Untimed(), where)
-        for c in calls:
-            real, tmpl, plain, ops, _ = chk.last[c["kernel"]]
+        for c in list(calls):
+            name = c["kernel"]
+            real, tmpl, plain, ops, _ = chk.last[name]
             leg = lambda: real(tmpl, plain, *ops)  # noqa: E731
-            c["ms"], c["host_ms"] = reading(leg, args.spin)
-            c["short_spin_ms"], c["short_host_ms"] = reading(
-                leg, args.short_spin)
+            time_leg(c, leg)
+            c["host_loop_ms"] = host_loop(leg)
             c["plain_ms"] = reading(lambda: plain(*ops), args.spin)[0]
+            for d, lib in variants.items():
+                F._launch = lib.launch
+                try:
+                    cs.check_leg(name, tmpl, ops, leg(), plain(*ops),
+                                 f"{d} {name}")
+                    v = dict(c, variant=d)
+                    time_leg(v, leg)
+                    calls.append(v)
+                finally:
+                    F._launch = F.LIBRARY.launch
         return calls
 
     cs.time_legs = time_legs
