@@ -16,14 +16,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. ``kernels`` — each of the eight standalone kernels against its plain
    PyTorch version on the same CUDA tensors, at the main paths' shapes
    plus the edge cases of the CPU sweeps: bitwise equal on every output
-   element, except ``spmv_block_ell``, whose sums run in another order
+   element, except ``queue_push_pop``, whose turned queue is compared
+   below its count (``turn_contract``: the kernel keeps live rows only),
+   and ``spmv_block_ell``, whose sums run in another order
    (``rtol = atol = 1e-4``; two of its calls bitwise equal; timed beside
    cuSPARSE's CSR product and, where PyTorch takes it, a BSR tensor of the
    same blocks).  Prints each kernel's time (CUDA events,
    median of 25 launches with the L2 cache flushed before each, behind a
    device spin that hides the wrapper's host dispatch), its
-   plain version's time, its bound (bytes moved over 3.35 TB/s) and,
-   where one PyTorch call computes the same function, that call's time;
+   plain version's time, its bound (bytes moved over 3.35 TB/s;
+   ``queue_push_pop``: its live rows, with the whole-queue bound and the
+   live share beside it) and, where one PyTorch call computes the same
+   function, that call's time;
 3. ``twin`` — R-MAT scale 10 over 16 tiles, ``backend="torch"`` against
    ``backend="kernels"``: values and Stats bitwise equal (but
    ``launches``), and equal to (or within the reference's tolerance of)
@@ -77,7 +81,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (``fuse=False``: BFS, BFS with the shard streamed through
    ``edge_scan_stream``, SpMV, PageRank; five kernel calls a round)
    against the oracles; PageRank runs 5 iterations (the depth is cut from
-   the reference's 20 for chip time only);
+   the reference's 20 for chip time only); the two ``queue_push_pop``
+   turns of BFS round ``R18_TURN_ROUND`` are held against ``fifo_turn``
+   and timed at the operands the engine gave them;
 9. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
    flash kernel against its plain version (K/V repeated, blockwise scan)
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
@@ -127,8 +133,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    oracle (the reference's 3e-4) on the reference's sweep, a non-zero
    state0, a state carried across two calls, S = 16 (one chunk), every dt
    at the clip, dt -> 0, chunk 32 with an upper triangle that overflows
-   float32, and the prefill shape (B 4, S 2048, 80 heads, P 64, N 64),
-   timed at the latter (no PyTorch call computes SSD: no library time).
+   float32, ragged tiles (chunks of 1, 5, 8 and 24 steps, S = 8 < chunk),
+   and the prefill shape (B 4, S 2048, 80 heads, P 64, N 64), timed at the
+   latter (no PyTorch call computes SSD: no library time; bound: bytes, or
+   the products in 3xTF32 on the tensor cores plus the rest in float32,
+   with the all-float32 bound beside it); every instance of the built
+   SSD library must hold HMMA (tensor-core) instructions
+   (``cuobjdump -sass``).
    The flash kernel at hd 80 against its plain version in float32 and
    bfloat16 (S = 8, 200, 208, 256, 512; windows 64, 128 and 4096),
    timed at zamba2's prefill shape (B 4, S 2048, 32 / 32 heads) with SDPA
@@ -159,6 +170,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -278,6 +290,9 @@ TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
 SEG_CAP = 4096        # updates per bin and round of the binned scatter
 SEG_EDGE_B = 2050     # b of the column-range edge case: G = 5, b % 4 == 2
 PR_SCALE, PR_ITERS = 18, 5
+# the unfused R-MAT-18 BFS round whose two queue_push_pop turns are timed
+# at the engine's operands (of about 1,000 rounds)
+R18_TURN_ROUND = 500
 INF32 = float(np.finfo(np.float32).max)
 REPS = 25
 # the Timer's spin before each timed launch: ~0.5 ms at the H100's clocks,
@@ -334,6 +349,7 @@ LM_RAGGED_P, LM_REFUSED_P = 200, 600
 # S = 8 (C = S), every decay at the clip and at no decay, and the prefill
 # shape (timed).  w_log None draws clip(-exp(0.5 N(0, 1))), as the sweep.
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 (NVIDIA data sheet)
 RWKV_ARCH = "rwkv6-1.6b"
 WKV_SWEEP = (
     (2, 128, 3, 16, 16, None, False), (1, 64, 2, 32, 32, None, False),
@@ -371,7 +387,23 @@ SSD_SWEEP = (
     (1, 16, 2, 64, 64, 16, None, None, False),
     (2, 64, 3, 32, 16, 16, 2.0, 10.0, False),
     (1, 64, 2, 32, 16, 16, None, 1e-5, False),
-    (1, 64, 2, 16, 8, 32, 2.0, 10.0, False))
+    (1, 64, 2, 16, 8, 32, 2.0, 10.0, False),
+    # ragged tiles (the kernel pads a chunk to 8-step tiles): chunks of 1,
+    # 5 and 8 steps and S = 8 < chunk, at (P, N) = (16, 8) and (64, 64), H
+    # not a multiple of a block's heads; then three tiles (chunk 24)
+    (2, 16, 3, 16, 8, 1, None, None, False),
+    (2, 40, 3, 16, 8, 5, None, None, True),
+    (2, 64, 3, 16, 8, 8, None, None, False),
+    (2, 8, 3, 16, 8, 16, None, None, True),
+    (1, 16, 3, 64, 64, 1, None, None, True),
+    (1, 40, 3, 64, 64, 5, None, None, False),
+    (1, 64, 3, 64, 64, 8, None, None, True),
+    (1, 8, 3, 64, 64, 16, None, None, False),
+    (1, 48, 5, 32, 16, 24, None, None, True),
+    # zamba2's 80 heads, the last block of a batch row part idle, over more
+    # blocks than an H100 has SMs (135 and 140: a second wave)
+    (5, 64, 80, 64, 64, 16, None, None, True),
+    (10, 64, 80, 32, 16, 32, None, None, False))
 SSD_MAIN = (LM_B, LM_P, 80, 64, 64, 16, None, None, True)
 # y and the final state within SSD_REL_TOL of their largest magnitude
 # (the kernel and ssd_chunked sum in float32 in other orders); the
@@ -601,13 +633,55 @@ def queue_inputs(rng, T, cap, w, m, max_n, dev, full_rows=False):
     return [rng_tensor(rng, a, dev) for a in (data, count, rows, valid, n)]
 
 
+def turn_bytes(args, out, max_n) -> int:
+    """Bytes a live-row turn must move: per tile, the rows of the
+    appended queue that it reads (the first max(max_n, n_pop + count')),
+    the turned queue's live rows and the taken rows written, the valid
+    and taken_valid flags and the four counts."""
+    data, count, rows, valid, n = args
+    w = data.shape[2]
+    n_pop = out[1].sum(dim=1)
+    ncount = out[3].long()
+    read = torch.clamp(n_pop + ncount, min=max_n)
+    T, m = valid.shape
+    return int(4 * w * (read + ncount + max_n).sum()) + T * (m + max_n + 16)
+
+
+def turn_call(label, args, out, max_n, timer) -> dict:
+    """One turn held against its plain version by ``turn_contract`` and
+    timed: the live-row bound, the whole-queue bound of the earlier
+    design (every input read and every output written whole) and the
+    turned queue's live share of its capacity."""
+    err = max_abs_err(K.turn_contract(out),
+                      K.turn_contract(K.fifo_turn(*args, max_n)))
+    T, cap, w = args[0].shape
+    return dict(
+        call=label, shape=[T, cap, w], max_abs_err=err,
+        G=K.device_split(T, cap, args[0].device).G,
+        ms=timer.ms(lambda: K.queue_push_pop(*args, max_n)),
+        plain_ms=timer.ms(lambda: K.fifo_turn(*args, max_n)),
+        bound_ms=bound_ms(turn_bytes(args, out, max_n)),
+        whole_bound_ms=bound_ms(nbytes(*args, *out)),
+        live_share=float(out[3].sum()) / (T * cap))
+
+
 def check_queue_push_pop(rng, dev, timer):
-    # the last: 16,448 fresh rows, 64 KiB of indices (past the 48 KiB of
-    # shared memory a block gets without opting in)
+    """The live-row turn against fifo_turn (``turn_contract``: the turned
+    queue below its count, the other outputs whole) on the edge cases, 16,448
+    fresh rows (past the 48 KiB of shared memory a block gets without opting
+    in) and 65,536 (past STAGE_SMEM_MAX: the device scratch); then the two
+    calls of a main-path round on drawn operands (counts uniform in [0,
+    cap]), timed."""
     for T, cap, w, m, max_n in ((3, 16, 3, 8, 6), (4, 8, 2, 8, 8),
-                                (2, 32, 4, 1, 8), (3, 20000, 4, 16448, 32)):
+                                (2, 32, 4, 1, 8), (3, 20000, 4, 16448, 32),
+                                (2, 70000, 4, 65536, 64),
+                                (5, 3000, 5, 40, 16)):
         args = queue_inputs(rng, T, cap, w, m, max_n, dev, full_rows=True)
-        max_abs_err(K.queue_push_pop(*args, max_n), K.fifo_turn(*args, max_n))
+        out = K.queue_push_pop(*args, max_n)
+        max_abs_err(K.turn_contract(out),
+                    K.turn_contract(K.fifo_turn(*args, max_n)))
+        assert K.queue_push_pop.path == ("device scratch" if m == 65536
+                                         else "shared memory")
     cfg = MAIN_CFG
     calls = []
     # the two calls of a round: the range channel (fresh tasks) and the
@@ -616,15 +690,10 @@ def check_queue_push_pop(rng, dev, timer):
             ("range", cfg.cap_rangeq, 3, cfg.f_pop, cfg.r_pop, True),
             ("update", cfg.cap_updq, 2, 1, cfg.u_pop, False)):
         args = queue_inputs(rng, MAIN_T, cap, w, m, max_n, dev, fresh)
-        out = K.queue_push_pop(*args, max_n)
-        err = max_abs_err(out, K.fifo_turn(*args, max_n))
-        calls.append(dict(
-            call=label, shape=[MAIN_T, cap, w], max_abs_err=err,
-            ms=timer.ms(lambda: K.queue_push_pop(*args, max_n)),
-            plain_ms=timer.ms(lambda: K.fifo_turn(*args, max_n)),
-            bound_ms=bound_ms(nbytes(*args, *out))))
+        calls.append(turn_call(label, args, K.queue_push_pop(*args, max_n),
+                               max_n, timer))
     total = {key: sum(c[key] for c in calls)
-             for key in ("ms", "plain_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "bound_ms", "whole_bound_ms")}
     return dict(max_abs_err=max(c["max_abs_err"] for c in calls),
                 library_ms=None, calls=calls, **total)
 
@@ -993,7 +1062,8 @@ def phase_kernels(dev, timer):
         lib = "n/a" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
         agree = ("within rtol = atol = 1e-4 of" if name == "spmv_block_ell"
-                 else "bitwise equal to")
+                 else "bitwise (the turned queue below its count) equal to"
+                 if name == "queue_push_pop" else "bitwise equal to")
         log(f"# kernel {name}: {agree} its plain version; "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes), library {lib}")
@@ -1002,6 +1072,8 @@ def phase_kernels(dev, timer):
                 + (f", G = {c['G']}" if "G" in c else "")
                 + f": kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                 f"bound {c['bound_ms']:.4f} ms"
+                + (f" (whole queue {c['whole_bound_ms']:.4f} ms, live share "
+                   f"{c['live_share']:.4f})" if "live_share" in c else "")
                 + (f", library {c['library_ms']:.4f} ms ({c['library']})"
                    if "library" in c else ""))
     return rows
@@ -1955,9 +2027,33 @@ def phase_block(dev, smi):
     return launches
 
 
-def phase_rmat18(dev, smi):
+@contextlib.contextmanager
+def turn_operands(round_no: int, kept: list):
+    """Copies, into ``kept``, of the operands of the two ``queue_push_pop``
+    calls (range channel, update channel) of round ``round_no`` of the
+    run inside, as the engine makes them."""
+    real = E.queue_push_pop
+    calls = [0]
+
+    def spy(*a):
+        if calls[0] // 2 == round_no:
+            kept.append(([x.clone() for x in a[:5]], a[5]))
+        calls[0] += 1
+        return real(*a)
+
+    E.queue_push_pop = spy
+    try:
+        yield
+    finally:
+        E.queue_push_pop = real
+
+
+def phase_rmat18(dev, smi, timer):
     """R-MAT-18 over 64 tiles: the unfused paths (BFS, SpMV, and BFS with
-    the streamed shard through edge_scan_stream), then PageRank."""
+    the streamed shard through edge_scan_stream), then PageRank.  The two
+    turns of BFS round R18_TURN_ROUND are checked and timed at the
+    operands the engine gave them.  Returns (the paths' launch counts,
+    the turns' records)."""
     t0 = time.perf_counter()
     g, pg = build_graph(PR_SCALE, MAIN_T, dev)
     root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
@@ -1965,12 +2061,28 @@ def phase_rmat18(dev, smi):
     log(f"# R-MAT-{PR_SCALE} (V={g.num_vertices}, E={g.num_edges}) over "
         f"T={MAIN_T}, BFS root {root}: host build and oracle "
         f"{time.perf_counter() - t0:.1f} s")
-    paths = {}
-    res, paths["BFS"], _ = drive(
-        lambda: alg.bfs(pg, root, R18_CFGS["BFS"]), smi,
-        f"BFS R-MAT-{PR_SCALE} (unfused)",
-        {**UNFUSED_ROUND, "fold_scatter": 1})
+    paths, kept = {}, []
+    with turn_operands(R18_TURN_ROUND, kept):
+        res, paths["BFS"], _ = drive(
+            lambda: alg.bfs(pg, root, R18_CFGS["BFS"]), smi,
+            f"BFS R-MAT-{PR_SCALE} (unfused)",
+            {**UNFUSED_ROUND, "fold_scatter": 1})
     np.testing.assert_array_equal(res.values, oracle)
+    assert len(kept) == 2, len(kept)
+    turns = []
+    for label, (args, max_n) in zip(("range", "update"), kept):
+        out = K.queue_push_pop(*args, max_n)
+        turns.append(turn_call(
+            f"{label}, R-MAT-{PR_SCALE} BFS round {R18_TURN_ROUND}", args,
+            out, max_n, timer))
+        c = turns[-1]
+        log(f"# queue_push_pop at R-MAT-{PR_SCALE} BFS round "
+            f"{R18_TURN_ROUND}, {label} call {c['shape']}, G = {c['G']}: "
+            f"turn_contract bitwise; kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms (whole "
+            f"queue {c['whole_bound_ms']:.4f} ms, live share "
+            f"{c['live_share']:.6f}); card {smi}")
+    del kept
     vmem_stats = res.stats
     res, paths["BFS-hbm"], _ = drive(
         lambda: alg.bfs(pg, root, R18_CFGS["BFS-hbm"]), smi,
@@ -2006,7 +2118,7 @@ def phase_rmat18(dev, smi):
         f"atol 1e-7 of the oracle, drops 0; rounds {int(st.rounds)}, "
         f"engine wall {wall:.3f} s ({1e3 * wall / int(st.rounds):.3f} "
         f"ms/round); oracle {t_oracle:.1f} s; card {smi}")
-    return paths
+    return paths, turns
 
 
 # --------------------------------------------------------------------------
@@ -2541,6 +2653,56 @@ def ssd_flops(B, S, H, P, N, C) -> int:
                                + 2 * P * N + 6 * C)
 
 
+def ssd_tc_flops(B, S, H, P, N, C) -> int:
+    """Operations of the products that the kernel runs on the tensor
+    cores: per chunk and head C S^T and the state's increment (2 C P N
+    each) and the scores times x (2 P for each of the T = C (C + 1) / 2
+    pairs s <= t); per chunk and batch row C B^T (2 N T)."""
+    T = C * (C + 1) // 2
+    return B * (S // C) * (H * (4 * C * P * N + 2 * T * P) + 2 * N * T)
+
+
+def ssd_bounds(B, S, H, P, N, C, moved) -> dict:
+    """The kernel's bounds: its bytes over 3.35 TB/s; its operations, the
+    tensor-core products in 3xTF32 (three MMAs a product) at a third of
+    495 TFLOP/s plus the rest of ``ssd_flops`` in float32 at 67 TFLOP/s;
+    and ``f32``, every operation in float32 (the bound of the earlier
+    design, all FMAs)."""
+    T = C * (C + 1) // 2
+    flops = ssd_flops(B, S, H, P, N, C)
+    # ssd_flops counts C B^T once a head: 2 N T of its T (2 N + 2)
+    rest = flops - B * H * (S // C) * (4 * C * P * N + 2 * T * P + 2 * N * T)
+    return {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+            "operations": (ssd_tc_flops(B, S, H, P, N, C)
+                           / (TF32_FLOPS_PER_S / 3) + rest / F32_FLOPS_PER_S)
+            * 1e3,
+            "f32": flops / F32_FLOPS_PER_S * 1e3}
+
+
+def ssd_tensor_core_instructions() -> dict:
+    """HMMA (mma.sync) instructions in each instance (P, N, KT: the
+    chunk's 8-step tiles) of the built SSD library, by
+    ``cuobjdump -sass``; fails unless every instance runs its products on
+    the tensor cores and every (P, N) the wrapper takes has an instance."""
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(SSD.LIBRARY.path)],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"ssd_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            name = "P {} N {} KT {}".format(*m.groups()) if m else None
+            if name:
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    for P in SSD.kernel.HEAD_DIMS:
+        for N in SSD.kernel.STATE_DIMS:
+            assert any(k.startswith(f"P {P} N {N} ") for k in counts), counts
+    assert all(v > 0 for v in counts.values()), counts
+    return dict(sorted(counts.items()))
+
+
 def check_ssd(dev, smi, timer):
     """The SSD kernel against its plain version and the scan oracle on the
     reference's sweep and the edge cases, a state carried across two
@@ -2573,22 +2735,23 @@ def check_ssd(dev, smi, timer):
     out, abs_err = check_ssd_case(args, chunk, f"prefill shape "
                                   f"{(B, S, H, P, N, chunk)}, state0 drawn")
     moved = nbytes(*args, *out)
-    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
-              "operations": ssd_flops(B, S, H, P, N, min(chunk, S))
-              / F32_FLOPS_PER_S * 1e3}
-    bound_by = max(bounds, key=bounds.get)
+    bounds = ssd_bounds(B, S, H, P, N, min(chunk, S), moved)
+    bound_by = max(("bytes", "operations"), key=bounds.get)
+    hmma = ssd_tensor_core_instructions()
     row = dict(max_abs_err=abs_err,
                ms=timer.ms(lambda: SSD.ssd_kernel(*args, chunk=chunk)),
                plain_ms=timer.ms(lambda: SSD.ssd_chunked(*args,
                                                          chunk=chunk)),
                bound_ms=bounds[bound_by], bound_by=bound_by,
-               library_ms=None)
+               f32_bound_ms=bounds["f32"], library_ms=None, hmma=hmma)
     log(f"# kernel ssd_kernel: within {SSD_REL_TOL} of its plain version "
         f"at {SSD_MAIN[:6]}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({bound_by}; {moved / 1e6:.1f} MB moved: "
-        f"{bounds['bytes']:.4f} ms, operations: "
-        f"{bounds['operations']:.4f} ms), library none; card {smi}")
+        f"{bounds['bytes']:.4f} ms, operations in 3xTF32 and float32: "
+        f"{bounds['operations']:.4f} ms; all in float32: "
+        f"{bounds['f32']:.4f} ms), library none; HMMA (cuobjdump -sass) "
+        + ", ".join(f"{k} {v}" for k, v in hmma.items()) + f"; card {smi}")
     return row
 
 
@@ -2783,7 +2946,10 @@ def main():
     if "block" in phases:
         paths.append(phase_block(dev, smi))
     if "rmat18" in phases:
-        paths += phase_rmat18(dev, smi).values()
+        r18_paths, turns = phase_rmat18(dev, smi, timer)
+        paths += r18_paths.values()
+        if "queue_push_pop" in rows:
+            rows["queue_push_pop"]["calls"] += turns
     if "lm" in phases:
         rows["flash_attention"], lm_paths = phase_lm(dev, smi, timer)
         paths += lm_paths
@@ -2811,7 +2977,8 @@ def main():
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("calls", "hd80", "f32_ms", "hgmma",
-                                 "library_bsr_ms") if k in r}))
+                                 "library_bsr_ms", "f32_bound_ms", "hmma")
+               if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")
     print(json.dumps({"kernels": record}))

@@ -3,7 +3,8 @@
 // function is one pure body of src/repro/kernels/engine/kernel.py, run by
 // one block (or one warp) for one tile, and writes what that body writes,
 // don't-care slots included, but for fifo_live_turn, which writes a turned
-// queue's live rows only.
+// queue's live rows only (queue_push_pop and the fused legs turn their
+// queues with it; no kernel shifts a whole queue).
 //
 // Integer arithmetic follows torch's on int32 tensors: // and % round
 // toward negative infinity (floor_div, floor_mod) and + and * wrap (done
@@ -179,37 +180,8 @@ __device__ inline int frontier_take_block(const uint8_t* __restrict__ m,
 }
 
 // ---------------------------------------------------------------------------
-// fifo_turn (kernel.py:95) after its append: data' is the (cap, w) queue d
-// with the compacted fresh rows fresh(j, col), j < n_push, at rows
-// [c0, c0 + n_push).  Pops n_pop rows off the front by shifting the whole
-// buffer, stale rows included: nd[i] = data'[min(i + n_pop, cap - 1)], and
-// writes the first max_n rows of data' to tk.  nd is a second buffer, since
-// the shift overlaps itself.
-// ---------------------------------------------------------------------------
-template <class Fresh>
-__device__ inline void fifo_shift(const int32_t* __restrict__ d,
-                                  int32_t* __restrict__ nd, int32_t* tk,
-                                  int cap, int w, int c0, int n_push,
-                                  int n_pop, int max_n, Fresh fresh) {
-  auto appended = [&](int row, int col) -> int32_t {
-    return (row >= c0 && row < c0 + n_push) ? fresh(row - c0, col)
-                                            : d[(size_t)row * w + col];
-  };
-  const int ne = cap * w;
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const int i = e / w, col = e - i * w;
-    const int row = i + n_pop < cap - 1 ? i + n_pop : cap - 1;
-    nd[e] = appended(row, col);
-  }
-  for (int e = threadIdx.x; e < max_n * w; e += blockDim.x) {
-    const int i = e / w;
-    tk[e] = appended(i, e - i * w);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fifo_turn's live rows (kernel.py:95), without fifo_shift's whole-capacity
-// shift: a pop of n_pop rows off the front of the (cap, W) queue d moves its
+// fifo_turn's live rows (kernel.py:95), without its whole-capacity shift:
+// a pop of n_pop rows off the front of the (cap, W) queue d moves its
 // live rows [n_pop, c) to [0, c - n_pop) of the turned queue nd, nd[i] =
 // d[i + n_pop]; this call moves the rows i in [lo, hi) (hi + n_pop <= c),
 // the caller splitting the live rows over blocks.  The slots from the new

@@ -3,8 +3,10 @@
 // batched over the T emulated tiles and writes every output element exactly
 // as the reference's pure body does (including the don't-care slots), so a
 // kernel's outputs are compared with its plain PyTorch version element for
-// element.  Their bodies are the device functions of engine_device.cuh and
-// ordered_scatter.cuh, which the fused legs (fused_legs.cu) share.
+// element; but for queue_push_pop's turned queue, which is written below its
+// count only and compared there.  Their bodies are the device functions of
+// engine_device.cuh and ordered_scatter.cuh, which the fused legs
+// (fused_legs.cu) share.
 //
 // Plain C interface (no torch headers): each launcher takes device pointers,
 // sizes and the caller's cudaStream_t, launches on that stream without
@@ -57,20 +59,52 @@ frontier_pop_kernel(const uint8_t* __restrict__ mask,
 // queue_push_pop: replaces queue_push_pop / fifo_turn + queue_append
 // (kernel.py:417, :95, :123).  One circular-FIFO turn per tile: append the
 // valid fresh rows at the tail (slot claim by exclusive scan; rows past the
-// capacity are drops), then pop min(n, count') rows off the front by
-// shifting the whole (cap, w) buffer: new[i] = data'[min(i + n_pop, cap-1)].
+// capacity are drops), then pop n_pop = min(n, count') rows off the front.
+// The turned queue ndata keeps the live rows only: old row i in [n_pop, c0)
+// goes to slot i - n_pop, fresh row j to slot c0 + j - n_pop where that is
+// >= 0, and the slots from the new count on are not written (fifo_turn
+// makes them don't-care: "rows at or beyond the live count are
+// unobservable garbage", src/repro/kernels/engine/kernel.py:424-427).
+// taken is fifo_turn's, bitwise: the first max_n rows of the appended
+// queue, the stale rows past its count included.
 //
-// Bound: bytes — the shift reads and writes the whole buffer (stale rows
-// included, as the reference body does), 2*cap*w*4 bytes per tile; the
-// update channel's (65536, 2) buffer makes this the largest byte mover of
-// the round.  Design: one block per tile compacts the valid-row indices
-// with a block scan into dynamic shared memory (into the tile's part of the
-// wrapper's device-memory scratch, `scratch` != nullptr, where n indices do
-// not fit), then streams the shift with coalesced 4-byte accesses, reading
-// each element of data' from either the old buffer or the fresh rows; the
-// shifted buffer is a second allocation because the shift overlaps itself.
+// Bound: bytes — the live rows read once and written once, the valid
+// flags, the pushed rows, the taken rows and the counts, so the bytes
+// follow the queue's occupancy, not its capacity.  Design: a grid (T,
+// G + 1), G from the column split of the queue's capacity (kernel.py
+// device_split).  Block (t, G) compacts the valid fresh rows' indices with
+// a block scan into dynamic shared memory (into the tile's part of the
+// wrapper's device-memory scratch, `scratch` != nullptr, where m indices
+// do not fit) and writes the fresh rows that stay, taken, tvalid and the
+// counts.  Blocks (t, g < G) move their share of the old live rows with
+// fifo_live_turn (one 8- or 16-byte vector a row of 2 or 4 words, words
+// otherwise).  They need no fresh-row count: where the pop budget n is
+// below the old count c0 the pop is n, else no old row stays.
 // ---------------------------------------------------------------------------
-constexpr int QP_THREADS = 1024;
+constexpr int QP_THREADS = 512;
+
+// the rows [lo, hi) of the live-row turn of a queue of w words a row
+__device__ inline void live_turn_any(const int32_t* __restrict__ d,
+                                     int32_t* __restrict__ nd, int w,
+                                     int n_pop, int lo, int hi) {
+  switch (w) {
+    case 2:
+      repro::fifo_live_turn<2>(d, nd, n_pop, lo, hi, threadIdx.x, blockDim.x);
+      return;
+    case 3:
+      repro::fifo_live_turn<3>(d, nd, n_pop, lo, hi, threadIdx.x, blockDim.x);
+      return;
+    case 4:
+      repro::fifo_live_turn<4>(d, nd, n_pop, lo, hi, threadIdx.x, blockDim.x);
+      return;
+    default: {
+      const int32_t* dw = d + (size_t)n_pop * w;
+      for (size_t e = (size_t)lo * w + threadIdx.x; e < (size_t)hi * w;
+           e += blockDim.x)
+        nd[e] = dw[e];
+    }
+  }
+}
 
 __global__ void __launch_bounds__(QP_THREADS)
 queue_push_pop_kernel(const int32_t* __restrict__ data,
@@ -85,7 +119,18 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
                       int w, int n, int max_n) {
   extern __shared__ int qp_smem[];
   __shared__ int sm[33];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x, g = blockIdx.y, G = gridDim.y - 1;
+  const int c0 = count[t];
+  const int p = npop[t];
+  const int32_t* d = data + (size_t)t * cap * w;
+  int32_t* nd = ndata + (size_t)t * cap * w;
+  if (g < G) {  // this block's share of the old rows past the pop
+    if (p >= c0) return;
+    const int L = c0 - p;
+    live_turn_any(d, nd, w, p, (int)((long long)g * L / G),
+                  (int)((long long)(g + 1) * L / G));
+    return;
+  }
   // source row of the j-th valid row
   int* src_row = scratch != nullptr ? scratch + (size_t)t * n : qp_smem;
   int nvalid = 0;
@@ -98,17 +143,25 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
     nvalid += total;
   }
   __syncthreads();
-  const int c0 = count[t];
   const int room = cap - c0 > 0 ? cap - c0 : 0;
   const int n_push = nvalid < room ? nvalid : room;
-  const int p = npop[t];
   const int n_pop = p < c0 + n_push ? p : c0 + n_push;
   const int32_t* rw = rows + (size_t)t * n * w;
-  repro::fifo_shift(data + (size_t)t * cap * w, ndata + (size_t)t * cap * w,
-                    taken + (size_t)t * max_n * w, cap, w, c0, n_push, n_pop,
-                    max_n, [&](int j, int col) {
-                      return rw[(size_t)src_row[j] * w + col];
-                    });
+  // the fresh rows that stay: row c0 + j of the appended queue is row
+  // c0 + j - n_pop of the turned one
+  const int j0 = n_pop - c0 > 0 ? n_pop - c0 : 0;
+  for (int e = j0 * w + threadIdx.x; e < n_push * w; e += blockDim.x) {
+    const int j = e / w, col = e - j * w;
+    nd[(size_t)(c0 + j - n_pop) * w + col] =
+        rw[(size_t)src_row[j] * w + col];
+  }
+  // the first max_n rows of the appended queue
+  int32_t* tk = taken + (size_t)t * max_n * w;
+  for (int e = threadIdx.x; e < max_n * w; e += blockDim.x) {
+    const int i = e / w, col = e - i * w;
+    tk[e] = i >= c0 && i < c0 + n_push ? rw[(size_t)src_row[i - c0] * w + col]
+                                       : d[e];
+  }
   for (int j = threadIdx.x; j < max_n; j += blockDim.x)
     tvalid[(size_t)t * max_n + j] = j < n_pop;
   if (threadIdx.x == 0) {
@@ -325,15 +378,15 @@ int repro_frontier_pop(const void* mask, const void* k, void* idx,
 }
 
 // The fresh-row indices in dynamic shared memory, or past STAGE_SMEM_MAX
-// bytes in `scratch`, n ints a tile.
+// bytes in `scratch`, n ints a tile; G blocks a tile move the old rows.
 int repro_queue_push_pop(const void* data, const void* count, const void* rows,
                          const void* pvalid, const void* npop, void* taken,
                          void* tvalid, void* ndata, void* ncount, void* drops,
-                         void* scratch, int T, int cap, int w, int n,
+                         void* scratch, int T, int G, int cap, int w, int n,
                          int max_n, void* stream) {
   const bool in_scratch = (size_t)n * sizeof(int) > repro::STAGE_SMEM_MAX;
   const size_t smem = in_scratch ? 0 : (size_t)n * sizeof(int);
-  if (n < 0 || (in_scratch && scratch == nullptr))
+  if (n < 0 || G < 1 || (in_scratch && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -341,7 +394,7 @@ int repro_queue_push_pop(const void* data, const void* count, const void* rows,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  queue_push_pop_kernel<<<T, QP_THREADS, smem,
+  queue_push_pop_kernel<<<dim3(T, G + 1), QP_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(data), static_cast<const int32_t*>(count),
       static_cast<const int32_t*>(rows), static_cast<const uint8_t*>(pvalid),

@@ -141,7 +141,7 @@ def _sm_count(index: int) -> int:
 
 LIBRARY = CudaLibrary(SOURCE, {
     "repro_frontier_pop": [_P] * 5 + [_I] * 3 + [_P],
-    "repro_queue_push_pop": [_P] * 11 + [_I] * 5 + [_P],
+    "repro_queue_push_pop": [_P] * 11 + [_I] * 6 + [_P],
     "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
     "repro_edge_scan_stream": [_P] * 8 + [_I] * 5 + [_P],
     "repro_fold_scatter_min": [_P] * 5 + [_I] * 3 + [_P],
@@ -352,9 +352,17 @@ def queue_push_pop(data, count, rows, valid, n, max_n: int):
     ``min(n, count')`` in one kernel.  data (T, cap, w) int32, count (T,),
     rows (T, m, w), valid (T, m), n (T,) int32 (<= max_n <= cap).  Returns
     (taken (T, max_n, w), taken_valid, new_data, new_count, drops).  A
-    cap-0 queue returns at once, with no launch.  The kernel compacts the
-    fresh rows' indices (4 bytes each) in shared memory or, past
-    ``STAGE_SMEM_MAX`` bytes, in a device-memory scratch (``path``)."""
+    cap-0 queue returns at once, with no launch.
+
+    The kernel runs over a grid (T, G + 1), G from :func:`device_split` of
+    the queue's capacity: G blocks a tile move the old live rows, one
+    compacts the fresh rows' indices (4 bytes each) in shared memory or,
+    past ``STAGE_SMEM_MAX`` bytes, in a device-memory scratch (``path``).
+    It writes ``new_data`` below ``new_count`` only: the slots from it on
+    are the reference's don't-care ("unobservable garbage",
+    ``src/repro/kernels/engine/kernel.py:424-427``), where
+    :func:`fifo_turn` keeps the shifted stale rows.  Every other output is
+    :func:`fifo_turn`'s, bitwise."""
     T, cap, w = data.shape
     if cap == 0:
         return fifo_turn(data, count, rows, valid, n, max_n)
@@ -380,11 +388,23 @@ def queue_push_pop(data, count, rows, valid, n, max_n: int):
     drops = torch.empty_like(count)
     path, scratch = staging(T, 4 * m, dev)
     _launch("repro_queue_push_pop", data, count, rows, valid, n, taken,
-            tvalid, ndata, ncount, drops, scratch, T, cap, w, m, max_n)
+            tvalid, ndata, ncount, drops, scratch, T,
+            device_split(T, cap, dev).G, cap, w, m, max_n)
     queue_push_pop.path = path
     queue_push_pop.launches += 1
     record()
     return taken, tvalid, ndata, ncount, drops
+
+
+def turn_contract(out):
+    """The outputs of a turn that :func:`queue_push_pop`'s kernel and
+    :func:`fifo_turn` share bitwise: all five, with ``new_data``'s slots
+    from ``new_count`` on set to 0 (the kernel does not write them)."""
+    taken, tvalid, ndata, ncount, drops = out
+    live = torch.arange(ndata.shape[1], device=ndata.device)[None] \
+        < ncount[:, None]
+    return (taken, tvalid, torch.where(live[:, :, None], ndata, 0), ncount,
+            drops)
 
 
 def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):

@@ -4,11 +4,12 @@ prefill (port of ``repro.kernels.mamba2.kernel``).
 :func:`ssd_kernel` replaces the TPU kernel ``ssd_pallas``
 (``src/repro/kernels/mamba2/kernel.py:55``).  On CPU tensors it runs its
 plain version :func:`repro_torch.kernels.mamba2.ref.ssd_chunked` at the
-same chunk.  On CUDA tensors it launches ``csrc/ssd.cu`` (one block per
-head and batch row, carrying the head's (P, N) float32 state through the
-chunks) and raises if the operands or the launch are wrong; there is no
-fallback.  The kernel and the plain version sum in different orders: they
-agree within about 1e-5 of the largest magnitude of each output.
+same chunk.  On CUDA tensors it launches ``csrc/ssd.cu`` (a warp a head's
+16 state rows, a block of 12 warps some heads of one batch row, the
+chunk's products on the tensor cores in 3xTF32) and raises if the operands
+or the launch are wrong; there is no fallback.  The kernel and the plain version
+sum in different orders: they agree within about 1e-5 of the largest
+magnitude of each output.
 """
 from __future__ import annotations
 
@@ -59,6 +60,11 @@ def check_operands(x, dt, a_log, Bm, Cm, state0, chunk: int):
     return C
 
 
+def _aligned(t, nbytes: int):
+    """``t``, or a copy of it that starts on ``nbytes`` bytes."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def ssd_kernel(x, dt, a_log, Bm, Cm, state0=None, chunk: int = 16):
     """x: (B, S, H, P); dt: (B, S, H); a_log: (H,); Bm, Cm: (B, S, N);
     state0: (B, H, P, N) or None (zeros); all float32.  Returns (y (B, S,
@@ -68,6 +74,10 @@ def ssd_kernel(x, dt, a_log, Bm, Cm, state0=None, chunk: int = 16):
     C = check_operands(x, dt, a_log, Bm, Cm, state0, chunk)
     B, S, H, hp = x.shape
     N = Bm.shape[-1]
+    # the kernel copies x, B and C in 16-byte pieces, state0 in 8
+    x, Bm, Cm = (_aligned(a, 16) for a in (x, Bm, Cm))
+    if state0 is not None:
+        state0 = _aligned(state0, 8)
     y = torch.empty_like(x)
     state = torch.empty((B, H, hp, N), dtype=torch.float32, device=x.device)
     LIBRARY.launch("repro_ssd", x, dt, a_log, Bm, Cm,

@@ -12,6 +12,12 @@ fused engine's plain stages run with every queue slot past its count and
 every invalid message row poisoned after each leg, and every value and
 Stats field must keep its bits: against the unpoisoned run, and against
 the JAX package's run.
+
+The unfused round's ``queue_push_pop`` kernel writes its turned queue
+below the new count only ("rows at or beyond the live count are
+unobservable garbage", ``src/repro/kernels/engine/kernel.py:424-427``);
+the unfused engine runs the same way with the turned queue poisoned from
+its count on after every ``queue_push_pop`` call.
 """
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ from repro.core import algorithms as ja
 from repro.core.engine import EngineConfig as JConfig
 from repro.core.graph import CSRGraph, rmat_edges
 from repro_torch.core import algorithms as ta
+from repro_torch.core import engine as tengine
 from repro_torch.core import reference as tref
 from repro_torch.core.engine import EngineConfig as TConfig
 from repro_torch.core.graph import CSRGraph as TCSRGraph
@@ -81,6 +88,41 @@ def test_poison_reaches_every_dont_care_element():
     assert set(out[1][~mvalid].unique().tolist()) == set(POISON)
 
 
+def poison_turn(out):
+    """Overwrite, in place, what ``queue_push_pop``'s kernel leaves
+    unwritten: the turned queue's slots from its new count on."""
+    ndata, ncount = out[2], out[3]
+    T, cap, w = ndata.shape
+    dead = torch.arange(cap)[None] >= ncount[:, None]
+    ndata.copy_(torch.where(dead[:, :, None], words(cap, w), ndata))
+
+
+@pytest.mark.parametrize("w", [2, 3, 4])
+def test_turn_poison_reaches_every_slot_past_the_count(w):
+    """The poison of a turn covers exactly the slots of the turned queue
+    from the new count on, with both words, full and empty tiles
+    included, and leaves the other outputs alone."""
+    from repro_torch.kernels.engine.kernel import fifo_turn
+    rng = np.random.default_rng(w)
+    T, cap, m, max_n = 4, 12, 6, 4
+    data = torch.from_numpy(rng.integers(0, 99, (T, cap, w), dtype=np.int32))
+    count = torch.tensor([0, cap, 5, 2], dtype=torch.int32)
+    rows = torch.from_numpy(rng.integers(0, 99, (T, m, w), dtype=np.int32))
+    valid = torch.from_numpy(rng.random((T, m)) < 0.5)
+    n = torch.tensor([max_n, 0, 2, max_n], dtype=torch.int32)
+    out = fifo_turn(data, count, rows, valid, n, max_n)
+    clean = [a.clone() for a in out]
+    poison_turn(out)
+    for i in (0, 1, 3, 4):
+        assert torch.equal(out[i], clean[i])
+    for t in range(T):
+        c = int(out[3][t])
+        assert torch.equal(out[2][t, :c], clean[2][t, :c])
+        assert torch.equal(out[2][t, c:], words(cap, w)[c:])
+    assert int(out[3][1]) == cap             # full: no slot poisoned
+    assert int(out[3][0]) < 2 < cap          # (nearly) empty: all poisoned
+
+
 @pytest.fixture(scope="module")
 def twin_graph():
     # chip_smoke.py's twin phase: R-MAT-10, edge factor 10, seed 1
@@ -100,6 +142,31 @@ POISON_APPS = {"bfs": {}, "bfs_bsp": dict(mode="bsp"), "sssp": {}, "wcc": {},
                "spmv": {}, "pagerank": {}, "kcore2": TIGHT, "kcore5": TIGHT,
                "kcore5_bsp": dict(TIGHT, mode="bsp"), "triangles": {},
                "triangles-rmat8": TIGHT}
+
+
+def workload(app, twin_graph):
+    """An app of POISON_APPS on the twin's partition over 16 tiles:
+    ``(program, graph, JAX partition, the port's, drive(package, cfg,
+    partition))``."""
+    prog = app.split("_")[0].split("-")[0]
+    g = twin_graph
+    if prog in ("kcore2", "kcore5", "triangles", "wcc"):
+        g = ja.symmetrize(twin_graph)
+    if app == "triangles-rmat8":
+        g = tri_graph()
+    T = 16
+    pg = ja.prepare_triangles(g, T=T) if prog == "triangles" \
+        else ja.prepare(g, T=T)
+    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+
+    def drive(pkg, cfg, p):
+        if prog.startswith("kcore") or prog == "triangles":
+            return run_program(pkg, prog, p, cfg)
+        if prog == "bfs":
+            return pkg.bfs(p, root, cfg)
+        return run(pkg, app, p, g, cfg)
+
+    return prog, g, pg, port_partition(pg), drive
 
 
 @pytest.mark.parametrize("app", sorted(POISON_APPS))
@@ -123,26 +190,8 @@ def test_poisoned_dont_care_slots_change_no_bit(monkeypatch, twin_graph,
             calls.append(1)
             return out
         monkeypatch.setattr(fused, k.__name__, hooked)
-    prog = app.split("_")[0].split("-")[0]
-    g = twin_graph
-    if prog in ("kcore2", "kcore5", "triangles", "wcc"):
-        g = ja.symmetrize(twin_graph)
     knobs = POISON_APPS[app]
-    if app == "triangles-rmat8":
-        g = tri_graph()
-    T = 16
-    pg = ja.prepare_triangles(g, T=T) if prog == "triangles" \
-        else ja.prepare(g, T=T)
-    tpg = port_partition(pg)
-    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
-
-    def drive(pkg, cfg, p):
-        if prog.startswith("kcore") or prog == "triangles":
-            return run_program(pkg, prog, p, cfg)
-        if prog == "bfs":
-            return pkg.bfs(p, root, cfg)
-        return run(pkg, app, p, g, cfg)
-
+    prog, g, pg, tpg, drive = workload(app, twin_graph)
     poisoned = drive(ta, TConfig(**knobs), tpg)
     assert calls
     monkeypatch.undo()
@@ -161,5 +210,46 @@ def test_poisoned_dont_care_slots_change_no_bit(monkeypatch, twin_graph,
     assert int(st.drops) == 0 and int(st.rounds) > 1
     assert int(st.launches) == (5 if prog == "triangles" else 3) * int(
         st.rounds)
+    spilling = st.spills[:1] if app == "kcore2" else st.spills
+    assert bool((spilling > 0).all()), st.spills  # every re-queue ran
+
+
+# the unfused round (fuse=False: queue_push_pop once a channel and round)
+UNFUSED_POISON_APPS = ("bfs", "bfs_bsp", "spmv", "pagerank", "kcore2",
+                       "kcore5")
+
+
+@pytest.mark.parametrize("app", UNFUSED_POISON_APPS)
+def test_poisoned_turn_changes_no_bit_unfused(monkeypatch, twin_graph, app):
+    """The unfused engine over 16 tiles (the twin's R-MAT-10, the knobs of
+    POISON_APPS), with the turned queue of every ``queue_push_pop`` call
+    poisoned from its new count on, gives the values and every Stats field
+    of the unpoisoned run, launches included, and of the JAX package's
+    run but for launches.  So no consumer reads the slots that the
+    kernel leaves unwritten."""
+    calls = []
+    real = tengine.queue_push_pop
+
+    def hooked(*ops):
+        out = real(*ops)
+        poison_turn(out)
+        calls.append(1)
+        return out
+
+    monkeypatch.setattr(tengine, "queue_push_pop", hooked)
+    knobs = dict(POISON_APPS[app], fuse=False)
+    prog, g, pg, tpg, drive = workload(app, twin_graph)
+    poisoned = drive(ta, TConfig(**knobs), tpg)
+    assert len(calls) == 2 * int(poisoned.stats.rounds)
+    monkeypatch.undo()
+    clean = drive(ta, TConfig(**knobs), tpg)
+    np.testing.assert_array_equal(clean.values, poisoned.values)
+    assert_all_stats_equal(clean.stats, poisoned.stats, f"{app} unpoisoned")
+    del knobs["fuse"]
+    jx = drive(ja, JConfig(backend="xla", **knobs), pg)
+    np.testing.assert_array_equal(jx.values, poisoned.values)
+    assert_stats_equal(jx.stats, poisoned.stats, f"{app} jax")
+    st = poisoned.stats
+    assert int(st.drops) == 0 and int(st.rounds) > 1
     spilling = st.spills[:1] if app == "kcore2" else st.spills
     assert bool((spilling > 0).all()), st.spills  # every re-queue ran

@@ -33,6 +33,21 @@ CASES = [
     (1, 64, 2, 32, 16, 16, None, 1e-5),     # dt -> 0: no decay
     (1, 64, 2, 16, 8, 32, 2.0, 10.0),       # the upper triangle overflows
     (4, 2048, 80, 64, 64, 16, None, None),  # the zamba2-2.7b prefill
+    # ragged tiles: chunks of 1, 5 and 8 steps and S = 8 < chunk, padded to
+    # the kernel's 8-step tiles; H not a multiple of a block's heads
+    (2, 16, 3, 16, 8, 1, None, None),
+    (2, 40, 3, 16, 8, 5, None, None),
+    (2, 64, 3, 16, 8, 8, None, None),
+    (2, 8, 3, 16, 8, 16, None, None),
+    (1, 16, 3, 64, 64, 1, None, None),
+    (1, 40, 3, 64, 64, 5, None, None),
+    (1, 64, 3, 64, 64, 8, None, None),
+    (1, 8, 3, 64, 64, 16, None, None),
+    (1, 48, 5, 32, 16, 24, None, None),     # three tiles of 8 steps
+    # zamba2's 80 heads, the last block of a batch row part idle, over more
+    # blocks than an H100 has SMs (135 and 140: a second wave)
+    (5, 64, 80, 64, 64, 16, None, None),
+    (10, 64, 80, 32, 16, 32, None, None),
 ]
 
 
@@ -113,6 +128,23 @@ def close_to_max(got, want, tol, what):
                                atol=tol * float(want.abs().max()), msg=what)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,a_log,dt",
+                         [c for c in CASES if c[1] <= 128])
+def test_state_rows_are_independent(B, S, H, P, N, chunk, a_log, dt):
+    """The premise of the kernel's split of the state along P: the plain
+    version on 16-row slices of x and of state0, concatenated, equals the
+    whole call within 1e-6 of the largest magnitude (y[t][p] reads only
+    S[p][:] and x[:, p]; S[p][:] is updated only from x[:, p])."""
+    x, dts, al, bm, cm, s0 = draw("cpu", B, S, H, P, N, S + P, a_log, dt,
+                                  state=True)
+    y, s = ssd_chunked(x, dts, al, bm, cm, state0=s0, chunk=chunk)
+    parts = [ssd_chunked(x[..., p:p + 16].contiguous(), dts, al, bm, cm,
+                         state0=s0[:, :, p:p + 16].contiguous(), chunk=chunk)
+             for p in range(0, P, 16)]
+    close_to_max(torch.cat([a for a, _ in parts], -1), y, 1e-6, "y")
+    close_to_max(torch.cat([b for _, b in parts], -2), s, 1e-6, "state")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,P,N,chunk,a_log,dt", CASES)
 def test_cuda_kernel_matches_plain(B, S, H, P, N, chunk, a_log, dt):
@@ -152,3 +184,28 @@ def test_cuda_kernel_carries_the_state():
     py, ps = ssd_chunked(x, dts, al, bm, cm, state0=s0, chunk=16)
     close_to_max(y, py, REL_TOL, "state0 y vs plain")
     close_to_max(s, ps, REL_TOL, "state0 state vs plain")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_operands_off_their_alignment():
+    """x, B, C and state0 as views that start 4 bytes into their storage:
+    the kernel copies x, B and C in 16-byte pieces and state0 in 8, so the
+    wrapper copies such operands first.  The outputs are bitwise those of
+    the aligned call, and match the plain version."""
+    dev = card()
+    x, dts, al, bm, cm, s0 = draw(dev, 2, 64, 5, 32, 16, 11, state=True)
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+        return view.copy_(t)
+
+    xs, bs, cs, ss = (shifted(a) for a in (x, bm, cm, s0))
+    assert all(a.data_ptr() % 16 == 4 for a in (xs, bs, cs, ss))
+    before = ssd_kernel.launches
+    y, s = ssd_kernel(xs, dts, al, bs, cs, state0=ss)
+    assert ssd_kernel.launches == before + 1
+    ya, sa = ssd_kernel(x, dts, al, bm, cm, state0=s0)
+    assert torch.equal(y, ya) and torch.equal(s, sa)
+    py, ps = ssd_chunked(x, dts, al, bm, cm, state0=s0, chunk=16)
+    close_to_max(y, py, REL_TOL, "shifted y vs plain")
+    close_to_max(s, ps, REL_TOL, "shifted state vs plain")

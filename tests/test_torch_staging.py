@@ -87,8 +87,8 @@ def launches(monkeypatch):
     monkeypatch.setattr(fused, "_launch", record)
     monkeypatch.setattr(kernel, "_launch", record)
     monkeypatch.setattr(seg.LIBRARY, "launch", record)
-    monkeypatch.setattr(fused, "device_split", split)
-    monkeypatch.setattr(seg, "device_split", split)
+    for mod in (fused, kernel, seg):
+        monkeypatch.setattr(mod, "device_split", split)
     for w in (*fused.KERNELS, *kernel.KERNELS, scatter_segments):
         monkeypatch.setattr(w, "launches", w.launches)
     for w in (*fused.KERNELS, kernel.queue_push_pop, kernel.edge_scan_stream,
@@ -253,6 +253,7 @@ def test_queue_push_pop_takes_more_fresh_rows(launches, m, path):
     fn, args = launched(launches, kernel.LIBRARY)
     scratch = args[10]
     assert args[-2:] == (m, 32)
+    assert args[11:13] == (T, column_split(T, cap, H100_SMS).G)  # T, G
     assert (tuple(scratch.shape) == (T, 4 * m) if path == "device scratch"
             else scratch is None)
     assert kernel.queue_push_pop.path == path
@@ -436,7 +437,8 @@ def test_scatter_segments_add_kernel_in_chunks(nb, b, cap):
 def test_queue_push_pop_kernel_past_8192_fresh_rows(m):
     """The unfused turn with m fresh rows (the last past STAGE_SMEM_MAX:
     the device scratch), full, empty and overflowing queues among the
-    tiles, bitwise its plain version."""
+    tiles, bitwise its plain version by ``turn_contract`` (the turned
+    queue below its count)."""
     dev = card()
     rng = np.random.default_rng(m)
     T, cap, w, max_n = 4, 70000, 4, 64
@@ -451,7 +453,37 @@ def test_queue_push_pop_kernel_past_8192_fresh_rows(m):
     torch.cuda.synchronize()
     assert kernel.queue_push_pop.path == ("device scratch" if m == 60000
                                           else "shared memory")
-    assert_same(list(got), list(want), f"m={m}")
+    assert_same(kernel.turn_contract(got), kernel.turn_contract(want),
+                f"m={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 3, 4, 5])
+@pytest.mark.parametrize("cap,m", [(8, 8), (300, 40), (20000, 513)])
+def test_queue_push_pop_kernel_turns_live_rows(w, cap, m):
+    """The live-row turn over a grid (T, G + 1) (G > 1 at the larger
+    capacities), rows of 2, 3, 4 and 5 words: empty, full and overflowing
+    tiles, pops below, at and past the old count (fresh rows taken
+    directly), bitwise its plain version by ``turn_contract``."""
+    dev = card()
+    rng = np.random.default_rng(cap * w + m)
+    T, max_n = 8, min(cap, 64)
+    data = rng.integers(-9, 1 << 22, (T, cap, w)).astype(np.int32)
+    count = np.array([0, cap, cap - 2, cap // 2, 3, 0, cap // 3, 1],
+                     np.int32)
+    rows = rng.integers(0, 1 << 22, (T, m, w)).astype(np.int32)
+    valid = rng.random((T, m)) < 0.6
+    valid[5] = False                                  # nothing offered
+    n = np.array([max_n, 0, 5, max_n, max_n, 1, 0, max_n], np.int32)
+    args = rng_on(dev, data, count, rows, valid, n)
+    want = kernel.fifo_turn(*args, max_n)
+    assert bool((args[4] > args[1]).any())            # n_pop > c0
+    got = kernel.queue_push_pop(*args, max_n)
+    torch.cuda.synchronize()
+    G = kernel.device_split(T, cap, dev).G
+    assert (G > 1) == (cap == 20000)
+    assert_same(kernel.turn_contract(got), kernel.turn_contract(want),
+                f"w={w} cap={cap} m={m} G={G}")
 
 
 @pytest.mark.cuda
