@@ -346,8 +346,11 @@ LM_RAGGED_P, LM_REFUSED_P = 200, 600
 # The rwkv6 serving path: rwkv6-1.6b at full width and all 24 layers, the
 # same prompts and steps.  WKV6 cases (B, S, H, K, chunk, w_log, state0):
 # the reference's sweep (tests/test_kernels.py:142-146), a non-zero state0,
-# S = 8 (C = S), every decay at the clip and at no decay, and the prefill
-# shape (timed).  w_log None draws clip(-exp(0.5 N(0, 1))), as the sweep.
+# S = 8 (C = S), every decay at the clip and at no decay; then every
+# instance of the kernel (K 16, 32, 64 at 1, 2 and 4 tiles of 8 steps) and
+# ragged tiles (chunks of 5, 12 and 20 steps) over 512 steps; then the
+# prefill shape (timed).  w_log None draws clip(-exp(0.5 N(0, 1))), as the
+# sweep.
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 (NVIDIA data sheet)
 RWKV_ARCH = "rwkv6-1.6b"
@@ -355,7 +358,13 @@ WKV_SWEEP = (
     (2, 128, 3, 16, 16, None, False), (1, 64, 2, 32, 32, None, False),
     (2, 96, 1, 64, 16, None, False), (2, 128, 4, 64, 16, None, True),
     (1, 8, 2, 64, 16, None, False), (1, 64, 2, 64, 16, -4.0, False),
-    (1, 64, 2, 64, 16, -1e-6, False))
+    (1, 64, 2, 64, 16, -1e-6, False),
+    (2, 512, 3, 16, 8, None, True), (2, 512, 3, 16, 16, None, False),
+    (1, 512, 2, 16, 32, None, True), (2, 512, 2, 32, 8, None, False),
+    (1, 512, 2, 32, 16, None, True), (1, 512, 2, 32, 32, None, False),
+    (2, 512, 2, 64, 8, None, True), (1, 512, 2, 64, 32, None, True),
+    (2, 40, 3, 64, 5, None, True), (2, 48, 2, 16, 12, None, False),
+    (1, 60, 2, 64, 20, None, True))
 WKV_MAIN = (LM_B, LM_P, 32, 64, 16, None, True)
 # y and the final state within WKV_REL_TOL of their largest magnitude
 # (the kernel and wkv6_chunked sum in float32 in other orders; the card
@@ -823,11 +832,12 @@ def check_fold_scatter(rng, dev, timer):
 def add_fold_inputs(rng, T, v_chunk, R, dev, kind):
     """Add-fold inputs: "path" draws slots as the SpMV path spreads them;
     "dups" puts a quarter of the rows on one slot, "one-slot" all of them,
-    "invalid" none (every row on the trash slot); these send invalid rows
-    to the trash slot.  "invalid-on-real-slots" puts the invalid rows on
-    slots 0 and 1 and the valid ones on the others.  Slot 0 holds -0.0,
-    which invalid rows alone turn into +0.0 (each adds 0.0, as the
-    reference does)."""
+    "invalid" none (every row on the trash slot), "boundaries" every row
+    on the slots beside the column boundaries of the kernel's split (two
+    before each, two after); these send invalid rows to the trash slot.
+    "invalid-on-real-slots" puts the invalid rows on slots 0 and 1 and the
+    valid ones on the others.  Slot 0 holds -0.0, which invalid rows alone
+    turn into +0.0 (each adds 0.0, as the reference does)."""
     tgt = rng.normal(0, 1, (T, v_chunk)).astype(np.float32)
     tgt[:, 0] = -0.0
     valid = rng.random((T, R)) < 0.8
@@ -838,6 +848,11 @@ def add_fold_inputs(rng, T, v_chunk, R, dev, kind):
         lidx[:] = 1
     elif kind == "invalid":
         valid[:] = False
+    elif kind == "boundaries":
+        bounds = np.array(K.device_split(T, v_chunk, dev).bounds(v_chunk))
+        edges = np.unique(np.clip(bounds[:, None] + [-2, -1, 0, 1], 0,
+                                  v_chunk - 1))
+        lidx = rng.choice(edges, (T, R))
     if kind == "invalid-on-real-slots":
         lidx = np.where(valid, rng.integers(2, v_chunk, (T, R)),
                         rng.integers(0, 2, (T, R)))
@@ -856,16 +871,27 @@ def check_fold_scatter_add(rng, dev, timer):
         return K.scatter_body(*a, "add")
 
     R = MAIN_T * SPMV_CFG.cap_route_update
+    # then the column split's edges: rows beside every boundary of G = 5
+    # ranges of 2,050 slots (b % 4 == 2), in one chunk and in two, and of
+    # the timed shape's; v_chunk 301 (G = 1, not a multiple of 4), with
+    # invalid rows on real slots
     for T, v, r, kind in ((3, 32, 20, "dups"), (2, 8, 64, "dups"),
                           (2, 128, 1, "path"), (2, 16, 300, "one-slot"),
                           (2, 16, 40, "invalid"),
                           (3, 4, 64, "invalid-on-real-slots"),
                           (MAIN_T, MAIN_V_CHUNK, R, "dups"),
                           (MAIN_T, MAIN_V_CHUNK, R, "one-slot"),
-                          (2, 64, 40000, "dups"), (2, 4096, 20000, "path")):
+                          (2, 64, 40000, "dups"), (2, 4096, 20000, "path"),
+                          (2, SEG_EDGE_B, 4096, "boundaries"),
+                          (2, SEG_EDGE_B, 16385, "boundaries"),
+                          (MAIN_T, MAIN_V_CHUNK, R, "boundaries"),
+                          (3, 301, 2000, "invalid-on-real-slots"),
+                          (3, 301, 2000, "dups")):
         args = add_fold_inputs(rng, T, v, r, dev, kind)
         max_abs_err([fold(*args)], [plain(*args)])
         assert fold.path == K.add_chunks(r)  # past 16,384 rows: chunks
+        assert fold.split == K.device_split(T, v, dev)
+        assert kind != "boundaries" or fold.split.G > 1, fold.split
     tgt, lidx, vals, valid = args = add_fold_inputs(
         rng, MAIN_T, MAIN_V_CHUNK, R, dev, "path")
     out = fold(*args)
@@ -879,7 +905,8 @@ def check_fold_scatter_add(rng, dev, timer):
         max_abs_err=err, ms=timer.ms(lambda: fold(*args)),
         plain_ms=timer.ms(lambda: plain(*args)),
         bound_ms=bound_ms(nbytes(*args, out)),
-        library_ms=timer.ms(lambda: ext.scatter_add(1, lidx64, masked)))
+        library_ms=timer.ms(lambda: ext.scatter_add(1, lidx64, masked)),
+        G=fold.split.G)
 
 
 def seg_inputs(rng, nb, b, cap, dev, kind):
@@ -1066,7 +1093,8 @@ def phase_kernels(dev, timer):
                  if name == "queue_push_pop" else "bitwise equal to")
         log(f"# kernel {name}: {agree} its plain version; "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms (bytes), library {lib}")
+            f"bound {r['bound_ms']:.4f} ms (bytes), library {lib}"
+            + (f"; G = {r['G']}" if "G" in r else ""))
         for c in r.get("calls", []):
             log(f"#   {c['call']} call {c['shape']}"
                 + (f", G = {c['G']}" if "G" in c else "")
@@ -2494,6 +2522,8 @@ def check_wkv6(dev, smi, timer):
     args = wkv_inputs(gen, B, S, H, K, w_fixed, state, dev)
     out, abs_err = check_wkv6_case(args, chunk, f"prefill shape "
                                    f"{(B, S, H, K, chunk)}, state0 drawn")
+    hmma = wkv6_tensor_core_instructions()
+    smem = wkv6_shared_memory()
     moved = nbytes(*args, *out)
     C = min(chunk, S)
     bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
@@ -2504,14 +2534,41 @@ def check_wkv6(dev, smi, timer):
                plain_ms=timer.ms(lambda: W6.wkv6_chunked(*args,
                                                          chunk=chunk)),
                bound_ms=bounds[bound_by], bound_by=bound_by,
-               library_ms=None)
+               library_ms=None, hmma=hmma)
     log(f"# kernel wkv6_kernel: within {WKV_REL_TOL} of its plain version "
         f"at {WKV_MAIN[:5]}; kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({bound_by}; {moved / 1e6:.1f} MB moved: "
         f"{bounds['bytes']:.4f} ms, operations: "
-        f"{bounds['operations']:.4f} ms), library none; card {smi}")
+        f"{bounds['operations']:.4f} ms), library none; HMMA (cuobjdump "
+        f"-sass) " + ", ".join(f"{k} {v}" for k, v in hmma.items())
+        + f"; shared memory a block (K: bytes at C 8, 16, 32) {smem}; "
+        f"card {smi}")
     return row
+
+
+def wkv6_tensor_core_instructions() -> dict:
+    """HMMA instructions in each instance (K, KT: the chunk's 8-step
+    tiles) of the built WKV6 library; every K the wrapper takes has an
+    instance at 1, 2 and 4 tiles."""
+    return tensor_core_instructions(
+        W6.LIBRARY, r"wkv6_kernelILi(\d+)ELi(\d+)E", "K {} KT {}",
+        [f"K {K} KT {kt}" for K in W6.kernel.HEAD_DIMS for kt in (1, 2, 4)])
+
+
+def wkv6_shared_memory() -> dict:
+    """The dynamic shared memory of each instance as compiled
+    (``repro_wkv6_smem``), held against the wrapper's mirror
+    (``kernel.smem_bytes``) for every K and chunk, and under the 227 KiB
+    a block may opt in to.  Returns K -> the bytes at C = 8, 16, 32."""
+    lib = W6.LIBRARY.get()
+    for K in W6.kernel.HEAD_DIMS:
+        for C in range(1, W6.kernel.MAX_CHUNK + 1):
+            got = lib.repro_wkv6_smem(K, C)
+            assert got == W6.kernel.smem_bytes(K, C), (K, C, got)
+            assert got <= W6.kernel.SMEM_LIMIT, (K, C, got)
+    return {K: [lib.repro_wkv6_smem(K, C) for C in (8, 16, 32)]
+            for K in W6.kernel.HEAD_DIMS}
 
 
 def perturb_decays(params, gen):
@@ -2679,28 +2736,41 @@ def ssd_bounds(B, S, H, P, N, C, moved) -> dict:
             "f32": flops / F32_FLOPS_PER_S * 1e3}
 
 
-def ssd_tensor_core_instructions() -> dict:
-    """HMMA (mma.sync) instructions in each instance (P, N, KT: the
-    chunk's 8-step tiles) of the built SSD library, by
-    ``cuobjdump -sass``; fails unless every instance runs its products on
-    the tensor cores and every (P, N) the wrapper takes has an instance."""
+def tensor_core_instructions(lib, pattern: str, label: str,
+                             want) -> dict:
+    """HMMA (mma.sync) instructions in each instance of a kernel of the
+    built library ``lib``, by ``cuobjdump -sass``: the instances are the
+    functions whose mangled name matches ``pattern``, named by ``label``
+    formatted with its groups (the template arguments).  Fails unless
+    every instance runs its products on the tensor cores and every name in
+    ``want`` starts some instance's name."""
     sass = subprocess.run(
-        [cuda_tool("cuobjdump"), "-sass", str(SSD.LIBRARY.path)],
+        [cuda_tool("cuobjdump"), "-sass", str(lib.path)],
         capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"ssd_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
-            name = "P {} N {} KT {}".format(*m.groups()) if m else None
+            m = re.search(pattern, line)
+            name = label.format(*m.groups()) if m else None
             if name:
                 counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
-    for P in SSD.kernel.HEAD_DIMS:
-        for N in SSD.kernel.STATE_DIMS:
-            assert any(k.startswith(f"P {P} N {N} ") for k in counts), counts
+    for w in want:
+        assert any(k.startswith(w) for k in counts), (w, counts)
     assert all(v > 0 for v in counts.values()), counts
     return dict(sorted(counts.items()))
+
+
+def ssd_tensor_core_instructions() -> dict:
+    """HMMA instructions in each instance (P, N, KT: the chunk's 8-step
+    tiles) of the built SSD library; every (P, N) the wrapper takes has
+    an instance."""
+    return tensor_core_instructions(
+        SSD.LIBRARY, r"ssd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+        "P {} N {} KT {}",
+        [f"P {P} N {N} " for P in SSD.kernel.HEAD_DIMS
+         for N in SSD.kernel.STATE_DIMS])
 
 
 def check_ssd(dev, smi, timer):
@@ -2977,7 +3047,8 @@ def main():
             bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("calls", "hd80", "f32_ms", "hgmma",
-                                 "library_bsr_ms", "f32_bound_ms", "hmma")
+                                 "library_bsr_ms", "f32_bound_ms", "hmma",
+                                 "G")
                if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")

@@ -25,6 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 P, I = ctypes.c_void_p, ctypes.c_int  # argtypes of a pointer / a C int
+# 3xTF32 products on mma.sync and cp.async, shared by the SSD and WKV6
+# kernels
+MMA_TF32 = Path(__file__).resolve().parent / "csrc" / "mma_tf32.cuh"
 
 
 class CudaLibrary:
@@ -101,6 +104,12 @@ def cuda_tool(name: str = "nvcc") -> str:
     raise RuntimeError(
         f"{name} not found: the port's kernels are compiled with the CUDA "
         f"toolkit's nvcc at first use (set CUDA_HOME)")
+
+
+def aligned(t, nbytes: int):
+    """``t``, or a copy of it that starts on ``nbytes`` bytes (for a kernel
+    that copies it in pieces of that size)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def check(*operands):

@@ -333,30 +333,51 @@ fold_scatter_min_kernel(const float* __restrict__ target,
 // target, then every row r with a real slot lidx[r] adds (valid[r] ? vals[r]
 // : 0) onto out[lidx[r]], each slot's rows in increasing r: the serial order
 // of XLA's scatter, bit for bit (float addition is not associative, so an
-// atomicAdd would change the bits from run to run).
+// atomicAdd would change the bits from run to run).  An invalid row on a
+// real slot still adds +0.0, as the reference's masked scatter does (a
+// -0.0 target becomes +0.0); the trash slot v_chunk lies outside every
+// block's range.
 //
 // Bound: bytes — as the min fold: the slice read and written once, each row
-// read once.  Design: one block per tile copies its slice, then sorts the
-// (slot, row) keys of its R rows in shared memory (12 bytes a row; past
-// FOLD_ADD_MAX_ROWS rows, chunk by chunk in row order) and the head thread
-// of each slot's run adds the run in row order (ordered_scatter.cuh).  A
-// slot hit by many rows is one thread's serial chain, which is what the
-// reference's order asks for.
+// read once.  Design: scatter_segments' (../../scatter_update/csrc/
+// scatter_segments.cu), over a grid (T, G) of column-owning blocks, G and
+// `step` from kernel.py device_split, so that 64 tiles still fill the
+// card (G = 5 at 65,536 slots a tile: 320 blocks).  Block (t, g) owns the
+// slots [g * step, min((g + 1) * step, v_chunk)) of tile t
+// (add_fold_beside, ordered_scatter.cuh): its copy part copies that range
+// of the target while the rest count the tile's rows in range a slot; then
+// the whole block adds at once each row that is its slot's only one, and
+// sorts the (slot, row) keys of the others and adds each slot's run in row
+// order (past FOLD_ADD_MAX_ROWS rows, chunk by chunk in row order).  Every
+// write lands in the block's own range.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(FS_THREADS)
+constexpr int FA_THREADS = 512;
+static_assert(FA_THREADS > repro::COPY_THREADS, "two parts a block");
+
+__global__ void __launch_bounds__(FA_THREADS)
 fold_scatter_add_kernel(const float* __restrict__ target,
                         const int32_t* __restrict__ lidx,
                         const float* __restrict__ vals,
                         const uint8_t* __restrict__ valid,
-                        float* __restrict__ out, int v_chunk, int R) {
+                        float* __restrict__ out, int v_chunk, int R,
+                        int step) {
   extern __shared__ __align__(16) unsigned char fa_smem[];
   const int t = blockIdx.x;
+  const int lo = blockIdx.y * step, hi = min(lo + step, v_chunk);
   float* o = out + (size_t)t * v_chunk;
-  repro::copy_slice(target + (size_t)t * v_chunk, o, v_chunk);
-  __syncthreads();
-  repro::ordered_add_rows(o, v_chunk, lidx + (size_t)t * R,
-                          vals + (size_t)t * R, valid + (size_t)t * R, R,
-                          fa_smem);
+  const float* tg = target + (size_t)t * v_chunk;
+  const int32_t* li = lidx + (size_t)t * R;
+  const float* vx = vals + (size_t)t * R;
+  const uint8_t* vd = valid + (size_t)t * R;
+  repro::add_fold_beside(
+      o, lo, hi, step, R, fa_smem,
+      [&](int r) {
+        const float x = vx[r];  // read whatever the flag, beside it
+        return repro::SlotValue{li[r], vd[r] ? x : 0.0f};
+      },
+      [&](const repro::Team& part) {
+        repro::copy_range(tg, o, lo, hi, part);
+      });
 }
 
 }  // namespace
@@ -453,22 +474,26 @@ int repro_edge_scan_stream(const void* edge_dst, const void* edge_val,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The ordered add in row-order chunks of FOLD_ADD_MAX_ROWS rows.
+// The ordered add in row-order chunks of FOLD_ADD_MAX_ROWS rows, over G
+// column ranges of `step` slots a tile.
 int repro_fold_scatter_add(const void* target, const void* lidx,
                            const void* vals, const void* valid, void* out,
-                           int T, int v_chunk, int R, void* stream) {
-  const size_t smem = repro::ordered_add_smem(R);
+                           int T, int v_chunk, int R, int G, int step,
+                           void* stream) {
+  if (!repro::valid_split(v_chunk, G, step))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = repro::ordered_add_smem(R, step);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fold_scatter_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fold_scatter_add_kernel<<<T, FS_THREADS, smem,
+  fold_scatter_add_kernel<<<dim3(T, G), FA_THREADS, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(target), static_cast<const int32_t*>(lidx),
       static_cast<const float*>(vals), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(out), v_chunk, R);
+      static_cast<float*>(out), v_chunk, R, step);
   return static_cast<int>(cudaGetLastError());
 }
 

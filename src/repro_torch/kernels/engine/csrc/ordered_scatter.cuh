@@ -54,12 +54,11 @@ __host__ __device__ inline int chunk_rows(int R) {
 // for a fold block of `slots` slots (at most SINGLE_MAX_SLOTS), their
 // counters.  All of it is dynamic shared memory, so that the callers' test
 // of its size against the default 48 KiB is the whole test.
-__host__ __device__ inline size_t ordered_add_smem(int R, int slots = 0) {
+__host__ __device__ inline size_t ordered_add_smem(int R, int slots) {
   const int C = chunk_rows(R);
   const int P = next_pow2(C > 0 ? C : 1);
   const size_t counters =
-      slots > 0 && slots <= SINGLE_MAX_SLOTS ? (size_t)(slots + 1) / 2 * 4
-                                             : 0;
+      slots <= SINGLE_MAX_SLOTS ? (size_t)(slots + 1) / 2 * 4 : 0;
   return (size_t)P * sizeof(unsigned long long) + (size_t)P * sizeof(float) +
          16 + counters;
 }
@@ -238,7 +237,7 @@ __device__ inline int gather_rows(int lo, int hi, int R, Load load,
   return *count;
 }
 
-// The ordered add of one chunk in two steps, over ordered_add_smem(R)
+// The ordered add of one chunk in two steps, over ordered_add_smem(R, .)
 // bytes of shared memory (R at most FOLD_ADD_MAX_ROWS): ordered_add_sort
 // gathers the rows r < R with lo <= s_r < hi, where load(r) reads row r's
 // SlotValue (once, whatever its slot), and sorts their (slot, row) keys,
@@ -292,32 +291,6 @@ __device__ inline void ordered_add_fold(float* __restrict__ out, int n,
          ++j)
       acc = __fadd_rn(acc, m.sval[static_cast<unsigned int>(m.key[j])]);
     out[s] = acc;
-  }
-}
-
-// Both steps by the whole block, chunk by chunk: out[s_r] += v_r for the
-// rows r < R with lo <= s_r < hi, each slot's rows in increasing r, where
-// row(r, &s_r, &v_r) reads row r (once).  `smem` holds ordered_add_smem(R)
-// bytes.  The writes of out[lo:hi) that the block made before the
-// call are visible to it (the call starts with a barrier), and so are each
-// chunk's to the next; the call ends with a barrier.
-template <class Row>
-__device__ inline void ordered_add_rows_by(float* __restrict__ out, int lo,
-                                           int hi, int R, unsigned char* smem,
-                                           Row row) {
-  const Team tm = whole_block();
-  for (int c0 = 0; c0 < R; c0 += FOLD_ADD_MAX_ROWS) {
-    const int m = chunk_rows(R - c0);
-    const int n = ordered_add_sort(
-        lo, hi, m, smem,
-        [&](int i) {
-          SlotValue x;
-          row(c0 + i, &x.s, &x.v);
-          return x;
-        },
-        tm);
-    ordered_add_fold(out, n, smem, m, tm);
-    tm.sync();  // the next chunk's layout overlaps this one's keys
   }
 }
 
@@ -437,23 +410,6 @@ __device__ inline void min_fold_beside(float* __restrict__ out, int lo,
         whole_block());
   }
   __syncthreads();
-}
-
-// out[slot[r]] += (valid ? (valid[r] ? val[r] : 0) : val[r]) for the rows r
-// with 0 <= slot[r] < n_slots, each slot's rows in increasing r, in chunks
-// of FOLD_ADD_MAX_ROWS rows.  Rows that are not valid still add 0.0 at
-// their slot, as the reference's masked scatter does (-0.0 + 0.0 is +0.0),
-// so the caller maps them to an out-of-range slot to skip them.
-__device__ inline void ordered_add_rows(float* __restrict__ out, int n_slots,
-                                        const int32_t* __restrict__ slot,
-                                        const float* __restrict__ val,
-                                        const uint8_t* __restrict__ valid,
-                                        int R, unsigned char* smem) {
-  ordered_add_rows_by(out, 0, n_slots, R, smem,
-                      [&](int i, int* s, float* v) {
-                        *s = slot[i];
-                        *v = (valid == nullptr || valid[i]) ? val[i] : 0.0f;
-                      });
 }
 
 }  // namespace repro

@@ -34,8 +34,9 @@ for ``Stats.launches`` through
 ``launches`` attribute counts real CUDA launches only.
 
 The add fold keeps the reference's serial order per slot on every
-device: the kernel sorts each tile's rows by slot (in row-order chunks of
-``FOLD_ADD_MAX_ROWS`` rows past what shared memory holds), and the plain
+device: the kernel's column-owning blocks add a slot's only row at once
+and sort the others by slot (in row-order chunks of ``FOLD_ADD_MAX_ROWS``
+rows past what shared memory holds), and the plain
 version adds one occurrence rank per pass (:func:`ordered_scatter_add`),
 so no float atomics decide an order.
 
@@ -145,7 +146,7 @@ LIBRARY = CudaLibrary(SOURCE, {
     "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
     "repro_edge_scan_stream": [_P] * 8 + [_I] * 5 + [_P],
     "repro_fold_scatter_min": [_P] * 5 + [_I] * 3 + [_P],
-    "repro_fold_scatter_add": [_P] * 5 + [_I] * 3 + [_P],
+    "repro_fold_scatter_add": [_P] * 5 + [_I] * 5 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
 
@@ -504,16 +505,20 @@ def fold_scatter(target, lidx, vals, valid, op: str = "min"):
 def fold_scatter_add(target, lidx, vals, valid):
     """T3's scatter-add, each slot's rows added in row order (in chunks of
     ``FOLD_ADD_MAX_ROWS`` rows a tile: ``path``); the arguments of
-    :func:`fold_scatter`.  A wrapper of its own, so that its kernel's
+    :func:`fold_scatter`.  The kernel runs over a grid (T, G) of
+    column-owning blocks, G and ``step`` the :func:`device_split` of the
+    tiles' slices (``split``).  A wrapper of its own, so that its kernel's
     launches are counted apart from the min fold's."""
     if target.device.type == "cpu":
         record()
         return scatter_body(target, lidx, vals, valid, "add")
     T, v_chunk, R = _fold_checked(target, lidx, vals, valid)
     out = torch.empty_like(target)
+    split = device_split(T, v_chunk, target.device)
     _launch("repro_fold_scatter_add", target, lidx, vals, valid, out, T,
-            v_chunk, R)
+            v_chunk, R, *split)
     fold_scatter_add.path = add_chunks(R)
+    fold_scatter_add.split = split
     fold_scatter_add.launches += 1
     record()
     return out
@@ -525,3 +530,4 @@ for _k in KERNELS:
     _k.launches = 0
 for _k in (queue_push_pop, edge_scan_stream, fold_scatter_add):
     _k.path = None
+fold_scatter_add.split = None

@@ -17,7 +17,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.cuda_build import I, CudaLibrary, check
+from repro_torch.kernels.cuda_build import (I, MMA_TF32, CudaLibrary,
+                                            aligned, check)
 from repro_torch.kernels.cuda_build import P as PTR
 from repro_torch.kernels.mamba2.ref import ssd_chunked
 
@@ -29,7 +30,7 @@ STATE_DIMS = (8, 16, 64)
 MAX_CHUNK = 32                 # the kernel's tiles hold 32 steps
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "ssd.cu",
-    {"repro_ssd": [PTR] * 8 + [I] * 6 + [PTR]})
+    {"repro_ssd": [PTR] * 8 + [I] * 6 + [PTR]}, headers=(MMA_TF32,))
 
 
 def check_operands(x, dt, a_log, Bm, Cm, state0, chunk: int):
@@ -60,11 +61,6 @@ def check_operands(x, dt, a_log, Bm, Cm, state0, chunk: int):
     return C
 
 
-def _aligned(t, nbytes: int):
-    """``t``, or a copy of it that starts on ``nbytes`` bytes."""
-    return t if t.data_ptr() % nbytes == 0 else t.clone()
-
-
 def ssd_kernel(x, dt, a_log, Bm, Cm, state0=None, chunk: int = 16):
     """x: (B, S, H, P); dt: (B, S, H); a_log: (H,); Bm, Cm: (B, S, N);
     state0: (B, H, P, N) or None (zeros); all float32.  Returns (y (B, S,
@@ -75,9 +71,9 @@ def ssd_kernel(x, dt, a_log, Bm, Cm, state0=None, chunk: int = 16):
     B, S, H, hp = x.shape
     N = Bm.shape[-1]
     # the kernel copies x, B and C in 16-byte pieces, state0 in 8
-    x, Bm, Cm = (_aligned(a, 16) for a in (x, Bm, Cm))
+    x, Bm, Cm = (aligned(a, 16) for a in (x, Bm, Cm))
     if state0 is not None:
-        state0 = _aligned(state0, 8)
+        state0 = aligned(state0, 8)
     y = torch.empty_like(x)
     state = torch.empty((B, H, hp, N), dtype=torch.float32, device=x.device)
     LIBRARY.launch("repro_ssd", x, dt, a_log, Bm, Cm,

@@ -1,14 +1,19 @@
 """The T3 fold kernels over column-owning blocks: ``scatter_segments``
-(``repro_torch.kernels.scatter_update``) and the fused leg 2 of the
-classic and k-core rounds (``repro_torch.kernels.engine.fused``).
+(``repro_torch.kernels.scatter_update``), the unfused add fold
+``fold_scatter_add`` (``repro_torch.kernels.engine.kernel``) and the fused
+leg 2 of the classic and k-core rounds (``repro_torch.kernels.engine.
+fused``).
 
 This file imports no JAX, so the card's machine runs it:
 ``python -m pytest -q -m cuda tests/test_torch_fold_kernels.py``.  The
 ``cuda`` tests skip without a card.  Anywhere: the column split
-(``column_split``), and the leg-2 wrappers' in-place contract and launch
-arguments, with the launch recorded instead of made.  Every comparison is
-bitwise: the kernels add each slot's rows in row order, as the plain
-versions do, and the min is exact in any order.
+(``column_split``), the add fold's launch arguments and the leg-2
+wrappers' in-place contract and launch arguments, with the launch
+recorded instead of made.  Every comparison is bitwise: the kernels add
+each slot's rows in row order, as the plain versions do, and the min is
+exact in any order.  ``add_fold_case`` makes the add fold's edge cases,
+which ``tests/test_torch_kernels.py`` also runs through the JAX
+package's ``fold_scatter``.
 """
 import numpy as np
 import pytest
@@ -19,6 +24,7 @@ from repro_torch.core.engine import EngineConfig
 from repro_torch.core.graph import CSRGraph, rmat_edges
 from repro_torch.core.queues import Queue
 from repro_torch.kernels.engine import fused
+from repro_torch.kernels.engine import kernel as K
 from repro_torch.kernels.engine.kernel import (SPLIT_BLOCKS_PER_SM,
                                                SPLIT_MIN_COLS, SPLIT_QUANTUM,
                                                column_split, device_split)
@@ -95,6 +101,95 @@ def test_column_split_fills_the_card(NB, b, G):
     want = -(-SPLIT_BLOCKS_PER_SM * H100_SMS // NB)
     assert split.G <= max(1, want)
     assert split.G <= max(1, -(-b // SPLIT_MIN_COLS))
+
+
+# --------------------------------------------------------------------------
+# The unfused add fold: its edge cases and its launch
+# --------------------------------------------------------------------------
+
+# (T, v_chunk, R) of each edge case of fold_scatter_add.  The plain
+# version adds one occurrence rank a pass, so the cases keep the hits a
+# slot low (a few hundred passes at most) for the CPU's time.
+ADD_FOLD_CASES = {
+    "boundaries": (2, 2050, 1024),       # G = 5, beside every boundary
+    "boundaries, 2 chunks": (2, 65536, 16385),   # G = 128
+    "odd v_chunk": (3, 301, 2000),       # G = 1, v_chunk % 4 == 1
+    "-0.0 hit by invalid rows": (2, 2050, 3000),
+    "one slot": (2, 2050, 300),          # every row on one slot
+    "R 16385": (2, 4096, 16385),         # two chunks of rows
+    "R 40000": (2, 2050, 40000),         # three chunks
+}
+
+
+def add_fold_case(kind: str, sms: int = H100_SMS):
+    """numpy operands (target, lidx, vals, valid) of one add-fold edge case
+    over ``sms`` SMs' column split.  Half the invalid rows lie on the trash
+    slot v_chunk, half on a real slot, which they turn from -0.0 to +0.0
+    (each adds 0.0, as the reference's masked scatter does); in "-0.0
+    hit by invalid rows" only invalid rows reach the -0.0 slots (some in
+    every column range)."""
+    T, v, R = ADD_FOLD_CASES[kind]
+    rng = np.random.default_rng(list(ADD_FOLD_CASES).index(kind))
+    tgt = (rng.normal(size=(T, v))
+           * 10.0 ** rng.integers(-2, 3, (T, v))).astype(np.float32)
+    valid = rng.random((T, R)) < 0.8
+    lidx = rng.integers(0, v, (T, R))
+    if kind.startswith("boundaries"):
+        bounds = np.array(column_split(T, v, sms).bounds(v))
+        edges = np.unique(np.clip(bounds[:, None] + [-2, -1, 0, 1], 0,
+                                  v - 1))
+        lidx = rng.choice(edges, (T, R))
+    elif kind == "one slot":
+        lidx[:] = 7
+    elif kind == "-0.0 hit by invalid rows":
+        zeros = np.arange(0, v, 41)
+        tgt[:, zeros] = -0.0
+        lidx = np.where(valid,
+                        rng.choice(np.setdiff1d(np.arange(v), zeros), (T, R)),
+                        rng.choice(zeros, (T, R)))
+    if kind != "-0.0 hit by invalid rows":
+        lidx = np.where(valid | (rng.random((T, R)) < 0.5), lidx, v)
+    vals = (rng.normal(size=(T, R))
+            * 10.0 ** rng.integers(-3, 4, (T, R))).astype(np.float32)
+    return tgt, lidx.astype(np.int32), vals, valid
+
+
+@pytest.mark.parametrize("T,v_chunk,R,G", [
+    (64, 65536, 4096, 5),   # the timed shape
+    (2, 2050, 16385, 5), (3, 301, 2000, 1), (257, 4, 16448, 1),
+    (1, 65537, 40000, 129)])
+def test_add_fold_launches_over_the_column_split(monkeypatch, T, v_chunk, R,
+                                                 G):
+    """The add fold's CUDA branch (the launch recorded): its grid is the
+    column split of the tiles' slices, G and step after the sizes, and the
+    wrapper notes the split and the path."""
+    calls = []
+    monkeypatch.setattr(K, "_check", lambda *operands: None)
+    monkeypatch.setattr(K, "_launch", lambda fn, *args: calls.append(
+        (fn, args)))
+    monkeypatch.setattr(K, "device_split",
+                        lambda nb, b, dev: column_split(nb, b, H100_SMS))
+    monkeypatch.setattr(K.fold_scatter_add, "launches",
+                        K.fold_scatter_add.launches)
+    for attr in ("path", "split"):
+        monkeypatch.setattr(K.fold_scatter_add, attr,
+                            getattr(K.fold_scatter_add, attr))
+
+    def meta(n, dtype):
+        return torch.empty((T, n), dtype=dtype, device="meta")
+
+    K.fold_scatter_add(meta(v_chunk, torch.float32), meta(R, torch.int32),
+                       meta(R, torch.float32), meta(R, torch.bool))
+    (fn, args), = calls
+    assert fn == "repro_fold_scatter_add"
+    types = K.LIBRARY.signatures[fn][:-1]  # the stream comes last
+    assert len(args) == len(types)
+    split = column_split(T, v_chunk, H100_SMS)
+    assert [a for a in args if isinstance(a, int)] == [T, v_chunk, R,
+                                                       split.G, split.step]
+    assert K.fold_scatter_add.split == split
+    assert K.fold_scatter_add.path == K.add_chunks(R)
+    assert split.G == G
 
 
 # --------------------------------------------------------------------------
@@ -252,6 +347,26 @@ def test_scatter_segments_kernel_bitwise_at_split_edges(kind, op):
     assert scatter_segments.launches == before + 1
     assert_same(got, binned_scatter(*args, op), f"{kind} {op}")
     assert_same(scatter_segments(*args, op=op), got, f"{kind} {op} again")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ADD_FOLD_CASES))
+def test_fold_scatter_add_kernel_bitwise_at_split_edges(kind):
+    """The add fold over the card's column split, bitwise its plain
+    version (``scatter_body(..., "add")``), twice."""
+    dev = card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    args = [torch.from_numpy(a).to(dev) for a in add_fold_case(kind, sms)]
+    T, v_chunk = args[0].shape
+    before = K.fold_scatter_add.launches
+    got = K.fold_scatter_add(*args)
+    torch.cuda.synchronize()
+    assert K.fold_scatter_add.launches == before + 1
+    split = device_split(T, v_chunk, dev)
+    assert K.fold_scatter_add.split == split
+    assert split.G > 1 or kind == "odd v_chunk", split
+    assert_same(got, K.scatter_body(*args, "add"), kind)
+    assert_same(K.fold_scatter_add(*args), got, f"{kind} again")
 
 
 @pytest.mark.cuda

@@ -32,8 +32,10 @@ from repro_torch.core.comm import LocalComm as TLocalComm
 from repro_torch.core.program import take_first_k as t_take_first_k
 from repro_torch.core.routing import bin_by_owner as t_bin_by_owner
 from repro_torch.kernels.engine import (KERNELS, edge_scan_gather,
-                                        fold_scatter, frontier_pop,
-                                        queue_push_pop, tally)
+                                        fold_scatter, fold_scatter_add,
+                                        frontier_pop, queue_push_pop, tally)
+
+from test_torch_fold_kernels import ADD_FOLD_CASES, add_fold_case
 
 pytestmark = pytest.mark.torch_port
 
@@ -229,6 +231,20 @@ def test_fold_scatter_matches_pallas(op, v_chunk, r):
         *map(jnp.asarray, (tgt, lidx, vals, valid)))
     tout = fold_scatter(t(tgt), t(lidx), t(vals), t(valid), op=op)
     same(jout, tout, f"fold {op}")
+
+
+@pytest.mark.parametrize("kind", list(ADD_FOLD_CASES))
+def test_fold_scatter_add_edge_cases_match_pallas(kind):
+    """The add fold's edge cases of the column-owning kernel (rows beside
+    every range boundary, v_chunk not a multiple of 4, -0.0 slots hit by
+    invalid rows only, one slot hit by every row, rows past one and two
+    sort chunks): the plain version bitwise the JAX package's
+    ``fold_scatter(op="add")``."""
+    tgt, lidx, vals, valid = add_fold_case(kind)
+    jout = jax.vmap(lambda a, b, c, d: j_fold_scatter(a, b, c, d, op="add"))(
+        *map(jnp.asarray, (tgt, lidx, vals, valid)))
+    tout = fold_scatter_add(t(tgt), t(lidx), t(vals), t(valid))
+    same(jout, tout, kind)
 
 
 def test_fold_scatter_all_invalid_is_identity():

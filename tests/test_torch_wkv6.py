@@ -29,6 +29,7 @@ import torch
 from repro.kernels.rwkv6 import ops as j_ops
 from repro.kernels.rwkv6 import ref as j_ref
 from repro.kernels.rwkv6.kernel import wkv6_pallas
+from repro_torch.kernels.rwkv6 import kernel as W6K
 from repro_torch.kernels.rwkv6 import (wkv6, wkv6_chunked, wkv6_kernel,
                                        wkv6_scan_oracle, wkv6_step)
 
@@ -189,3 +190,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):   # C = S = 8
         wkv6_kernel(*(meta((1, 8, 3, 32)),) * 4, u, chunk=16)
     assert wkv6_kernel.launches == 0
+
+
+@pytest.mark.parametrize("K", W6K.HEAD_DIMS)
+def test_kernel_shared_memory_fits_every_chunk(K):
+    """The kernel's dynamic shared memory a block (``smem_bytes``, the
+    mirror of ``Layout<K, KT>::WORDS`` in ``csrc/wkv6.cu``, which the card
+    tests hold against the compiled value) stays within the 227 KiB a
+    block may opt in to for every chunk the wrapper takes, and changes
+    only where a chunk takes another tile count (8 and 16 steps)."""
+    sizes = [W6K.smem_bytes(K, C) for C in range(1, W6K.MAX_CHUNK + 1)]
+    assert max(sizes) <= W6K.SMEM_LIMIT == 227 * 1024
+    assert [len(set(sizes[a:b])) for a, b in ((0, 8), (8, 16), (16, 32))] \
+        == [1, 1, 1]
+    assert sizes[0] < sizes[8] < sizes[16]

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.rwkv6 import kernel as W6K
 from repro_torch.kernels.rwkv6 import (wkv6_chunked, wkv6_kernel,
                                        wkv6_scan_oracle)
 
@@ -31,6 +32,13 @@ CASES = [
     (1, 64, 2, 64, 16, -4.0),      # every decay at the clip
     (1, 64, 2, 64, 16, -1e-6),     # no decay
     (4, 2048, 32, 64, 16, None),   # the rwkv6-1.6b prefill
+    # K = 16 and 32 over 512 steps at C = 8, 16 and 32 (the kernel's 1, 2
+    # and 4 tiles of 8 steps); ragged tiles (C = 5, 12, 20)
+    (2, 512, 3, 16, 8, None), (2, 512, 3, 16, 16, None),
+    (1, 512, 2, 16, 32, None), (2, 512, 2, 32, 8, None),
+    (1, 512, 2, 32, 16, None), (1, 512, 2, 32, 32, None),
+    (2, 40, 3, 64, 5, None), (2, 48, 2, 16, 12, None),
+    (1, 60, 2, 64, 20, None),
 ]
 
 
@@ -72,6 +80,33 @@ def test_cuda_kernel_matches_plain(B, S, H, K, chunk, w_fixed):
     oy, os_ = wkv6_scan_oracle(r, k, v, w, u)
     torch.testing.assert_close(y, oy, rtol=ORACLE_TOL, atol=ORACLE_TOL)
     torch.testing.assert_close(s, os_, rtol=ORACLE_TOL, atol=ORACLE_TOL)
+
+
+def test_cuda_kernel_from_a_state_at_the_prefill_shape():
+    """A non-zero state0 at the rwkv6-1.6b prefill shape, as a prefill
+    continuing from the cache: y and the final state against the plain
+    version and the scan oracle."""
+    dev = card()
+    r, k, v, w, u, s0 = draw(dev, 4, 2048, 32, 64, 11, state=True)
+    y, s = wkv6_kernel(r, k, v, w, u, state0=s0)
+    py, ps = wkv6_chunked(r, k, v, w, u, state0=s0, chunk=16)
+    close_to_max(y, py, REL_TOL, "y vs plain")
+    close_to_max(s, ps, REL_TOL, "state vs plain")
+    oy, os_ = wkv6_scan_oracle(r, k, v, w, u, state0=s0)
+    torch.testing.assert_close(y, oy, rtol=ORACLE_TOL, atol=ORACLE_TOL)
+    torch.testing.assert_close(s, os_, rtol=ORACLE_TOL, atol=ORACLE_TOL)
+
+
+def test_cuda_shared_memory_is_the_mirror():
+    """The dynamic shared memory of every compiled instance
+    (``repro_wkv6_smem``) is the wrapper's ``smem_bytes``, for every K and
+    chunk; a pair the kernel does not take reads -1."""
+    card()
+    lib = W6K.LIBRARY.get()
+    for K in W6K.HEAD_DIMS:
+        for C in range(1, W6K.MAX_CHUNK + 1):
+            assert lib.repro_wkv6_smem(K, C) == W6K.smem_bytes(K, C), (K, C)
+    assert lib.repro_wkv6_smem(48, 16) == lib.repro_wkv6_smem(64, 33) == -1
 
 
 def test_cuda_kernel_carries_the_state():

@@ -3,7 +3,8 @@
 shapes, for one checkout, so that two checkouts, or other builds of a
 kernel's source, compare in one call on one card.
 
-    python3 tools/kernel_times.py {legs,turn,fold,ssd} [--src DIR]
+    python3 tools/kernel_times.py {legs,turn,fold,fold_add,ssd,wkv6}
+        [--src DIR]
         [--runs N] [--variants DIR[,DIR...]] [--spin CYCLES]
         [--short-spin CYCLES] [--paths BFS,SpMV,BFS-hbm,k-core,triangles]
         [--out FILE]
@@ -33,8 +34,17 @@ the checks and the ``Timer`` from them.  The kernels:
   function by ``scatter_add`` / ``scatter_reduce(amin)`` over the slots
   plus a trash column, and ``copy_ms``: one ``copy_`` of the slots, the
   floor of a fold that writes a new array;
+- ``fold_add``: the unfused T3 add fold ``fold_scatter_add`` at
+  ``check_fold_scatter_add``'s timed operands (64 tiles of 65,536 slots,
+  4,096 rows each; ``add_fold_inputs`` "path", seed 0), bitwise against
+  ``scatter_body(..., "add")``, with ``library_ms`` (``scatter_add`` of
+  the masked rows over the slots plus a trash column: float atomics, not
+  the same bits) and ``copy_ms`` (one ``copy_`` of the slots);
 - ``ssd``: ``ssd_kernel`` at zamba2-2.7b's prefill shape (``SSD_MAIN``,
   seed 0), within ``SSD_REL_TOL`` of ``ssd_chunked``'s largest magnitude
+  (``rel_err``);
+- ``wkv6``: ``wkv6_kernel`` at rwkv6-1.6b's prefill shape (``WKV_MAIN``,
+  seed 0), within ``WKV_REL_TOL`` of ``wkv6_chunked``'s largest magnitude
   (``rel_err``).
 
 Each call is timed by the checkout's Timer (CUDA events, the median of
@@ -75,7 +85,9 @@ HOST_BATCHES, HOST_REPS = 7, 200
 MODULES = {"legs": "repro_torch.kernels.engine.fused",
            "turn": "repro_torch.kernels.engine.kernel",
            "fold": "repro_torch.kernels.scatter_update.kernel",
-           "ssd": "repro_torch.kernels.mamba2.kernel"}
+           "fold_add": "repro_torch.kernels.engine.kernel",
+           "ssd": "repro_torch.kernels.mamba2.kernel",
+           "wkv6": "repro_torch.kernels.rwkv6.kernel"}
 TIMES = ("ms", "host_ms", "short_spin_ms", "plain_ms")
 
 
@@ -211,6 +223,38 @@ def main():
                     got, functools.partial(SEG.binned_scatter, *ops, op),
                     lambda: dict(ok=torch.equal(got().view(torch.int32),
                                                 want)))
+    elif args.kernel == "fold_add":
+        K, T, v = cs.K, cs.MAIN_T, cs.MAIN_V_CHUNK
+        R = T * cs.SPMV_CFG.cap_route_update
+        tgt, lidx, vals, valid = ops = cs.add_fold_inputs(
+            np.random.default_rng(0), T, v, R, dev, "path")
+        ext = torch.cat([tgt, tgt.new_zeros((T, 1))], dim=1)
+        masked = torch.where(valid, vals, 0.0)
+        lidx64 = lidx.to(torch.int64)
+        copy = torch.empty_like(tgt)
+        want = K.scatter_body(*ops, "add").view(torch.int32)
+        got = functools.partial(K.fold_scatter_add, *ops)
+        measure(dict(call="add", shape=[T, v, R],
+                     library_ms=timer.ms(functools.partial(
+                         ext.scatter_add, 1, lidx64, masked)),
+                     copy_ms=timer.ms(lambda: copy.copy_(tgt))),
+                got, functools.partial(K.scatter_body, *ops, "add"),
+                lambda: dict(ok=torch.equal(got().view(torch.int32), want)))
+    elif args.kernel == "wkv6":
+        W6 = cs.W6
+        B, S, H, Kh, chunk, w_fixed, state = cs.WKV_MAIN
+        ops = cs.wkv_inputs(torch.Generator(device=dev).manual_seed(0), B,
+                            S, H, Kh, w_fixed, state, dev)
+        want = W6.wkv6_chunked(*ops, chunk=chunk)
+        got = functools.partial(W6.wkv6_kernel, *ops, chunk=chunk)
+
+        def check():
+            err = max(cs.rel_to_max(a, w) for a, w in zip(got(), want))
+            return dict(ok=err <= cs.WKV_REL_TOL, rel_err=err)
+
+        measure(dict(call="rwkv6-1.6b prefill", shape=[B, S, H, Kh, chunk]),
+                got, functools.partial(W6.wkv6_chunked, *ops, chunk=chunk),
+                check)
     else:
         SSD = cs.SSD
         B, S, H, P, N, chunk, a_log, dt, state = cs.SSD_MAIN
