@@ -614,21 +614,90 @@ def frontier_inputs(rng, T, n, k_max, dev):
     return rng_tensor(rng, mask, dev), rng_tensor(rng, k, dev)
 
 
+# The shapes the pop and the min fold are timed at: the R-MAT-22 partition
+# (the kernel table's shape) and R-MAT-18's, the shape of the unfused paths
+# that launch them (phase rmat18); the fold with 4,096 rows a tile.
+POP_FOLD_SHAPES = {"R-MAT-22 partition": (MAIN_T, MAIN_V_CHUNK),
+                   "R-MAT-18 partition": (MAIN_T, 2 ** PR_SCALE // MAIN_T)}
+# the min fold's slices past its staging: ranges of 52,432 slots
+FOLD_BESIDE_V_CHUNK = 262144
+# The T2 scans' shards at the same two partitions (ceil(E / 64) words a
+# tile), timed at both: R-MAT-18's is the shape the unfused paths launch.
+SCAN_SHAPES = {"R-MAT-22 partition": MAIN_E_CHUNK,
+               "R-MAT-18 partition": 39134}
+
+
+def unaligned(x: torch.Tensor, offset_bytes: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset_bytes`` past a
+    16-byte boundary (a view into a larger buffer)."""
+    n = nbytes(x)
+    buf = torch.empty(n + 16, dtype=torch.uint8, device=x.device)
+    view = buf[offset_bytes:offset_bytes + n].view(x.dtype).view(x.shape)
+    return view.copy_(x)
+
+
+def split_edges(T, n, dev):
+    """The positions within two of every boundary of the column split of
+    ``T`` tiles of ``n`` (its inner and outer ends), clipped to the tile."""
+    bounds = np.array(K.device_split(T, n, dev).bounds(n))
+    return np.unique(np.clip(bounds[:, None] + np.arange(-2, 2), 0, n - 1))
+
+
+def pop_edge_inputs(rng, T, n, k_max, dev, kind):
+    """Bitmaps at the pop's column split: "boundaries" sets bits only
+    beside its boundaries; "straddle" gives each tile k_max or fewer set
+    bits around one boundary, then more past them; budgets 0, 1 and
+    k_max among the tiles."""
+    mask = np.zeros((T, n), bool)
+    k = rng.integers(0, k_max + 1, T).astype(np.int32)
+    k[:3] = [0, 1, k_max][:T]
+    if kind == "boundaries":
+        e = split_edges(T, n, dev)
+        mask[:, e] = rng.random((T, e.size)) < 0.7
+    else:
+        bounds = K.device_split(T, n, dev).bounds(n)
+        for t in range(T):
+            b = bounds[1 + t % max(len(bounds) - 2, 1)]
+            half = int(rng.integers(0, k_max + 1))
+            mask[t, max(b - half, 0):b + k_max - half] = True
+            mask[t, b + k_max + 8:b + k_max + 40] = True
+    return rng_tensor(rng, mask, dev), rng_tensor(rng, k, dev)
+
+
 def check_frontier_pop(rng, dev, timer):
     k_max = MAIN_CFG.f_pop
     for T, n in ((3, 257), (5, 48), (2, 16)):  # ragged / small edge cases
         mask, k = frontier_inputs(rng, T, n, k_max, dev)
         max_abs_err(K.frontier_pop(mask, k, k_max),
                     K.frontier_take(mask, k, k_max))
-    mask, k = frontier_inputs(rng, MAIN_T, MAIN_V_CHUNK, k_max, dev)
-    out = K.frontier_pop(mask, k, k_max)
-    err = max_abs_err(out, K.frontier_take(mask, k, k_max))
-    moved = nbytes(mask, k, *out)
-    return dict(
-        max_abs_err=err,
-        ms=timer.ms(lambda: K.frontier_pop(mask, k, k_max)),
-        plain_ms=timer.ms(lambda: K.frontier_take(mask, k, k_max)),
-        bound_ms=bound_ms(moved), library_ms=None)
+    # the column split's edges (G = 5 and 9; n % 16 == 5 puts the tiles
+    # off 16-byte vectors), each also on a bitmap off a vector (its
+    # cleared copy on one: byte by byte)
+    for T, n, kind in ((4, 2050, "boundaries"), (4, 2050, "straddle"),
+                       (3, 4101, "boundaries"), (8, 4101, "straddle"),
+                       (MAIN_T, 4096, "straddle")):
+        mask, k = pop_edge_inputs(rng, T, n, k_max, dev, kind)
+        for m in (mask, unaligned(mask, 5)):
+            max_abs_err(K.frontier_pop(m, k, k_max),
+                        K.frontier_take(m, k, k_max))
+            assert K.frontier_pop.split == K.device_split(T, n, dev)
+            assert K.frontier_pop.split.G > 1, K.frontier_pop.split
+    calls = []
+    for label, (T, n) in POP_FOLD_SHAPES.items():
+        mask, k = frontier_inputs(rng, T, n, k_max, dev)
+        out = K.frontier_pop(mask, k, k_max)
+        max_abs_err(out, K.frontier_take(mask, k, k_max))
+        copy = torch.empty_like(mask)
+        calls.append(dict(
+            call=label, shape=[T, n], G=K.frontier_pop.split.G,
+            ms=timer.ms(lambda: K.frontier_pop(mask, k, k_max)),
+            plain_ms=timer.ms(lambda: K.frontier_take(mask, k, k_max)),
+            bound_ms=bound_ms(nbytes(mask, k, *out)),
+            copy_ms=timer.ms(lambda: copy.copy_(mask))))
+    main = calls[0]
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], library_ms=None, G=main["G"],
+                copy_ms=main["copy_ms"], calls=calls)
 
 
 def queue_inputs(rng, T, cap, w, m, max_n, dev, full_rows=False):
@@ -726,27 +795,36 @@ def check_edge_scan_gather(rng, dev, timer):
         max_abs_err(K.edge_scan_gather(*args, mt),
                     K.segment_gather(*args, mt))
     R = MAIN_T * MAIN_CFG.cap_route_range
-    ed, ev, start, stop, rv = args = scan_inputs(rng, MAIN_T, MAIN_E_CHUNK,
-                                                 R, max_t2, dev)
-    out = K.edge_scan_gather(*args, max_t2)
-    err = max_abs_err(out, K.segment_gather(*args, max_t2))
-    # bytes this run needs: the rows, each distinct shard word the lanes
-    # address, and the three outputs
-    local0 = torch.where(rv, start % MAIN_E_CHUNK, 0)
-    j = torch.arange(max_t2, device=dev, dtype=torch.int32)
-    eidx = torch.clamp(local0[:, :, None] + j, max=MAIN_E_CHUNK - 1)
-    words = sum(int(torch.unique(eidx[t]).numel()) for t in range(MAIN_T))
-    moved = nbytes(start, stop, rv, *out) + 8 * words
-    # library yardstick: one torch.gather of the (dst, val) word pairs at
-    # the clamped lane indices (jvalid not included)
-    pairs = torch.stack([ed, ev.view(torch.int32)], dim=-1)
-    gidx = eidx.reshape(MAIN_T, -1, 1).expand(-1, -1, 2).to(torch.int64)
-    return dict(
-        max_abs_err=err,
-        ms=timer.ms(lambda: K.edge_scan_gather(*args, max_t2)),
-        plain_ms=timer.ms(lambda: K.segment_gather(*args, max_t2)),
-        bound_ms=bound_ms(moved),
-        library_ms=timer.ms(lambda: torch.gather(pairs, 1, gidx)))
+    calls = []
+    for label, e_chunk in SCAN_SHAPES.items():
+        ed, ev, start, stop, rv = args = scan_inputs(rng, MAIN_T, e_chunk,
+                                                     R, max_t2, dev)
+        out = K.edge_scan_gather(*args, max_t2)
+        max_abs_err(out, K.segment_gather(*args, max_t2))
+        # bytes this run needs: the rows, each distinct shard word the
+        # lanes address, and the three outputs
+        local0 = torch.where(rv, start % e_chunk, 0)
+        j = torch.arange(max_t2, device=dev, dtype=torch.int32)
+        eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
+        words = sum(int(torch.unique(eidx[t]).numel())
+                    for t in range(MAIN_T))
+        moved = nbytes(start, stop, rv, *out) + 8 * words
+        # library yardstick: one torch.gather of the (dst, val) word pairs
+        # at the clamped lane indices (jvalid not included)
+        pairs = torch.stack([ed, ev.view(torch.int32)], dim=-1)
+        gidx = eidx.reshape(MAIN_T, -1, 1).expand(-1, -1, 2) \
+            .to(torch.int64)
+        calls.append(dict(
+            call=label, shape=[MAIN_T, e_chunk, R, max_t2],
+            ms=timer.ms(lambda: K.edge_scan_gather(*args, max_t2)),
+            plain_ms=timer.ms(lambda: K.segment_gather(*args, max_t2)),
+            bound_ms=bound_ms(moved),
+            library_ms=timer.ms(lambda: torch.gather(pairs, 1, gidx)),
+            library="torch.gather, no jvalid"))
+    main = calls[0]
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], library_ms=main["library_ms"],
+                calls=calls)
 
 
 def stream_words(start, rv, e_chunk, window):
@@ -775,17 +853,19 @@ def check_edge_scan_stream(rng, dev, timer):
         assert K.edge_scan_stream.path == K.window_path(win)
     max_t2 = MAIN_CFG.max_t2
     R = MAIN_T * MAIN_CFG.cap_route_range
-    args = scan_inputs(rng, MAIN_T, MAIN_E_CHUNK, R, max_t2, dev)
-    start, rv = args[2], args[4]
     calls = []
-    for window in (128, max_t2):
+    main22, main18 = SCAN_SHAPES.items()
+    for (label, e_chunk), window in ((main22, 128), (main22, max_t2),
+                                     (main18, 128)):
+        args = scan_inputs(rng, MAIN_T, e_chunk, R, max_t2, dev)
+        start, rv = args[2], args[4]
         out = K.edge_scan_stream(*args, max_t2, window)
         err = max_abs_err(out, K.segment_stream(*args, max_t2, window))
         moved = nbytes(*args[2:], *out) + 8 * stream_words(
-            start, rv, MAIN_E_CHUNK, window)
+            start, rv, e_chunk, window)
         calls.append(dict(
-            call=f"window {window}", shape=[MAIN_T, R, max_t2],
-            max_abs_err=err,
+            call=f"window {window}, {label}",
+            shape=[MAIN_T, e_chunk, R, max_t2], max_abs_err=err,
             ms=timer.ms(lambda: K.edge_scan_stream(*args, max_t2, window)),
             plain_ms=timer.ms(
                 lambda: K.segment_stream(*args, max_t2, window)),
@@ -807,26 +887,90 @@ def fold_inputs(rng, T, v_chunk, R, dev):
             for a in (tgt, lidx.astype(np.int32), vals, valid)]
 
 
+def min_fold_edge_inputs(rng, T, v_chunk, R, dev, kind):
+    """Min-fold inputs at its column split: rows beside every boundary
+    ("boundaries"), +0.0 and -0.0 in targets and rows ("zeros"), every
+    target float32 max ("max"), rows equal to their slot's target
+    ("equal"), every row invalid ("invalid", half on real slots) or on
+    one slot ("one-slot")."""
+    tgt = rng.normal(0, 20, (T, v_chunk)).astype(np.float32)
+    valid = rng.random((T, R)) < 0.8
+    lidx = rng.choice(split_edges(T, v_chunk, dev), (T, R))
+    vals = rng.normal(0, 20, (T, R)).astype(np.float32)
+    if kind == "zeros":
+        z = np.float32([0.0, -0.0])
+        tgt[:, :64] = rng.choice(z, (T, 64))
+        lidx = rng.integers(0, 64, (T, R))
+        vals = np.where(rng.random((T, R)) < 0.7, rng.choice(z, (T, R)),
+                        np.abs(vals))
+    elif kind == "max":
+        tgt[:] = INF32
+    elif kind == "equal":
+        vals = np.take_along_axis(tgt, lidx, 1)
+    elif kind == "invalid":
+        valid[:] = False
+    elif kind == "one-slot":
+        lidx[:] = v_chunk // 2
+    lidx = np.where(valid | (rng.random((T, R)) < 0.5), lidx, v_chunk)
+    return [rng_tensor(rng, a, dev) for a in (
+        tgt, lidx.astype(np.int32), vals.astype(np.float32), valid)]
+
+
 def check_fold_scatter(rng, dev, timer):
+    def plain(*a):
+        return K.scatter_body(*a, "min")
+
+    def fold(*a):
+        out = K.fold_scatter(*a)
+        split = K.device_split(*a[0].shape, dev)
+        assert K.fold_scatter.split == split
+        assert K.fold_scatter.path == K.min_fold_path(split.step)
+        return out
+
     for T, v, R in ((3, 32, 20), (2, 8, 64), (2, 128, 1)):
         args = fold_inputs(rng, T, v, R, dev)
-        max_abs_err([K.fold_scatter(*args)], [K.scatter_body(*args, "min")])
-    tgt, lidx, vals, valid = args = fold_inputs(
-        rng, MAIN_T, MAIN_V_CHUNK, MAIN_T * MAIN_CFG.cap_route_update, dev)
-    out = K.fold_scatter(*args)
-    err = max_abs_err([out], [K.scatter_body(*args, "min")])
-    # library yardstick: one scatter_reduce(amin) into the slice plus its
-    # trash column, rows pre-masked
-    ext = torch.cat([tgt, tgt.new_full((MAIN_T, 1), INF32)], dim=1)
-    masked = torch.where(valid, vals, INF32)
-    lidx64 = lidx.to(torch.int64)
-    return dict(
-        max_abs_err=err,
-        ms=timer.ms(lambda: K.fold_scatter(*args)),
-        plain_ms=timer.ms(lambda: K.scatter_body(*args, "min")),
-        bound_ms=bound_ms(nbytes(*args, out)),
-        library_ms=timer.ms(
-            lambda: ext.scatter_reduce(1, lidx64, masked, "amin")))
+        max_abs_err([fold(*args)], [plain(*args)])
+    # the column split's edges, G = 5 (also on a target off a 16-byte
+    # vector), and the slices past the staging (ranges of 52,432 slots)
+    for kind in ("boundaries", "zeros", "max", "equal", "invalid",
+                 "one-slot"):
+        args = min_fold_edge_inputs(rng, 2, SEG_EDGE_B, 4096, dev, kind)
+        max_abs_err([fold(*args)], [plain(*args)])
+        assert K.fold_scatter.split.G > 1, K.fold_scatter.split
+        args[0] = unaligned(args[0], 4)
+        max_abs_err([fold(*args)], [plain(*args)])
+    R = MAIN_T * MAIN_CFG.cap_route_update
+    calls = []
+    shapes = {**POP_FOLD_SHAPES,
+              "past the staging": (MAIN_T, FOLD_BESIDE_V_CHUNK)}
+    for label, (T, v) in shapes.items():
+        tgt, lidx, vals, valid = args = fold_inputs(rng, T, v, R, dev)
+        out = fold(*args)
+        max_abs_err([out], [plain(*args)])
+        # library yardstick: one scatter_reduce(amin) into the slice plus
+        # its trash column, rows pre-masked (it folds -0.0 and +0.0 in no
+        # fixed order)
+        ext = torch.cat([tgt, tgt.new_full((T, 1), INF32)], dim=1)
+        masked = torch.where(valid, vals, INF32)
+        lidx64 = lidx.to(torch.int64)
+        copy = torch.empty_like(tgt)
+        calls.append(dict(
+            call=label, shape=[T, v, R], G=K.fold_scatter.split.G,
+            path=K.fold_scatter.path,
+            ms=timer.ms(lambda: K.fold_scatter(*args)),
+            plain_ms=timer.ms(lambda: plain(*args)),
+            bound_ms=bound_ms(nbytes(*args, out)),
+            library_ms=timer.ms(
+                lambda: ext.scatter_reduce(1, lidx64, masked, "amin")),
+            library="scatter_reduce amin",
+            copy_ms=timer.ms(lambda: copy.copy_(tgt))))
+    assert calls[-1]["path"] == "folded beside the copy", calls[-1]
+    main = calls[0]
+    assert main["path"] == "staged in shared memory", main
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], library_ms=main["library_ms"],
+                G=main["G"], path=main["path"], copy_ms=main["copy_ms"],
+                calls=calls)
 
 
 def add_fold_inputs(rng, T, v_chunk, R, dev, kind):
@@ -1094,16 +1238,20 @@ def phase_kernels(dev, timer):
         log(f"# kernel {name}: {agree} its plain version; "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes), library {lib}"
-            + (f"; G = {r['G']}" if "G" in r else ""))
+            + (f"; G = {r['G']}" if "G" in r else "")
+            + (f"; {r['path']}" if "path" in r else ""))
         for c in r.get("calls", []):
             log(f"#   {c['call']} call {c['shape']}"
                 + (f", G = {c['G']}" if "G" in c else "")
+                + (f", {c['path']}" if "path" in c else "")
                 + f": kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                 f"bound {c['bound_ms']:.4f} ms"
                 + (f" (whole queue {c['whole_bound_ms']:.4f} ms, live share "
                    f"{c['live_share']:.4f})" if "live_share" in c else "")
                 + (f", library {c['library_ms']:.4f} ms ({c['library']})"
-                   if "library" in c else ""))
+                   if "library" in c else "")
+                + (f", copy_ {c['copy_ms']:.4f} ms" if "copy_ms" in c
+                   else ""))
     return rows
 
 
@@ -3048,7 +3196,7 @@ def main():
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("calls", "hd80", "f32_ms", "hgmma",
                                  "library_bsr_ms", "f32_bound_ms", "hmma",
-                                 "G")
+                                 "G", "path", "copy_ms")
                if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")

@@ -32,27 +32,248 @@ namespace {
 // and the bitmap with exactly those bits cleared.
 //
 // Bound: bytes — the bitmap is read once and its cleared copy written once
-// (2n bytes per tile); the ranking is a few integer ops per byte.  Design:
-// one block per tile walks the bitmap in 32 KiB passes, each thread owning
-// 64 consecutive bytes read and written as four 16-byte vectors; a block
-// scan of the per-thread popcounts gives each thread the rank of its first
-// set bit.  Once k bits are ranked the block only copies.  Occupancy: T
-// blocks (64 on the main path, under half of the 132 SMs).
+// (2n bytes per tile); the ranking is a few integer ops per byte and k
+// (the pop budget, f_pop = 32 on the main paths) bits at most a tile.
+// Design: the taken bits are exactly the set bits at or before p_last, the
+// position of the n_take-th set bit, so a block that owns a range of a
+// tile's bitmap needs one number from the rest of it: how many set bits lie
+// before its range, capped at k.  The grid is (T, G) of column-owning
+// blocks, G and `step` from kernel.py device_split (320 blocks at 64 tiles
+// of 65,536).  Block (t, g) owns the bytes [g * step, min((g + 1) * step,
+// n)) and
+//   1. loads its bytes, every 16-byte vector of a pass in flight at once;
+//   2. writes at once its vectors that hold no set bit (the pop leaves
+//      them as they are), so that most of a sparse bitmap's writes overlap
+//      the next step;
+//   3. counts the set bits before its range itself (pop_count_before), in
+//      passes of 32 KiB that stop once the count reaches k: those bytes
+//      are the blocks before it, read at the same time (L2 hits).  No
+//      block waits on another: no scratch, no spin, no order among blocks;
+//   4. if that count is >= k, copies its other vectors as they are; else
+//      ranks its own set bits from that count (a warp owns a contiguous run
+//      of vectors: one warp scan a vector and one block scan of the warps'
+//      totals a pass), writes idx[rank] for rank < min(k, k_max), clears
+//      those bytes and writes those vectors.
+// The last range's count before plus its own, capped at k, is n_take: that
+// block writes valid and the zeros of idx[n_take:k_max], disjoint from the
+// other blocks' idx writes.  A byte is a set bit where it is not 0 (the
+// parent kernel's and frontier_take_block's test; torch.bool bytes are 0
+// or 1, but the test does not rely on it), counted four bytes a word by
+// folding each byte onto its low bit.  The bitmap's 16-byte vectors are
+// those of its address: a vector that a range boundary or the tile's ends
+// cut is read and written byte by byte, and so is every vector where mask
+// and rem differ in their alignment (an unaligned view).
 // ---------------------------------------------------------------------------
-constexpr int FP_THREADS = 512;
+constexpr int FP_THREADS = 256;
+constexpr int FP_WARPS = FP_THREADS / 32;
+constexpr int FP_VECS = 4;        // a thread's vectors of its range a pass
+constexpr int FP_COUNT_VECS = 8;  // a thread's vectors a counting pass
+static_assert(FP_WARPS <= 32, "one warp scans the warps' totals");
+
+// each byte of w that is not 0, as the low bit of that byte
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  w |= w >> 4;
+  w |= w >> 2;
+  w |= w >> 1;
+  return w & 0x01010101u;
+}
+
+__device__ __forceinline__ int count_set(const uint4& v) {
+  return __popc(nonzero_bytes(v.x)) + __popc(nonzero_bytes(v.y)) +
+         __popc(nonzero_bytes(v.z)) + __popc(nonzero_bytes(v.w));
+}
+
+// the set bytes of a vector as 16 bits, bit i for byte i
+__device__ __forceinline__ uint32_t set_bits(const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t b = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t y = nonzero_bytes(w[q]);
+    b |= ((y | (y >> 7) | (y >> 14) | (y >> 21)) & 0xFu) << (4 * q);
+  }
+  return b;
+}
+
+// w with the bytes whose bits are set in `clear` (4 bits) zeroed
+__device__ __forceinline__ uint32_t clear_word(uint32_t w, uint32_t clear) {
+  const uint32_t x =
+      (clear | (clear << 7) | (clear << 14) | (clear << 21)) & 0x01010101u;
+  return w & ~(x * 0xFFu);
+}
+
+// v with the bytes whose bits are set in `clear` (16 bits) zeroed
+__device__ __forceinline__ uint4 clear_bytes(uint4 v, uint32_t clear) {
+  return make_uint4(clear_word(v.x, clear & 0xFu),
+                    clear_word(v.y, (clear >> 4) & 0xFu),
+                    clear_word(v.z, (clear >> 8) & 0xFu),
+                    clear_word(v.w, (clear >> 12) & 0xFu));
+}
+
+// The 16 bytes of m at positions p .. p + 15 (m + p 16-byte aligned where
+// they all lie in [a, b)), 0 for the positions outside [a, b).
+__device__ __forceinline__ repro::Bytes16 load_vec(const uint8_t* m, int p,
+                                                   int a, int b) {
+  repro::Bytes16 u;
+  if (p >= a && p + repro::FT_BYTES <= b) {
+    u.v = *reinterpret_cast<const uint4*>(m + p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < repro::FT_BYTES; ++i)
+      u.b[i] = p + i >= a && p + i < b ? m[p + i] : 0;
+  }
+  return u;
+}
+
+// The bytes of u at positions p .. p + 15 of r that lie in [a, b), as one
+// 16-byte vector where they all do and r + p is aligned (vec: r and the
+// bitmap read share their alignment).
+__device__ __forceinline__ void store_vec(uint8_t* r, int p, int a, int b,
+                                          const repro::Bytes16& u, bool vec) {
+  if (vec && p >= a && p + repro::FT_BYTES <= b) {
+    *reinterpret_cast<uint4*>(r + p) = u.v;
+  } else {
+#pragma unroll
+    for (int i = 0; i < repro::FT_BYTES; ++i)
+      if (p + i >= a && p + i < b) r[p + i] = u.b[i];
+  }
+}
+
+// The set bits of m[0:lo), counted by the whole block in passes of
+// FP_THREADS * FP_COUNT_VECS whole 16-byte vectors, each pass's loads in
+// flight together; the bytes that no whole vector holds (fewer than 16 at
+// each end) by warp 0 in the first pass.  Stops after the pass that reaches
+// k.  v0 (-15 .. 0) is the position of the first byte of m's first 16-byte
+// vector.  Block-uniform.
+__device__ inline int pop_count_before(const uint8_t* __restrict__ m, int v0,
+                                       int lo, int k, int* sm) {
+  if (lo <= 0 || k <= 0) return 0;
+  // the whole vectors [jf0, jf1) hold the positions [f0, f1)
+  const int jf0 = v0 < 0 ? 1 : 0;
+  const int jf1 = max((lo - v0) / repro::FT_BYTES, jf0);
+  const int f0 = min(v0 + repro::FT_BYTES * jf0, lo);
+  const int f1 = max(v0 + repro::FT_BYTES * jf1, f0);
+  int c = 0;
+  if (threadIdx.x < 32) {  // the cut ends [0, f0) and [f1, lo)
+    const int lane = threadIdx.x;
+    const int q = lane < 16 ? lane : f1 + lane - 16;
+    const bool set = (lane < 16 ? q < f0 : q < lo) && m[q] != 0;
+    const unsigned votes = __ballot_sync(0xffffffffu, set);  // every lane
+    c = lane == 0 ? __popc(votes) : 0;
+  }
+  int seen = 0;
+  for (int j0 = jf0;; j0 += FP_THREADS * FP_COUNT_VECS) {
+    uint4 u[FP_COUNT_VECS];
+#pragma unroll
+    for (int q = 0; q < FP_COUNT_VECS; ++q) {
+      const int j = j0 + q * FP_THREADS + threadIdx.x;
+      u[q] = j < jf1 ? *reinterpret_cast<const uint4*>(
+                           m + v0 + repro::FT_BYTES * j)
+                     : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int q = 0; q < FP_COUNT_VECS; ++q) c += count_set(u[q]);
+    seen += repro::block_sum(c, sm);
+    c = 0;
+    if (seen >= k || j0 + FP_THREADS * FP_COUNT_VECS >= jf1) return seen;
+  }
+}
 
 __global__ void __launch_bounds__(FP_THREADS)
 frontier_pop_kernel(const uint8_t* __restrict__ mask,
                     const int32_t* __restrict__ kk, int32_t* __restrict__ idx,
                     uint8_t* __restrict__ valid, uint8_t* __restrict__ rem,
-                    int n, int k_max) {
+                    int n, int k_max, int step) {
   __shared__ int sm[33];
-  const int t = blockIdx.x;
-  const int n_take = repro::frontier_take_block(
-      mask + (size_t)t * n, rem + (size_t)t * n, n, kk[t], k_max,
-      idx + (size_t)t * k_max, sm);
-  for (int j = threadIdx.x; j < k_max; j += blockDim.x)
-    valid[(size_t)t * k_max + j] = j < n_take;
+  const int t = blockIdx.x, g = blockIdx.y;
+  const int lo = g * step, hi = min(lo + step, n);
+  const uint8_t* m = mask + (size_t)t * n;
+  uint8_t* r = rem + (size_t)t * n;
+  int32_t* ix = idx + (size_t)t * k_max;
+  const int k = kk[t];
+  const int v0 = -static_cast<int>(reinterpret_cast<uintptr_t>(m) & 15);
+  const bool vec_out = ((reinterpret_cast<uintptr_t>(m) ^
+                         reinterpret_cast<uintptr_t>(r)) & 15) == 0;
+  // this range's vectors [j_lo, j_hi), a warp owning 32 * FP_VECS of a pass
+  const int j_lo = (lo - v0) / repro::FT_BYTES;
+  const int j_hi = hi > lo ? (hi - v0 + repro::FT_BYTES - 1) / repro::FT_BYTES
+                           : j_lo;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int seen = 0;  // set bits before this pass, once counted; block-uniform
+  for (int jp = j_lo; jp < j_hi; jp += FP_THREADS * FP_VECS) {
+    const int jw = jp + warp * 32 * FP_VECS + lane;  // vector q: jw + 32 q
+    repro::Bytes16 u[FP_VECS];
+#pragma unroll
+    for (int q = 0; q < FP_VECS; ++q) {
+      const int j = jw + 32 * q;
+      if (j < j_hi)
+        u[q] = load_vec(m, v0 + repro::FT_BYTES * j, lo, hi);
+      else
+        u[q].v = make_uint4(0, 0, 0, 0);
+    }
+    int c[FP_VECS];
+#pragma unroll
+    for (int q = 0; q < FP_VECS; ++q) {
+      c[q] = count_set(u[q].v);
+      if (c[q] == 0 && jw + 32 * q < j_hi)  // not popped: written at once
+        store_vec(r, v0 + repro::FT_BYTES * (jw + 32 * q), lo, hi, u[q],
+                  vec_out);
+    }
+    if (jp == j_lo) seen = pop_count_before(m, v0, lo, k, sm);
+    if (seen < k) {  // block-uniform
+      int excl[FP_VECS], wtot = 0;
+#pragma unroll
+      for (int q = 0; q < FP_VECS; ++q) {
+        int x = c[q];
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, o);
+          if (lane >= o) x += y;
+        }
+        excl[q] = wtot + x - c[q];
+        wtot += __shfl_sync(0xffffffffu, x, 31);
+      }
+      if (lane == 0) sm[warp] = wtot;
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < FP_WARPS; ++w) {
+        before += w < warp ? sm[w] : 0;
+        total += sm[w];
+      }
+#pragma unroll
+      for (int q = 0; q < FP_VECS; ++q) {
+        int rank = seen + before + excl[q];
+        if (c[q] == 0 || rank >= k) continue;
+        const int p = v0 + repro::FT_BYTES * (jw + 32 * q);
+        uint32_t bits = set_bits(u[q].v), taken = 0;
+        while (bits != 0 && rank < k) {
+          const int i = __ffs(bits) - 1;
+          bits &= bits - 1;
+          if (rank < k_max) ix[rank] = p + i;
+          taken |= 1u << i;
+          ++rank;
+        }
+        u[q].v = clear_bytes(u[q].v, taken);
+      }
+      seen += total;
+      __syncthreads();  // sm is read before the next pass writes it
+    }
+#pragma unroll
+    for (int q = 0; q < FP_VECS; ++q)
+      if (c[q] != 0)  // (a vector past j_hi holds no set bit)
+        store_vec(r, v0 + repro::FT_BYTES * (jw + 32 * q), lo, hi, u[q],
+                  vec_out);
+  }
+  if (g == gridDim.y - 1) {  // the last range: n_take is min(k, seen)
+    if (lo >= hi) seen = pop_count_before(m, v0, lo, k, sm);
+    int n_take = seen < k ? seen : k;
+    if (n_take < 0) n_take = 0;
+    for (int j = threadIdx.x; j < k_max; j += blockDim.x) {
+      valid[(size_t)t * k_max + j] = j < n_take;
+      if (j >= n_take) ix[j] = 0;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -298,33 +519,198 @@ edge_scan_stream_global_kernel(const int32_t* __restrict__ edge_dst,
 // fold_scatter, op="min": replaces fold_scatter / scatter_body (kernel.py:557,
 // :204).  out = target, then out[lidx[r]] = min(out[lidx[r]], vals[r]) for
 // every valid row r whose lidx is a real slot (the v_chunk trash slot and
-// invalid rows contribute the neutral element, i.e. nothing).
+// invalid rows contribute the neutral element, i.e. nothing).  The min is
+// the order of the floats' bits as fold_order_key gives it (kernel.py
+// scatter_body): -0.0 below +0.0, as the reference's min folds them.
 //
 // Bound: bytes — the (v_chunk,) slice is read and written once (8 bytes per
-// vertex) and each row is read once (9 bytes).  Design: one block per tile
-// copies its slice with 16-byte vectors, synchronises, then folds its rows
-// with float atomicMin through the integer-order trick (ordered_scatter.cuh).
-// Min is exact in any order, so the atomics stay bitwise equal to the serial
-// reference; every write stays inside the tile's own slice.
+// vertex) and each row is read once (9 bytes).  Design: a grid (T, G) of
+// column-owning blocks, G and `step` from kernel.py device_split (as the
+// add fold's), so that 64 tiles fill the card (320 blocks at 65,536 slots
+// a tile).  Block (t, g) owns the slots [lo, hi) = [g * step, min((g + 1) *
+// step, v_chunk)) of tile t:
+//   1. one thread starts a bulk copy (cp.async.bulk, TMA) of the range's
+//      16-byte-aligned part into shared memory, completing on an mbarrier
+//      (a few threads load the cut ends);
+//   2. meanwhile every thread loads FM_ROWS of the tile's rows into
+//      registers, all in flight: four rows a load (an int4 of slots, a
+//      float4 of values, a word of flags) where R is a multiple of 4 and
+//      the rows are aligned, since every block of the tile reads all its
+//      rows;
+//   3. once the copy has landed, the rows whose slot lies in [lo, hi) fold
+//      with shared-memory atomics through the integer-order trick
+//      (ordered_scatter.cuh atomic_min_f32), the next rows likewise;
+//   4. the range is written out once, in 16-byte vectors where out's
+//      alignment matches the target's.
+// Min is exact in any order, so the atomics give the serial reference's
+// bits.  Where step * 4 bytes pass STAGE_SMEM_MAX the same grid folds beside
+// the copy instead (min_fold_beside: a copy part copies the range into out
+// while the rest gathers the rows in range, then global atomics), with the
+// same bits; the wrapper notes the path.  Staging the range in parts, each
+// written out as soon as it had landed and been folded, was slower on an
+// H100 (PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int FS_THREADS = 1024;
+constexpr int FM_THREADS = 512;
+constexpr int FM_ROWS = 8;  // rows a thread holds in registers at once
+static_assert(FM_ROWS % 4 == 0, "rows come four at a time");
 
-__global__ void __launch_bounds__(FS_THREADS)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Wait for the phase of parity 0 of the mbarrier at `bar`; trap after ~1 s
+// (a launch error, not a hang).
+__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(0u)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 2000000000LL) __trap();
+  }
+}
+
+struct MinRow {
+  int s;  // -1 for an invalid row
+  float v;
+};
+
+// Rows r .. r + 3 of a tile (those below R), into x[0..3].
+__device__ __forceinline__ void load_min_rows(const int32_t* __restrict__ li,
+                                              const float* __restrict__ vx,
+                                              const uint8_t* __restrict__ vd,
+                                              int r, int R, bool vec,
+                                              MinRow* x) {
+  if (vec) {  // R % 4 == 0: all four or none
+    if (r < R) {
+      const int4 q = *reinterpret_cast<const int4*>(li + r);
+      const float4 v = *reinterpret_cast<const float4*>(vx + r);
+      const uint32_t f = *reinterpret_cast<const uint32_t*>(vd + r);
+      x[0] = MinRow{(f & 0xFFu) ? q.x : -1, v.x};
+      x[1] = MinRow{(f & 0xFF00u) ? q.y : -1, v.y};
+      x[2] = MinRow{(f & 0xFF0000u) ? q.z : -1, v.z};
+      x[3] = MinRow{(f & 0xFF000000u) ? q.w : -1, v.w};
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = MinRow{-1, 0.0f};
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    x[e] = r + e < R && vd[r + e] ? MinRow{li[r + e], vx[r + e]}
+                                  : MinRow{-1, 0.0f};
+}
+
+__global__ void __launch_bounds__(FM_THREADS)
 fold_scatter_min_kernel(const float* __restrict__ target,
                         const int32_t* __restrict__ lidx,
                         const float* __restrict__ vals,
                         const uint8_t* __restrict__ valid,
-                        float* __restrict__ out, int v_chunk, int R) {
+                        float* __restrict__ out, int v_chunk, int R,
+                        int step) {
+  extern __shared__ __align__(16) float fm_smem[];
+  __shared__ __align__(8) unsigned long long bar;
   const int t = blockIdx.x;
+  const int lo = blockIdx.y * step, hi = min(lo + step, v_chunk);
+  const float* tg = target + (size_t)t * v_chunk;
   float* o = out + (size_t)t * v_chunk;
-  repro::copy_slice(target + (size_t)t * v_chunk, o, v_chunk);
-  __syncthreads();
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const size_t q = (size_t)t * R + r;
-    const int li = lidx[q];
-    if (valid[q] && li >= 0 && li < v_chunk)
-      repro::atomic_min_f32(o + li, vals[q]);
+  // slot lo + i is s[i]; s - pre is 16-byte aligned, so the range's
+  // aligned part [a, b) lands on aligned shared memory
+  const int pre = static_cast<int>((reinterpret_cast<uintptr_t>(tg + lo) &
+                                    15) >> 2);
+  float* s = fm_smem + pre;
+  const int a = min(lo + ((4 - pre) & 3), hi);
+  const int b = a + (hi - a) / 4 * 4;
+  const uint32_t bytes = static_cast<uint32_t>(b - a) * 4u;
+  const uint32_t bar_s = smem_u32(&bar);
+  if (threadIdx.x == 0 && bytes > 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_s)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // the cut ends [lo, a) and [b, hi): at most 3 slots each
+  if (threadIdx.x < 8) {
+    const int i = threadIdx.x < 4 ? lo + threadIdx.x : b + threadIdx.x - 4;
+    if (i < (threadIdx.x < 4 ? a : hi)) s[i - lo] = tg[i];
+  }
+  __syncthreads();  // the barrier's init and the ends
+  if (threadIdx.x == 0 && bytes > 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar_s),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(s + (a - lo))),
+        "l"(tg + a), "r"(bytes), "r"(bar_s)
+        : "memory");
+  }
+  const int32_t* li = lidx + (size_t)t * R;
+  const float* vx = vals + (size_t)t * R;
+  const uint8_t* vd = valid + (size_t)t * R;
+  const bool vec = (R & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(li) |
+                     reinterpret_cast<uintptr_t>(vx)) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(vd) & 3) == 0;
+  for (int r0 = 0;; r0 += FM_THREADS * FM_ROWS) {
+    MinRow x[FM_ROWS];
+#pragma unroll
+    for (int u = 0; u < FM_ROWS; u += 4)
+      load_min_rows(li, vx, vd, r0 + 4 * (u / 4 * FM_THREADS + threadIdx.x),
+                    R, vec, x + u);
+    if (r0 == 0 && bytes > 0) mbar_wait0(bar_s);  // the staging has landed
+#pragma unroll
+    for (int u = 0; u < FM_ROWS; ++u)
+      if (x[u].s >= lo && x[u].s < hi)
+        repro::atomic_min_f32(s + (x[u].s - lo), x[u].v);
+    if (r0 + FM_THREADS * FM_ROWS >= R) break;
+  }
+  __syncthreads();
+  // out[lo:hi) = s: vectors where out + a is aligned as tg + a is
+  const bool vec_out = (reinterpret_cast<uintptr_t>(o + a) & 15) == 0;
+  const int v_lo = vec_out ? a : hi, v_hi = vec_out ? b : hi;
+  for (int i = threadIdx.x; 4 * i < v_hi - v_lo; i += FM_THREADS)
+    reinterpret_cast<float4*>(o + v_lo)[i] =
+        reinterpret_cast<const float4*>(s + (v_lo - lo))[i];
+  for (int i = lo + threadIdx.x; i < hi; i += FM_THREADS)
+    if (i < v_lo || i >= v_hi) o[i] = s[i - lo];
+}
+
+// The same fold past the staging: min_fold_beside over the same grid.
+static_assert(FM_THREADS > repro::COPY_THREADS, "two parts a block");
+
+__global__ void __launch_bounds__(FM_THREADS)
+fold_scatter_min_beside_kernel(const float* __restrict__ target,
+                               const int32_t* __restrict__ lidx,
+                               const float* __restrict__ vals,
+                               const uint8_t* __restrict__ valid,
+                               float* __restrict__ out, int v_chunk, int R,
+                               int step) {
+  extern __shared__ __align__(16) unsigned char fmb_smem[];
+  const int t = blockIdx.x;
+  const int lo = blockIdx.y * step, hi = min(lo + step, v_chunk);
+  float* o = out + (size_t)t * v_chunk;
+  const float* tg = target + (size_t)t * v_chunk;
+  const int32_t* li = lidx + (size_t)t * R;
+  const float* vx = vals + (size_t)t * R;
+  const uint8_t* vd = valid + (size_t)t * R;
+  repro::min_fold_beside(
+      o, lo, hi, R, fmb_smem,
+      [&](int r) {
+        const float x = vx[r];  // read whatever the flag, beside it
+        return repro::SlotValue{vd[r] ? li[r] : -1, x};
+      },
+      [&](const repro::Team& part) {
+        repro::copy_range(tg, o, lo, hi, part);
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -388,13 +774,17 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// G column ranges of `step` bytes a tile (kernel.py device_split).
 int repro_frontier_pop(const void* mask, const void* k, void* idx,
                        void* valid, void* rem, int T, int n, int k_max,
-                       void* stream) {
-  frontier_pop_kernel<<<T, FP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+                       int G, int step, void* stream) {
+  if (!repro::valid_split(n, G, step))
+    return static_cast<int>(cudaErrorInvalidValue);
+  frontier_pop_kernel<<<dim3(T, G), FP_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(k),
       static_cast<int32_t*>(idx), static_cast<uint8_t*>(valid),
-      static_cast<uint8_t*>(rem), n, k_max);
+      static_cast<uint8_t*>(rem), n, k_max, step);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -497,14 +887,38 @@ int repro_fold_scatter_add(const void* target, const void* lidx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// G column ranges of `step` slots a tile, each staged in shared memory up
+// to STAGE_SMEM_MAX bytes, else folded beside its copy.
 int repro_fold_scatter_min(const void* target, const void* lidx,
                            const void* vals, const void* valid, void* out,
-                           int T, int v_chunk, int R, void* stream) {
-  fold_scatter_min_kernel<<<T, FS_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(target), static_cast<const int32_t*>(lidx),
-      static_cast<const float*>(vals), static_cast<const uint8_t*>(valid),
-      static_cast<float*>(out), v_chunk, R);
+                           int T, int v_chunk, int R, int G, int step,
+                           void* stream) {
+  if (!repro::valid_split(v_chunk, G, step))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool staged = (size_t)step * sizeof(float) <= repro::STAGE_SMEM_MAX;
+  const size_t smem = staged ? ((size_t)step + 4) * sizeof(float)
+                             : repro::min_fold_smem(R);
+  const void* fn = staged ? (const void*)fold_scatter_min_kernel
+                          : (const void*)fold_scatter_min_beside_kernel;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(T, G);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* tg = static_cast<const float*>(target);
+  const int32_t* li = static_cast<const int32_t*>(lidx);
+  const float* vx = static_cast<const float*>(vals);
+  const uint8_t* vd = static_cast<const uint8_t*>(valid);
+  float* o = static_cast<float*>(out);
+  if (staged)
+    fold_scatter_min_kernel<<<grid, FM_THREADS, smem, st>>>(
+        tg, li, vx, vd, o, v_chunk, R, step);
+  else
+    fold_scatter_min_beside_kernel<<<grid, FM_THREADS, smem, st>>>(
+        tg, li, vx, vd, o, v_chunk, R, step);
   return static_cast<int>(cudaGetLastError());
 }
 

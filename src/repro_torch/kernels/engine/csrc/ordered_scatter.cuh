@@ -145,12 +145,6 @@ __device__ inline void copy_range(const float* __restrict__ src,
   for (int i = 4 * n4 + tm.tid; i < n; i += tm.size) o[i] = s[i];
 }
 
-// out[i] = src[i] for i < n, by the whole block.
-__device__ inline void copy_slice(const float* __restrict__ src,
-                                  float* __restrict__ out, int n) {
-  copy_range(src, out, 0, n, whole_block());
-}
-
 __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
   const int bits = __float_as_int(v);
   if (bits >= 0)

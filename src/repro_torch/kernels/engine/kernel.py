@@ -42,7 +42,8 @@ so no float atomics decide an order.
 
 No wrapper refuses a shape for its kernel's shared memory: where the
 staging does not fit, the kernel takes a second path that gives the same
-bits (the add folds sort in chunks; ``queue_push_pop`` and the fused legs
+bits (the add folds sort in chunks; the min fold folds beside its copy
+past ``STAGE_SMEM_MAX`` bytes a range; ``queue_push_pop`` and the fused legs
 stage in a device-memory scratch past ``STAGE_SMEM_MAX`` bytes; a
 streamed window wider than ``STREAM_MAX_WINDOW`` is read from device
 memory, not staged).  Each such wrapper notes the path of its last launch
@@ -141,11 +142,11 @@ def _sm_count(index: int) -> int:
 
 
 LIBRARY = CudaLibrary(SOURCE, {
-    "repro_frontier_pop": [_P] * 5 + [_I] * 3 + [_P],
+    "repro_frontier_pop": [_P] * 5 + [_I] * 5 + [_P],
     "repro_queue_push_pop": [_P] * 11 + [_I] * 6 + [_P],
     "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
     "repro_edge_scan_stream": [_P] * 8 + [_I] * 5 + [_P],
-    "repro_fold_scatter_min": [_P] * 5 + [_I] * 3 + [_P],
+    "repro_fold_scatter_min": [_P] * 5 + [_I] * 5 + [_P],
     "repro_fold_scatter_add": [_P] * 5 + [_I] * 5 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
 _launch = LIBRARY.launch
@@ -156,6 +157,14 @@ def add_chunks(R: int) -> str:
     chunks of ``FOLD_ADD_MAX_ROWS`` it sorts."""
     n = max(1, -(-R // FOLD_ADD_MAX_ROWS))
     return "one chunk" if n == 1 else f"{n} chunks"
+
+
+def min_fold_path(step: int) -> str:
+    """How the min fold's block folds its range of ``step`` slots: staged
+    in shared memory up to ``STAGE_SMEM_MAX`` bytes, else beside its copy
+    into the output (``min_fold_beside``, global atomics)."""
+    return ("staged in shared memory" if 4 * step <= STAGE_SMEM_MAX
+            else "folded beside the copy")
 
 
 def staging(T: int, nbytes: int, dev):
@@ -309,20 +318,33 @@ def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
     return ext[:, :n].contiguous()
 
 
+def fold_order_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in the order of the floats, -0.0 (key -1)
+    below +0.0 (key 0); its own inverse (int32 -> float32 bits)."""
+    b = x.view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
 def scatter_body(target, lidx, vals, valid, op: str):
     """The T3 owner-local scatter-min / scatter-add of each tile's rows
     into its ``(v_chunk,)`` slice; ``lidx == v_chunk`` is the trash slot
     and invalid rows contribute the neutral element.  The add keeps row
     order per slot (:func:`ordered_scatter_add`), so it is the same on
-    every device."""
+    every device.  The min takes the least :func:`fold_order_key`, an
+    integer min, so it is the same on every device too: -0.0 is below
+    +0.0, as the reference's min folds them (a float ``amin`` keeps
+    whichever of the two zeros comes first, and on the card in no fixed
+    order)."""
     T, v_chunk = target.shape
     neutral = _INF if op == "min" else 0.0
     masked = torch.where(valid, vals, neutral)
     if op == "add":
         return ordered_scatter_add(target, lidx, masked)
     ext = torch.cat([target, target.new_full((T, 1), neutral)], dim=1)
-    ext.scatter_reduce_(1, lidx.to(torch.int64), masked, "amin")
-    return ext[:, :v_chunk].contiguous()
+    key = fold_order_key(ext)
+    key.scatter_reduce_(1, lidx.to(torch.int64), fold_order_key(masked),
+                        "amin")
+    return fold_order_key(key[:, :v_chunk].contiguous()).view(torch.float32)
 
 
 # ==========================================================================
@@ -333,7 +355,9 @@ def frontier_pop(mask: torch.Tensor, k: torch.Tensor, k_max: int):
     """T4: pop the first ``min(k, popcount)`` set bits of every tile's
     frontier bitmap.  mask (T, n) bool, k (T,) int32 (<= k_max).  Returns
     (idx (T, k_max) int32, valid (T, k_max) bool, cleared (T, n) bool),
-    with 0 in the invalid ``idx`` slots."""
+    with 0 in the invalid ``idx`` slots.  The kernel runs over a grid (T,
+    G) of blocks that each own a range of a tile's bitmap, G and ``step``
+    the :func:`device_split` of the bitmaps (``split``)."""
     if mask.device.type == "cpu":
         record()
         return frontier_take(mask, k, k_max)
@@ -342,7 +366,10 @@ def frontier_pop(mask: torch.Tensor, k: torch.Tensor, k_max: int):
     idx = torch.empty((T, k_max), dtype=torch.int32, device=mask.device)
     valid = torch.empty((T, k_max), dtype=torch.bool, device=mask.device)
     rem = torch.empty_like(mask)
-    _launch("repro_frontier_pop", mask, k, idx, valid, rem, T, n, k_max)
+    split = device_split(T, n, mask.device)
+    _launch("repro_frontier_pop", mask, k, idx, valid, rem, T, n, k_max,
+            *split)
+    frontier_pop.split = split
     frontier_pop.launches += 1
     record()
     return idx, valid, rem
@@ -485,7 +512,10 @@ def fold_scatter(target, lidx, vals, valid, op: str = "min"):
     scatter-min (relaxations), or with ``op="add"`` the scatter-add of
     :func:`fold_scatter_add` (accumulations).  target (T, v_chunk)
     float32, lidx (T, R) int32 with ``v_chunk`` as the trash slot, vals
-    (T, R) float32, valid (T, R) bool."""
+    (T, R) float32, valid (T, R) bool.  The min's kernel runs over a grid
+    (T, G) of column-owning blocks, G and ``step`` the :func:`device_split`
+    of the slices (``split``), each range staged in shared memory or, past
+    ``STAGE_SMEM_MAX`` bytes, folded beside its copy (``path``)."""
     if op == "add":
         return fold_scatter_add(target, lidx, vals, valid)
     if op != "min":
@@ -495,8 +525,11 @@ def fold_scatter(target, lidx, vals, valid, op: str = "min"):
         return scatter_body(target, lidx, vals, valid, "min")
     T, v_chunk, R = _fold_checked(target, lidx, vals, valid)
     out = torch.empty_like(target)
+    split = device_split(T, v_chunk, target.device)
     _launch("repro_fold_scatter_min", target, lidx, vals, valid, out, T,
-            v_chunk, R)
+            v_chunk, R, *split)
+    fold_scatter.path = min_fold_path(split.step)
+    fold_scatter.split = split
     fold_scatter.launches += 1
     record()
     return out
@@ -528,6 +561,7 @@ KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, edge_scan_stream,
            fold_scatter, fold_scatter_add)
 for _k in KERNELS:
     _k.launches = 0
-for _k in (queue_push_pop, edge_scan_stream, fold_scatter_add):
+for _k in (queue_push_pop, edge_scan_stream, fold_scatter, fold_scatter_add):
     _k.path = None
-fold_scatter_add.split = None
+for _k in (frontier_pop, fold_scatter, fold_scatter_add):
+    _k.split = None

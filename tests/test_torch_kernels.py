@@ -36,6 +36,8 @@ from repro_torch.kernels.engine import (KERNELS, edge_scan_gather,
                                         frontier_pop, queue_push_pop, tally)
 
 from test_torch_fold_kernels import ADD_FOLD_CASES, add_fold_case
+from test_torch_pop_fold_kernels import (MIN_FOLD_CASES, POP_CASES,
+                                         min_fold_case, pop_case)
 
 pytestmark = pytest.mark.torch_port
 
@@ -80,6 +82,47 @@ def test_frontier_pop_matches_pallas(n, k, k_max):
     same(ji, ti, "idx")
     same(jv, tv, "valid")
     same(jm, tm, "cleared mask")
+
+
+def cleared_through_last_taken(mask, valid):
+    """Each tile's bitmap with the positions ``[0, p_last]`` cleared,
+    ``p_last`` the position of its ``n_take``-th set bit (none cleared
+    where nothing was taken)."""
+    want = mask.copy()
+    for t, n_take in enumerate(valid.sum(axis=1)):
+        if n_take:
+            want[t, :np.flatnonzero(mask[t])[n_take - 1] + 1] = False
+    return want
+
+
+POP_SWEEP = [(n, k, k_max, None) for n, k, k_max in (
+    (8, 3, 8), (32, 0, 8), (32, 8, 8), (257, 100, 16), (64, 5, 16),
+    (16, 16, 16))] + [(None, None, None, kind) for kind in POP_CASES]
+
+
+@pytest.mark.parametrize("n,k,k_max,kind", POP_SWEEP)
+def test_frontier_pop_clears_through_the_last_taken_bit(n, k, k_max, kind):
+    """The identity the column-owning pop rests on: the cleared bitmap is
+    the bitmap with ``[0, p_last]`` cleared, for the JAX package's
+    ``frontier_pop`` (interpret mode) and the port's, which agree bitwise;
+    on the sweep of ``test_frontier_pop_matches_pallas`` and on tiles whose
+    first k bits lie beside or across the column split's boundaries."""
+    if kind is None:
+        rng = np.random.default_rng(n * 31 + k)
+        dens = np.array([0.0, 0.3, 0.7, 1.0])
+        mask = rng.random((4, n)) < dens[:, None]
+        ks = np.array([min(k, k_max), min(k, k_max), 0, min(k, k_max)],
+                      np.int32)
+    else:
+        mask, ks, k_max = pop_case(kind)
+    ji, jv, jm = jax.vmap(lambda m, kk: j_frontier_pop(m, kk, k_max))(
+        jnp.asarray(mask), jnp.asarray(ks))
+    ti, tv, tm = frontier_pop(t(mask), t(ks), k_max)
+    same(ji, ti, "idx")
+    same(jv, tv, "valid")
+    same(jm, tm, "cleared mask")
+    np.testing.assert_array_equal(
+        np.asarray(jm), cleared_through_last_taken(mask, np.asarray(jv)))
 
 
 def test_take_first_k_twin_matches_xla_and_kernel():
@@ -244,6 +287,21 @@ def test_fold_scatter_add_edge_cases_match_pallas(kind):
     jout = jax.vmap(lambda a, b, c, d: j_fold_scatter(a, b, c, d, op="add"))(
         *map(jnp.asarray, (tgt, lidx, vals, valid)))
     tout = fold_scatter_add(t(tgt), t(lidx), t(vals), t(valid))
+    same(jout, tout, kind)
+
+
+@pytest.mark.parametrize("kind", list(MIN_FOLD_CASES))
+def test_fold_scatter_min_edge_cases_match_pallas(kind):
+    """The min fold's edge cases of the column-owning kernel (rows beside
+    every range boundary, +0.0 and -0.0 targets and rows, float32-max
+    targets, rows equal to their target, all rows invalid, every row on
+    one slot, v_chunk not a multiple of 4, the R-MAT-18 shape): the plain
+    version bitwise the JAX package's ``fold_scatter(op="min")``, which
+    folds -0.0 below +0.0."""
+    tgt, lidx, vals, valid = min_fold_case(kind)
+    jout = jax.vmap(lambda a, b, c, d: j_fold_scatter(a, b, c, d, op="min"))(
+        *map(jnp.asarray, (tgt, lidx, vals, valid)))
+    tout = fold_scatter(t(tgt), t(lidx), t(vals), t(valid))
     same(jout, tout, kind)
 
 

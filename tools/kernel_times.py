@@ -3,7 +3,8 @@
 shapes, for one checkout, so that two checkouts, or other builds of a
 kernel's source, compare in one call on one card.
 
-    python3 tools/kernel_times.py {legs,turn,fold,fold_add,ssd,wkv6}
+    python3 tools/kernel_times.py
+        {legs,turn,frontier,fold,fold_add,fold_min,ssd,wkv6}
         [--src DIR]
         [--runs N] [--variants DIR[,DIR...]] [--spin CYCLES]
         [--short-spin CYCLES] [--paths BFS,SpMV,BFS-hbm,k-core,triangles]
@@ -28,6 +29,11 @@ the checks and the ``Timer`` from them.  The kernels:
   by the checkout's ``turn_contract`` (the turned queue below its count),
   or whole for a checkout older than the live-row turn, which writes the
   whole queue;
+- ``frontier``: the unfused ``frontier_pop`` at the R-MAT-22 partition
+  (64 tiles of 65,536 bytes) and R-MAT-18's (64 of 4,096; the unfused
+  paths' shape), budget ``f_pop``, on ``frontier_inputs``' operands from
+  seed 0, bitwise against ``frontier_take``, with ``copy_ms``: one
+  ``copy_`` of the bitmaps, the floor of a pop that writes a new bitmap;
 - ``fold``: ``scatter_segments`` add and min at the T3 shape (64 bins of
   65,536 slots, 4,096 updates each; ``seg_inputs`` "mixed", seed 0),
   bitwise against ``binned_scatter``, with ``library_ms``: the same
@@ -40,6 +46,11 @@ the checks and the ``Timer`` from them.  The kernels:
   ``scatter_body(..., "add")``, with ``library_ms`` (``scatter_add`` of
   the masked rows over the slots plus a trash column: float atomics, not
   the same bits) and ``copy_ms`` (one ``copy_`` of the slots);
+- ``fold_min``: the unfused T3 min fold ``fold_scatter`` at the same two
+  partitions, 4,096 rows a tile (``fold_inputs``, seed 0), bitwise
+  against ``scatter_body(..., "min")``, with ``library_ms``
+  (``scatter_reduce(amin)`` of the masked rows over the slots plus a trash
+  column) and ``copy_ms``;
 - ``ssd``: ``ssd_kernel`` at zamba2-2.7b's prefill shape (``SSD_MAIN``,
   seed 0), within ``SSD_REL_TOL`` of ``ssd_chunked``'s largest magnitude
   (``rel_err``);
@@ -59,10 +70,12 @@ calls back to back of the host time a call, and ``plain_ms``.
 ``--variants`` names directories that each hold another version of the
 kernel's source, with copies of the headers it includes at the paths it
 includes them by (the same C interface: e.g. a phase skipped or run
-twice, another block size): every call is also timed with the library
-built from each, after the same check, whose verdict (``ok``, and
-``rel_err`` for the SSD) is recorded rather than asserted, so that a
-variant that skips some work reads what that work costs.  ``--runs``
+twice, another block size; ``tools/wkv6_variants.py`` and
+``tools/engine_variants.py`` write such copies): every call is also
+timed with the library built from each, after the same check, whose
+verdict (``ok``, and ``rel_err`` for the SSD) is recorded rather than
+asserted, so that a variant that skips some work reads what that work
+costs.  ``--runs``
 times every build that many times.  Prints one JSON line a call, build
 and run, with the card's name and power limit (and appends them to
 ``--out``).  Needs a CUDA device.
@@ -84,8 +97,10 @@ from pathlib import Path
 HOST_BATCHES, HOST_REPS = 7, 200
 MODULES = {"legs": "repro_torch.kernels.engine.fused",
            "turn": "repro_torch.kernels.engine.kernel",
+           "frontier": "repro_torch.kernels.engine.kernel",
            "fold": "repro_torch.kernels.scatter_update.kernel",
            "fold_add": "repro_torch.kernels.engine.kernel",
+           "fold_min": "repro_torch.kernels.engine.kernel",
            "ssd": "repro_torch.kernels.mamba2.kernel",
            "wkv6": "repro_torch.kernels.rwkv6.kernel"}
 TIMES = ("ms", "host_ms", "short_spin_ms", "plain_ms")
@@ -240,6 +255,8 @@ def main():
                      copy_ms=timer.ms(lambda: copy.copy_(tgt))),
                 got, functools.partial(K.scatter_body, *ops, "add"),
                 lambda: dict(ok=torch.equal(got().view(torch.int32), want)))
+    elif args.kernel in ("frontier", "fold_min"):
+        pop_fold(cs, args.kernel, dev, timer, measure)
     elif args.kernel == "wkv6":
         W6 = cs.W6
         B, S, H, Kh, chunk, w_fixed, state = cs.WKV_MAIN
@@ -276,6 +293,51 @@ def main():
             f.write("".join(json.dumps(r) + "\n" for r in records))
     print(f"# kernel_times {args.kernel}: {len(records)} records in "
           f"{time.perf_counter() - t0:.1f} s from {root}")
+
+
+def pop_fold(cs, kernel, dev, timer, measure):
+    """``frontier`` and ``fold_min``: the unfused pop or min fold at the
+    R-MAT-22 and R-MAT-18 partitions of 64 tiles."""
+    import numpy as np
+    import torch
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    K, T, cfg = cs.K, cs.MAIN_T, cs.MAIN_CFG
+    for label, n in (("R-MAT-22 partition", cs.MAIN_V_CHUNK),
+                     ("R-MAT-18 partition", 2 ** cs.PR_SCALE // T)):
+        rng = np.random.default_rng(0)
+        if kernel == "frontier":
+            mask, k = ops = cs.frontier_inputs(rng, T, n, cfg.f_pop, dev)
+            got = functools.partial(K.frontier_pop, *ops, cfg.f_pop)
+            plain = functools.partial(K.frontier_take, *ops, cfg.f_pop)
+            want = plain()
+            src, shape, library = mask, [T, n], {}
+        else:
+            R = T * cfg.cap_route_update
+            tgt, lidx, vals, valid = ops = cs.fold_inputs(rng, T, n, R, dev)
+            got = functools.partial(K.fold_scatter, *ops)
+            plain = functools.partial(K.scatter_body, *ops, "min")
+            want = [plain()]
+            ext = torch.cat([tgt, tgt.new_full((T, 1), cs.INF32)], dim=1)
+            masked = torch.where(valid, vals, cs.INF32)
+            library = dict(library_ms=timer.ms(functools.partial(
+                ext.scatter_reduce, 1, lidx.to(torch.int64), masked,
+                "amin")))
+            src, shape = tgt, [T, n, R]
+        out = got()
+        copy = torch.empty_like(src)
+        split = getattr(got.func, "split", None)
+        measure(dict(call=label, shape=shape,
+                     G=None if split is None else split.G,
+                     path=getattr(got.func, "path", None),
+                     bound_ms=cs.bound_ms(cs.nbytes(*ops, *cs.tensors(out))),
+                     copy_ms=timer.ms(lambda: copy.copy_(src)), **library),
+                got, plain,
+                lambda: dict(ok=all(
+                    torch.equal(bits(a), bits(b))
+                    for a, b in zip(cs.tensors(got()), cs.tensors(want)))))
 
 
 def legs(cs, want, dev, measure):
