@@ -18,15 +18,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    plus the edge cases of the CPU sweeps: bitwise equal on every output
    element, except ``queue_push_pop``, whose turned queue is compared
    below its count (``turn_contract``: the kernel keeps live rows only),
-   and ``spmv_block_ell``, whose sums run in another order
+   the T2 scans, whose ``nb`` and ``w`` are compared where ``jvalid``
+   holds (``scan_contract``: the kernel writes live lanes only), and
+   ``spmv_block_ell``, whose sums run in another order
    (``rtol = atol = 1e-4``; two of its calls bitwise equal; timed beside
    cuSPARSE's CSR product and, where PyTorch takes it, a BSR tensor of the
    same blocks).  Prints each kernel's time (CUDA events,
    median of 25 launches with the L2 cache flushed before each, behind a
    device spin that hides the wrapper's host dispatch), its
    plain version's time, its bound (bytes moved over 3.35 TB/s;
-   ``queue_push_pop``: its live rows, with the whole-queue bound and the
-   live share beside it) and, where one PyTorch call computes the same
+   ``queue_push_pop``: its live rows, the scans their live lanes, with
+   the whole bound and the live share beside it) and, where one PyTorch call computes the same
    function, that call's time;
 3. ``twin`` — R-MAT scale 10 over 16 tiles, ``backend="torch"`` against
    ``backend="kernels"``: values and Stats bitwise equal (but
@@ -45,7 +47,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    configurations past the kernels' shared-memory staging (T = 257,
    pops of 512, 16,640 fresh rows, windows of 4,096, and stagings in the
    device scratch: 65,536 frontier pops, 16,384 popped ranges), fused and
-   unfused, with the path each kernel took;
+   unfused, with the path each kernel took; every unfused scan call held
+   against its plain version (``scan_contract``);
 4. ``main`` — the main paths over R-MAT-22 (edge factor 10, seed 1) on 64
    tiles, fused, the partition built once: one BFS query from vertex 0
    (the highest out-degree) with ``EngineConfig(cap_updq=262144)``, hop
@@ -64,7 +67,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    edge shard streamed and the tile budget at 4 MiB, under the resident
    footprint: ``edge_space="vmem"`` must fail validation; hop counts
    equal to the oracle; rounds, msgs, spills and edges equal to the
-   resident fused run's; ``hbm_windows > 0``;
+   resident fused run's; ``hbm_windows > 0``; then ``edge_scan_stream``
+   checked and timed at the shard and messages of its leg 1 in round
+   ``HBM_SCAN_ROUND``;
 6. ``taskgraph`` — the fused task-graph programs on 64 tiles: k-core
    (k = 16) on symmetrized R-MAT-20 (edge factor 10, seed 1), equal to
    ``kcore_ref``, and triangle counting on ``prepare_triangles`` of
@@ -76,14 +81,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
 7. ``block`` — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] =
    val against the dense oracle and the engine's SpMV at T = 16, and the
    same product as binned ``scatter_segments`` rounds (add, and a min),
-   bitwise equal to numpy's serial ``np.add.at`` / ``np.minimum.at``;
+   bitwise equal to numpy's serial ``np.add.at`` / ``np.minimum.at``,
+   and its min on NaNs and signed zeros bitwise ``binned_scatter``;
 8. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths
    (``fuse=False``: BFS, BFS with the shard streamed through
    ``edge_scan_stream``, SpMV, PageRank; five kernel calls a round)
    against the oracles; PageRank runs 5 iterations (the depth is cut from
    the reference's 20 for chip time only); the two ``queue_push_pop``
-   turns of BFS round ``R18_TURN_ROUND`` are held against ``fifo_turn``
-   and timed at the operands the engine gave them;
+   turns and the scan of BFS round ``R18_TURN_ROUND``, and the scan of
+   the streamed BFS's, are held against their plain versions and timed
+   at the operands the engine gave them;
 9. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
    flash kernel against its plain version (K/V repeated, blockwise scan)
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
@@ -776,60 +783,143 @@ def check_queue_push_pop(rng, dev, timer):
                 library_ms=None, calls=calls, **total)
 
 
-def scan_inputs(rng, T, e_chunk, R, max_t2, dev):
+def scan_inputs(rng, T, e_chunk, R, max_t2, dev, negative=False):
+    """Operands of a T2 scan: half the messages valid, lengths uniform in
+    [0, max_t2] (with ``negative``, a quarter of them below 0), the
+    invalid messages' starts half -1."""
     ed = rng.integers(-1, 1 << 22, (T, e_chunk)).astype(np.int32)
     ev = rng.uniform(1, 10, (T, e_chunk)).astype(np.float32)
     start = rng.integers(0, T * e_chunk, (T, R)).astype(np.int32)
     stop = start + rng.integers(0, max_t2 + 1, (T, R)).astype(np.int32)
+    if negative:
+        stop = np.where(rng.random((T, R)) < 0.25,
+                        start - rng.integers(1, 9, (T, R)), stop)
     rv = rng.random((T, R)) < 0.5
     start = np.where(rv | (rng.random((T, R)) < 0.5), start, -1)
     return [rng_tensor(rng, a, dev)
-            for a in (ed, ev, start.astype(np.int32), stop, rv)]
+            for a in (ed, ev, start.astype(np.int32),
+                      stop.astype(np.int32), rv)]
+
+
+# The scans' edge cases (T, e_chunk, R, max_t2): max_t2 not a multiple of 4
+# (7, 33, 6: a team's last thread holds a cut group), R = 1, shards shorter
+# than max_t2, and R * max_t2 = 19.2 M lanes, past the 65,535-block grid of
+# the earlier design's (T, lanes / 256) launch.
+SCAN_EDGES = ((2, 64, 10, 8), (2, 33, 24, 4), (3, 128, 1, 16),
+              (2, 64, 10, 7), (3, 200, 30, 33), (2, 50, 17, 6),
+              (1, 70, 1, 32), (2, 5, 12, 16), (3, 20, 40, 33),
+              (1, 70000, 600000, 32))
+
+
+def scan_call(scan, args, max_t2, *window):
+    """One scan held against its plain version by ``scan_contract``."""
+    plain = K.segment_stream if window else K.segment_gather
+    out = scan(*args, max_t2, *window)
+    max_abs_err(K.scan_contract(out),
+                K.scan_contract(plain(*args, max_t2, *window)))
+    return out
+
+
+def check_scan_edges(scan, windows, dev):
+    """The edge cases of SCAN_EDGES, each on fresh operands, with negative
+    lengths, and on operands that start off a 16-byte vector; for the
+    stream at each window of ``windows(max_t2)`` whose staging the plain
+    version holds in memory (2 * window words a message)."""
+    rng = np.random.default_rng(1)
+    for T, e_chunk, R, mt in SCAN_EDGES:
+        for kind in ("plain", "negative", "unaligned"):
+            args = scan_inputs(rng, T, e_chunk, R, mt, dev,
+                               negative=kind != "plain")
+            if kind == "unaligned":
+                args = [unaligned(a, a.element_size()) for a in args]
+            for window in windows(mt):
+                if window and T * R * 2 * window[0] > 2 ** 26:
+                    continue
+                scan_call(scan, args, mt, *window)
+
+
+def scan_bounds(args, out, max_t2) -> dict:
+    """The bounds of one scan: ``bound_ms``, what the function must move
+    under ``scan_contract`` (each message's rv, start and stop, jvalid
+    whole, and for each live lane, j below a valid message's length, its
+    distinct shard words read and its nb and w written); ``whole_bound_ms``
+    with every lane's nb and w and the distinct words of every lane's
+    clamped index; and the live share of the lanes."""
+    ed, ev, start, stop, rv = args
+    T, e_chunk = ed.shape
+    dev = ed.device
+    length = torch.where(rv, stop - start, 0)
+    local0 = torch.where(rv, start % e_chunk, 0)
+    j = torch.arange(max_t2, device=dev, dtype=torch.int32)
+    live = j < length[:, :, None]
+    eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
+    words = sum(int(torch.unique(eidx[t]).numel()) for t in range(T))
+    live_words = sum(int(torch.unique(eidx[t][live[t]]).numel())
+                     for t in range(T))
+    n_live = int(live.sum())
+    rows = nbytes(start, stop, rv)
+    return dict(
+        bound_ms=bound_ms(rows + nbytes(out[2]) + 8 * live_words
+                          + 8 * n_live),
+        whole_bound_ms=bound_ms(rows + nbytes(*out) + 8 * words),
+        live_share=n_live / live.numel())
+
+
+def scan_library(args, max_t2):
+    """The scans' library yardstick: one torch.gather of the (dst, val)
+    word pairs at every lane's clamped index (no jvalid)."""
+    ed, ev, start, stop, rv = args
+    T, e_chunk = ed.shape
+    local0 = torch.where(rv, start % e_chunk, 0)
+    j = torch.arange(max_t2, device=ed.device, dtype=torch.int32)
+    eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
+    pairs = torch.stack([ed, ev.view(torch.int32)], dim=-1)
+    gidx = eidx.reshape(T, -1, 1).expand(-1, -1, 2).to(torch.int64)
+    return lambda: torch.gather(pairs, 1, gidx)
+
+
+def scan_record(label, args, max_t2, timer, *window) -> dict:
+    """One scan at ``args``: checked by ``scan_contract``, timed beside
+    its plain version and the library yardstick, with its bounds."""
+    scan = K.edge_scan_stream if window else K.edge_scan_gather
+    plain = K.segment_stream if window else K.segment_gather
+    out = scan_call(scan, args, max_t2, *window)
+    T, e_chunk = args[0].shape
+    rec = dict(call=label, shape=[T, e_chunk, args[2].shape[1], max_t2],
+               max_abs_err=0.0,
+               ms=timer.ms(lambda: scan(*args, max_t2, *window)),
+               plain_ms=timer.ms(lambda: plain(*args, max_t2, *window)),
+               **scan_bounds(args, out, max_t2),
+               library_ms=timer.ms(scan_library(args, max_t2)),
+               library="torch.gather, no jvalid")
+    if window:  # what the staged windows of the earlier design read
+        rec["staged_bound_ms"] = bound_ms(
+            nbytes(*args[2:], *out)
+            + 8 * stream_words(args[2], args[4], e_chunk, *window))
+    return rec
+
+
+def scan_row(calls) -> dict:
+    main = calls[0]
+    return dict(max_abs_err=0.0, calls=calls,
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "whole_bound_ms", "live_share",
+                                        "library_ms")})
 
 
 def check_edge_scan_gather(rng, dev, timer):
-    max_t2 = MAIN_CFG.max_t2
-    for T, e_chunk, R, mt in ((2, 64, 10, 8), (2, 33, 24, 4),
-                              (3, 128, 1, 16)):
-        args = scan_inputs(rng, T, e_chunk, R, mt, dev)
-        max_abs_err(K.edge_scan_gather(*args, mt),
-                    K.segment_gather(*args, mt))
+    check_scan_edges(K.edge_scan_gather, lambda mt: [()], dev)
     R = MAIN_T * MAIN_CFG.cap_route_range
-    calls = []
-    for label, e_chunk in SCAN_SHAPES.items():
-        ed, ev, start, stop, rv = args = scan_inputs(rng, MAIN_T, e_chunk,
-                                                     R, max_t2, dev)
-        out = K.edge_scan_gather(*args, max_t2)
-        max_abs_err(out, K.segment_gather(*args, max_t2))
-        # bytes this run needs: the rows, each distinct shard word the
-        # lanes address, and the three outputs
-        local0 = torch.where(rv, start % e_chunk, 0)
-        j = torch.arange(max_t2, device=dev, dtype=torch.int32)
-        eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
-        words = sum(int(torch.unique(eidx[t]).numel())
-                    for t in range(MAIN_T))
-        moved = nbytes(start, stop, rv, *out) + 8 * words
-        # library yardstick: one torch.gather of the (dst, val) word pairs
-        # at the clamped lane indices (jvalid not included)
-        pairs = torch.stack([ed, ev.view(torch.int32)], dim=-1)
-        gidx = eidx.reshape(MAIN_T, -1, 1).expand(-1, -1, 2) \
-            .to(torch.int64)
-        calls.append(dict(
-            call=label, shape=[MAIN_T, e_chunk, R, max_t2],
-            ms=timer.ms(lambda: K.edge_scan_gather(*args, max_t2)),
-            plain_ms=timer.ms(lambda: K.segment_gather(*args, max_t2)),
-            bound_ms=bound_ms(moved),
-            library_ms=timer.ms(lambda: torch.gather(pairs, 1, gidx)),
-            library="torch.gather, no jvalid"))
-    main = calls[0]
-    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], library_ms=main["library_ms"],
-                calls=calls)
+    max_t2 = MAIN_CFG.max_t2
+    return scan_row([
+        scan_record(label, scan_inputs(rng, MAIN_T, e_chunk, R, max_t2,
+                                       dev), max_t2, timer)
+        for label, e_chunk in SCAN_SHAPES.items()])
 
 
 def stream_words(start, rv, e_chunk, window):
     """Distinct shard words the staged windows of these messages cover:
-    what a streamed T2 must read."""
+    what the earlier, staging design of the streamed T2 read."""
     local0 = torch.where(rv, start % e_chunk, 0)
     base = torch.div(local0, window, rounding_mode="floor") * window
     k = torch.arange(2 * window, device=start.device, dtype=torch.int32)
@@ -839,41 +929,24 @@ def stream_words(start, rv, e_chunk, window):
 
 
 def check_edge_scan_stream(rng, dev, timer):
-    """Edge cases (windows of 1, 2 and 16 times max_t2, shards shorter
-    than two windows), then the main path's T2 shape with the auto window
-    (128) and the max_t2-tight one (32), as fig13's ladder runs them."""
-    # the last two: windows past STREAM_MAX_WINDOW, read from device memory
-    for T, e_chunk, R, mt, win in ((2, 64, 10, 8, 8), (2, 33, 24, 4, 8),
-                                   (3, 128, 1, 16, 256), (2, 300, 40, 8, 8),
-                                   (2, 9000, 40, 8, 4096),
-                                   (2, 300, 40, 32, 4096)):
-        args = scan_inputs(rng, T, e_chunk, R, mt, dev)
-        max_abs_err(K.edge_scan_stream(*args, mt, win),
-                    K.segment_stream(*args, mt, win))
-        assert K.edge_scan_stream.path == K.window_path(win)
+    """Edge cases (windows of 1, 2 and 16 times max_t2, past what fused
+    leg 1 stages, and shards shorter than two windows), then the main
+    path's T2 shape with the auto window (128) and the max_t2-tight one
+    (32), as fig13's ladder runs them, and R-MAT-18's shard."""
+    check_scan_edges(
+        K.edge_scan_stream,
+        lambda mt: [(w,) for w in (mt, 2 * mt, 16 * mt,
+                                   K.STREAM_MAX_WINDOW + 1, 4096)], dev)
     max_t2 = MAIN_CFG.max_t2
     R = MAIN_T * MAIN_CFG.cap_route_range
-    calls = []
     main22, main18 = SCAN_SHAPES.items()
+    calls = []
     for (label, e_chunk), window in ((main22, 128), (main22, max_t2),
                                      (main18, 128)):
         args = scan_inputs(rng, MAIN_T, e_chunk, R, max_t2, dev)
-        start, rv = args[2], args[4]
-        out = K.edge_scan_stream(*args, max_t2, window)
-        err = max_abs_err(out, K.segment_stream(*args, max_t2, window))
-        moved = nbytes(*args[2:], *out) + 8 * stream_words(
-            start, rv, e_chunk, window)
-        calls.append(dict(
-            call=f"window {window}, {label}",
-            shape=[MAIN_T, e_chunk, R, max_t2], max_abs_err=err,
-            ms=timer.ms(lambda: K.edge_scan_stream(*args, max_t2, window)),
-            plain_ms=timer.ms(
-                lambda: K.segment_stream(*args, max_t2, window)),
-            bound_ms=bound_ms(moved)))
-    main = calls[0]  # the auto window, as the engine resolves it
-    return dict(max_abs_err=max(c["max_abs_err"] for c in calls),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], library_ms=None, calls=calls)
+        calls.append(scan_record(f"window {window}, {label}", args, max_t2,
+                                 timer, window))
+    return scan_row(calls)  # the auto window, as the engine resolves it
 
 
 def fold_inputs(rng, T, v_chunk, R, dev):
@@ -887,12 +960,29 @@ def fold_inputs(rng, T, v_chunk, R, dev):
             for a in (tgt, lidx.astype(np.int32), vals, valid)]
 
 
+def nan_bits(rng, shape):
+    """float32 values, a sixth each: NaNs with the sign bit clear and with
+    it set (quiet and signalling payloads), +-0.0 and +-inf; the rest
+    numbers."""
+    kind = rng.integers(0, 6, shape)
+    u = np.where(
+        kind == 0, 0x7F800001 + rng.integers(0, 0x7FFFFF, shape),
+        np.where(kind == 1, 0xFF800001 + rng.integers(0, 0x7FFFFF, shape),
+                 np.where(kind == 2, rng.choice(
+                     [0, 0x80000000, 0x7F800000, 0xFF800000], shape),
+                     rng.normal(0, 20, shape).astype(np.float32).view(
+                         np.uint32))))
+    return u.astype(np.uint32).view(np.float32)
+
+
 def min_fold_edge_inputs(rng, T, v_chunk, R, dev, kind):
     """Min-fold inputs at its column split: rows beside every boundary
-    ("boundaries"), +0.0 and -0.0 in targets and rows ("zeros"), every
-    target float32 max ("max"), rows equal to their slot's target
-    ("equal"), every row invalid ("invalid", half on real slots) or on
-    one slot ("one-slot")."""
+    ("boundaries"), +0.0 and -0.0 in targets and rows ("zeros"), NaNs of
+    both signs, +-0.0 and +-inf in targets and rows, many rows a slot, so
+    that the rule's row order shows ("nan"), every target float32 max
+    ("max"), rows equal to their slot's target ("equal"), every row
+    invalid ("invalid", half on real slots) or on one slot
+    ("one-slot")."""
     tgt = rng.normal(0, 20, (T, v_chunk)).astype(np.float32)
     valid = rng.random((T, R)) < 0.8
     lidx = rng.choice(split_edges(T, v_chunk, dev), (T, R))
@@ -903,6 +993,10 @@ def min_fold_edge_inputs(rng, T, v_chunk, R, dev, kind):
         lidx = rng.integers(0, 64, (T, R))
         vals = np.where(rng.random((T, R)) < 0.7, rng.choice(z, (T, R)),
                         np.abs(vals))
+    elif kind == "nan":
+        tgt[:, :64] = nan_bits(rng, (T, 64))
+        lidx = rng.integers(0, 64, (T, R))
+        vals = nan_bits(rng, (T, R))
     elif kind == "max":
         tgt[:] = INF32
     elif kind == "equal":
@@ -932,13 +1026,18 @@ def check_fold_scatter(rng, dev, timer):
         max_abs_err([fold(*args)], [plain(*args)])
     # the column split's edges, G = 5 (also on a target off a 16-byte
     # vector), and the slices past the staging (ranges of 52,432 slots)
-    for kind in ("boundaries", "zeros", "max", "equal", "invalid",
+    for kind in ("boundaries", "zeros", "nan", "max", "equal", "invalid",
                  "one-slot"):
         args = min_fold_edge_inputs(rng, 2, SEG_EDGE_B, 4096, dev, kind)
         max_abs_err([fold(*args)], [plain(*args)])
         assert K.fold_scatter.split.G > 1, K.fold_scatter.split
         args[0] = unaligned(args[0], 4)
         max_abs_err([fold(*args)], [plain(*args)])
+    # NaNs and signed zeros past the staging (ranges of 52,432 slots)
+    args = min_fold_edge_inputs(rng, MAIN_T, FOLD_BESIDE_V_CHUNK, 4096, dev,
+                                "nan")
+    max_abs_err([fold(*args)], [plain(*args)])
+    assert K.fold_scatter.path == "folded beside the copy"
     R = MAIN_T * MAIN_CFG.cap_route_update
     calls = []
     shapes = {**POP_FOLD_SHAPES,
@@ -1062,6 +1161,12 @@ def seg_inputs(rng, nb, b, cap, dev, kind):
     idx = rng.integers(-1, b, (nb, cap))  # -1 = empty slot
     if kind == "one-slot":
         idx = np.where(rng.random((nb, cap)) < 0.8, 5, -1)
+    elif kind == "nan":  # NaNs, +-0.0 and +-inf on the first 64 slots
+        idx = np.where(rng.random((nb, cap)) < 0.2, -1,
+                       rng.integers(0, min(b, 64), (nb, cap)))
+        base[:, :64] = nan_bits(rng, base[:, :64].shape)
+        return [rng_tensor(rng, a, dev) for a in (
+            base, idx.astype(np.int32), nan_bits(rng, (nb, cap)))]
     elif kind == "empty":
         idx[:] = -1
     elif isinstance(kind, list):
@@ -1092,10 +1197,15 @@ def check_scatter_segments(rng, dev, timer):
         for nb, b, cap, kind in ((4, 128, 32, "mixed"), (2, 64, 128, "mixed"),
                                  (3, 32, 200, "one-slot"),
                                  (2, 64, 16, "empty"), (2, 16, 1, "mixed"),
+                                 (2, 64, 300, "nan"),
+                                 (2, SEG_EDGE_B, 4096, "nan"),
+                                 (MAIN_T, FOLD_BESIDE_V_CHUNK, 512, "nan"),
                                  (300, 20000, 256, "mixed"),
                                  (2, SEG_EDGE_B, 40000, "mixed"),
                                  (MAIN_T, MAIN_V_CHUNK, SEG_CAP,
                                   "one-slot")):
+            if kind == "nan" and op == "add":
+                continue  # the min's cases
             args = seg_inputs(rng, nb, b, cap, dev, kind)
             max_abs_err([SEG.scatter_segments(*args, op=op)],
                         [SEG.binned_scatter(*args, op)])
@@ -1234,7 +1344,9 @@ def phase_kernels(dev, timer):
             f"{r['library_ms']:.4f} ms"
         agree = ("within rtol = atol = 1e-4 of" if name == "spmv_block_ell"
                  else "bitwise (the turned queue below its count) equal to"
-                 if name == "queue_push_pop" else "bitwise equal to")
+                 if name == "queue_push_pop" else
+                 "bitwise (nb and w where jvalid holds) equal to"
+                 if name.startswith("edge_scan") else "bitwise equal to")
         log(f"# kernel {name}: {agree} its plain version; "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms (bytes), library {lib}"
@@ -1246,8 +1358,10 @@ def phase_kernels(dev, timer):
                 + (f", {c['path']}" if "path" in c else "")
                 + f": kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                 f"bound {c['bound_ms']:.4f} ms"
-                + (f" (whole queue {c['whole_bound_ms']:.4f} ms, live share "
+                + (f" (whole {c['whole_bound_ms']:.4f} ms, live share "
                    f"{c['live_share']:.4f})" if "live_share" in c else "")
+                + (f", staged windows' bound {c['staged_bound_ms']:.4f} ms"
+                   if "staged_bound_ms" in c else "")
                 + (f", library {c['library_ms']:.4f} ms ({c['library']})"
                    if "library" in c else "")
                 + (f", copy_ {c['copy_ms']:.4f} ms" if "copy_ms" in c
@@ -1629,6 +1743,17 @@ def check_values(got, want, tol, where):
 
 
 def phase_twin(dev):
+    """The twin's runs, every unfused scan call held against its plain
+    version by scan_contract."""
+    with scan_check({}) as seen:
+        twin_runs(dev)
+    assert seen.get("edge_scan_gather", 0) > 0 and \
+        seen.get("edge_scan_stream", 0) > 0, seen
+    log(f"# engine twin: every unfused scan call bitwise its plain version "
+        f"under scan_contract: {seen}")
+
+
+def twin_runs(dev):
     g, pg = build_graph(10, 16, dev)
     root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
     small = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -1747,7 +1872,6 @@ def unfused_paths(seen: set):
     from repro_torch.core import program as PROG
     # (module, name the engine calls, the wrapper whose path it notes)
     spots = ((E, "queue_push_pop", K.queue_push_pop),
-             (PROG, "edge_scan_stream", K.edge_scan_stream),
              (PROG, "fold_scatter", K.fold_scatter_add))
     saved = [getattr(mod, n) for mod, n, _ in spots]
 
@@ -1769,6 +1893,36 @@ def unfused_paths(seen: set):
     finally:
         for (mod, n, _), fn in zip(spots, saved):
             setattr(mod, n, fn)
+
+
+@contextlib.contextmanager
+def scan_check(seen: dict):
+    """Within the block, every CUDA call of the unfused T2 scans, at the
+    names the engine calls them by, is also held against its plain version
+    by ``scan_contract``; ``seen`` counts the calls checked, by scan."""
+    from repro_torch.core import program as PROG
+    saved = {n: getattr(PROG, n)
+             for n in ("edge_scan_gather", "edge_scan_stream")}
+
+    def spy(name, fn):
+        plain = K.segment_stream if name == "edge_scan_stream" \
+            else K.segment_gather
+
+        def call(*a):
+            out = fn(*a)
+            if a[0].device.type == "cuda":
+                max_abs_err(K.scan_contract(out), K.scan_contract(plain(*a)))
+                seen[name] = seen.get(name, 0) + 1
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(PROG, n, spy(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(PROG, n, fn)
 
 
 def check_past_staging(dev, g, gs, pg, pgs, root, x):
@@ -1813,8 +1967,7 @@ def check_past_staging(dev, g, gs, pg, pgs, root, x):
           ("fused_tri_leg2", "shared memory")}),
         ("bfs window 4096", lambda c: alg.bfs(pg, root, c), oracle, None,
          dict(edge_space="hbm", hbm_window=4096),
-         {("fused_leg1", "device window"),
-          ("edge_scan_stream", "device window")}),
+         {("fused_leg1", "device window")}),
         ("kcore5 window 4096", lambda c: alg.kcore(pgs, 5, c),
          ref.kcore_ref(gs, 5), None,
          dict(edge_space="hbm", hbm_window=4096),
@@ -2020,16 +2173,74 @@ def phase_main(dev, smi, timer, with_hbm):
             ("BFS-BSP", lambda c: alg.bfs(pg, MAIN_ROOT, c),
              dataclasses.replace(MAIN_FUSED, mode="bsp"))):
         calls += legs_at_main_shapes(label, run, cfg, timer)
+    scans = []
     if with_hbm:
-        paths["BFS-hbm"] = phase_hbm(pg, oracle, bfs.stats, smi)
+        paths["BFS-hbm"], scans = phase_hbm(pg, oracle, bfs.stats, smi,
+                                            timer)
         calls += legs_at_main_shapes(
             "BFS-hbm", lambda c: alg.bfs(pg, MAIN_ROOT, c), HBM_CFG, timer)
-    return paths, calls
+    return paths, calls, scans
 
 
-def phase_hbm(pg, oracle, vmem_stats, smi):
+@contextlib.contextmanager
+def scan_operands(round_no: int, kept: list,
+                  name: str = "edge_scan_gather"):
+    """Copies, into ``kept``, of the scan operands of round ``round_no``
+    of the run inside, as the engine makes them: those of the unfused
+    scan ``name``, or with ``name="fused_leg1"`` the shard and the
+    delivered range messages of fused leg 1 (its window and max_t2 with
+    them).  Each entry: (operands, max_t2, window or None)."""
+    from repro_torch.core import program as PROG
+    mod = F if name == "fused_leg1" else PROG
+    real = getattr(mod, name)
+    calls = [0]
+
+    def spy(*a):
+        if calls[0] == round_no:
+            if name == "fused_leg1":
+                tmpl, sh, recv, rv = a[0], a[3], a[5], a[6]
+                ops = (sh.edge_dst, sh.edge_val, recv[..., 0], recv[..., 1],
+                       rv)
+                kept.append(([x.clone().contiguous() for x in ops],
+                             tmpl.max_t2, tmpl.window or None))
+            else:
+                kept.append(([x.clone() for x in a[:5]], a[5],
+                             a[6] if len(a) > 6 else None))
+        calls[0] += 1
+        return real(*a)
+
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def scan_at(kept, label, timer, smi) -> dict:
+    """The scan of one engine round's operands (``scan_operands``),
+    checked by scan_contract and timed, with its live share logged."""
+    assert len(kept) == 1, len(kept)
+    args, max_t2, window = kept[0]
+    rec = scan_record(label, args, max_t2, timer,
+                      *(() if window is None else (window,)))
+    log(f"# {'edge_scan_stream' if window else 'edge_scan_gather'} at "
+        f"{label} {rec['shape']}: scan_contract bitwise; kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.6f} ms (whole {rec['whole_bound_ms']:.4f} ms, "
+        f"live share {rec['live_share']:.6f}), library "
+        f"{rec['library_ms']:.4f} ms; card {smi}")
+    return rec
+
+
+# the round of the fused streamed BFS on R-MAT-22 whose leg-1 operands the
+# streamed scan is checked and timed at (of 20,545 rounds)
+HBM_SCAN_ROUND = 3000
+
+
+def phase_hbm(pg, oracle, vmem_stats, smi, timer):
     """Fused BFS on the main partition with the edge shard streamed and the
-    tile's scratchpad budget under the resident footprint."""
+    tile's scratchpad budget under the resident footprint; then
+    edge_scan_stream at the operands of one of its leg-1 calls."""
     prog = as_program(BFS)
 
     def scratchpad(cfg):
@@ -2048,9 +2259,11 @@ def phase_hbm(pg, oracle, vmem_stats, smi):
         log(f"# hbm phase: edge_space='vmem' refused at validation: {e}")
     else:
         raise AssertionError("edge_space='vmem' ran over its budget")
-    res, launches, _ = drive(lambda: alg.bfs(pg, MAIN_ROOT, HBM_CFG), smi,
-                             f"BFS R-MAT-{MAIN_SCALE} (fused, hbm)",
-                             FUSED_ROUND)
+    kept = []
+    with scan_operands(HBM_SCAN_ROUND, kept, "fused_leg1"):
+        res, launches, _ = drive(lambda: alg.bfs(pg, MAIN_ROOT, HBM_CFG),
+                                 smi, f"BFS R-MAT-{MAIN_SCALE} (fused, hbm)",
+                                 FUSED_ROUND)
     np.testing.assert_array_equal(res.values, oracle)
     st = res.stats
     for f in ("rounds", "msgs", "spills", "edges_scanned",
@@ -2063,7 +2276,10 @@ def phase_hbm(pg, oracle, vmem_stats, smi):
         f"spills, edges and updates equal the resident fused run's; "
         f"hbm_windows {int(st.hbm_windows)}, hbm_edges "
         f"{int(st.hbm_edges)}")
-    return launches
+    assert kept and kept[0][2] == window, kept[0][1:] if kept else None
+    return launches, [scan_at(
+        kept, f"R-MAT-{MAIN_SCALE} streamed BFS round {HBM_SCAN_ROUND} "
+        f"(fused leg 1's operands), window {window}", timer, smi)]
 
 
 KCORE_ROUND = {"fused_leg0": 1, "fused_leg1": 1, "fused_kcore_leg2": 1}
@@ -2188,6 +2404,12 @@ def phase_block(dev, smi):
         np.testing.assert_array_equal(got.view(np.int32),
                                       want.view(np.int32), err_msg=op)
     np.testing.assert_allclose(add_ref[:n], expect, rtol=1e-4, atol=1e-4)
+    # the min on NaNs of both signs, +-0.0 and +-inf at the block's shape
+    rng = np.random.default_rng(BLOCK_SCALE)
+    for cap in (SEG_CAP, 64):
+        args = seg_inputs(rng, nb, BLOCK_B, cap, dev, "nan")
+        max_abs_err([SEG.scatter_segments(*args, op="min")],
+                    [SEG.binned_scatter(*args, "min")])
     pg = alg.prepare(g, BLOCK_T, device=dev)
     res = alg.spmv(pg, x, EngineConfig(fuse=False, **TEST_KNOBS))
     assert int(res.stats.drops) == 0
@@ -2199,7 +2421,8 @@ def phase_block(dev, smi):
         f"{int(res.stats.rounds)} rounds); binned scatter_segments "
         f"({len(rounds)} rounds of {nb} bins x {SEG_CAP}) add and min "
         f"bitwise equal to np.add.at / np.minimum.at; {wall:.3f} s for the "
-        f"kernels, launches {launches}; card {smi}")
+        f"kernels, launches {launches}; the min on NaNs and signed zeros "
+        f"bitwise binned_scatter; card {smi}")
     return launches
 
 
@@ -2227,9 +2450,10 @@ def turn_operands(round_no: int, kept: list):
 def phase_rmat18(dev, smi, timer):
     """R-MAT-18 over 64 tiles: the unfused paths (BFS, SpMV, and BFS with
     the streamed shard through edge_scan_stream), then PageRank.  The two
-    turns of BFS round R18_TURN_ROUND are checked and timed at the
-    operands the engine gave them.  Returns (the paths' launch counts,
-    the turns' records)."""
+    turns and the scan of BFS round R18_TURN_ROUND, and the scan of the
+    streamed BFS's, are checked and timed at the operands the engine gave
+    them.  Returns (the paths' launch counts, the turns' records, the
+    scans' records by kernel)."""
     t0 = time.perf_counter()
     g, pg = build_graph(PR_SCALE, MAIN_T, dev)
     root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
@@ -2237,8 +2461,10 @@ def phase_rmat18(dev, smi, timer):
     log(f"# R-MAT-{PR_SCALE} (V={g.num_vertices}, E={g.num_edges}) over "
         f"T={MAIN_T}, BFS root {root}: host build and oracle "
         f"{time.perf_counter() - t0:.1f} s")
-    paths, kept = {}, []
-    with turn_operands(R18_TURN_ROUND, kept):
+    paths, kept, scans = {}, [], {}
+    gather_ops, stream_ops = [], []
+    with turn_operands(R18_TURN_ROUND, kept), \
+            scan_operands(R18_TURN_ROUND, gather_ops):
         res, paths["BFS"], _ = drive(
             lambda: alg.bfs(pg, root, R18_CFGS["BFS"]), smi,
             f"BFS R-MAT-{PR_SCALE} (unfused)",
@@ -2259,12 +2485,19 @@ def phase_rmat18(dev, smi, timer):
             f"queue {c['whole_bound_ms']:.4f} ms, live share "
             f"{c['live_share']:.6f}); card {smi}")
     del kept
+    scans["edge_scan_gather"] = scan_at(
+        gather_ops, f"R-MAT-{PR_SCALE} BFS round {R18_TURN_ROUND}", timer,
+        smi)
     vmem_stats = res.stats
-    res, paths["BFS-hbm"], _ = drive(
-        lambda: alg.bfs(pg, root, R18_CFGS["BFS-hbm"]), smi,
-        f"BFS R-MAT-{PR_SCALE} (unfused, hbm)",
-        {"frontier_pop": 1, "queue_push_pop": 2, "edge_scan_stream": 1,
-         "fold_scatter": 1})
+    with scan_operands(R18_TURN_ROUND, stream_ops, "edge_scan_stream"):
+        res, paths["BFS-hbm"], _ = drive(
+            lambda: alg.bfs(pg, root, R18_CFGS["BFS-hbm"]), smi,
+            f"BFS R-MAT-{PR_SCALE} (unfused, hbm)",
+            {"frontier_pop": 1, "queue_push_pop": 2, "edge_scan_stream": 1,
+             "fold_scatter": 1})
+    scans["edge_scan_stream"] = scan_at(
+        stream_ops, f"R-MAT-{PR_SCALE} streamed BFS round {R18_TURN_ROUND}",
+        timer, smi)
     np.testing.assert_array_equal(res.values, oracle)
     assert torch.equal(res.stats.edges_scanned, vmem_stats.edges_scanned)
     assert int(res.stats.hbm_windows) > 0
@@ -2294,7 +2527,7 @@ def phase_rmat18(dev, smi, timer):
         f"atol 1e-7 of the oracle, drops 0; rounds {int(st.rounds)}, "
         f"engine wall {wall:.3f} s ({1e3 * wall / int(st.rounds):.3f} "
         f"ms/round); oracle {t_oracle:.1f} s; card {smi}")
-    return paths, turns
+    return paths, turns, scans
 
 
 # --------------------------------------------------------------------------
@@ -3146,10 +3379,12 @@ def main():
         phase_twin(dev)
     paths, calls = [], []
     if "main" in phases:
-        main_paths, main_calls = phase_main(dev, smi, timer,
-                                            "hbm" in phases)
+        main_paths, main_calls, scans = phase_main(dev, smi, timer,
+                                                   "hbm" in phases)
         paths += main_paths.values()
         calls += main_calls
+        if "edge_scan_stream" in rows:
+            rows["edge_scan_stream"]["calls"] += scans
     if "taskgraph" in phases:
         task_paths, task_calls = phase_taskgraph(dev, smi, timer)
         paths += task_paths.values()
@@ -3164,10 +3399,13 @@ def main():
     if "block" in phases:
         paths.append(phase_block(dev, smi))
     if "rmat18" in phases:
-        r18_paths, turns = phase_rmat18(dev, smi, timer)
+        r18_paths, turns, scans = phase_rmat18(dev, smi, timer)
         paths += r18_paths.values()
         if "queue_push_pop" in rows:
             rows["queue_push_pop"]["calls"] += turns
+        for name, rec in scans.items():
+            if name in rows:
+                rows[name]["calls"].append(rec)
     if "lm" in phases:
         rows["flash_attention"], lm_paths = phase_lm(dev, smi, timer)
         paths += lm_paths
@@ -3196,7 +3434,8 @@ def main():
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("calls", "hd80", "f32_ms", "hgmma",
                                  "library_bsr_ms", "f32_bound_ms", "hmma",
-                                 "G", "path", "copy_ms")
+                                 "G", "path", "copy_ms", "whole_bound_ms",
+                                 "live_share")
                if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")

@@ -22,9 +22,10 @@
 namespace repro {
 
 // The thresholds between a kernel's two paths (kernels/engine/kernel.py
-// reads them from here).  A streamed T2 stages a warp's 2 * window (dst,
-// val) pairs in shared memory up to STREAM_MAX_WINDOW and reads a wider
-// window from device memory.  queue_push_pop's fresh-row indices and the
+// reads them from here).  Fused leg 1 over a streamed shard stages a
+// warp's 2 * window (dst, val) pairs in shared memory up to
+// STREAM_MAX_WINDOW and reads a wider window from device memory (the
+// standalone edge_scan_stream stages nothing).  queue_push_pop's fresh-row indices and the
 // fused legs' popped rows take dynamic shared memory up to STAGE_SMEM_MAX
 // bytes a block (of the 227 KiB a block may opt in to), and past it a
 // device-memory scratch that the wrapper allocates.
@@ -339,10 +340,11 @@ __device__ __forceinline__ Lane gather_lane(const int32_t* __restrict__ ed,
   return Lane{dst, ev[ei], j < length && dst >= 0};
 }
 
-// The stream: one warp stages the two aligned windows that cover a message,
-// sd/sv[k] = shard[min(base + k, e_chunk - 1)] for k < 2 * window, with
-// base = local0 / window * window (local0 >= 0).  The caller __syncwarp()s
-// before reading the staging buffer and again before restaging it.
+// Fused leg 1's stream: one warp stages the two aligned windows that cover
+// a message, sd/sv[k] = shard[min(base + k, e_chunk - 1)] for k < 2 *
+// window, with base = local0 / window * window (local0 >= 0).  The caller
+// __syncwarp()s before reading the staging buffer and again before
+// restaging it.
 __device__ __forceinline__ int stage_windows(const int32_t* __restrict__ ed,
                                              const float* __restrict__ ev,
                                              int e_chunk, int local0,

@@ -4,7 +4,8 @@
 // as the reference's pure body does (including the don't-care slots), so a
 // kernel's outputs are compared with its plain PyTorch version element for
 // element; but for queue_push_pop's turned queue, which is written below its
-// count only and compared there.  Their bodies are the device functions of
+// count only and compared there, and the scans' nb and w, written where a
+// lane is live only and compared where jvalid holds.  Their bodies are the device functions of
 // engine_device.cuh and ordered_scatter.cuh, which the fused legs
 // (fused_legs.cu) share.
 //
@@ -392,127 +393,140 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
 }
 
 // ---------------------------------------------------------------------------
-// edge_scan_gather: replaces edge_scan_gather / segment_gather (kernel.py:473,
-// :141).  For each of R range messages of a tile, the max_t2 lanes
-// edge_dst/edge_val[min(start % e_chunk + j, e_chunk - 1)], and jvalid =
-// rv && j < stop - start && dst >= 0.
+// edge_scan_gather and edge_scan_stream: replace edge_scan_gather /
+// segment_gather (kernel.py:473, :141) and edge_scan_stream / segment_stream
+// (kernel.py:519, :157).  For each of the R range messages of a tile, the
+// max_t2 lanes edge_dst/edge_val[min(start % e_chunk + j, e_chunk - 1)], and
+// jvalid = rv && j < stop - start && dst >= 0.  The stream gives the same
+// bits with no staging: its wrapper asks window >= max_t2 (as the
+// reference's resolve_window does), and then the two windows segment_stream
+// stages hold every word a lane reads, at the offset the gather reads
+// (off0 = local0 - base + j <= 2 * window - 2, so the clamp to the staging
+// never bites, and min(base + off0, e_chunk - 1) = min(local0 + j,
+// e_chunk - 1)).  The windows a streamed shard transfers are the engine's
+// model (Stats.hbm_windows and hbm_edges), not the kernel's.
 //
-// Bound: bytes — each lane reads one (dst, val) word pair and writes 9 bytes.
-// Design: one thread per lane on a (T, lanes/256) grid; consecutive lanes of
-// a message read consecutive shard words, so a warp covers one 128-byte line
-// per array.  start % e_chunk is a floor modulo taken only for valid rows
-// (C's % truncates, and invalid rows may carry -1).
+// Bound: bytes — each message's rv, start and stop (9 bytes) and jvalid
+// (max_t2 bytes); for each live lane (j < length of a valid message) its shard
+// word pair read and its nb and w written (16 bytes).  Design: a team of
+// ceil(max_t2 / 4) threads a message, thread q owning the lanes 4q .. 4q + 3
+// (a team is at most SCAN_THREADS threads, each then also taking every
+// SCAN_THREADS-th group after its own), over a grid-stride loop on the tiles'
+// T * R messages, SCAN_BLOCKS_PER_SM blocks a SM (the register budget compiled
+// for them).  A team reads its message's rv, start and stop once (one address
+// for the whole team), takes the message's bounds once (one floor modulo, no
+// division a lane), issues the shard loads of its live lanes before any use,
+// and writes jvalid whole as one 4-byte word and nb, w as one 16-byte vector
+// each, only for the groups of four lanes that hold a live lane (one by one
+// where a group is cut by max_t2 or the output is not aligned).  The lanes of
+// nb and w it does not write are the reference's don't-care (masked by jvalid
+// at every consumer: kernel.py scan_contract).  The shard reads set its time:
+// on an H100 it took 0.0104 of its 0.0166 ms without them, and a team holding
+// two messages at once gained 1-2 % (PERF.md).
 // ---------------------------------------------------------------------------
-constexpr int ES_THREADS = 256;
+constexpr int SCAN_THREADS = 256;
+constexpr int SCAN_BLOCKS_PER_SM = 8;
 
-__global__ void __launch_bounds__(ES_THREADS)
+__device__ __forceinline__ void scan_messages(
+    const int32_t* __restrict__ edge_dst, const float* __restrict__ edge_val,
+    const int32_t* __restrict__ start, const int32_t* __restrict__ stop,
+    const uint8_t* __restrict__ rv, int32_t* __restrict__ nb,
+    float* __restrict__ wout, uint8_t* __restrict__ jvalid, int T,
+    int e_chunk, int R, int max_t2) {
+  const int groups = (max_t2 + 3) / 4;
+  const int team = groups < SCAN_THREADS ? groups : SCAN_THREADS;
+  const int teams = SCAN_THREADS / team;
+  if (static_cast<int>(threadIdx.x) >= teams * team) return;
+  const int q = threadIdx.x % team;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(nb) |
+                         reinterpret_cast<uintptr_t>(wout)) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(jvalid) & 3) == 0;
+  const int messages = T * R;  // below 2^31: the entries check it
+  for (int m = blockIdx.x * teams + threadIdx.x / team; m < messages;
+       m += gridDim.x * teams) {
+    int length, local0;
+    repro::message_bounds(rv[m] != 0, start[m], stop[m], e_chunk, &length,
+                          &local0);
+    const int32_t* ed = edge_dst + (size_t)(m / R) * e_chunk;
+    const float* ev = edge_val + (size_t)(m / R) * e_chunk;
+    for (int g = q; g < groups; g += team) {
+      const int j0 = 4 * g;
+      const size_t o = (size_t)m * max_t2 + j0;
+      int32_t d[4];
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // every load before any use
+        const int e = local0 + j0 + k;
+        const int ei = e < e_chunk - 1 ? e : e_chunk - 1;
+        const bool live = j0 + k < length;
+        d[k] = live ? ed[ei] : 0;
+        v[k] = live ? ev[ei] : 0.0f;
+      }
+      uint8_t f[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f[k] = j0 + k < length && d[k] >= 0;
+      if (aligned && j0 + 4 <= max_t2 && (o & 3) == 0) {
+        *reinterpret_cast<uchar4*>(jvalid + o) =
+            make_uchar4(f[0], f[1], f[2], f[3]);
+        if (j0 < length) {
+          *reinterpret_cast<int4*>(nb + o) =
+              make_int4(d[0], d[1], d[2], d[3]);
+          *reinterpret_cast<float4*>(wout + o) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (j0 + k >= max_t2) break;
+          jvalid[o + k] = f[k];
+          if (j0 + k < length) {
+            nb[o + k] = d[k];
+            wout[o + k] = v[k];
+          }
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS, SCAN_BLOCKS_PER_SM)
 edge_scan_gather_kernel(const int32_t* __restrict__ edge_dst,
                         const float* __restrict__ edge_val,
                         const int32_t* __restrict__ start,
                         const int32_t* __restrict__ stop,
                         const uint8_t* __restrict__ rv,
                         int32_t* __restrict__ nb, float* __restrict__ wout,
-                        uint8_t* __restrict__ jvalid, int e_chunk, int R,
-                        int max_t2) {
-  const int t = blockIdx.x;
-  const int e = blockIdx.y * blockDim.x + threadIdx.x;
-  if (e >= R * max_t2) return;
-  const int r = e / max_t2, j = e - r * max_t2;
-  const size_t row = (size_t)t * R + r;
-  int length, local0;
-  repro::message_bounds(rv[row] != 0, start[row], stop[row], e_chunk,
-                        &length, &local0);
-  const repro::Lane l =
-      repro::gather_lane(edge_dst + (size_t)t * e_chunk,
-                         edge_val + (size_t)t * e_chunk, e_chunk, length,
-                         local0, j);
-  const size_t o = (size_t)t * R * max_t2 + e;
-  nb[o] = l.dst;
-  wout[o] = l.w;
-  jvalid[o] = l.valid;
+                        uint8_t* __restrict__ jvalid, int T, int e_chunk,
+                        int R, int max_t2) {
+  scan_messages(edge_dst, edge_val, start, stop, rv, nb, wout, jvalid, T,
+                e_chunk, R, max_t2);
 }
 
-// ---------------------------------------------------------------------------
-// edge_scan_stream: replaces edge_scan_stream / segment_stream
-// (kernel.py:519, :157).  T2 over an HBM-declared edge shard: one warp per
-// range message stages the two aligned `window`-sized windows that cover it
-// (2 * window (dst, val) pairs, indices clamped to the shard) in shared
-// memory, then its lanes gather from the staging buffer only.  Every valid
-// lane reads the word edge_scan_gather reads (window >= max_t2); invalid
-// lanes read the staging buffer, as segment_stream's do.
-//
-// Bound: bytes — what the streamed tile transfers is 2 * window words per
-// message (hbm_edges), against max_t2 for the resident gather; the staging
-// reads are coalesced 128-byte lines.  Design: a (T, R / warps) grid of
-// blocks of `warps` warps, each warp with its own 16 * window bytes of
-// shared memory (warps = 48 KiB / that, at most 8).  A window wider than
-// STREAM_MAX_WINDOW (engine_device.cuh) is not staged:
-// edge_scan_stream_global_kernel reads each lane's word where the staging
-// buffer would hold it, one thread a lane as the resident gather.
-// ---------------------------------------------------------------------------
-constexpr int STAGE_SMEM = 48 * 1024;
-
-__host__ __device__ inline int stage_warps(int window, int most) {
-  const int w = STAGE_SMEM / (16 * window);
-  return w < 1 ? 1 : (w > most ? most : w);
+__global__ void __launch_bounds__(SCAN_THREADS, SCAN_BLOCKS_PER_SM)
+edge_scan_stream_kernel(const int32_t* __restrict__ edge_dst,
+                        const float* __restrict__ edge_val,
+                        const int32_t* __restrict__ start,
+                        const int32_t* __restrict__ stop,
+                        const uint8_t* __restrict__ rv,
+                        int32_t* __restrict__ nb, float* __restrict__ wout,
+                        uint8_t* __restrict__ jvalid, int T, int e_chunk,
+                        int R, int max_t2) {
+  scan_messages(edge_dst, edge_val, start, stop, rv, nb, wout, jvalid, T,
+                e_chunk, R, max_t2);
 }
 
-__global__ void edge_scan_stream_kernel(
-    const int32_t* __restrict__ edge_dst, const float* __restrict__ edge_val,
-    const int32_t* __restrict__ start, const int32_t* __restrict__ stop,
-    const uint8_t* __restrict__ rv, int32_t* __restrict__ nb,
-    float* __restrict__ wout, uint8_t* __restrict__ jvalid, int e_chunk,
-    int R, int max_t2, int window) {
-  extern __shared__ __align__(16) unsigned char es_smem[];
-  const int t = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.y * (blockDim.x >> 5) + warp;
-  if (r >= R) return;  // whole warps leave; no block barrier follows
-  int32_t* sd = reinterpret_cast<int32_t*>(es_smem) + warp * 4 * window;
-  float* sv = reinterpret_cast<float*>(sd + 2 * window);
-  const size_t row = (size_t)t * R + r;
-  int length, local0;
-  repro::message_bounds(rv[row] != 0, start[row], stop[row], e_chunk,
-                        &length, &local0);
-  const int base = repro::stage_windows(
-      edge_dst + (size_t)t * e_chunk, edge_val + (size_t)t * e_chunk,
-      e_chunk, local0, window, sd, sv);
-  __syncwarp();
-  for (int j = threadIdx.x & 31; j < max_t2; j += 32) {
-    const repro::Lane l =
-        repro::stream_lane(sd, sv, window, length, local0, base, j);
-    const size_t o = row * max_t2 + j;
-    nb[o] = l.dst;
-    wout[o] = l.w;
-    jvalid[o] = l.valid;
-  }
-}
-
-__global__ void __launch_bounds__(ES_THREADS)
-edge_scan_stream_global_kernel(const int32_t* __restrict__ edge_dst,
-                               const float* __restrict__ edge_val,
-                               const int32_t* __restrict__ start,
-                               const int32_t* __restrict__ stop,
-                               const uint8_t* __restrict__ rv,
-                               int32_t* __restrict__ nb,
-                               float* __restrict__ wout,
-                               uint8_t* __restrict__ jvalid, int e_chunk, int R,
-                               int max_t2, int window) {
-  const int t = blockIdx.x;
-  const int e = blockIdx.y * blockDim.x + threadIdx.x;
-  if (e >= R * max_t2) return;
-  const int r = e / max_t2, j = e - r * max_t2;
-  const size_t row = (size_t)t * R + r;
-  int length, local0;
-  repro::message_bounds(rv[row] != 0, start[row], stop[row], e_chunk,
-                        &length, &local0);
-  const repro::Lane l = repro::stream_lane_global(
-      edge_dst + (size_t)t * e_chunk, edge_val + (size_t)t * e_chunk,
-      e_chunk, window, length, local0, j);
-  const size_t o = (size_t)t * R * max_t2 + e;
-  nb[o] = l.dst;
-  wout[o] = l.w;
-  jvalid[o] = l.valid;
+// The blocks of a scan of T * R messages: as many as its teams need, at
+// most SCAN_BLOCKS_PER_SM on each SM of the current device.
+inline int scan_blocks(int T, int R, int max_t2) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int groups = (max_t2 + 3) / 4;
+  const int teams = SCAN_THREADS / (groups < SCAN_THREADS ? groups
+                                                          : SCAN_THREADS);
+  const long long need = ((long long)T * R + teams - 1) / teams;
+  const long long most = (long long)SCAN_BLOCKS_PER_SM * sms;
+  return static_cast<int>(need < 1 ? 1 : need < most ? need : most);
 }
 
 // ---------------------------------------------------------------------------
@@ -521,7 +535,9 @@ edge_scan_stream_global_kernel(const int32_t* __restrict__ edge_dst,
 // every valid row r whose lidx is a real slot (the v_chunk trash slot and
 // invalid rows contribute the neutral element, i.e. nothing).  The min is
 // the order of the floats' bits as fold_order_key gives it (kernel.py
-// scatter_body): -0.0 below +0.0, as the reference's min folds them.
+// min_fold): -0.0 below +0.0, and a NaN by its place in the slot's
+// sequence (ordered_scatter.cuh nan_ticket), as the reference's min folds
+// them; a fold takes at most MIN_FOLD_MAX_ROWS rows a launch.
 //
 // Bound: bytes — the (v_chunk,) slice is read and written once (8 bytes per
 // vertex) and each row is read once (9 bytes).  Design: a grid (T, G) of
@@ -537,18 +553,20 @@ edge_scan_stream_global_kernel(const int32_t* __restrict__ edge_dst,
 //      float4 of values, a word of flags) where R is a multiple of 4 and
 //      the rows are aligned, since every block of the tile reads all its
 //      rows;
-//   3. once the copy has landed, the rows whose slot lies in [lo, hi) fold
-//      with shared-memory atomics through the integer-order trick
-//      (ordered_scatter.cuh atomic_min_f32), the next rows likewise;
+//   3. once the copy has landed, each NaN of it becomes its ticket, then
+//      the rows whose slot lies in [lo, hi) fold with shared-memory
+//      atomics in the integer order (ordered_scatter.cuh atomic_min_f32),
+//      each NaN row as its ticket, the next rows likewise;
 //   4. the range is written out once, in 16-byte vectors where out's
-//      alignment matches the target's.
-// Min is exact in any order, so the atomics give the serial reference's
+//      alignment matches the target's, a ticket read back as the NaN of
+//      its place.
+// The fold is exact in any order, so the atomics give the serial reference's
 // bits.  Where step * 4 bytes pass STAGE_SMEM_MAX the same grid folds beside
 // the copy instead (min_fold_beside: a copy part copies the range into out
 // while the rest gathers the rows in range, then global atomics), with the
 // same bits; the wrapper notes the path.  Staging the range in parts, each
-// written out as soon as it had landed and been folded, was slower on an
-// H100 (PERF.md).
+// written out as soon as it had landed and been folded, was slower on an H100
+// (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int FM_THREADS = 512;
 constexpr int FM_ROWS = 8;  // rows a thread holds in registers at once
@@ -580,6 +598,13 @@ struct MinRow {
   int s;  // -1 for an invalid row
   float v;
 };
+
+__device__ __forceinline__ bool is_nan4(const float4& v) {
+  return repro::is_nan_bits(__float_as_uint(v.x)) |
+         repro::is_nan_bits(__float_as_uint(v.y)) |
+         repro::is_nan_bits(__float_as_uint(v.z)) |
+         repro::is_nan_bits(__float_as_uint(v.w));
+}
 
 // Rows r .. r + 3 of a tile (those below R), into x[0..3].
 __device__ __forceinline__ void load_min_rows(const int32_t* __restrict__ li,
@@ -617,6 +642,7 @@ fold_scatter_min_kernel(const float* __restrict__ target,
                         int step) {
   extern __shared__ __align__(16) float fm_smem[];
   __shared__ __align__(8) unsigned long long bar;
+  __shared__ int ticketed;  // a NaN took part: the range holds tickets
   const int t = blockIdx.x;
   const int lo = blockIdx.y * step, hi = min(lo + step, v_chunk);
   const float* tg = target + (size_t)t * v_chunk;
@@ -635,12 +661,18 @@ fold_scatter_min_kernel(const float* __restrict__ target,
                  : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the cut ends [lo, a) and [b, hi): at most 3 slots each
+  // the cut ends [lo, a) and [b, hi): at most 3 slots each; a NaN of them
+  // as its ticket (ordered_scatter.cuh)
+  bool seen_nan = false;
   if (threadIdx.x < 8) {
     const int i = threadIdx.x < 4 ? lo + threadIdx.x : b + threadIdx.x - 4;
-    if (i < (threadIdx.x < 4 ? a : hi)) s[i - lo] = tg[i];
+    if (i < (threadIdx.x < 4 ? a : hi)) {
+      seen_nan = repro::is_nan_bits(__float_as_uint(tg[i]));
+      s[i - lo] = repro::nan_ticket(tg[i], 0, repro::TARGET_NEG);
+    }
   }
-  __syncthreads();  // the barrier's init and the ends
+  if (threadIdx.x == 0) ticketed = 0;
+  __syncthreads();  // the barrier's init, the flag and the ends
   if (threadIdx.x == 0 && bytes > 0) {
     asm volatile(
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
@@ -666,22 +698,57 @@ fold_scatter_min_kernel(const float* __restrict__ target,
     for (int u = 0; u < FM_ROWS; u += 4)
       load_min_rows(li, vx, vd, r0 + 4 * (u / 4 * FM_THREADS + threadIdx.x),
                     R, vec, x + u);
-    if (r0 == 0 && bytes > 0) mbar_wait0(bar_s);  // the staging has landed
+    if (r0 == 0) {
+      if (bytes > 0) mbar_wait0(bar_s);  // the staging has landed
+      // each NaN of the aligned part as its ticket, four slots a load
+      float4* s4 = reinterpret_cast<float4*>(s + (a - lo));
+      for (int i = threadIdx.x; 4 * i < b - a; i += FM_THREADS) {
+        const float4 v = s4[i];
+        if (is_nan4(v)) {
+          seen_nan = true;
+          s4[i] = make_float4(repro::nan_ticket(v.x, 0, repro::TARGET_NEG),
+                              repro::nan_ticket(v.y, 0, repro::TARGET_NEG),
+                              repro::nan_ticket(v.z, 0, repro::TARGET_NEG),
+                              repro::nan_ticket(v.w, 0, repro::TARGET_NEG));
+        }
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int u = 0; u < FM_ROWS; ++u)
-      if (x[u].s >= lo && x[u].s < hi)
-        repro::atomic_min_f32(s + (x[u].s - lo), x[u].v);
+      if (x[u].s >= lo && x[u].s < hi) {
+        seen_nan |= repro::is_nan_bits(__float_as_uint(x[u].v));
+        repro::atomic_min_f32(
+            s + (x[u].s - lo),
+            repro::row_ticket(
+                x[u].v, r0 + 4 * (u / 4 * FM_THREADS + threadIdx.x) + u % 4));
+      }
     if (r0 + FM_THREADS * FM_ROWS >= R) break;
   }
+  if (seen_nan) ticketed = 1;
   __syncthreads();
-  // out[lo:hi) = s: vectors where out + a is aligned as tg + a is
+  // out[lo:hi) = s: vectors where out + a is aligned as tg + a is; where a
+  // NaN took part, each ticket read back as the NaN of its place
   const bool vec_out = (reinterpret_cast<uintptr_t>(o + a) & 15) == 0;
   const int v_lo = vec_out ? a : hi, v_hi = vec_out ? b : hi;
-  for (int i = threadIdx.x; 4 * i < v_hi - v_lo; i += FM_THREADS)
-    reinterpret_cast<float4*>(o + v_lo)[i] =
-        reinterpret_cast<const float4*>(s + (v_lo - lo))[i];
-  for (int i = lo + threadIdx.x; i < hi; i += FM_THREADS)
-    if (i < v_lo || i >= v_hi) o[i] = s[i - lo];
+  const auto write_out = [&](auto slot) {
+    for (int i = threadIdx.x; 4 * i < v_hi - v_lo; i += FM_THREADS) {
+      const float4 v = reinterpret_cast<const float4*>(s + (v_lo - lo))[i];
+      const int j = v_lo + 4 * i;
+      reinterpret_cast<float4*>(o + v_lo)[i] =
+          make_float4(slot(v.x, j), slot(v.y, j + 1), slot(v.z, j + 2),
+                      slot(v.w, j + 3));
+    }
+    for (int i = lo + threadIdx.x; i < hi; i += FM_THREADS)
+      if (i < v_lo || i >= v_hi) o[i] = slot(s[i - lo], i);
+  };
+  if (ticketed)
+    write_out([&](float x, int i) {
+      const int p = repro::ticket_place(x);
+      return p < 0 ? x : p == 0 ? tg[i] : vx[p - 1];
+    });
+  else
+    write_out([](float x, int) { return x; });
 }
 
 // The same fold past the staging: min_fold_beside over the same grid.
@@ -702,15 +769,10 @@ fold_scatter_min_beside_kernel(const float* __restrict__ target,
   const int32_t* li = lidx + (size_t)t * R;
   const float* vx = vals + (size_t)t * R;
   const uint8_t* vd = valid + (size_t)t * R;
-  repro::min_fold_beside(
-      o, lo, hi, R, fmb_smem,
-      [&](int r) {
-        const float x = vx[r];  // read whatever the flag, beside it
-        return repro::SlotValue{vd[r] ? li[r] : -1, x};
-      },
-      [&](const repro::Team& part) {
-        repro::copy_range(tg, o, lo, hi, part);
-      });
+  repro::min_fold_beside(o, tg, lo, hi, R, fmb_smem, [&](int r) {
+    const float x = vx[r];  // read whatever the flag, beside it
+    return repro::SlotValue{vd[r] ? li[r] : -1, x};
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -820,47 +882,38 @@ int repro_edge_scan_gather(const void* edge_dst, const void* edge_val,
                            const void* start, const void* stop, const void* rv,
                            void* nb, void* w, void* jvalid, int T, int e_chunk,
                            int R, int max_t2, void* stream) {
-  const dim3 grid(T, (R * max_t2 + ES_THREADS - 1) / ES_THREADS);
-  edge_scan_gather_kernel<<<grid, ES_THREADS, 0,
+  if ((long long)T * R == 0 || max_t2 == 0)
+    return static_cast<int>(cudaSuccess);
+  if (e_chunk < 1 || max_t2 < 0 || (long long)T * R >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  edge_scan_gather_kernel<<<scan_blocks(T, R, max_t2), SCAN_THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(edge_dst),
       static_cast<const float*>(edge_val), static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
       static_cast<int32_t*>(nb), static_cast<float*>(w),
-      static_cast<uint8_t*>(jvalid), e_chunk, R, max_t2);
+      static_cast<uint8_t*>(jvalid), T, e_chunk, R, max_t2);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The windows staged in shared memory up to STREAM_MAX_WINDOW, wider ones
-// read from device memory.
+// Any window of at least max_t2: the same lanes as the gather's.
 int repro_edge_scan_stream(const void* edge_dst, const void* edge_val,
                            const void* start, const void* stop, const void* rv,
                            void* nb, void* w, void* jvalid, int T, int e_chunk,
                            int R, int max_t2, int window, void* stream) {
-  static_assert(16 * repro::STREAM_MAX_WINDOW <= STAGE_SMEM,
-                "a staged window fits the staging");
-  if (window < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (window > repro::STREAM_MAX_WINDOW) {
-    const dim3 grid(T, (R * max_t2 + ES_THREADS - 1) / ES_THREADS);
-    edge_scan_stream_global_kernel<<<grid, ES_THREADS, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(edge_dst),
-        static_cast<const float*>(edge_val),
-        static_cast<const int32_t*>(start), static_cast<const int32_t*>(stop),
-        static_cast<const uint8_t*>(rv), static_cast<int32_t*>(nb),
-        static_cast<float*>(w), static_cast<uint8_t*>(jvalid), e_chunk, R,
-        max_t2, window);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int warps = stage_warps(window, 8);
-  const dim3 grid(T, (R + warps - 1) / warps);
-  edge_scan_stream_kernel<<<grid, 32 * warps, (size_t)warps * 16 * window,
+  if (window < 1 || window < max_t2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)T * R == 0 || max_t2 == 0)
+    return static_cast<int>(cudaSuccess);
+  if (e_chunk < 1 || max_t2 < 0 || (long long)T * R >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  edge_scan_stream_kernel<<<scan_blocks(T, R, max_t2), SCAN_THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(edge_dst),
       static_cast<const float*>(edge_val), static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
       static_cast<int32_t*>(nb), static_cast<float*>(w),
-      static_cast<uint8_t*>(jvalid), e_chunk, R, max_t2, window);
+      static_cast<uint8_t*>(jvalid), T, e_chunk, R, max_t2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -893,7 +946,7 @@ int repro_fold_scatter_min(const void* target, const void* lidx,
                            const void* vals, const void* valid, void* out,
                            int T, int v_chunk, int R, int G, int step,
                            void* stream) {
-  if (!repro::valid_split(v_chunk, G, step))
+  if (!repro::valid_split(v_chunk, G, step) || R > repro::MIN_FOLD_MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool staged = (size_t)step * sizeof(float) <= repro::STAGE_SMEM_MAX;
   const size_t smem = staged ? ((size_t)step + 4) * sizeof(float)

@@ -510,14 +510,13 @@ fused_leg1_kernel(int32_t* rq, const int32_t* __restrict__ rq_count,
 // Leg 2 (the fold leg), over a grid (T, G + 1): block (t, g < G) owns the
 // columns [lo, hi) = [g * step, min((g + 1) * step, v_chunk)) of tile t's
 // slice.  It copies that range of `target` to `out`, then folds the tile's
-// R delivered (vertex, value) rows whose slot lies in it: min (float
-// atomics by integer order, exact in any order) and the re-arm flags |
-// (out < target); the ordered add (ordered_scatter.cuh, over the in-range
-// rows only, in row-order chunks of FOLD_ADD_MAX_ROWS rows); or k-core's
-// threshold
-// fold: the ordered add of -value, then
-// newly = (acc == 0) & (out < k), acc_out = newly ? 1 : acc and flags |
-// newly.  Invalid rows go
+// R delivered (vertex, value) rows whose slot lies in it: min (integer atomics
+// in the order of the floats, a NaN as the ticket of its place:
+// ordered_scatter.cuh min_fold_beside, exact in any order) and the re-arm
+// flags | (out < target); the ordered add (ordered_scatter.cuh, over the
+// in-range rows only, in row-order chunks of FOLD_ADD_MAX_ROWS rows); or
+// k-core's threshold fold: the ordered add of -value, then newly = (acc == 0)
+// & (out < k), acc_out = newly ? 1 : acc and flags | newly.  Invalid rows go
 // to the v_chunk trash slot, which no range holds.  Block (t, G) appends
 // the update spills onto the update queue uq in place, at its count (what
 // the plain stage's copy-and-append gives; leg 1 of the round made that
@@ -592,7 +591,8 @@ fused_leg2_kernel(int32_t* uq, const int32_t* __restrict__ uq_count,
     repro::copy_range(target + vt, out + vt, lo, hi, part);
   };
   if (FOLD == FOLD_MIN) {
-    repro::min_fold_beside(out + vt, lo, hi, R, fold_smem, load, copy);
+    repro::min_fold_beside(out + vt, target + vt, lo, hi, R, fold_smem,
+                           load);
     for (int i = lo + 4 * tid; i < hi; i += 4 * blockDim.x) {
       const size_t o = vt + i;
       if (vec) {  // out after the atomics: read past L1
@@ -1302,9 +1302,10 @@ int repro_fused_leg1_chain(
       SPLIT_THREADS / 32, nchan, chan));
 }
 
-// Leg 2 of the classic program: the min or the add fold (in chunks of
-// FOLD_ADD_MAX_ROWS rows), over a grid (T, G) of column ranges of `step`
-// slots; the spills append to uq in place.
+// Leg 2 of the classic program: the min (of at most MIN_FOLD_MAX_ROWS
+// rows) or the add fold (in chunks of FOLD_ADD_MAX_ROWS rows), over a grid
+// (T, G) of column ranges of `step` slots; the spills append to uq in
+// place.
 int repro_fused_leg2(void* uq, const void* uq_count, const void* sp,
                      const void* spv, const void* recv, const void* rv,
                      const void* target, const void* flags,
@@ -1317,7 +1318,7 @@ int repro_fused_leg2(void* uq, const void* uq_count, const void* sp,
   if (fold == FOLD_ADD) {
     kernel = fused_leg2_kernel<FOLD_ADD>;
     smem = repro::ordered_add_smem(R, step);
-  } else if (fold != FOLD_MIN) {
+  } else if (fold != FOLD_MIN || R > repro::MIN_FOLD_MAX_ROWS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch_leg2(

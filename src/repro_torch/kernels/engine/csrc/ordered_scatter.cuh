@@ -17,8 +17,9 @@
 // sorted and added before chunk c + 1, so each slot's adds keep row order
 // across chunks too.
 //
-// The min is exact in any order, so it folds with float atomics through the
-// integer-order trick.
+// The min folds with integer atomics in the order of the floats (-0.0
+// below +0.0), a NaN ranked by its place in the slot's sequence (a
+// ticket, below), so no order in which the atomics land changes a bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,15 +113,21 @@ __device__ inline Team block_part() {
                     static_cast<int>(blockDim.x) - COPY_THREADS, 2};
 }
 
-// out[i] = src[i] for lo <= i < hi, by the threads of team `tm`, with
+// out[i] = map(src[i]) for lo <= i < hi, by the threads of team `tm`, with
 // 16-byte vectors when src + lo and out + lo are aligned (the last
 // (hi - lo) % 4 elements one by one), each thread keeping COPY_UNROLL loads
-// in flight.
+// in flight.  Returns whether map changed the bits of an element that this
+// thread copied.
 constexpr int COPY_UNROLL = 4;
 
-__device__ inline void copy_range(const float* __restrict__ src,
+struct Same {
+  __device__ float operator()(float x) const { return x; }
+};
+
+template <class Map = Same>
+__device__ inline bool copy_range(const float* __restrict__ src,
                                   float* __restrict__ out, int lo, int hi,
-                                  const Team& tm) {
+                                  const Team& tm, Map map = Map()) {
   const float* s = src + lo;
   float* o = out + lo;
   const int n = hi - lo;
@@ -129,6 +136,12 @@ __device__ inline void copy_range(const float* __restrict__ src,
   const int n4 = vec ? n / 4 : 0;
   const float4* s4 = reinterpret_cast<const float4*>(s);
   float4* o4 = reinterpret_cast<float4*>(o);
+  bool changed = false;
+  const auto put = [&](float x) {
+    const float y = map(x);
+    changed |= __float_as_uint(y) != __float_as_uint(x);
+    return y;
+  };
   for (int base = tm.tid; base < n4; base += COPY_UNROLL * tm.size) {
     float4 v[COPY_UNROLL];
 #pragma unroll
@@ -139,18 +152,73 @@ __device__ inline void copy_range(const float* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < COPY_UNROLL; ++u) {
       const int i = base + u * tm.size;
-      if (i < n4) o4[i] = v[u];
+      if (i < n4)
+        o4[i] = make_float4(put(v[u].x), put(v[u].y), put(v[u].z),
+                            put(v[u].w));
     }
   }
-  for (int i = 4 * n4 + tm.tid; i < n; i += tm.size) o[i] = s[i];
+  for (int i = 4 * n4 + tm.tid; i < n; i += tm.size) o[i] = put(s[i]);
+  return changed;
 }
 
+// The min folds' integer order: a set sign bit ranks above a clear one,
+// then a larger unsigned value (a more negative float) above a smaller
+// one; a clear sign bit, a smaller int above a larger one.  So -0.0 folds
+// below +0.0, as the JAX package's min does.
 __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
   const int bits = __float_as_int(v);
   if (bits >= 0)
     atomicMin(reinterpret_cast<int*>(addr), bits);
   else
     atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+}
+
+// NaN, as the JAX package folds it (kernels/engine/kernel.py
+// fold_order_key): a slot ends as the first NaN with a clear sign bit of
+// its sequence (the target, then the rows in row order), else as the last
+// NaN with a set one, else as the least number.  The fold folds, for a
+// NaN, its ticket t instead: the bits 0xffffffff - t, a NaN with a set
+// sign bit that the order above ranks over every number (those lie at or
+// below -inf, 0xff800000) and over every larger t:
+//   t = 0                              the target's NaN, sign clear;
+//   t = 1 + r                          row r's NaN, sign clear;
+//   t = 2 * MIN_FOLD_MAX_ROWS - r      row r's NaN, sign set;
+//   t = 2 * MIN_FOLD_MAX_ROWS + 1      the target's NaN, sign set.
+// So the least t wins, whatever order the atomics land in.  The target is
+// ticketed as it is staged or copied (nan_ticket(v, 0, TARGET_NEG)), each
+// row as it folds, and a slot's ticket is read back as the NaN of its
+// place when the slot is written (ticket_place).  A fold takes at most
+// MIN_FOLD_MAX_ROWS rows, so that every t lies above -inf's bits.
+constexpr int MIN_FOLD_MAX_ROWS = 4194302;  // 2^22 - 2
+constexpr int TARGET_NEG = 2 * MIN_FOLD_MAX_ROWS + 1;
+
+__device__ __forceinline__ bool is_nan_bits(unsigned u) {
+  return (u & 0x7fffffffu) > 0x7f800000u;
+}
+
+// v, or the ticket of a NaN v: pos if its sign bit is clear, else neg.
+__device__ __forceinline__ float nan_ticket(float v, int pos, int neg) {
+  const unsigned u = __float_as_uint(v);
+  if (!is_nan_bits(u)) return v;
+  return __uint_as_float(0xffffffffu -
+                         static_cast<unsigned>(static_cast<int>(u) >= 0
+                                                   ? pos
+                                                   : neg));
+}
+
+// Row r's value as it folds.
+__device__ __forceinline__ float row_ticket(float v, int r) {
+  return nan_ticket(v, 1 + r, 2 * MIN_FOLD_MAX_ROWS - r);
+}
+
+// The place a folded slot's ticket names: -1 for a number, 0 for the
+// target, 1 + r for row r.
+__device__ __forceinline__ int ticket_place(float x) {
+  const unsigned u = __float_as_uint(x);
+  if (!is_nan_bits(u)) return -1;
+  const int t = static_cast<int>(0xffffffffu - u);
+  if (t == 0 || t == TARGET_NEG) return 0;
+  return t <= MIN_FOLD_MAX_ROWS ? t : 2 * MIN_FOLD_MAX_ROWS - t + 1;
 }
 
 // Ascending bitonic sort of n keys in shared memory (n a power of two) by
@@ -288,19 +356,22 @@ __device__ inline void ordered_add_fold(float* __restrict__ out, int n,
   }
 }
 
-// A fold of the rows r < R into out[lo:hi) while the block's copy part runs
-// copy(part) (block_part): the copy of the range that the fold reads.
-// add: out[s_r] += v_r in row order, chunk by chunk:
+// A fold of the rows r < R into out[lo:hi) while the block's copy part
+// copies the range that the fold reads (block_part).  add (the copy part
+// runs copy(part)): out[s_r] += v_r in row order, chunk by chunk:
 // for each chunk, the block counts the rows of each slot (ranges of `step`
 // <= SINGLE_MAX_SLOTS slots; for the first chunk only the rest of the block,
 // as the copy runs), then the whole block adds the rows of the slots that
-// have one in the chunk and sorts the others; min: out[s_r] =
-// min(out[s_r], v_r), the rest of the block gathering the first MIN_CHUNK
-// rows' (slot, value) pairs as the copy runs, then the whole block applying
-// them with float atomics (then the next MIN_CHUNK rows, gathered by the
-// whole block).  load(r) returns row r's SlotValue; rows outside [lo, hi)
-// are skipped.  Ends with a barrier of the whole block; `smem` holds
-// ordered_add_smem(R, step) (add) or min_fold_smem(R) (min) bytes.
+// have one in the chunk and sorts the others; min (the copy part copies
+// src[lo:hi) into out, each NaN as its ticket): out[s_r] = min(out[s_r],
+// v_r), the rest of the block gathering the first MIN_CHUNK rows' (slot,
+// value) pairs, each NaN as its ticket, as the copy runs, then the whole
+// block applying them with atomic_min_f32 (then the next MIN_CHUNK rows,
+// gathered by the whole block), and, if a NaN took part, reading each
+// slot's ticket back.  load(r) returns row r's SlotValue; rows outside [lo,
+// hi) are skipped; the min takes at most MIN_FOLD_MAX_ROWS rows.  Ends with
+// a barrier of the whole block; `smem` holds ordered_add_smem(R, step) (add)
+// or min_fold_smem(R) (min) bytes.
 // One chunk of add_fold_beside: the rows [c0, c0 + m), the first chunk
 // (first) beside the copy.
 template <class Load, class Copy>
@@ -370,40 +441,64 @@ __device__ inline void add_fold_beside(float* __restrict__ out, int lo,
                    smem, load, copy);
 }
 
-template <class Load, class Copy>
-__device__ inline void min_fold_beside(float* __restrict__ out, int lo,
+template <class Load>
+__device__ inline void min_fold_beside(float* __restrict__ out,
+                                       const float* __restrict__ src, int lo,
                                        int hi, int R, unsigned char* smem,
-                                       Load load, Copy copy) {
+                                       Load load) {
   const int C = R < MIN_CHUNK ? R : MIN_CHUNK;
   unsigned long long* entry = reinterpret_cast<unsigned long long*>(smem);
   int* count = reinterpret_cast<int*>(entry + (C > 0 ? C : 1));
-  const auto make = [](int, const SlotValue& x) {
-    return (static_cast<unsigned long long>(static_cast<unsigned>(x.s))
-            << 32) |
-           __float_as_uint(x.v);
+  int* ticketed = count + 1;  // some slot of the range may hold a ticket
+  // rows c0 .. c0 + m - 1, each value ticketed by its row as its entry is
+  // made (after the loads: ticketing a row as it loads held the next loads
+  // back, 18 % of scatter_segments' min on an H100)
+  const auto rows = [&](int c0) {
+    return [&, c0](int i) { return load(c0 + i); };
   };
+  const auto make = [](int c0) {
+    return [c0](int i, const SlotValue& x) {
+      return (static_cast<unsigned long long>(static_cast<unsigned>(x.s))
+              << 32) |
+             __float_as_uint(row_ticket(x.v, c0 + i));
+    };
+  };
+  if (threadIdx.x == 0) *ticketed = 0;
+  __syncthreads();
   const Team part = block_part();
+  // a NaN of the target or a row, seen in a register
+  bool seen_nan = false;
   if (threadIdx.x < COPY_THREADS)
-    copy(part);
+    seen_nan = copy_range(src, out, lo, hi, part, [](float v) {
+      return nan_ticket(v, 0, TARGET_NEG);
+    });
   else
-    gather_rows(lo, hi, C, load, make, entry, count, part);
+    gather_rows(lo, hi, C, rows(0), make(0), entry, count, part);
   for (int c0 = 0;;) {
     __syncthreads();  // the copy, and this chunk's entries
     const int n = *count;
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       const unsigned long long e = entry[j];
-      atomic_min_f32(out + static_cast<unsigned>(e >> 32),
-                     __uint_as_float(static_cast<unsigned>(e)));
+      const float v = __uint_as_float(static_cast<unsigned>(e));
+      seen_nan |= is_nan_bits(__float_as_uint(v));  // a row's ticket
+      atomic_min_f32(out + static_cast<unsigned>(e >> 32), v);
     }
     c0 += C;
     if (c0 >= R) break;
     __syncthreads();  // every thread has read this chunk
     const int m = R - c0 < C ? R - c0 : C;
-    gather_rows(
-        lo, hi, m, [&](int i) { return load(c0 + i); }, make, entry, count,
-        whole_block());
+    gather_rows(lo, hi, m, rows(c0), make(c0), entry, count,
+                whole_block());
   }
+  if (seen_nan) *ticketed = 1;
   __syncthreads();
+  if (*ticketed) {  // a NaN took part: read each ticket back
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+      const int p = ticket_place(__ldcg(out + i));
+      if (p >= 0) out[i] = p == 0 ? src[i] : load(p - 1).v;
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace repro

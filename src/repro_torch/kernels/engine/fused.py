@@ -93,6 +93,7 @@ from repro_torch.core.queues import Queue
 from repro_torch.kernels.cuda_build import I as _I, P as _P
 from repro_torch.kernels.cuda_build import CudaLibrary, check as _check
 from repro_torch.kernels.engine.kernel import (CSRC, ENGINE_DEVICE,
+                                               MIN_FOLD_MAX_ROWS,
                                                ORDERED_SCATTER, add_chunks,
                                                device_split, staging,
                                                window_path)
@@ -425,6 +426,9 @@ def fused_leg2(tmpl: LegTemplate, plain, me, sh, st, recv, rv, sp, spv):
     v_chunk = st.value.shape[1]
     S, R = sp.shape[1], recv.shape[1]
     is_min = tmpl.fold == "min"
+    if is_min and R > MIN_FOLD_MAX_ROWS:
+        raise ValueError(f"fused leg 2: a min fold of {R} rows a tile; its "
+                         f"kernel folds at most {MIN_FOLD_MAX_ROWS}")
     target = st.value if is_min else st.acc
     flags = st.frontier if tmpl.mode == "async" else st.next_frontier
     _check(*_spill_checks(uq, sp, spv, recv, rv, T, 2),

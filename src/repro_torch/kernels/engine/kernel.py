@@ -44,10 +44,12 @@ No wrapper refuses a shape for its kernel's shared memory: where the
 staging does not fit, the kernel takes a second path that gives the same
 bits (the add folds sort in chunks; the min fold folds beside its copy
 past ``STAGE_SMEM_MAX`` bytes a range; ``queue_push_pop`` and the fused legs
-stage in a device-memory scratch past ``STAGE_SMEM_MAX`` bytes; a
-streamed window wider than ``STREAM_MAX_WINDOW`` is read from device
-memory, not staged).  Each such wrapper notes the path of its last launch
-in its ``path`` attribute.
+stage in a device-memory scratch past ``STAGE_SMEM_MAX`` bytes; fused
+leg 1 reads a streamed window wider than ``STREAM_MAX_WINDOW`` from
+device memory, not staged).  Each such wrapper notes the path of its last
+launch in its ``path`` attribute.  The two T2 scans stage nothing: the
+stream reads each lane's word where the gather does (:func:`edge_scan_
+stream`).
 
 The CUDA source is built at first use (:mod:`repro_torch.kernels.
 cuda_build`: ``nvcc`` for ``sm_90a`` into ``build/repro_torch/``, loaded
@@ -90,13 +92,19 @@ def _constant(header: Path, name: str) -> int:
 # and read here from their headers.  The add folds sort one 8-byte key and
 # one value a row in shared memory, at most FOLD_ADD_MAX_ROWS rows at a
 # time: more rows a tile are sorted and added chunk after chunk, in row
-# order (csrc/ordered_scatter.cuh).  A streamed T2 stages a warp's 2 *
-# window (dst, val) pairs in shared memory up to STREAM_MAX_WINDOW; a wider
-# window is read from device memory.  queue_push_pop's fresh-row indices
+# order (csrc/ordered_scatter.cuh).  Fused leg 1 over a streamed shard
+# stages a warp's 2 * window (dst, val) pairs in shared memory up to
+# STREAM_MAX_WINDOW; a wider window is read from device memory.
+# queue_push_pop's fresh-row indices
 # and the fused legs' popped rows take at most STAGE_SMEM_MAX bytes of
 # dynamic shared memory a block; a larger staging goes to a device-memory
 # scratch the wrapper allocates (csrc/engine_device.cuh).
 FOLD_ADD_MAX_ROWS = _constant(ORDERED_SCATTER, "FOLD_ADD_MAX_ROWS")
+# A min fold ranks a NaN by a ticket, its place among at most
+# MIN_FOLD_MAX_ROWS rows (csrc/ordered_scatter.cuh): a standalone min fold
+# of more rows a tile folds them that many a launch, each launch's output
+# the next one's target (the fold is serial, so that is the same fold).
+MIN_FOLD_MAX_ROWS = _constant(ORDERED_SCATTER, "MIN_FOLD_MAX_ROWS")
 STREAM_MAX_WINDOW = _constant(ENGINE_DEVICE, "STREAM_MAX_WINDOW")
 STAGE_SMEM_MAX = _constant(ENGINE_DEVICE, "STAGE_SMEM_MAX")
 # The column-owning split of the T3 folds over a grid (NB, G) (the
@@ -179,8 +187,8 @@ def staging(T: int, nbytes: int, dev):
 
 
 def window_path(window: int) -> str:
-    """How a streamed T2 reads its windows: staged in shared memory up to
-    ``STREAM_MAX_WINDOW``, else from device memory."""
+    """How fused leg 1 reads a streamed shard's windows: staged in shared
+    memory up to ``STREAM_MAX_WINDOW``, else from device memory."""
     return ("staged window" if window <= STREAM_MAX_WINDOW
             else "device window")
 
@@ -268,9 +276,12 @@ def segment_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
     (indices clamped to the shard), and gathers its lanes out of that
     staging buffer only (offsets clamped to it).
 
-    Same operands and outputs as :func:`segment_gather`.  With ``window >=
-    max_t2`` every valid lane reads the same shard word as the gather; the
-    invalid lanes read the staging buffer, so they differ from it.
+    Same operands and outputs as :func:`segment_gather`, and with ``window
+    >= max_t2`` (the reference's ``resolve_window``) the same bits on
+    every lane, valid or not: a message's offset into its staging is
+    ``off0 = local0 - base + j <= 2 * window - 2``, so the clamp to the
+    staging never bites, and ``min(base + off0, e_chunk - 1) = min(local0
+    + j, e_chunk - 1)`` is the gather's index.
     """
     T, e_chunk = edge_dst.shape
     R = start.shape[1]
@@ -320,9 +331,69 @@ def ordered_scatter_add(target: torch.Tensor, idx: torch.Tensor,
 
 def fold_order_key(x: torch.Tensor) -> torch.Tensor:
     """float32 -> int32 keys in the order of the floats, -0.0 (key -1)
-    below +0.0 (key 0); its own inverse (int32 -> float32 bits)."""
+    below +0.0 (key 0); its own inverse (int32 -> float32 bits).
+
+    The min folds (:func:`min_fold`, so :func:`scatter_body` and
+    ``binned_scatter``; the kernels through ``atomic_min_f32``) keep the
+    JAX package's bits.  Its min fold is XLA's ``minimum`` applied
+    serially to a slot's sequence, the target first and then the rows in
+    row order (``ext.at[lidx].min`` and the Pallas ``scatter_segments``'
+    row reduction alike), and gives:
+
+    - the first NaN of the sequence whose sign bit is clear, if any;
+    - else the last NaN whose sign bit is set, if any;
+    - else the number of least key: -0.0 below +0.0.
+
+    A NaN keeps its payload, signalling or quiet.  The rule depends on
+    row order, not only on the bits, so no order of keys gives it: the
+    folds rank a NaN by its place in the sequence instead (a ticket,
+    below every number), and read its bits back from that place."""
     b = x.view(torch.int32)
     return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _is_nan(bits: torch.Tensor) -> torch.Tensor:
+    return (bits & 0x7FFFFFFF) > 0x7F800000
+
+
+# A NaN's ticket, below every key: the place p of a NaN in its slot's
+# sequence (0 the target, 1 + r row r); the first positive NaN and the
+# last negative one rank first.
+_TICKET = 1 << 40
+
+
+def min_fold(ext: torch.Tensor, idx: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    """The JAX package's serial min fold of every row ``r`` into its slot:
+    ``ext[t, idx[t, r]] = minimum(ext[t, idx[t, r]], vals[t, r])``, rows
+    in increasing ``r``, with :func:`fold_order_key`'s rule for NaN and
+    signed zeros.  ext (T, n) float32, idx (T, R) int64 in ``[0, n)``,
+    vals (T, R) float32 -> (T, n) float32.  An integer min of 64-bit
+    keys, so the same on every device: a number's key is its
+    :func:`fold_order_key`, a NaN's its ticket."""
+    R = idx.shape[1]
+    eb, vb = ext.view(torch.int32), vals.view(torch.int32)
+
+    def key(bits, place):
+        return torch.where(
+            _is_nan(bits),
+            torch.where(bits >= 0, place - 3 * _TICKET, -place - 2 * _TICKET),
+            fold_order_key(bits.view(torch.float32)).to(torch.int64))
+
+    dev = ext.device
+    k = key(eb, torch.zeros((), dtype=torch.int64, device=dev))
+    rows = torch.arange(1, R + 1, dtype=torch.int64, device=dev)
+    k.scatter_reduce_(1, idx, key(vb, rows[None]), "amin")
+    nan = k < -_TICKET
+    place = torch.where(k < -5 * _TICKET // 2, k + 3 * _TICKET,
+                        -(k + 2 * _TICKET))
+    row = torch.gather(vb, 1, torch.where(nan, place - 1, 0).clamp(min=0)) \
+        if R else eb
+    out = torch.where(
+        nan, torch.where(place == 0, eb, row),
+        fold_order_key(k.clamp(min=-2 ** 31, max=2 ** 31 - 1).to(
+            torch.int32).view(torch.float32)))
+    return out.view(torch.float32)
 
 
 def scatter_body(target, lidx, vals, valid, op: str):
@@ -330,21 +401,20 @@ def scatter_body(target, lidx, vals, valid, op: str):
     into its ``(v_chunk,)`` slice; ``lidx == v_chunk`` is the trash slot
     and invalid rows contribute the neutral element.  The add keeps row
     order per slot (:func:`ordered_scatter_add`), so it is the same on
-    every device.  The min takes the least :func:`fold_order_key`, an
-    integer min, so it is the same on every device too: -0.0 is below
-    +0.0, as the reference's min folds them (a float ``amin`` keeps
-    whichever of the two zeros comes first, and on the card in no fixed
-    order)."""
+    every device.  The min is :func:`min_fold`, an integer min of keys,
+    so it is the same on every device too, and gives the reference's
+    bits on NaN and signed zeros (a float ``amin`` drops a positive NaN,
+    and keeps whichever of two zeros comes first, on the card in no
+    fixed order)."""
     T, v_chunk = target.shape
-    neutral = _INF if op == "min" else 0.0
-    masked = torch.where(valid, vals, neutral)
     if op == "add":
-        return ordered_scatter_add(target, lidx, masked)
-    ext = torch.cat([target, target.new_full((T, 1), neutral)], dim=1)
-    key = fold_order_key(ext)
-    key.scatter_reduce_(1, lidx.to(torch.int64), fold_order_key(masked),
-                        "amin")
-    return fold_order_key(key[:, :v_chunk].contiguous()).view(torch.float32)
+        return ordered_scatter_add(target, lidx,
+                                   torch.where(valid, vals, 0.0))
+    inf = torch.tensor(_INF, dtype=torch.float32).view(torch.int32)
+    masked = torch.where(valid, vals.view(torch.int32), inf)
+    ext = torch.cat([target, target.new_full((T, 1), _INF)], dim=1)
+    out = min_fold(ext, lidx.to(torch.int64), masked.view(torch.float32))
+    return out[:, :v_chunk].contiguous()
 
 
 # ==========================================================================
@@ -435,14 +505,7 @@ def turn_contract(out):
             drops)
 
 
-def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
-    """T2: for each tile's R delivered range messages, the up-to-``max_t2``
-    (dst, val) pairs of its edge shard from ``start % e_chunk``.
-    edge_dst (T, e_chunk) int32, edge_val float32, start/stop (T, R)
-    int32, rv (T, R) bool -> nb, w, jvalid, each (T, R, max_t2)."""
-    if edge_dst.device.type == "cpu":
-        record()
-        return segment_gather(edge_dst, edge_val, start, stop, rv, max_t2)
+def _scan(name, edge_dst, edge_val, start, stop, rv, max_t2, *window):
     T, e_chunk = edge_dst.shape
     R = start.shape[1]
     _check(("edge_dst", edge_dst, torch.int32, (T, e_chunk)),
@@ -450,18 +513,37 @@ def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
            ("start", start, torch.int32, (T, R)),
            ("stop", stop, torch.int32, (T, R)),
            ("rv", rv, torch.bool, (T, R)))
-    if -(-R * max_t2 // 256) > 65535:
-        raise ValueError(f"edge_scan_gather: R*max_t2={R * max_t2} lanes "
-                         f"exceed the grid")
     dev = edge_dst.device
     nb = torch.empty((T, R, max_t2), dtype=torch.int32, device=dev)
     w = torch.empty((T, R, max_t2), dtype=torch.float32, device=dev)
     jvalid = torch.empty((T, R, max_t2), dtype=torch.bool, device=dev)
-    _launch("repro_edge_scan_gather", edge_dst, edge_val, start, stop, rv,
-            nb, w, jvalid, T, e_chunk, R, max_t2)
+    _launch(f"repro_{name}", edge_dst, edge_val, start, stop, rv, nb, w,
+            jvalid, T, e_chunk, R, max_t2, *window)
+    return nb, w, jvalid
+
+
+def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
+    """T2: for each tile's R delivered range messages, the up-to-``max_t2``
+    (dst, val) pairs of its edge shard from ``start % e_chunk``.
+    edge_dst (T, e_chunk) int32, edge_val float32, start/stop (T, R)
+    int32, rv (T, R) bool -> nb, w, jvalid, each (T, R, max_t2).
+
+    The kernel runs a team of threads a message, four lanes a thread, over
+    a grid-stride loop on the T * R messages.  It writes ``jvalid`` whole,
+    and ``nb`` and ``w`` only for the groups of four lanes that hold a
+    lane below the message's length: the other lanes are the reference's
+    don't-care, masked by ``jvalid`` at every consumer, where
+    :func:`segment_gather` reads the clamped shard word.  So the kernel
+    and its plain version share :func:`scan_contract`'s outputs
+    bitwise."""
+    if edge_dst.device.type == "cpu":
+        record()
+        return segment_gather(edge_dst, edge_val, start, stop, rv, max_t2)
+    out = _scan("edge_scan_gather", edge_dst, edge_val, start, stop, rv,
+                max_t2)
     edge_scan_gather.launches += 1
     record()
-    return nb, w, jvalid
+    return out
 
 
 def edge_scan_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
@@ -469,8 +551,10 @@ def edge_scan_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
     """T2 over a streamed edge shard (:func:`segment_stream`): the
     operands and outputs of :func:`edge_scan_gather`, plus the static
     ``window`` (``window >= max_t2``, as the reference's
-    ``resolve_window`` asks); a window wider than ``STREAM_MAX_WINDOW`` is
-    read from device memory instead of staged (``path``)."""
+    ``resolve_window`` asks).  Under that bound the stream reads the
+    gather's word on every lane, so its kernel is the gather's scan under
+    its own entry and launch (no staging), held to :func:`segment_stream`
+    by :func:`scan_contract`."""
     if window < max(max_t2, 1):
         raise ValueError(f"edge_scan_stream: window {window} must be at "
                          f"least max_t2={max_t2}")
@@ -478,23 +562,22 @@ def edge_scan_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
         record()
         return segment_stream(edge_dst, edge_val, start, stop, rv, max_t2,
                               window)
-    T, e_chunk = edge_dst.shape
-    R = start.shape[1]
-    _check(("edge_dst", edge_dst, torch.int32, (T, e_chunk)),
-           ("edge_val", edge_val, torch.float32, (T, e_chunk)),
-           ("start", start, torch.int32, (T, R)),
-           ("stop", stop, torch.int32, (T, R)),
-           ("rv", rv, torch.bool, (T, R)))
-    dev = edge_dst.device
-    nb = torch.empty((T, R, max_t2), dtype=torch.int32, device=dev)
-    w = torch.empty((T, R, max_t2), dtype=torch.float32, device=dev)
-    jvalid = torch.empty((T, R, max_t2), dtype=torch.bool, device=dev)
-    _launch("repro_edge_scan_stream", edge_dst, edge_val, start, stop, rv,
-            nb, w, jvalid, T, e_chunk, R, max_t2, window)
-    edge_scan_stream.path = window_path(window)
+    out = _scan("edge_scan_stream", edge_dst, edge_val, start, stop, rv,
+                max_t2, window)
     edge_scan_stream.launches += 1
     record()
-    return nb, w, jvalid
+    return out
+
+
+def scan_contract(out):
+    """The outputs of a T2 scan that :func:`edge_scan_gather`'s and
+    :func:`edge_scan_stream`'s kernels share bitwise with
+    :func:`segment_gather` and :func:`segment_stream`: all three, with
+    ``nb`` and ``w`` set to 0 where ``jvalid`` is false (the kernels do
+    not write every such lane)."""
+    nb, w, jvalid = out
+    return (torch.where(jvalid, nb, 0), torch.where(jvalid, w, 0.0),
+            jvalid)
 
 
 def _fold_checked(target, lidx, vals, valid):
@@ -524,15 +607,28 @@ def fold_scatter(target, lidx, vals, valid, op: str = "min"):
         record()
         return scatter_body(target, lidx, vals, valid, "min")
     T, v_chunk, R = _fold_checked(target, lidx, vals, valid)
-    out = torch.empty_like(target)
     split = device_split(T, v_chunk, target.device)
-    _launch("repro_fold_scatter_min", target, lidx, vals, valid, out, T,
-            v_chunk, R, *split)
+    out = target
+    for rows in min_fold_parts(lidx, vals, valid):
+        out, prev = torch.empty_like(target), out
+        _launch("repro_fold_scatter_min", prev, *rows, out, T, v_chunk,
+                rows[0].shape[1], *split)
+        fold_scatter.launches += 1
     fold_scatter.path = min_fold_path(split.step)
     fold_scatter.split = split
-    fold_scatter.launches += 1
     record()
     return out
+
+
+def min_fold_parts(*rows):
+    """The (T, R, ...) row operands of a min fold, cut along R into
+    contiguous parts of at most ``MIN_FOLD_MAX_ROWS`` rows (one part, the
+    operands themselves, up to that; at least one)."""
+    R = rows[0].shape[1]
+    if R <= MIN_FOLD_MAX_ROWS:
+        return [rows]
+    return [[x[:, r0:r0 + MIN_FOLD_MAX_ROWS].contiguous() for x in rows]
+            for r0 in range(0, R, MIN_FOLD_MAX_ROWS)]
 
 
 def fold_scatter_add(target, lidx, vals, valid):
@@ -561,7 +657,7 @@ KERNELS = (frontier_pop, queue_push_pop, edge_scan_gather, edge_scan_stream,
            fold_scatter, fold_scatter_add)
 for _k in KERNELS:
     _k.launches = 0
-for _k in (queue_push_pop, edge_scan_stream, fold_scatter, fold_scatter_add):
+for _k in (queue_push_pop, fold_scatter, fold_scatter_add):
     _k.path = None
 for _k in (frontier_pop, fold_scatter, fold_scatter_add):
     _k.split = None

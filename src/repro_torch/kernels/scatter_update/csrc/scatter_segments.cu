@@ -75,12 +75,9 @@ scatter_segments_min_kernel(const float* __restrict__ base,
   const float* bs = base + (size_t)i * b;
   const int32_t* ix = idx + (size_t)i * cap;
   const float* vx = vals + (size_t)i * cap;
-  repro::min_fold_beside(
-      o, lo, hi, cap, ss_smem,
-      [&](int r) { return repro::SlotValue{ix[r], vx[r]}; },
-      [&](const repro::Team& part) {
-        repro::copy_range(bs, o, lo, hi, part);
-      });
+  repro::min_fold_beside(o, bs, lo, hi, cap, ss_smem, [&](int r) {
+    return repro::SlotValue{ix[r], vx[r]};
+  });
 }
 
 }  // namespace
@@ -115,7 +112,7 @@ int repro_scatter_segments_add(const void* base, const void* idx,
 int repro_scatter_segments_min(const void* base, const void* idx,
                                const void* vals, void* out, int nb, int b,
                                int cap, int G, int step, void* stream) {
-  if (!repro::valid_split(b, G, step))
+  if (!repro::valid_split(b, G, step) || cap > repro::MIN_FOLD_MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = repro::min_fold_smem(cap);  // under 48 KiB
   scatter_segments_min_kernel<<<dim3(nb, G), SS_THREADS, smem,

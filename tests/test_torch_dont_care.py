@@ -17,7 +17,13 @@ The unfused round's ``queue_push_pop`` kernel writes its turned queue
 below the new count only ("rows at or beyond the live count are
 unobservable garbage", ``src/repro/kernels/engine/kernel.py:424-427``);
 the unfused engine runs the same way with the turned queue poisoned from
-its count on after every ``queue_push_pop`` call.
+its count on after every ``queue_push_pop`` call.  The unfused T2 scans'
+kernel writes ``nb`` and ``w`` only for the groups of lanes that hold a
+live lane (the invalid lanes are "don't-cares masked by ``jvalid`` at
+every consumer", ``src/repro/kernels/engine/kernel.py:175-176``); the
+unfused engine runs with ``nb`` and ``w`` poisoned where ``jvalid`` is
+false after every ``edge_scan_gather`` and ``edge_scan_stream`` call,
+the shard resident and streamed.
 """
 import numpy as np
 import pytest
@@ -253,3 +259,87 @@ def test_poisoned_turn_changes_no_bit_unfused(monkeypatch, twin_graph, app):
     assert int(st.drops) == 0 and int(st.rounds) > 1
     spilling = st.spills[:1] if app == "kcore2" else st.spills
     assert bool((spilling > 0).all()), st.spills  # every re-queue ran
+
+
+def poison_scan(out):
+    """Overwrite, in place, what the scans' kernel may leave unwritten:
+    ``nb`` and ``w`` where ``jvalid`` is false (nb the two poison words
+    lane by lane in turn, w a NaN and float32 max)."""
+    nb, w, jvalid = out
+    even = torch.arange(nb.shape[-1]) % 2 == 0
+    nb.copy_(torch.where(jvalid, nb, torch.where(even, *POISON).to(
+        torch.int32)))
+    junk = torch.where(even, torch.tensor(float("nan")),
+                       torch.tensor(float(np.finfo(np.float32).max)))
+    w.copy_(torch.where(jvalid, w, junk))
+
+
+def test_scan_poison_reaches_every_invalid_lane():
+    """The poison of a scan covers exactly the lanes where jvalid is
+    false, in nb and w, and leaves jvalid and the valid lanes alone."""
+    from repro_torch.kernels.engine.kernel import segment_gather
+    rng = np.random.default_rng(3)
+    T, e_chunk, R, mt = 3, 40, 12, 6
+    ed = torch.from_numpy(rng.integers(-1, 99, (T, e_chunk), dtype=np.int32))
+    ev = torch.from_numpy(rng.random((T, e_chunk), dtype=np.float32))
+    start = torch.from_numpy(rng.integers(0, T * e_chunk, (T, R),
+                                          dtype=np.int32))
+    stop = start + torch.from_numpy(rng.integers(0, mt + 1, (T, R),
+                                                 dtype=np.int32))
+    rv = torch.from_numpy(rng.random((T, R)) < 0.6)
+    out = segment_gather(ed, ev, start, stop, rv, mt)
+    clean = [a.clone() for a in out]
+    poison_scan(out)
+    jv = clean[2]
+    assert 0 < int(jv.sum()) < jv.numel()
+    assert torch.equal(out[2], jv)
+    assert torch.equal(out[0][jv], clean[0][jv])
+    assert torch.equal(out[1][jv].view(torch.int32),
+                       clean[1][jv].view(torch.int32))
+    assert set(out[0][~jv].unique().tolist()) == set(POISON)
+    dead = out[1][~jv]
+    assert bool(dead.isnan().any()) and not bool(dead.isfinite().all())
+
+
+# the unfused apps whose scans read each kind of payload: BFS (none),
+# SSSP (the weights), SpMV (value * weight), k-core (none, symmetrized)
+SCAN_POISON_APPS = ("bfs", "sssp", "spmv", "kcore5")
+
+
+@pytest.mark.parametrize("space", ["vmem", "hbm"])
+@pytest.mark.parametrize("app", SCAN_POISON_APPS)
+def test_poisoned_scan_lanes_change_no_bit_unfused(monkeypatch, twin_graph,
+                                                   app, space):
+    """The unfused engine over 16 tiles (the twin's R-MAT-10), the shard
+    resident (edge_scan_gather) or streamed (edge_scan_stream), with nb
+    and w poisoned where jvalid is false after every scan call, gives the
+    values and every Stats field of the unpoisoned run, launches included,
+    and of the JAX package's run but for launches.  So no consumer reads
+    the lanes that the scans' kernel leaves unwritten."""
+    from repro_torch.core import program as tprogram
+    name = "edge_scan_stream" if space == "hbm" else "edge_scan_gather"
+    calls = []
+    real = getattr(tprogram, name)
+
+    def hooked(*ops):
+        out = real(*ops)
+        poison_scan(out)
+        calls.append(1)
+        return out
+
+    monkeypatch.setattr(tprogram, name, hooked)
+    knobs = dict(POISON_APPS[app], fuse=False, edge_space=space)
+    prog, g, pg, tpg, drive = workload(app, twin_graph)
+    poisoned = drive(ta, TConfig(**knobs), tpg)
+    assert len(calls) == int(poisoned.stats.rounds)
+    monkeypatch.undo()
+    clean = drive(ta, TConfig(**knobs), tpg)
+    np.testing.assert_array_equal(clean.values, poisoned.values)
+    assert_all_stats_equal(clean.stats, poisoned.stats, f"{app} unpoisoned")
+    del knobs["fuse"]
+    jx = drive(ja, JConfig(backend="xla", **knobs), pg)
+    np.testing.assert_array_equal(jx.values, poisoned.values)
+    assert_stats_equal(jx.stats, poisoned.stats, f"{app} jax")
+    st = poisoned.stats
+    assert int(st.drops) == 0 and int(st.rounds) > 1
+    assert (int(st.hbm_windows) > 0) == (space == "hbm")

@@ -17,6 +17,7 @@ equals the unconstrained resident run.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,6 +118,62 @@ def test_segment_stream_empty_frontier():
     _, _, jv = check_stream_tiles(edge_dst, edge_val, z, z, rv, max_t2,
                                   window)
     assert not jv.any()
+
+
+def drawn_scan(rng, T, e_chunk, R, max_t2):
+    """Scan operands beyond what range_split emits: starts anywhere in the
+    tiles' global range or -1, lengths from -4 to max_t2 + 4 (negative,
+    and past max_t2), a third of the messages invalid, shards that may be
+    shorter than max_t2 or a window."""
+    edge_dst = rng.integers(-1, 1 << 20, (T, e_chunk)).astype(np.int32)
+    edge_val = rng.normal(0, 4, (T, e_chunk)).astype(np.float32)
+    start = rng.integers(0, T * e_chunk, (T, R)).astype(np.int32)
+    stop = (start + rng.integers(-4, max_t2 + 5, (T, R))).astype(np.int32)
+    rv = rng.random((T, R)) < 0.67
+    start = np.where(rv | (rng.random((T, R)) < 0.5), start, -1)
+    return edge_dst, edge_val, start.astype(np.int32), stop, rv
+
+
+def test_segment_stream_is_segment_gather_on_every_lane():
+    """With window >= max_t2, the port's segment_stream gives
+    segment_gather's bits on every lane, valid or not: 300 drawn cases
+    (windows equal to max_t2 and up to 64 times it, shards shorter than a
+    window or than max_t2, negative lengths, starts of -1).  So the
+    streamed kernel reads each lane's word where the gather does."""
+    from repro_torch.kernels.engine.kernel import segment_gather
+    rng = np.random.default_rng(26)
+    for trial in range(300):
+        T = int(rng.integers(1, 4))
+        max_t2 = int(rng.integers(1, 40))
+        window = max_t2 * int(rng.choice([1, 1, 2, 3, 16, 64]))
+        e_chunk = int(rng.integers(1, 3 * window + 2))
+        R = int(rng.integers(1, 12))
+        args = [torch.from_numpy(a) for a in drawn_scan(
+            rng, T, e_chunk, R, max_t2)]
+        for a, b in zip(segment_stream(*args, max_t2, window),
+                        segment_gather(*args, max_t2)):
+            assert torch.equal(a, b), (trial, T, e_chunk, R, max_t2, window)
+
+
+@pytest.mark.parametrize("max_t2,window,e_chunk", [(8, 8, 5), (7, 14, 40),
+                                                   (32, 512, 300)])
+def test_jax_segment_stream_is_segment_gather_on_every_lane(max_t2, window,
+                                                            e_chunk):
+    """The same identity in the JAX package's bodies, and the port's
+    segment_stream against them, on 20 drawn tiles each (the window equal
+    to max_t2 over a shard shorter than it, twice it, 16 times it over a
+    shard shorter than two windows)."""
+    rng = np.random.default_rng(max_t2)
+    ops = drawn_scan(rng, 20, e_chunk, 8, max_t2)
+    j = [jnp.asarray(a) for a in ops]
+    body = jax.vmap(lambda *a: jk.segment_stream(*a, max_t2, window))(*j)
+    gather = jax.vmap(lambda *a: jk.segment_gather(*a, max_t2))(*j)
+    port = segment_stream(*[torch.from_numpy(a) for a in ops], max_t2,
+                          window)
+    for a, b, c in zip(body, gather, port):
+        a, b, c = np.asarray(a), np.asarray(b), c.numpy()
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
 
 
 def test_edge_scan_stream_rejects_a_window_below_max_t2():

@@ -91,7 +91,7 @@ def launches(monkeypatch):
         monkeypatch.setattr(mod, "device_split", split)
     for w in (*fused.KERNELS, *kernel.KERNELS, scatter_segments):
         monkeypatch.setattr(w, "launches", w.launches)
-    for w in (*fused.KERNELS, kernel.queue_push_pop, kernel.edge_scan_stream,
+    for w in (*fused.KERNELS, kernel.queue_push_pop,
               kernel.fold_scatter_add, scatter_segments):
         monkeypatch.setattr(w, "path", w.path)
     return calls
@@ -267,15 +267,21 @@ def test_queue_push_pop_takes_more_fresh_rows(launches, m, path):
                                          (65536, "device window")])
 def test_streamed_scans_take_any_window(launches, window, path):
     """edge_scan_stream and the streamed fused leg 1 take any window of at
-    least max_t2 (the reference's resolve_window): up to
-    STREAM_MAX_WINDOW staged, above it read from device memory."""
+    least max_t2 (the reference's resolve_window).  The standalone scan has
+    one path at every window (it stages nothing: its own entry, the
+    gather's scan); fused leg 1 stages up to STREAM_MAX_WINDOW and reads a
+    wider window from device memory."""
     T, R = 16, 256
     st, stop = meta(T, R), meta(T, R)
-    kernel.edge_scan_stream(meta(T, 9000), meta(T, 9000, dtype=F32), st,
-                            stop, meta(T, R, dtype=BOOL), 32, window)
+    out = kernel.edge_scan_stream(meta(T, 9000), meta(T, 9000, dtype=F32),
+                                  st, stop, meta(T, R, dtype=BOOL), 32,
+                                  window)
     fn, args = launched(launches, kernel.LIBRARY)
-    assert args[-1] == window
-    assert kernel.edge_scan_stream.path == path
+    assert fn == "repro_edge_scan_stream"
+    assert args[-5:] == (T, 9000, R, 32, window)
+    assert all(a is b for a, b in zip(args[5:8], out))
+    assert [tuple(x.shape) for x in out] == [(T, R, 32)] * 3
+    assert not hasattr(kernel.edge_scan_stream, "path")
     fused.fused_leg1(template(window=window), None, None,
                      shard(T, 4096, 9000), state(T, 4096, CLASSIC),
                      *messages(T, R, 3), *messages(T, 32, 3), meta(T, 2))
@@ -489,9 +495,10 @@ def test_queue_push_pop_kernel_turns_live_rows(w, cap, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [4096, 65536, 2049])
 def test_edge_scan_stream_kernel_any_window(window):
-    """T2 over a streamed shard at windows past STREAM_MAX_WINDOW (read
-    from device memory), the first one past it included, bitwise
-    segment_stream; shards shorter than two windows included."""
+    """T2 over a streamed shard at windows past what fused leg 1 stages
+    (STREAM_MAX_WINDOW), the first one past it included: bitwise
+    segment_stream under scan_contract; shards shorter than two windows
+    included."""
     dev = card()
     for T, e_chunk, R, mt in ((2, 9000, 40, 8), (3, 300, 64, 32),
                               (2, 70000, 100, 32)):
@@ -504,9 +511,9 @@ def test_edge_scan_stream_kernel_any_window(window):
         args = rng_on(dev, ed, ev, start, stop, rv)
         got = kernel.edge_scan_stream(*args, mt, window)
         torch.cuda.synchronize()
-        assert kernel.edge_scan_stream.path == "device window"
-        assert_same(list(got), list(kernel.segment_stream(*args, mt,
-                                                          window)),
+        want = kernel.segment_stream(*args, mt, window)
+        assert_same(list(kernel.scan_contract(got)),
+                    list(kernel.scan_contract(want)),
                     f"window {window} e_chunk {e_chunk}")
 
 

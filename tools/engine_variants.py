@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Write copies of the standalone engine kernels' source, each with one
-text edit, for ``tools/kernel_times.py frontier|fold_min --variants``.
+text edit, for ``tools/kernel_times.py frontier|fold_min|scan
+--variants``.
 
     python3 tools/engine_variants.py [--out DIR] NAME [NAME ...]
 
@@ -40,9 +41,28 @@ variants:
   a load), copies its range of the target into the output (16-byte
   vectors, four in flight a thread), passes a barrier and folds the rows
   in range with global atomics (reductions in L2) onto what it has just
-  written.
+  written (no NaN tickets);
+- ``nan_no_target_pass``: the staged min fold does not ticket the NaNs
+  of the target's aligned part (no pass over the staged range, no
+  barrier after it);
+- ``nan_no_row_ticket``: the staged min fold folds each row's value as
+  it is, not its ticket;
+- ``nan_no_read_back``: the staged min fold writes its range out without
+  reading tickets back, even where a NaN took part;
+- ``scan_free_registers``: the T2 scans' kernels compiled without the
+  register budget of ``SCAN_BLOCKS_PER_SM`` blocks a SM;
+- ``scan_one_pass``: the scans' grid holds a team for every message (no
+  grid-stride loop);
+- ``scan_whole_rows``: the scans write every group of nb and w of a
+  message that has a live lane (whole 128-byte rows at max_t2 = 32, no
+  partly written sector);
+- ``scan_no_nbw``: the scans write jvalid only (what writing nb and w
+  costs; not the kernel's bits);
+- ``scan_no_loads``: the scans read no shard word, every live lane's dst
+  and val 0 (what the shard reads cost; not the kernel's bits).
 
-All give the kernel's bits: ``kernel_times.py`` records a variant's
+All give the kernel's bits on NaN-free operands (the ``nan_*`` variants
+are what the NaN rule costs): ``kernel_times.py`` records a variant's
 check all the same.
 """
 from __future__ import annotations
@@ -194,6 +214,36 @@ EDITS = {
     "min_beside": [
         ("const bool staged = (size_t)step * sizeof(float) <= "
          "repro::STAGE_SMEM_MAX;", "const bool staged = false;", 1)],
+    "nan_no_target_pass": [
+        ("      for (int i = threadIdx.x; 4 * i < b - a; i += FM_THREADS) {",
+         "      for (int i = threadIdx.x; false; i += FM_THREADS) {", 1),
+        ("      __syncthreads();\n    }\n#pragma unroll\n    for (int u = 0; "
+         "u < FM_ROWS; ++u)\n      if (x[u].s >= lo && x[u].s < hi) {",
+         "    }\n#pragma unroll\n    for (int u = 0; u < FM_ROWS; ++u)\n"
+         "      if (x[u].s >= lo && x[u].s < hi) {", 1)],
+    "nan_no_row_ticket": [
+        ("            repro::row_ticket(\n"
+         "                x[u].v, r0 + 4 * (u / 4 * FM_THREADS + threadIdx.x)"
+         " + u % 4));", "            x[u].v);", 1)],
+    "scan_free_registers": [
+        ("__launch_bounds__(SCAN_THREADS, SCAN_BLOCKS_PER_SM)\n",
+         "__launch_bounds__(SCAN_THREADS)\n", 2)],
+    "scan_one_pass": [
+        ("  const long long most = (long long)SCAN_BLOCKS_PER_SM * sms;",
+         "  const long long most = need;", 1)],
+    "scan_whole_rows": [
+        ("        if (j0 < length) {\n          *reinterpret_cast<int4*>",
+         "        if (length > 0) {\n          *reinterpret_cast<int4*>", 1)],
+    "scan_no_nbw": [
+        ("        if (j0 < length) {\n          *reinterpret_cast<int4*>",
+         "        if (false) {\n          *reinterpret_cast<int4*>", 1)],
+    "scan_no_loads": [
+        ("        d[k] = live ? ed[ei] : 0;\n        v[k] = live ? ev[ei] : "
+         "0.0f;", "        d[k] = 0 * ei;\n        v[k] = live ? 1.0f : "
+         "0.0f;", 1)],
+    "nan_no_read_back": [
+        ("  if (ticketed)\n    write_out(", "  if (false)\n    write_out(",
+         1)],
 }
 
 

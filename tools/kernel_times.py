@@ -4,7 +4,7 @@ shapes, for one checkout, so that two checkouts, or other builds of a
 kernel's source, compare in one call on one card.
 
     python3 tools/kernel_times.py
-        {legs,turn,frontier,fold,fold_add,fold_min,ssd,wkv6}
+        {legs,turn,frontier,fold,fold_add,fold_min,scan,ssd,wkv6}
         [--src DIR]
         [--runs N] [--variants DIR[,DIR...]] [--spin CYCLES]
         [--short-spin CYCLES] [--paths BFS,SpMV,BFS-hbm,k-core,triangles]
@@ -51,6 +51,16 @@ the checks and the ``Timer`` from them.  The kernels:
   against ``scatter_body(..., "min")``, with ``library_ms``
   (``scatter_reduce(amin)`` of the masked rows over the slots plus a trash
   column) and ``copy_ms``;
+- ``scan``: the T2 scans ``edge_scan_gather`` and ``edge_scan_stream``
+  (window 128 at both shards, 32 at R-MAT-22's) at ``SCAN_SHAPES``, the
+  R-MAT-22 and R-MAT-18 shards of 64 tiles, 1,024 messages a tile of
+  max_t2 = 32 (``scan_inputs``, seed 0: half the messages valid, lengths
+  uniform in [0, 32]), each held against its plain version with ``nb``
+  and ``w`` masked where ``jvalid`` is false (``scan_contract``'s
+  comparison, which a checkout older than it passes too), with
+  ``library_ms`` (one ``torch.gather`` of the (dst, val) pairs, no
+  ``jvalid``) and, where the checkout has ``scan_bounds``, the live and
+  whole bounds and the live share;
 - ``ssd``: ``ssd_kernel`` at zamba2-2.7b's prefill shape (``SSD_MAIN``,
   seed 0), within ``SSD_REL_TOL`` of ``ssd_chunked``'s largest magnitude
   (``rel_err``);
@@ -101,6 +111,7 @@ MODULES = {"legs": "repro_torch.kernels.engine.fused",
            "fold": "repro_torch.kernels.scatter_update.kernel",
            "fold_add": "repro_torch.kernels.engine.kernel",
            "fold_min": "repro_torch.kernels.engine.kernel",
+           "scan": "repro_torch.kernels.engine.kernel",
            "ssd": "repro_torch.kernels.mamba2.kernel",
            "wkv6": "repro_torch.kernels.rwkv6.kernel"}
 TIMES = ("ms", "host_ms", "short_spin_ms", "plain_ms")
@@ -257,6 +268,8 @@ def main():
                 lambda: dict(ok=torch.equal(got().view(torch.int32), want)))
     elif args.kernel in ("frontier", "fold_min"):
         pop_fold(cs, args.kernel, dev, timer, measure)
+    elif args.kernel == "scan":
+        scans(cs, dev, timer, measure)
     elif args.kernel == "wkv6":
         W6 = cs.W6
         B, S, H, Kh, chunk, w_fixed, state = cs.WKV_MAIN
@@ -338,6 +351,46 @@ def pop_fold(cs, kernel, dev, timer, measure):
                 lambda: dict(ok=all(
                     torch.equal(bits(a), bits(b))
                     for a, b in zip(cs.tensors(got()), cs.tensors(want)))))
+
+
+def scans(cs, dev, timer, measure):
+    """``scan``: the two T2 scans at the R-MAT-22 and R-MAT-18 shards."""
+    import numpy as np
+    import torch
+
+    K = cs.K
+    T, max_t2 = cs.MAIN_T, cs.MAIN_CFG.max_t2
+    R = T * cs.MAIN_CFG.cap_route_range
+
+    def contract(out):
+        nb, w, jv = out
+        return (torch.where(jv, nb, 0),
+                torch.where(jv, w, 0.0).view(torch.int32), jv)
+
+    main22, main18 = cs.SCAN_SHAPES.items()
+    for (label, e_chunk), window in ((main22, None), (main18, None),
+                                     (main22, 128), (main22, max_t2),
+                                     (main18, 128)):
+        ops = cs.scan_inputs(np.random.default_rng(0), T, e_chunk, R,
+                             max_t2, dev)
+        extra = () if window is None else (window,)
+        got = functools.partial(
+            K.edge_scan_stream if window else K.edge_scan_gather, *ops,
+            max_t2, *extra)
+        plain = functools.partial(
+            K.segment_stream if window else K.segment_gather, *ops, max_t2,
+            *extra)
+        want = contract(plain())
+        fields = dict(call=("gather" if window is None
+                            else f"stream, window {window}"),
+                      shard=label, shape=[T, e_chunk, R, max_t2])
+        if hasattr(cs, "scan_bounds"):
+            fields.update(cs.scan_bounds(ops, got(), max_t2))
+        if hasattr(cs, "scan_library"):
+            fields["library_ms"] = timer.ms(cs.scan_library(ops, max_t2))
+        measure(fields, got, plain,
+                lambda: dict(ok=all(torch.equal(a, b) for a, b in
+                                    zip(contract(got()), want))))
 
 
 def legs(cs, want, dev, measure):

@@ -4,7 +4,7 @@
     python3 tools/port_round_profile.py [--app bfs|spmv|kcore|triangles]
         [--scale 22] [--k 16] [--tiles 64] [--cap-updq 65536 262144]
         [--fuse 0 1 1 0] [--edge-space vmem hbm] [--max-rounds N]
-        [--profile-at 3000] [--profile-rounds 50]
+        [--profile-at 3000] [--profile-rounds 50] [--scan-at N]
 
 Builds R-MAT-``scale`` (edge factor 10, seed 1; symmetrized for k-core
 and triangles, and laid out by ``prepare_triangles`` for triangles) over
@@ -27,7 +27,13 @@ time per round (unprofiled rounds only), device time per round, the
 device busy share (device time per round over unprofiled wall time per
 round), and per profiled round the CUDA kernels launched, the copies and
 memsets, and the PyTorch operators the host dispatched (top-level
-``aten::`` calls), with the top kernels.  Needs a CUDA device.
+``aten::`` calls), with the top kernels.  With ``--scan-at N``, an
+unfused run also reports the T2 scan (``edge_scan_gather``, or
+``edge_scan_stream`` with ``--edge-space hbm``) of its round N (counted
+from 0, as ``--profile-at``): its shape, the share of valid messages, the
+live-lane share (lanes below a valid message's length: the lanes whose
+``nb`` and ``w`` the kernel writes, in groups of four) and the ``jvalid``
+share.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -80,7 +86,42 @@ def device_us(prof) -> tuple[float, dict, dict]:
     return total, by_name, counts
 
 
+def scan_share(args, out) -> str:
+    """The shape and lane shares of one T2 scan call."""
+    start, stop, rv, max_t2 = args[2], args[3], args[4], args[5]
+    length = torch.where(rv, stop - start, 0)
+    j = torch.arange(max_t2, device=start.device, dtype=torch.int32)
+    live = j < length[:, :, None]
+    n = live.numel()
+    return (f"shape {list(out[0].shape)}, valid messages "
+            f"{float(rv.float().mean()):.6f}, live lanes "
+            f"{int(live.sum())} (share {int(live.sum()) / n:.6f}), jvalid "
+            f"share {int(out[2].sum()) / n:.6f}")
+
+
 def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
+    from repro_torch.core import program as PROG
+    name = "edge_scan_stream" if space == "hbm" else "edge_scan_gather"
+    real_scan, scans, seen = getattr(PROG, name), [0], []
+
+    def spy(*a):
+        out = real_scan(*a)
+        if scans[0] == args.scan_at:
+            seen.append((a, out))  # read after the run
+        scans[0] += 1
+        return out
+
+    setattr(PROG, name, spy)
+    try:
+        run_rounds(pg, oracle, cap_updq, space, fuse, args)
+    finally:
+        setattr(PROG, name, real_scan)
+    for a, out in seen:
+        print(f"  {name} at round {args.scan_at}: {scan_share(a, out)}",
+              flush=True)
+
+
+def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
     dev = pg.device
     T = pg.T
     cfg = EngineConfig(cap_updq=cap_updq, fuse=fuse, edge_space=space,
@@ -201,6 +242,8 @@ def main():
     ap.add_argument("--profile-rounds", type=int, default=50)
     ap.add_argument("--every", type=int, default=5000)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--scan-at", type=int, default=-1,
+                    help="report the unfused T2 scan of this round")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_round_profile: needs a CUDA device")
