@@ -3,7 +3,8 @@
 rwkv6-1.6b and zamba2-2.7b serving on one GPU.
 
     python3 chip_smoke.py \
-        [--phases kernels,twin,main,hbm,taskgraph,block,rmat18,lm,rwkv,zamba]
+        [--phases kernels,twin,main,hbm,noc,taskgraph,block,rmat18,lm,rwkv,
+                  zamba]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -48,7 +49,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    pops of 512, 16,640 fresh rows, windows of 4,096, and stagings in the
    device scratch: 65,536 frontier pops, 16,384 popped ranges), fused and
    unfused, with the path each kernel took; every unfused scan call held
-   against its plain version (``scan_contract``);
+   against its plain version (``scan_contract``); then the physical NoCs
+   on R-MAT-FABRIC_SCALE over 16 tiles (a 4 x 4 grid): BFS on the mesh,
+   torus, ruche (factor 2), hier 2 x 2 (mesh base, ``low_order_dielocal``) and
+   hier 2 x 1 (torus base) at ``link_cap=1``, "torch" against "kernels"
+   unfused and fused (values and Stats bitwise but ``launches``, values
+   equal to the oracle, no drops; the fused legs, whose spills are the X
+   leg's N rows and the Y leg's T * capacity rows at the waypoint, held
+   against their plain stages at the FusedCheck's rounds), SSSP and
+   PageRank (FABRIC_PR_ITERS epochs) on the torus and hier 2 x 2 at
+   ``link_cap=2`` fused, the flight recorder on against off (bitwise,
+   launches included), and the die-local criterion of
+   ``tests/test_hier.py`` (fewer DIE-class flits than the flat placement
+   on uncapped hier 2 x 2 links);
 4. ``main`` — the main paths over R-MAT-22 (edge factor 10, seed 1) on 64
    tiles, fused, the partition built once: one BFS query from vertex 0
    (the highest out-degree) with ``EngineConfig(cap_updq=262144)``, hop
@@ -70,7 +83,29 @@ Phases, in order; any failed check raises and the script exits non-zero:
    resident fused run's; ``hbm_windows > 0``; then ``edge_scan_stream``
    checked and timed at the shard and messages of its leg 1 in round
    ``HBM_SCAN_ROUND``;
-6. ``taskgraph`` — the fused task-graph programs on 64 tiles: k-core
+6. ``noc`` — the rmat-hier preset's fabric and placement on 64 tiles:
+   hier, an 8 x 8 grid as 2 x 2 dies of 4 x 4 meshes,
+   ``low_order_dielocal`` (edge mode ``die_aligned``).  (a) Fused BFS
+   from vertex 0 on R-MAT-NOC_SCALE with the queues NOC_CAPS on uncapped
+   links and the flight recorder on (every round, a ring of 65,536; the
+   main path's R-MAT-22 loses messages under this placement at its
+   queues, ROADMAP.md §3): hop counts equal to the oracle, no drops, each
+   fused leg once a
+   round (counts read just after the path), the ring unwrapped and its
+   cycle timeline bitwise ``Stats.cycles``, its summed link-class and
+   message series equal to ``flits_per_link`` per class and
+   ``Stats.msgs``, ``die_crossings.sum() == hop_histogram.sum()``;
+   rounds, wall ms a round, the DIE-class flit share, peak device memory,
+   and device ms a round over a profiled window (the routes' share
+   beside it), with the ideal crossbar's on the same partition.  (b) The
+   main path's R-MAT-22 under the same placement and fabric at
+   ``link_cap=1`` with its queues (a tile budget of NOC_VMEM_LIMIT for
+   the die-aligned shard) for NOC_STRESS_ROUNDS rounds, "torch" against
+   "kernels" fused: values, Stats and trace rings bitwise but
+   ``launches``, link occupancy at most ``link_cap`` times the two route
+   legs, equal drops; round NOC_CHECK_ROUND's fused legs held against
+   their plain stages and timed;
+7. ``taskgraph`` — the fused task-graph programs on 64 tiles: k-core
    (k = 16) on symmetrized R-MAT-20 (edge factor 10, seed 1), equal to
    ``kcore_ref``, and triangle counting on ``prepare_triangles`` of
    symmetrized R-MAT-TRI_SCALE, equal to ``triangles_wedge_ref`` (the
@@ -78,12 +113,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    drops, each leg kernel launched once a round (3 and 5 a round); then
    short runs whose legs are held bitwise against their plain stages at
    selected rounds and timed;
-7. ``block`` — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] =
+8. ``block`` — R-MAT-14: ``spmv_block_ell`` (b = 128) on A[dst, src] =
    val against the dense oracle and the engine's SpMV at T = 16, and the
    same product as binned ``scatter_segments`` rounds (add, and a min),
    bitwise equal to numpy's serial ``np.add.at`` / ``np.minimum.at``,
    and its min on NaNs and signed zeros bitwise ``binned_scatter``;
-8. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths
+9. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths
    (``fuse=False``: BFS, BFS with the shard streamed through
    ``edge_scan_stream``, SpMV, PageRank; five kernel calls a round)
    against the oracles; PageRank runs 5 iterations (the depth is cut from
@@ -91,7 +126,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    turns and the scan of BFS round ``R18_TURN_ROUND``, and the scan of
    the streamed BFS's, are held against their plain versions and timed
    at the operands the engine gave them;
-9. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
+10. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
    flash kernel against its plain version (K/V repeated, blockwise scan)
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
    and the reference's sweep plus G = 4, hd 32 / 128, one-tile and ragged
@@ -114,7 +149,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    prompt of 200 tokens prefills on the kernel and matches the plain
    path; one of 600 (600 % 512 != 0) is refused on both paths, as the
    reference's prefill refuses it;
-10. ``rwkv`` — rwkv6-1.6b serving at full width and all 24 layers.  The
+11. ``rwkv`` — rwkv6-1.6b serving at full width and all 24 layers.  The
    WKV6 kernel against its plain version (``wkv6_chunked`` at the same
    chunk; y and the final state within ``WKV_REL_TOL`` of their largest
    magnitude) and against the step-by-step scan oracle (the reference's
@@ -132,7 +167,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (finite, tokens in the vocabulary, last hidden within
    ``RWKV_BF16_REL_L2`` of the plain run).  The kernel launches once a
    layer in prefill (24) and never in decode, the plain path never;
-11. ``zamba`` — zamba2-2.7b serving at full width and all 54 layers (9
+12. ``zamba`` — zamba2-2.7b serving at full width and all 54 layers (9
    superblocks: the shared attention block, then 6 Mamba2 layers).  The
    SSD kernel against its plain version (``ssd_chunked`` at the same
    chunk; y and the final state within ``SSD_REL_TOL`` of their largest
@@ -207,6 +242,10 @@ from repro_torch.kernels import rwkv6 as W6  # noqa: E402
 from repro_torch.models import layers as LMLAYERS  # noqa: E402
 from repro_torch.models import transformer as TFM  # noqa: E402
 from repro_torch.parallel.sharding import ParamSpec, tree_map  # noqa: E402
+from repro_torch import trace as TR  # noqa: E402
+from repro_torch.core.comm import LocalComm  # noqa: E402
+from repro_torch.noc import make_network  # noqa: E402
+from repro_torch.noc.topology import CLASS_DIE, N_LINK_CLASSES  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
@@ -286,9 +325,60 @@ R18_CFGS = {"BFS": dataclasses.replace(MAIN_CFG, **UNFUSED),
 KCORE_SCALE, KCORE_K = 20, 16
 KCORE_V, KCORE_E, KCORE_CORE = 1048576, 19967950, 137224
 KCORE_CFG = MAIN_CFG
-TRI_SCALE = 14
+TRI_SCALE = 13
 TRI_CFG = EngineConfig()
 CHECK_ROUNDS.update({"k-core": 400, "triangles": 300})
+# The physical NoCs.  Twin: BFS on each fabric over 16 tiles (a 4 x 4
+# grid) at link_cap 1, its placement beside it (hier 2x2 with the
+# die-local one); SSSP and PageRank (FABRIC_PR_ITERS epochs) on the torus
+# and hier 2x2 at link_cap 2; the trace on against off on TRACE_TWIN.  A
+# link-bound run takes a round for every few messages (BFS on the twin's
+# R-MAT-10 at link_cap 1: 1,892-3,555 rounds, and the fabric runs took
+# 755 s of the card's time), so they run on R-MAT-FABRIC_SCALE: cut for
+# the script's time (PERF.md §4).  Their fused legs are held against
+# their plain stages every FABRIC_CHECK_PERIOD-th round and at the
+# FusedCheck's other rounds.
+TWIN_FABRICS = {
+    "mesh": (dict(noc="mesh"), "low_order"),
+    "torus": (dict(noc="torus"), "low_order"),
+    "ruche": (dict(noc="ruche", ruche_factor=2), "low_order"),
+    "hier 2x2": (dict(noc="hier", ndies_y=2, ndies_x=2),
+                 "low_order_dielocal"),
+    "hier 2x1 torus": (dict(noc="hier", ndies_y=2, ndies_x=1,
+                            hier_base="torus"), "low_order"),
+}
+FABRIC_SCALE, FABRIC_CHECK_PERIOD, FABRIC_PR_ITERS = 8, 100, 2
+TRACE_TWIN = "hier 2x2"
+# Phase noc: the rmat-hier preset's fabric and placement
+# (src/repro/configs/dalorex_graph.py): an 8 x 8 grid as 2 x 2 dies of 4 x
+# 4 meshes, die-local placement.  (a) BFS to the end on uncapped links
+# with the flight recorder on (a ring long enough for every round), on
+# R-MAT-NOC_SCALE with queues that hold its spills: on R-MAT-22 this
+# placement loses messages at the main path's queues on every fabric
+# (412,613 on the ideal crossbar; on hier 5,137,856 by round 40,000, not
+# done), and with queues that hold them its hier run outlasts the script
+# (ROADMAP.md §3, PERF.md §4).  R-MAT-18 needs a range queue of 7,496 and
+# an update queue of 258,559 (peaks of the run at NOC_CAPS).  (b) The main
+# path's R-MAT-22 partition under the same placement at link_cap 1, its
+# queues the main path's, for NOC_STRESS_ROUNDS rounds.  The die-aligned
+# edge layout gives each run of same-die tiles its own vertices' edges:
+# on R-MAT-22 the die of the low ids (the hubs) holds most of them,
+# e_chunk is 3,374,734 against the flat layout's 642,283, and the
+# resident shard (27.0 MB a tile) passes the modelled tile's 16 MiB, so
+# (b)'s tile budget is NOC_VMEM_LIMIT.
+NOC_SCALE, NOC_PLACEMENT, NOC_DIES = 18, "low_order_dielocal", (2, 2)
+NOC_FABRIC = dict(noc="hier", ndies_y=2, ndies_x=2, hier_base="mesh")
+NOC_CAPS = dict(cap_rangeq=65536, cap_updq=524288)
+NOC_CFG = EngineConfig(link_cap=0, trace=True, trace_every=1,
+                       trace_rounds=65536, **NOC_FABRIC, **NOC_CAPS)
+NOC_VMEM_LIMIT = 32 * 2 ** 20
+NOC_STRESS_ROUNDS, NOC_CHECK_ROUND = 200, 100
+NOC_STRESS = dataclasses.replace(
+    MAIN_FUSED, link_cap=1, vmem_limit_bytes=NOC_VMEM_LIMIT, trace=True,
+    trace_rounds=NOC_STRESS_ROUNDS, max_rounds=NOC_STRESS_ROUNDS,
+    **NOC_FABRIC)
+# the profiled window of (a), and of the ideal crossbar on its partition
+NOC_PROFILE_AT, NOC_PROFILE_ROUNDS = 300, 20
 BLOCK_SCALE, BLOCK_B, BLOCK_T = 14, 128, 16
 # the knobs of the reference's block-ELL test (tests/test_kernels.py:75)
 TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -1487,10 +1577,11 @@ class FusedCheck:
     it bitwise.  ``every`` checks every call; otherwise the first two
     rounds, every ``period``-th round, each round whose spill-queue fill
     grew by a quarter over the last checked one, the first call of each
-    leg with spills, and the first round with spills on every channel.
-    Records which edge cases the checked calls covered, and the operands
-    of each wrapper's last checked call (for timing), and the paths
-    (``path``) the checked launches took.  The comparison is the kernels'
+    leg with spills, and the first round with spills on every channel;
+    ``only`` (a set of rounds, counted from 0) checks those rounds' calls
+    and no other.  Records which edge cases the checked calls covered, and
+    the operands of each wrapper's last checked call (for timing), and the
+    paths (``path``) the checked launches took.  The comparison is the kernels'
     contract (:func:`check_leg`).  The plain stage runs after the kernel
     on the same operands: a leg of F.IN_PLACE has then appended its spills
     in place onto that queue, and the plain stage's copy of it plus the
@@ -1498,8 +1589,9 @@ class FusedCheck:
     still agree bit for bit; such a call is also checked to return the
     queue it was given (``data_ptr()``)."""
 
-    def __init__(self, label, every=False, period=0):
+    def __init__(self, label, every=False, period=0, only=None):
         self.label, self.every, self.period = label, every, period
+        self.only = only      # if given: check these rounds' calls, only
         self.round, self.fill = -1, 0
         self.this_round = False
         self.spilled = set()  # the legs that spilled this round
@@ -1532,15 +1624,17 @@ class FusedCheck:
                 self.fill = fill
             self.this_round = self.round < 2 or grew or bool(
                 self.period and self.round % self.period == 0)
+            if self.only is not None:
+                self.this_round = self.round in self.only
             check = check or self.this_round
         else:
             spilled = bool(ops[6].any())
             if spilled:
                 self.spilled.add(leg)
             every_now = len(self.spilled) == len(st.queues)
-            check = (check or self.this_round
-                     or (spilled and f"{name}: spills" not in self.cover)
-                     or (every_now and EVERY_CHANNEL not in self.cover))
+            check = (check or self.this_round or self.only is None and (
+                (spilled and f"{name}: spills" not in self.cover)
+                or (every_now and EVERY_CHANNEL not in self.cover)))
         got = real(tmpl, plain, *ops)
         if check:
             self.paths.add((name, F._WRAPPERS[name].path))
@@ -1693,9 +1787,15 @@ def assert_stats_equal(a, b, where):
                                  f"{x.tolist()} vs {y.tolist()}")
 
 
-def build_graph(scale, T, dev):
+@functools.lru_cache(maxsize=None)
+def rmat_graph(scale):
+    """R-MAT-``scale`` (edge factor 10, seed 1), built once a run."""
     n, src, dst, val = rmat_edges(scale, edge_factor=10, seed=1)
-    g = CSRGraph.from_edges(n, src, dst, val)
+    return CSRGraph.from_edges(n, src, dst, val)
+
+
+def build_graph(scale, T, dev):
+    g = rmat_graph(scale)
     return g, alg.prepare(g, T, "low_order", device=dev)
 
 
@@ -1744,13 +1844,14 @@ def check_values(got, want, tol, where):
 
 def phase_twin(dev):
     """The twin's runs, every unfused scan call held against its plain
-    version by scan_contract."""
+    version by scan_contract; then the physical fabrics' runs."""
     with scan_check({}) as seen:
         twin_runs(dev)
     assert seen.get("edge_scan_gather", 0) > 0 and \
         seen.get("edge_scan_stream", 0) > 0, seen
     log(f"# engine twin: every unfused scan call bitwise its plain version "
         f"under scan_contract: {seen}")
+    fabric_twin(dev)
 
 
 def twin_runs(dev):
@@ -2282,6 +2383,284 @@ def phase_hbm(pg, oracle, vmem_stats, smi, timer):
         f"(fused leg 1's operands), window {window}", timer, smi)]
 
 
+# --------------------------------------------------------------------------
+# The physical NoCs: the twin's fabric runs and phase 5b (``noc``)
+# --------------------------------------------------------------------------
+
+def assert_rings_equal(a, b, where):
+    """Two flight-recorder rings bitwise on every field but ``launches``
+    (each path's own per-round tally)."""
+    assert a.cursor == b.cursor, (where, a.cursor, b.cursor)
+    for f in a._fields[1:]:
+        if f == "launches":
+            continue
+        assert_bitwise(getattr(a, f), getattr(b, f), f"{where}: ring {f}")
+
+
+def flits_by_class(stats, net) -> np.ndarray:
+    """(N_LINK_CLASSES,) int64 flits of a run on each link class."""
+    flits = stats.flits_per_link.cpu().numpy().astype(np.int64)
+    return np.bincount(net.link_classes, weights=flits,
+                       minlength=N_LINK_CLASSES).astype(np.int64)
+
+
+def fabric_runs(run, want, tol, name, kw, paths=("unfused", "fused"),
+                chk=None):
+    """``run`` on "torch" and on "kernels" along ``paths`` (unfused:
+    ``fuse=False``; fused under the FusedCheck ``chk``), with the
+    EngineConfig fields ``kw``: values and Stats bitwise but
+    ``launches`` (5 calls a round unfused, 3 fused), values against the
+    oracle, no drops.  Returns {path: result}."""
+    t0 = time.perf_counter()
+    base = EngineConfig(**kw)
+    res = {"torch": run(dataclasses.replace(base, backend="torch"))}
+    for path in paths:
+        fuse = path == "fused"
+        with (chk if fuse and chk is not None else contextlib.nullcontext()):
+            res[path] = run(dataclasses.replace(base, fuse=fuse))
+    for path in paths:
+        where = f"{name} {path}"
+        np.testing.assert_array_equal(res["torch"].values,
+                                      res[path].values, err_msg=where)
+        assert_stats_equal(res["torch"].stats, res[path].stats, where)
+        st = res[path].stats
+        assert int(st.launches) == (3 if path == "fused" else 5) * int(
+            st.rounds), where
+    check_values(res["torch"].values, want, tol, name)
+    st = res["torch"].stats
+    assert int(st.drops) == 0, name
+    log(f"# engine twin {name} (scale {FABRIC_SCALE}, T=16): torch == "
+        f"kernels {' and '.join(paths)} bitwise, matches the oracle; rounds "
+        f"{int(st.rounds)}, spills {st.spills.tolist()}, max link "
+        f"occupancy {int(st.max_link_occupancy)}, die crossings "
+        f"{st.die_crossings.tolist()}; {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def fabric_twin(dev):
+    """The physical fabrics on R-MAT-FABRIC_SCALE over 16 tiles (4 x 4):
+    BFS on each of TWIN_FABRICS at link_cap 1, "torch" against "kernels"
+    unfused and fused (fused legs held against their plain stages at the
+    FusedCheck's rounds: the legs see spills S = N + T * capacity rows
+    wide); SSSP and PageRank (the add fold) on the torus and hier 2x2 at
+    link_cap 2, fused; the trace on against off for one fused run; and
+    the die-local criterion: on uncapped hier 2x2 links the die-local
+    placement carries fewer DIE-class flits than the flat one."""
+    g = rmat_graph(FABRIC_SCALE)
+    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+    oracle = ref.bfs_ref(g, root)
+    parts = {s: alg.prepare(g, 16, s, dies=(2, 2), device=dev)
+             for s in ("low_order", "low_order_dielocal")}
+    fused_bfs, cover = {}, set()
+    for name, (fabric, scheme) in TWIN_FABRICS.items():
+        pg = parts[scheme]
+        with FusedCheck(f"engine twin BFS {name}",
+                        period=FABRIC_CHECK_PERIOD) as chk:
+            res = fabric_runs(lambda c: alg.bfs(pg, root, c), oracle, None,
+                              f"bfs {name} link_cap 1",
+                              dict(link_cap=1, **fabric), chk=chk)
+        chk.report()
+        cover |= chk.cover
+        fused_bfs[name] = res["fused"]
+    # legs 1 and 2 were held against their plain stages on spills S =
+    # N + T * capacity rows wide
+    assert {"fused_leg1: spills", "fused_leg2: spills"} <= cover, cover
+    x = np.random.default_rng(3).normal(size=g.num_vertices) \
+        .astype(np.float32)
+    for name in ("torus", "hier 2x2"):
+        fabric, scheme = TWIN_FABRICS[name]
+        pg = parts[scheme]
+        for app, run, want, tol in (
+                ("sssp", lambda c: alg.sssp(pg, root, c),
+                 ref.sssp_ref(g, root), dict(rtol=1e-5, atol=0.0)),
+                ("pagerank", lambda c: alg.pagerank(
+                    pg, iters=FABRIC_PR_ITERS, cfg=c),
+                 ref.pagerank_ref(g, iters=FABRIC_PR_ITERS),
+                 dict(rtol=2e-3, atol=1e-7))):
+            with FusedCheck(f"engine twin {app} {name}",
+                            period=FABRIC_CHECK_PERIOD) as chk:
+                fabric_runs(run, want, tol, f"{app} {name} link_cap 2",
+                            dict(link_cap=2, **fabric), ("fused",), chk)
+            chk.report()
+    # the flight recorder reads, never writes: trace on == trace off
+    name = TRACE_TWIN
+    fabric, scheme = TWIN_FABRICS[name]
+    traced = alg.bfs(parts[scheme], root, EngineConfig(
+        link_cap=1, trace=True, trace_rounds=65536, **fabric))
+    off = fused_bfs[name]
+    np.testing.assert_array_equal(off.values, traced.values)
+    assert_stats_equal(off.stats, traced.stats, "trace on against off")
+    assert torch.equal(off.stats.launches, traced.stats.launches)
+    tr = TR.trace_arrays(traced.trace)
+    n = int(traced.stats.rounds)
+    assert tr["n_recorded"] == tr["n_seen"] == n
+    assert (tr["launches"] == 3).all()
+    net = make_network(EngineConfig(**fabric), 16)
+    np.testing.assert_array_equal(tr["link_cls"].sum(0),
+                                  flits_by_class(traced.stats, net))
+    log(f"# engine twin trace, BFS {name} link_cap 1 fused: values and "
+        f"Stats (launches included) bitwise the trace-off run's; {n} "
+        f"rounds recorded, flits per link class {tr['link_cls'].sum(0)}")
+    # the die-local criterion of tests/test_hier.py, on the card
+    cfg = EngineConfig(link_cap=0, **TWIN_FABRICS["hier 2x2"][0])
+    net = make_network(cfg, 16)
+    die, share = {}, {}
+    for scheme, pg in parts.items():
+        res = alg.bfs(pg, root, cfg)
+        np.testing.assert_array_equal(res.values, oracle)
+        assert int(res.stats.drops) == 0
+        die[scheme] = int(flits_by_class(res.stats, net)[CLASS_DIE])
+        dh = res.stats.die_crossings.cpu().numpy().astype(np.int64)
+        share[scheme] = dh[1:].sum() / dh.sum()
+    assert die["low_order_dielocal"] < die["low_order"], die
+    assert share["low_order_dielocal"] < share["low_order"], share
+    log(f"# engine twin die-local criterion (hier 2x2, uncapped, fused): "
+        f"DIE-class flits {die['low_order_dielocal']} die-local < "
+        f"{die['low_order']} flat, injections crossing a die "
+        f"{share['low_order_dielocal']:.4f} < {share['low_order']:.4f}; "
+        f"both == oracle, no drops")
+
+
+def round_profile(pg, cfg, at: int, n: int) -> dict:
+    """Device ms a round of rounds ``at .. at + n - 1`` of BFS from
+    MAIN_ROOT on ``pg`` under ``cfg`` (torch.profiler; the rounds before
+    run unprofiled, as run_engine runs them), and of it the routes' (the
+    NoC backend's ``route`` calls, as tools/port_round_profile.py
+    attributes them)."""
+    from torch.profiler import ProfilerActivity, profile
+    from tools.port_round_profile import RouteRanges, device_us
+    comm = LocalComm(pg.T, pg.device)
+    prog = as_program(BFS)
+    shard = E.GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
+    value, frontier = alg.init_min_state(pg, [MAIN_ROOT])
+    st = E.init_state(comm, cfg, pg.v_chunk, value, frontier, prog)
+    rnd = E.make_round(comm, RouteRanges(make_network(cfg, pg.T)), cfg,
+                       prog, pg.e_chunk, pg.v_chunk, shard)
+    stats = E.zero_stats(cfg, pg.T, prog, pg.device)
+    tbuf = TR.zero_trace(cfg, pg.T, prog, pg.device) if cfg.trace else None
+    zf = torch.zeros((), dtype=torch.float32, device=pg.device)
+    kcomp = (zf, zf)
+    for r in range(at):
+        st, stats, kcomp, tbuf, p = rnd(st, stats, kcomp, tbuf, r)
+        assert int(p) > 0, r
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in range(at, at + n):
+            st, stats, kcomp, tbuf, p = rnd(st, stats, kcomp, tbuf, r)
+            assert int(p) > 0, r
+    total, _, counts = device_us(prof)
+    return dict(device_ms=total / 1e3 / n,
+                route_ms=counts["route_us"] / 1e3 / n,
+                kernels=counts["kernels"] / n, aten_ops=counts["aten_ops"] / n)
+
+
+def phase_noc(dev, smi, timer):
+    """The physical NoC with the rmat-hier preset's fabric and placement
+    (hier, 2 x 2 dies of 4 x 4 meshes, die-local placement) on 64 tiles.
+    (a) Fused BFS from MAIN_ROOT on R-MAT-NOC_SCALE, uncapped links,
+    queues NOC_CAPS, the flight recorder on: hop counts equal to the
+    oracle, no drops, each fused leg once a round, the ring unwrapped and
+    its timeline on Stats.cycles bitwise, its link-class and message
+    series summed equal to the Stats, every injection in both
+    histograms; device ms a round over a profiled window, beside the
+    ideal crossbar's on the same partition.  (b) The main path's R-MAT-22
+    under the same placement and fabric at link_cap 1 for
+    NOC_STRESS_ROUNDS rounds, "torch" against "kernels" fused: values,
+    Stats and rings bitwise but ``launches``, link occupancy within its
+    cap, the drops of both; round NOC_CHECK_ROUND's fused legs held
+    against their plain stages and timed."""
+    g = rmat_graph(NOC_SCALE)
+    pg = alg.prepare(g, MAIN_T, NOC_PLACEMENT, dies=NOC_DIES, device=dev)
+    assert pg.edge_mode == "die_aligned", pg.edge_mode
+    oracle = ref.bfs_ref(g, MAIN_ROOT)
+    net = make_network(NOC_CFG, MAIN_T)
+    log(f"# noc (a): R-MAT-{NOC_SCALE} (V={g.num_vertices} "
+        f"E={g.num_edges}) over T={MAIN_T} (8 x 8), {NOC_PLACEMENT} over "
+        f"{NOC_DIES[0]} x {NOC_DIES[1]} dies, edge mode {pg.edge_mode}: "
+        f"v_chunk={pg.v_chunk} e_chunk={pg.e_chunk}; queues {NOC_CAPS}")
+    paths = {}
+    what = (f"BFS R-MAT-{NOC_SCALE} (fused, hier {NOC_DIES[0]}x"
+            f"{NOC_DIES[1]} mesh base, {NOC_PLACEMENT}, uncapped links, "
+            f"trace on)")
+    res, paths["BFS hier"], wall = drive(
+        lambda: alg.bfs(pg, MAIN_ROOT, NOC_CFG), smi, what, FUSED_ROUND)
+    peak = torch.cuda.max_memory_allocated()
+    np.testing.assert_array_equal(res.values, oracle)
+    st = res.stats
+    rounds = int(st.rounds)
+    tr = TR.trace_arrays(res.trace)
+    assert tr["n_seen"] == tr["n_recorded"] == rounds, \
+        (tr["n_seen"], rounds)  # the ring did not wrap
+    rec = TR.reconcile_cycles(res.trace, float(st.cycles))
+    assert rec["exact"], rec
+    cls = flits_by_class(st, net)
+    np.testing.assert_array_equal(tr["link_cls"].sum(0), cls)
+    np.testing.assert_array_equal(tr["msgs"].sum(0), st.msgs.cpu().numpy())
+    assert int(st.die_crossings.sum()) == int(st.hop_histogram.sum())
+    die_share = cls[CLASS_DIE] / max(cls.sum(), 1)
+    log(f"# noc BFS: hop counts equal to the oracle; ring of {rounds} "
+        f"rounds unwrapped, cycle timeline exact ({rec['last_total']:.0f}); "
+        f"flits per class {cls.tolist()} (DIE share {die_share:.4f}) equal "
+        f"to the summed link_cls series; msgs {st.msgs.tolist()} equal to "
+        f"the summed msgs series; die crossings {st.die_crossings.tolist()}"
+        f", hop histogram sum {int(st.hop_histogram.sum())}; wall "
+        f"{1e3 * wall / rounds:.3f} ms/round; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; card {smi}")
+    prof = {}
+    ideal = dataclasses.replace(NOC_CFG, noc="ideal", trace=False)
+    for label, cfg in (("hier", NOC_CFG), ("ideal", ideal)):
+        prof[label] = p = round_profile(pg, cfg, NOC_PROFILE_AT,
+                                        NOC_PROFILE_ROUNDS)
+        assert p["device_ms"] > 0, f"the profiler saw no device time: {p}"
+        log(f"# noc profile {label} (R-MAT-{NOC_SCALE}, rounds "
+            f"{NOC_PROFILE_AT}..{NOC_PROFILE_AT + NOC_PROFILE_ROUNDS - 1}, "
+            f"same partition): device {p['device_ms']:.3f} ms/round, routes "
+            f"{p['route_ms']:.3f} ms/round (share "
+            f"{p['route_ms'] / p['device_ms']:.3f}), {p['kernels']:.1f} "
+            f"kernels and {p['aten_ops']:.1f} PyTorch operators a round; "
+            f"card {smi}")
+    # (b): R-MAT-22 at link_cap 1, "torch" against "kernels" fused, round
+    # NOC_CHECK_ROUND's legs held against their plain stages
+    t0 = time.perf_counter()
+    g22 = rmat_graph(MAIN_SCALE)
+    pg22 = alg.prepare(g22, MAIN_T, NOC_PLACEMENT, dies=NOC_DIES, device=dev)
+    log(f"# noc (b): R-MAT-{MAIN_SCALE} over T={MAIN_T}, {NOC_PLACEMENT}, "
+        f"edge mode {pg22.edge_mode}: v_chunk={pg22.v_chunk} "
+        f"e_chunk={pg22.e_chunk}, tile budget {NOC_VMEM_LIMIT} B")
+    reset_launches()
+    stress = {"torch": alg.bfs(pg22, MAIN_ROOT, dataclasses.replace(
+        NOC_STRESS, backend="torch"))}
+    assert read_launches() == dict.fromkeys(read_launches(), 0)
+    with FusedCheck(f"noc stress R-MAT-{MAIN_SCALE}",
+                    only={NOC_CHECK_ROUND}) as chk:
+        stress["kernels"] = alg.bfs(pg22, MAIN_ROOT, NOC_STRESS)
+    paths["BFS hier stress"] = read_launches()
+    chk.report()
+    a, b = stress["torch"], stress["kernels"]
+    np.testing.assert_array_equal(a.values, b.values)
+    assert_stats_equal(a.stats, b.stats, "noc stress")
+    assert_rings_equal(a.trace, b.trace, "noc stress")
+    assert int(b.stats.rounds) == NOC_STRESS_ROUNDS
+    want = dict.fromkeys(paths["BFS hier stress"], 0)
+    want.update({k: NOC_STRESS_ROUNDS for k in FUSED_ROUND})
+    assert paths["BFS hier stress"] == want, paths["BFS hier stress"]
+    occ = int(b.stats.max_link_occupancy)
+    assert occ <= NOC_STRESS.link_cap * 2, occ  # the program's two legs
+    assert set(chk.checked) == set(FUSED_ROUND), chk.checked
+    log(f"# noc stress (R-MAT-{MAIN_SCALE}, link_cap {NOC_STRESS.link_cap}, "
+        f"{NOC_STRESS_ROUNDS} rounds): torch == kernels fused bitwise "
+        f"(values, Stats and rings but launches); max link occupancy {occ}"
+        f"; drops {int(a.stats.drops)} on both; spills "
+        f"{b.stats.spills.tolist()}; {time.perf_counter() - t0:.1f} s")
+    calls = time_legs(chk, timer, f"noc stress round {NOC_CHECK_ROUND}")
+    return paths, calls, dict(rounds=rounds, wall_ms=1e3 * wall / rounds,
+                              peak_gib=peak / 2 ** 30, die_share=die_share,
+                              drops_stress=int(a.stats.drops), **{
+                                  f"{k}_{m}": v for k, p in prof.items()
+                                  for m, v in p.items()})
+
+
 KCORE_ROUND = {"fused_leg0": 1, "fused_leg1": 1, "fused_kcore_leg2": 1}
 TRIANGLES_ROUND = {f"fused_tri_leg{i}": 1 for i in range(5)}
 
@@ -2531,7 +2910,7 @@ def phase_rmat18(dev, smi, timer):
 
 
 # --------------------------------------------------------------------------
-# Phase 9: granite-3-2b serving on the flash kernel
+# Phase 10: granite-3-2b serving on the flash kernel
 # --------------------------------------------------------------------------
 
 def flash_inputs(gen, B, S, H, Hkv, hd, dtype, dev):
@@ -2825,7 +3204,7 @@ def phase_lm(dev, smi, timer):
 
 
 # --------------------------------------------------------------------------
-# Phase 10: rwkv6-1.6b serving on the WKV6 kernel
+# Phase 11: rwkv6-1.6b serving on the WKV6 kernel
 # --------------------------------------------------------------------------
 
 def wkv_inputs(gen, B, S, H, K, w_fixed, state, dev):
@@ -3037,7 +3416,7 @@ def phase_rwkv(dev, smi, timer):
 
 
 # --------------------------------------------------------------------------
-# Phase 11: zamba2-2.7b serving on the SSD kernel and the flash kernel at
+# Phase 12: zamba2-2.7b serving on the SSD kernel and the flash kernel at
 # hd 80
 # --------------------------------------------------------------------------
 
@@ -3357,8 +3736,8 @@ def phase_zamba(dev, smi, timer):
     return ssd_row, flash_row, paths
 
 
-PHASES = ("kernels", "twin", "main", "hbm", "taskgraph", "block", "rmat18",
-          "lm", "rwkv", "zamba")
+PHASES = ("kernels", "twin", "main", "hbm", "noc", "taskgraph", "block",
+          "rmat18", "lm", "rwkv", "zamba")
 
 
 def main():
@@ -3385,6 +3764,10 @@ def main():
         calls += main_calls
         if "edge_scan_stream" in rows:
             rows["edge_scan_stream"]["calls"] += scans
+    if "noc" in phases:
+        noc_paths, noc_calls, _ = phase_noc(dev, smi, timer)
+        paths += noc_paths.values()
+        calls += noc_calls
     if "taskgraph" in phases:
         task_paths, task_calls = phase_taskgraph(dev, smi, timer)
         paths += task_paths.values()

@@ -108,14 +108,15 @@ def to_original(pg: PartitionedGraph, arr) -> np.ndarray:
 def local_engine_call(pg: PartitionedGraph, alg, cfg: EngineConfig,
                       value, frontier, acc=None):
     """Run ``alg`` over T emulated tiles on ``pg``'s device.  Returns
-    ``(value, acc, stats)``."""
+    ``(value, acc, stats, trace)``; ``trace`` is the flight recorder's
+    ring when ``cfg.trace``, else None."""
     prog = as_program(alg)
     comm = LocalComm(pg.T, pg.device)
     shard = GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
     st = init_state(comm, cfg, pg.v_chunk, value, frontier, prog, acc)
-    st, stats = run_engine(comm, cfg, prog, shard, st, pg.e_chunk,
-                           pg.v_chunk)
-    return st.value, st.acc, stats
+    st, stats, trace = run_engine(comm, cfg, prog, shard, st, pg.e_chunk,
+                                  pg.v_chunk)
+    return st.value, st.acc, stats, trace
 
 
 # --------------------------------------------------------------------------
@@ -127,6 +128,7 @@ class Result:
     values: np.ndarray  # (V,) in original vertex order
     stats: Stats
     epochs: int = 1
+    trace: object = None  # TraceBuf when cfg.trace, else None
 
 
 def _distances(pg, v) -> np.ndarray:
@@ -139,32 +141,34 @@ def bfs(pg: PartitionedGraph, root: int,
         cfg: EngineConfig = EngineConfig()) -> Result:
     """Hop counts from ``root`` (unreachable = inf), on ``pg``'s device."""
     value, frontier = init_min_state(pg, [root])
-    v, _, stats = local_engine_call(pg, BFS, cfg, value, frontier)
-    return Result(_distances(pg, v), stats)
+    v, _, stats, trace = local_engine_call(pg, BFS, cfg, value, frontier)
+    return Result(_distances(pg, v), stats, trace=trace)
 
 
 def sssp(pg: PartitionedGraph, root: int,
          cfg: EngineConfig = EngineConfig()) -> Result:
     """Float32 path lengths from ``root`` (unreachable = inf)."""
     value, frontier = init_min_state(pg, [root])
-    v, _, stats = local_engine_call(pg, SSSP, cfg, value, frontier)
-    return Result(_distances(pg, v), stats)
+    v, _, stats, trace = local_engine_call(pg, SSSP, cfg, value, frontier)
+    return Result(_distances(pg, v), stats, trace=trace)
 
 
 def wcc(pg: PartitionedGraph, cfg: EngineConfig = EngineConfig()) -> Result:
     """Label propagation to the min original id (graph must be
     symmetric)."""
     value, frontier = init_wcc_state(pg)
-    v, _, stats = local_engine_call(pg, WCC, cfg, value, frontier)
-    return Result(to_original(pg, v).astype(np.int64), stats)
+    v, _, stats, trace = local_engine_call(pg, WCC, cfg, value, frontier)
+    return Result(to_original(pg, v).astype(np.int64), stats, trace=trace)
 
 
 def spmv(pg: PartitionedGraph, x: np.ndarray,
          cfg: EngineConfig = EngineConfig()) -> Result:
     """Push-mode y[dst] += val * x[src] — one engine epoch."""
     value, frontier = init_add_state(pg, x)
-    _, acc, stats = local_engine_call(pg, SPMV, cfg, value, frontier)
-    return Result(to_original(pg, acc).astype(np.float64), stats)
+    _, acc, stats, trace = local_engine_call(pg, SPMV, cfg, value,
+                                             frontier)
+    return Result(to_original(pg, acc).astype(np.float64), stats,
+                  trace=trace)
 
 
 def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
@@ -183,10 +187,11 @@ def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
     rank = np.where(real, np.float32(1.0 / V), 0.0).astype(np.float32)
     total = zero_stats(cfg, pg.T, PAGERANK, pg.device)
     epochs = 0
+    trace = None  # the LAST epoch's ring (each epoch restarts the engine)
     for _ in range(iters):
         value, frontier = _dev(pg, rank, real & (deg > 0))
-        _, acc, stats = local_engine_call(pg, PAGERANK, cfg, value,
-                                          frontier)
+        _, acc, stats, trace = local_engine_call(pg, PAGERANK, cfg, value,
+                                                 frontier)
         acc = acc.cpu().numpy()
         dangling = rank[real & (deg == 0)].sum()
         new_rank = np.where(
@@ -198,7 +203,8 @@ def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
         epochs += 1
         if tol and diff < tol:
             break
-    return Result(to_original(pg, rank).astype(np.float64), total, epochs)
+    return Result(to_original(pg, rank).astype(np.float64), total, epochs,
+                  trace=trace)
 
 
 def kcore(pg: PartitionedGraph, k: int,
@@ -206,9 +212,10 @@ def kcore(pg: PartitionedGraph, k: int,
     """k-core membership by peeling (graph must be symmetric, deduped):
     values[v] = 1 if v survives in the k-core, else 0."""
     value, frontier, acc = init_kcore_state(pg, k)
-    _, a, stats = local_engine_call(pg, kcore_program(int(k)), cfg, value,
-                                    frontier, acc)
-    return Result((to_original(pg, a) == 0.0).astype(np.int64), stats)
+    _, a, stats, trace = local_engine_call(pg, kcore_program(int(k)), cfg,
+                                           value, frontier, acc)
+    return Result((to_original(pg, a) == 0.0).astype(np.int64), stats,
+                  trace=trace)
 
 
 def sort_adjacency(pg: PartitionedGraph) -> PartitionedGraph:
@@ -257,8 +264,9 @@ def triangles(pg: PartitionedGraph,
             f"sorted_adj={pg.sorted_adj}")
     cfg = sized_cfg(cfg, TRIANGLES, pg.T)
     value, frontier = init_triangles_state(pg)
-    _, a, stats = local_engine_call(pg, TRIANGLES, cfg, value, frontier)
-    return Result(to_original(pg, a).astype(np.int64), stats)
+    _, a, stats, trace = local_engine_call(pg, TRIANGLES, cfg, value,
+                                           frontier)
+    return Result(to_original(pg, a).astype(np.int64), stats, trace=trace)
 
 
 def _acc_stats(a: Stats, b: Stats) -> Stats:
@@ -288,7 +296,12 @@ def symmetrize(g: CSRGraph) -> CSRGraph:
 
 
 def prepare(g: CSRGraph, T: int, scheme: str = "low_order",
-            edge_mode: str = "equal_edges", device="cuda"
+            edge_mode: str = "equal_edges",
+            dies: tuple[int, int] | None = None, device="cuda"
             ) -> PartitionedGraph:
-    """Partition ``g`` over T tiles, with its shards on ``device``."""
-    return partition_graph(g, T, scheme, edge_mode, device=device)
+    """Partition ``g`` over T tiles, with its shards on ``device``.
+    ``dies=(ndies_y, ndies_x)`` is required by the ``*_dielocal`` schemes
+    and must match the hier NoC's ``EngineConfig.ndies_y/ndies_x`` for the
+    partitions to be die-resident on the fabric that runs them."""
+    return partition_graph(g, T, scheme, edge_mode, dies=dies,
+                           device=device)

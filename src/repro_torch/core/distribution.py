@@ -29,7 +29,7 @@ multi-die hierarchical NoC (``noc="hier"``, PIUMA-style die-of-dies):
 the padded ID space is first cut into one contiguous *partition* per die
 (so each graph partition stays die-resident), then the base scheme is
 applied *within* the die across that die's tiles.  Die membership of the
-tiles comes from ``tile_die=`` (built by ``repro.noc.tile_die_map`` so
+tiles comes from ``tile_die=`` (built by ``repro_torch.noc.tile_die_map`` so
 placement and fabric agree on the geometry); die crossings — the scarce,
 expensive resource of the hierarchy — then only happen on edges that
 leave a partition, not on every consecutive-id hop the flat ``low_order``
@@ -130,7 +130,7 @@ def placement(n_orig: int, num_shards: int, scheme: str,
     ``inv[p]`` is the original ID at placed slot ``p`` (or -1 for padding).
     ``deg`` (per-original-element weights) is required by the degree-aware
     ``degree_interleave`` scheme(s) and ignored otherwise; ``tile_die``
-    (a (num_shards,) tile -> die map, see ``repro.noc.tile_die_map``) is
+    (a (num_shards,) tile -> die map, see ``repro_torch.noc.tile_die_map``) is
     required by the ``*_dielocal`` schemes and ignored otherwise.
     """
     n_pad = padded_len(n_orig, num_shards)

@@ -5,7 +5,7 @@ the model axis, ids routed to their owner shard by one all_to_all) needs
 a mesh; without one it is a plain gather of the placed table with
 overflow 0 (``src/repro/core/embedding.py:84-88``, ``:120-125``), and that
 is the port's path.  The routed lookup on a mesh waits for the SPMD item
-(ROADMAP §1, item 5).
+(ROADMAP §1, "SPMD on torch.distributed").
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ def routed_embed(table, ids, *, mesh=None, **kw):
     """Routed lookup.  With no mesh: ``table[ids]`` and overflow 0."""
     if mesh is not None:
         raise NotImplementedError(
-            "routed_embed on a mesh: ROADMAP §1, item 5 (SPMD on "
-            "torch.distributed)")
+            "routed_embed on a mesh: ROADMAP §1, 'SPMD on "
+            "torch.distributed'")
     return table[ids], torch.zeros((), dtype=torch.int32, device=ids.device)
 
 

@@ -5,13 +5,17 @@ Per round, every tile runs the program's source and then one generic
 task channel; for the classic program that is
 
   leg 0  frontier pop -> range-queue turn -> T1 range split
-         --- route to the edge owner (ideal crossbar) ---
+         --- route to the edge owner (the NoC backend) ---
   leg 1  spill re-queue -> T2 edge scan -> update-queue turn (replay)
          --- route to the vertex owner ---
   leg 2  spill re-queue -> T3 fold (a min fold re-arms the frontier)
 
-then the TSU, the NoC telemetry and the cycle/energy model.  Stages are
-batched over the T emulated tiles (:class:`LocalComm`).  On
+then the TSU, the NoC telemetry and the cycle/energy model.  The fabric
+between the legs is the :mod:`repro_torch.noc` backend of
+``EngineConfig.noc``: the ideal crossbar, a mesh / torus / ruche grid or
+the multi-die ``hier`` composition, with per-link capacities and
+telemetry.  Stages are batched over the T emulated tiles
+(:class:`LocalComm`).  On
 ``backend="kernels"`` (the default) with ``fuse=True`` (the default, the
 counterpart of the reference's ``pallas_fuse``) each leg is ONE fused-leg
 kernel launch (:mod:`repro_torch.kernels.engine.fused`): three launches
@@ -38,9 +42,11 @@ kernels.  ``edge_space="hbm"`` streams T2 through the
 streamed windows (``Stats.hbm_windows`` / ``hbm_edges``, ``t_hbm`` /
 ``e_hbm``).
 
-Options of the reference that the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them:
-physical NoCs, ``trace`` and ``adapt``.
+With ``cfg.trace`` each round (every ``trace_every``-th) also writes a
+slot of the flight recorder's ring (:mod:`repro_torch.trace`), which
+:func:`run_engine` returns; recording reads what the round computed and
+adds no host sync.  ``adapt`` (adaptive placement) is still to port and
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -60,8 +66,10 @@ from repro_torch.kernels.engine import fused as fused_legs
 from repro_torch.kernels.engine.fused import LegTemplate
 from repro_torch.mem import resolve_window
 from repro_torch.noc import make_network
+from repro_torch.noc.topology import N_LINK_CLASSES
 from repro_torch.perf import (PerfParams, link_cost_vectors,
                               round_energy_pj, tile_compute_cycles)
+from repro_torch.trace.buffer import on_cadence, record_round, zero_trace
 
 I32, F32 = torch.int32, torch.float32
 
@@ -100,7 +108,7 @@ class EngineConfig:
     edge_space: str = "vmem"  # "vmem" (resident) | "hbm" (streamed)
     hbm_window: int = 0
     vmem_limit_bytes: int = 0
-    noc: str = "ideal"       # "ideal" (physical NoCs still to port)
+    noc: str = "ideal"       # "ideal" | "mesh" | "torus" | "ruche" | "hier"
     noc_rows: int = 0
     link_cap: int = 0
     ruche_factor: int = 2
@@ -108,7 +116,7 @@ class EngineConfig:
     ndies_y: int = 1
     hier_base: str = "mesh"
     perf: PerfParams = PerfParams()
-    trace: bool = False      # flight recorder: still to port
+    trace: bool = False      # flight recorder (repro_torch.trace)
     trace_every: int = 1
     trace_rounds: int = 512
     adapt: bool = False      # adaptive placement: still to port
@@ -275,8 +283,7 @@ def _check_ported(cfg: EngineConfig):
     """Raise for the options the port does not have yet."""
     if cfg.mode not in ("async", "bsp"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
-    todo = {"trace": (cfg.trace, "'Trace'"),
-            "adapt": (cfg.adapt, "'Placement'")}
+    todo = {"adapt": (cfg.adapt, "'Placement'")}
     for name, (unported, item) in todo.items():
         if unported:
             raise NotImplementedError(
@@ -290,9 +297,12 @@ def _check_ported(cfg: EngineConfig):
 
 def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
                e_chunk: int, v_chunk: int, shard: GraphShard):
-    """Build the round function ``(state, stats, kahan_comp) -> (state,
-    stats, kahan_comp, pending)``; ``kahan_comp`` is the (cycles, energy)
-    float32 compensation pair of the perf model's summation."""
+    """Build the round function ``(state, stats, kahan_comp, tbuf=None,
+    r=0) -> (state, stats, kahan_comp, tbuf, pending)``; ``kahan_comp`` is
+    the (cycles, energy) float32 compensation pair of the perf model's
+    summation, ``tbuf`` the flight recorder's ring when ``cfg.trace`` (else
+    None, passed through) and ``r`` the host's index of the round, which
+    the ring's cadence reads."""
     chans = prog.channels
     K = len(chans)
     backends = tuple(ch.resolve_backend(cfg) for ch in chans)
@@ -316,6 +326,14 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     t_hop, e_hop = link_cost_vectors(pp, net, comm.device)
     t_round = torch.tensor(pp.t_round, dtype=F32, device=comm.device)
     T = comm.size
+    tracing = cfg.trace
+    if tracing:
+        # (C, num_links) one-hot splitting per-link flits by cost class
+        cls = torch.from_numpy(net.link_classes.astype("int64")) \
+            .to(comm.device)
+        cls_onehot = (cls[None, :] == torch.arange(
+            N_LINK_CLASSES, device=comm.device)[:, None]).to(I32)
+        tile_ids = torch.arange(T, dtype=I32, device=comm.device)
 
     def requeue(st, i, sp, spv):
         """Spill re-queue into channel i's local queue."""
@@ -420,7 +438,14 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     def tile_sum(v):
         return v.sum(dim=1, dtype=I32)
 
-    def rnd(st: EngineState, stats: Stats, kcomp):
+    def rnd(st: EngineState, stats: Stats, kcomp, tbuf=None, r: int = 0):
+        recording = tracing and on_cadence(r, cfg.trace_every)
+        if recording:
+            # the TSU's source grant, from the pre-round state leg 0
+            # arbitrates on: taken now, as the fused legs append in place
+            # onto queues of the state they are given
+            src_grant = comm.run(lambda me, s: _budgets(
+                cfg, prog, qcaps, pops, s, plimit)[0], st)
         with tally() as launch_tally:
             st, msgs, mvalid, drops, dyn_pops, n_pop, n_push = comm.run(
                 stage_first, shard, st)
@@ -537,7 +562,31 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             migration_cycles=stats.migration_cycles,
             migration_pj=stats.migration_pj,
         )
-        return st, stats, (c_cyc, c_en), glob(pending)
+        if recording:
+            # reads of the round's telemetry and reductions of it: nothing
+            # here feeds back into the state or the Stats
+            occ = torch.stack([q.count for q in st.queues], dim=1)
+            tbuf = record_round(tbuf, dict(
+                cyc=cyc_round,
+                cyc_total=cycles_acc,
+                tile_busy=comp,
+                # the first maximum, as jnp.argmax picks it on ties
+                crit_tile=torch.where(comp == comp.max(), tile_ids,
+                                      T).min(),
+                msgs=msgs_vec,
+                spills=spills_vec,
+                qdepth=occ.sum(dim=0, dtype=I32),
+                qdepth_max=occ.amax(dim=0),
+                chan_budget=dyn_pops.sum(dim=0, dtype=I32),
+                src_budget=src_grant.sum(dtype=I32),
+                link_cls=(cls_onehot * link_g[None, :]).sum(dim=1,
+                                                            dtype=I32),
+                launches=launch_tally.n,
+                hbm_windows=hw_g if streaming else 0,
+                frontier=st.frontier.sum(dtype=I32),
+                pending=glob(pending),
+            ), r, cfg.trace_every)
+        return st, stats, (c_cyc, c_en), tbuf, glob(pending)
 
     return rnd
 
@@ -570,7 +619,8 @@ def run_engine(comm: LocalComm, cfg: EngineConfig, alg, shard: GraphShard,
 
     A host loop: each round's global pending-work count is read back (one
     device sync per round) to decide whether to run the next.  Returns
-    ``(state, stats)``.
+    ``(state, stats, trace)``: ``trace`` is the flight recorder's ring
+    (:class:`~repro_torch.trace.TraceBuf`) when ``cfg.trace``, else None.
     """
     prog = as_program(alg)
     prog.validate(cfg, comm.size, e_chunk, v_chunk)
@@ -578,12 +628,14 @@ def run_engine(comm: LocalComm, cfg: EngineConfig, alg, shard: GraphShard,
     rnd = make_round(comm, net, cfg, prog, e_chunk, v_chunk, shard)
     stats = Stats.zero(net.num_links, net.max_hops, len(prog.channels),
                        net.max_die_crossings, comm.device)
+    tbuf = zero_trace(cfg, comm.size, prog, comm.device) if cfg.trace \
+        else None
     zf = torch.zeros((), dtype=F32, device=comm.device)
     kcomp = (zf, zf)
     pending = int(comm.to_global(comm.psum(comm.run(pending_work, st))))
     r = 0
     while pending > 0 and r < cfg.max_rounds:
-        st, stats, kcomp, pend = rnd(st, stats, kcomp)
+        st, stats, kcomp, tbuf, pend = rnd(st, stats, kcomp, tbuf, r)
         pending = int(pend)
         r += 1
-    return st, stats
+    return st, stats, tbuf

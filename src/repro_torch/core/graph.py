@@ -7,10 +7,11 @@ of the placed CSR.  Only the outputs differ: the four dataset arrays of a
 unless the caller asks for the CPU), with the reference's dtypes (int32
 indices, float32 weights).
 
-Edge modes ``equal_edges`` (Dalorex: E/T adjacent edges per tile) and
+Edge modes: ``equal_edges`` (Dalorex: E/T adjacent edges per tile),
 ``vertex_aligned`` (Tesseract-like: a tile owns its own vertices' edges)
-are ported.  ``die_aligned`` and the ``*_dielocal`` placements belong to
-the multi-die NoC and are still to port (ROADMAP.md, "Physical NoCs").
+and ``die_aligned`` (the multi-die NoC's: each run of same-die tiles owns
+its vertices' edges, so range messages never leave the die).  A
+``*_dielocal`` placement switches ``equal_edges`` to ``die_aligned``.
 
 :func:`partition_from_numpy` carries a partition across from the JAX
 package (as numpy arrays), so both packages compute on identical shards.
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.core.distribution import (DIELOCAL_SUFFIX, DistSpec,
                                            padded_len, placement)
+from repro_torch.noc.topology import tile_die_map
 
 
 @dataclasses.dataclass
@@ -98,21 +100,31 @@ class PartitionedGraph:
 
 def partition_graph(g: CSRGraph, T: int, scheme: str = "low_order",
                     edge_mode: str = "equal_edges",
+                    dies: tuple[int, int] | None = None,
+                    tile_die: np.ndarray | None = None,
                     device="cuda") -> PartitionedGraph:
     """Place ``g``'s vertices with ``scheme`` and deal the shards over T
-    tiles, as tensors on ``device``."""
-    if scheme.endswith(DIELOCAL_SUFFIX):
-        raise NotImplementedError(
-            f"placement {scheme!r} needs the multi-die NoC, still to port "
-            f"(ROADMAP.md, 'Physical NoCs')")
+    tiles, as tensors on ``device``.  ``dies=(ndies_y, ndies_x)`` builds
+    the tile -> die map of the ``*_dielocal`` schemes on the near-square
+    grid the NoC uses by default; an explicit ``tile_die`` serves custom
+    grids."""
     deg = (g.ptr[1:] - g.ptr[:-1]
            if scheme.startswith("degree_interleave") else None)
-    place, inv = placement(g.num_vertices, T, scheme, deg=deg)
-    return build_partition(g, T, place, inv, edge_mode, device=device)
+    if tile_die is None and dies is not None:
+        tile_die = tile_die_map(T, 0, *dies)
+    if scheme.endswith(DIELOCAL_SUFFIX) and edge_mode == "equal_edges":
+        # die-resident partitions need die-resident edges, or range
+        # messages chase drifted edge chunks across dies
+        edge_mode = "die_aligned"
+    place, inv = placement(g.num_vertices, T, scheme, deg=deg,
+                           tile_die=tile_die)
+    return build_partition(g, T, place, inv, edge_mode, tile_die=tile_die,
+                           device=device)
 
 
 def build_partition(g: CSRGraph, T: int, place: np.ndarray, inv: np.ndarray,
                     edge_mode: str = "equal_edges",
+                    tile_die: np.ndarray | None = None,
                     device="cuda") -> PartitionedGraph:
     """Materialize the shards for an explicit ``(place, inv)`` pair: the
     reference's numpy segment gather (repeat + cumsum, no per-vertex
@@ -148,9 +160,26 @@ def build_partition(g: CSRGraph, T: int, place: np.ndarray, inv: np.ndarray,
         ptr_start = (np.arange(T, dtype=np.int64)[:, None] * e_chunk
                      + excl).reshape(-1)
     elif edge_mode == "die_aligned":
-        raise NotImplementedError(
-            "edge_mode='die_aligned' needs the multi-die NoC, still to port "
-            "(ROADMAP.md, 'Physical NoCs')")
+        # Equal-chunk scatter per run of consecutive same-die tiles: run r
+        # (tiles t0..t1) owns edge chunks t0..t1, its vertices' edges laid
+        # contiguously from chunk t0 with the padding at the run's tail,
+        # so chunk t always belongs to tile t's die.
+        if tile_die is None:
+            raise ValueError("die_aligned edge mode needs dies=/tile_die=")
+        v_chunk = v_pad // T
+        td = np.asarray(tile_die, np.int64)
+        deg_t = deg_placed.reshape(T, v_chunk).sum(1)
+        run_id = np.concatenate([[0], np.cumsum(td[1:] != td[:-1])])
+        run_len = np.bincount(run_id)
+        run_edges = np.bincount(run_id, weights=deg_t).astype(np.int64)
+        e_chunk = int(max(np.ceil(run_edges / run_len).max(), 1))
+        e_pad = e_chunk * T
+        edist = DistSpec(e_pad, T)
+        # exclusive edge prefix per placed vertex, restarted at run starts
+        cum = np.cumsum(deg_placed) - deg_placed
+        _, run_first_tile = np.unique(run_id, return_index=True)
+        base = run_first_tile[run_id[np.arange(v_pad) // v_chunk]]
+        ptr_start = base * e_chunk + (cum - cum[base * v_chunk])
     else:
         raise ValueError(f"unknown edge_mode: {edge_mode}")
     edge_dst = np.full(e_pad, -1, np.int64)

@@ -112,12 +112,20 @@ def test_port_bfs_from_a_root_without_out_edges():
 
 
 def test_unported_options_raise():
+    """``adapt`` is still to port and raises; the physical NoC and the
+    trace, once refused, run and equal the JAX package's result."""
     g = CSRGraph.from_edges(8, np.array([0]), np.array([1]),
                             np.ones(1, np.float32))
-    tpg = port_partition(ja.prepare(g, T=4))
-    for kw in (dict(noc="mesh"), dict(trace=True), dict(adapt=True)):
-        with pytest.raises(NotImplementedError):
-            ta.bfs(tpg, 0, TConfig(**SMALL, **kw))
+    jpg = ja.prepare(g, T=4)
+    tpg = port_partition(jpg)
+    with pytest.raises(NotImplementedError, match="'Placement'"):
+        ta.bfs(tpg, 0, TConfig(**SMALL, adapt=True))
+    ref = ja.bfs(jpg, 0, JConfig(backend="xla", noc="mesh", **SMALL))
+    for kw in (dict(noc="mesh"), dict(noc="mesh", trace=True)):
+        got = ta.bfs(tpg, 0, TConfig(**SMALL, **kw))
+        np.testing.assert_array_equal(ref.values, got.values)
+        assert_stats_equal(ref.stats, got.stats, str(kw))
+        assert (got.trace is None) == ("trace" not in kw)
     # k-core has fused legs now: fuse=True (the default) runs, 3 a round
     gs = ja.symmetrize(g)
     res = ta.kcore(port_partition(ja.prepare(gs, T=4)), 2,

@@ -68,11 +68,22 @@ def test_partition_from_numpy_round_trips(graphs):
 
 
 def test_unported_partitions_raise(graphs):
-    _, tgr = graphs
-    with pytest.raises(NotImplementedError):
-        tg.partition_graph(tgr, 4, "low_order_dielocal", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tg.partition_graph(tgr, 4, "low_order", "die_aligned", device="cpu")
+    """The multi-die partitions the port once refused (the die-local
+    placement and the die-aligned edge mode) now equal the JAX package's
+    array for array; without a die map both still refuse."""
+    jgr, tgr = graphs
+    for scheme, edge_mode in (("low_order_dielocal", "equal_edges"),
+                              ("low_order", "die_aligned")):
+        jp = jg.partition_graph(jgr, 4, scheme, edge_mode, dies=(2, 2))
+        tp = tg.partition_graph(tgr, 4, scheme, edge_mode, dies=(2, 2),
+                                device="cpu")
+        assert tp.edge_mode == jp.edge_mode == "die_aligned"
+        for f in ("ptr_start", "deg", "edge_dst", "edge_val"):
+            np.testing.assert_array_equal(np.asarray(getattr(jp, f)),
+                                          getattr(tp, f).numpy(), err_msg=f)
+        np.testing.assert_array_equal(jp.place, tp.place)
+        with pytest.raises(ValueError):
+            tg.partition_graph(tgr, 4, scheme, edge_mode, device="cpu")
 
 
 @pytest.mark.parametrize("scale", [6, 7, 8, 9])

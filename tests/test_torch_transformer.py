@@ -192,7 +192,7 @@ def test_what_is_not_ported_raises():
         T.lm_loss(None, cfg, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.chunked_xent(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="SPMD on torch.distributed"):
         routed_embed(torch.zeros(4, 2), torch.zeros(1, 1, dtype=torch.long),
                      mesh=object())
 

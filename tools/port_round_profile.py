@@ -5,6 +5,9 @@
         [--scale 22] [--k 16] [--tiles 64] [--cap-updq 65536 262144]
         [--fuse 0 1 1 0] [--edge-space vmem hbm] [--max-rounds N]
         [--profile-at 3000] [--profile-rounds 50] [--scan-at N]
+        [--noc ideal|mesh|torus|ruche|hier] [--ndies 2 2]
+        [--placement low_order_dielocal] [--vmem-limit-mib 32]
+        [--trace 0 1] [--cap-rangeq 2048]
 
 Builds R-MAT-``scale`` (edge factor 10, seed 1; symmetrized for k-core
 and triangles, and laid out by ``prepare_triangles`` for triangles) over
@@ -33,7 +36,16 @@ unfused run also reports the T2 scan (``edge_scan_gather``, or
 from 0, as ``--profile-at``): its shape, the share of valid messages, the
 live-lane share (lanes below a valid message's length: the lanes whose
 ``nb`` and ``w`` the kernel writes, in groups of four) and the ``jvalid``
-share.  Needs a CUDA device.
+share.  Every route of the profiled rounds is a ``noc.route`` range: the
+profile reports the routes' device time a round (their share), and the
+host time a round by operator and CUDA runtime call.  ``--noc``,
+``--ndies`` (Y X) and ``--placement`` put the run on a physical fabric,
+its links uncapped (``*_dielocal`` placements over the die array of
+``--ndies``; their die-aligned shard of R-MAT-22 needs
+``--vmem-limit-mib 32``, a tile budget above the modelled 16 MiB);
+``--cap-rangeq`` sizes the range queue; ``--trace 0 1`` runs each
+configuration with the flight recorder off and on (a ring of every
+round).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -48,7 +60,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.profiler import (ProfilerActivity, profile,  # noqa: E402
+                            record_function)
 
 from chip_smoke import spmv_x  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
@@ -62,16 +75,43 @@ from repro_torch.core.reference import (bfs_ref, kcore_ref,  # noqa
                                         spmv_f32_bound, spmv_ref,
                                         triangles_wedge_ref)
 from repro_torch.noc import make_network  # noqa: E402
+from repro_torch.trace import zero_trace  # noqa: E402
+
+
+ROUTE_RANGE = "noc.route"
+
+
+class RouteRanges:
+    """A NoC backend whose every ``route`` is a profiler range named
+    ROUTE_RANGE (the backend's other attributes pass through)."""
+
+    def __init__(self, net):
+        self._net = net
+
+    def __getattr__(self, name):
+        return getattr(self._net, name)
+
+    def route(self, *args, **kw):
+        with record_function(ROUTE_RANGE):
+            return self._net.route(*args, **kw)
 
 
 def device_us(prof) -> tuple[float, dict, dict]:
     """Total device time (µs) of the profiled window, its split by kernel
-    name, and counts: CUDA kernels, copies and memsets on the device, and
-    the top-level PyTorch operators the host dispatched.  Kernels of one
-    stream do not overlap, so the sum is the time the device was busy."""
+    name, and counts: CUDA kernels, copies and memsets on the device, the
+    top-level PyTorch operators the host dispatched, and ``route_us``, the
+    device time of the kernels launched inside ROUTE_RANGE ranges.
+    Kernels of one stream do not overlap, so the sum is the time the
+    device was busy."""
     total, by_name = 0.0, {}
-    counts = dict(kernels=0, copies=0, aten_ops=0)
+    counts = dict(kernels=0, copies=0, aten_ops=0, route_us=0.0)
     for e in prof.events():
+        if e.name == ROUTE_RANGE:
+            # the CPU-side range sums its ops' kernels; its device-side
+            # annotation spans them, gaps included, and is no kernel
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                counts["route_us"] += e.device_time_total
+            continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             parent = e.cpu_parent
             if e.name.startswith("aten::") and not (
@@ -99,7 +139,8 @@ def scan_share(args, out) -> str:
             f"share {int(out[2].sum()) / n:.6f}")
 
 
-def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
+def run(pg, oracle, cap_updq: int, space: str, fuse: bool, trace: bool,
+        args):
     from repro_torch.core import program as PROG
     name = "edge_scan_stream" if space == "hbm" else "edge_scan_gather"
     real_scan, scans, seen = getattr(PROG, name), [0], []
@@ -113,7 +154,7 @@ def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
 
     setattr(PROG, name, spy)
     try:
-        run_rounds(pg, oracle, cap_updq, space, fuse, args)
+        run_rounds(pg, oracle, cap_updq, space, fuse, trace, args)
     finally:
         setattr(PROG, name, real_scan)
     for a, out in seen:
@@ -121,11 +162,17 @@ def run(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
               flush=True)
 
 
-def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
+def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool,
+               trace: bool, args):
     dev = pg.device
     T = pg.T
-    cfg = EngineConfig(cap_updq=cap_updq, fuse=fuse, edge_space=space,
-                       max_rounds=args.max_rounds)
+    cfg = EngineConfig(cap_updq=cap_updq, cap_rangeq=args.cap_rangeq,
+                       fuse=fuse, edge_space=space,
+                       max_rounds=args.max_rounds, noc=args.noc,
+                       ndies_y=args.ndies[0], ndies_x=args.ndies[1],
+                       trace=trace,
+                       vmem_limit_bytes=args.vmem_limit_mib * 2 ** 20,
+                       trace_rounds=min(args.max_rounds, 65536))
     comm = LocalComm(T, dev)
     shard = GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
     acc = None
@@ -144,14 +191,17 @@ def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
         value, frontier = alg.init_triangles_state(pg)
     st = init_state(comm, cfg, pg.v_chunk, value, frontier, prog, acc)
     net = make_network(cfg, T)
-    rnd = make_round(comm, net, cfg, prog, pg.e_chunk, pg.v_chunk, shard)
+    rnd = make_round(comm, RouteRanges(net), cfg, prog, pg.e_chunk,
+                     pg.v_chunk, shard)
     stats = Stats.zero(net.num_links, net.max_hops, len(prog.channels),
                        net.max_die_crossings, dev)
+    tbuf = zero_trace(cfg, T, prog, dev) if trace else None
     zf = torch.zeros((), dtype=torch.float32, device=dev)
     kcomp = (zf, zf)
     peak = [torch.zeros(T, dtype=torch.int32, device=dev)
             for _ in prog.channels]
     prof_dev, prof_split, prof_count, prof_rounds = 0.0, {}, {}, 0
+    host_top = []
     r, pending, wall = 0, 1, 0.0
     while pending > 0 and r < cfg.max_rounds:
         profiled = args.profile_at <= r < args.profile_at + \
@@ -161,7 +211,8 @@ def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(args.profile_rounds):
-                    st, stats, kcomp, p = rnd(st, stats, kcomp)
+                    st, stats, kcomp, tbuf, p = rnd(st, stats, kcomp, tbuf,
+                                                    r)
                     for i, q in enumerate(st.queues):
                         peak[i] = torch.maximum(peak[i], q.count)
                     pending = int(p)
@@ -170,9 +221,13 @@ def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
                     if pending == 0:
                         break
             prof_dev, prof_split, prof_count = device_us(prof)
+            host_top = sorted(
+                ((e.key, e.self_cpu_time_total, e.count)
+                 for e in prof.key_averages()),
+                key=lambda x: -x[1])[:args.top]
             continue
         t0 = time.perf_counter()
-        st, stats, kcomp, p = rnd(st, stats, kcomp)
+        st, stats, kcomp, tbuf, p = rnd(st, stats, kcomp, tbuf, r)
         pending = int(p)
         wall += time.perf_counter() - t0
         for i, q in enumerate(st.queues):
@@ -206,7 +261,9 @@ def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
               f"(tolerance + float32 limit) {(err / (tol + bound)).max():.3e}")
     ms_round = 1e3 * wall / max(r - prof_rounds, 1)
     print(f"{args.app} cap_updq {cfg.cap_updq} edge_space {space} fuse "
-          f"{fuse}: rounds {r}, drops "
+          f"{fuse} noc {cfg.noc} ndies {args.ndies} placement "
+          f"{args.placement} trace {trace}: rounds "
+          f"{r}, drops "
           f"{int(stats.drops)}, matches the oracle {ok}, edges "
           f"scanned {int(stats.edges_scanned)}, peak queue occupancy "
           f"{[int(p.max()) for p in peak]} (tile "
@@ -214,15 +271,22 @@ def run_rounds(pg, oracle, cap_updq: int, space: str, fuse: bool, args):
           f"ms/round over {r - prof_rounds} unprofiled rounds", flush=True)
     if prof_rounds:
         dev_ms = prof_dev / 1e3 / prof_rounds
+        route_ms = prof_count.pop("route_us") / 1e3 / prof_rounds
         print(f"  profile of rounds {args.profile_at}.."
               f"{args.profile_at + prof_rounds - 1}: device {dev_ms:.3f} "
-              f"ms/round, busy share {dev_ms / ms_round:.3f}; per round "
+              f"ms/round, busy share {dev_ms / ms_round:.3f}; routes "
+              f"{route_ms:.3f} ms/round of device time (share "
+              f"{route_ms / dev_ms if dev_ms else 0.0:.3f}); per round "
               + ", ".join(f"{k} {v / prof_rounds:.1f}"
                           for k, v in prof_count.items()), flush=True)
         for name, us in sorted(prof_split.items(), key=lambda kv: -kv[1])[
                 :args.top]:
             print(f"    {us / 1e3 / prof_rounds:8.4f} ms/round "
                   f"{100 * us / prof_dev:5.1f}%  {name[:100]}")
+        print("  host time by operator and runtime call (self):")
+        for name, us, n in host_top:
+            print(f"    {us / 1e3 / prof_rounds:8.4f} ms/round "
+                  f"{n / prof_rounds:7.1f} calls  {name[:90]}")
 
 
 def main():
@@ -233,6 +297,7 @@ def main():
     ap.add_argument("--k", type=int, default=16, help="k-core's k")
     ap.add_argument("--tiles", type=int, default=64)
     ap.add_argument("--cap-updq", type=int, nargs="+", default=[262144])
+    ap.add_argument("--cap-rangeq", type=int, default=2048)
     ap.add_argument("--fuse", type=int, nargs="+", choices=(0, 1),
                     default=[0], help="one run per entry, in order")
     ap.add_argument("--edge-space", choices=("vmem", "hbm"), nargs="+",
@@ -244,6 +309,16 @@ def main():
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--scan-at", type=int, default=-1,
                     help="report the unfused T2 scan of this round")
+    ap.add_argument("--noc", default="ideal",
+                    choices=("ideal", "mesh", "torus", "ruche", "hier"))
+    ap.add_argument("--ndies", type=int, nargs=2, default=[1, 1],
+                    metavar=("Y", "X"), help="hier die array (and the "
+                    "*_dielocal placements')")
+    ap.add_argument("--placement", default="low_order")
+    ap.add_argument("--vmem-limit-mib", type=int, default=0,
+                    help="tile budget (0: the modelled 16 MiB)")
+    ap.add_argument("--trace", type=int, nargs="+", choices=(0, 1),
+                    default=[0], help="one run per entry, in order")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_round_profile: needs a CUDA device")
@@ -255,8 +330,14 @@ def main():
     g = CSRGraph.from_edges(n, src, dst, val)
     if args.app in ("kcore", "triangles"):
         g = alg.symmetrize(g)
-    prep = alg.prepare_triangles if args.app == "triangles" else alg.prepare
-    pg = prep(g, args.tiles, device="cuda")
+    if args.app == "triangles":
+        pg = alg.prepare_triangles(g, args.tiles, args.placement,
+                                   device="cuda")
+    else:
+        dies = tuple(args.ndies) if args.placement.endswith("_dielocal") \
+            else None
+        pg = alg.prepare(g, args.tiles, args.placement, dies=dies,
+                         device="cuda")
     if args.app == "bfs":
         oracle = bfs_ref(g, 0)
     elif args.app == "kcore":
@@ -272,7 +353,9 @@ def main():
     for cap in args.cap_updq:
         for space in args.edge_space:
             for fuse in args.fuse:
-                run(pg, oracle, cap, space, bool(fuse), args)
+                for trace in args.trace:
+                    run(pg, oracle, cap, space, bool(fuse), bool(trace),
+                        args)
 
 
 if __name__ == "__main__":
