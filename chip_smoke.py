@@ -3,8 +3,8 @@
 rwkv6-1.6b and zamba2-2.7b serving on one GPU.
 
     python3 chip_smoke.py \
-        [--phases kernels,twin,main,hbm,noc,taskgraph,block,rmat18,lm,rwkv,
-                  zamba]
+        [--phases kernels,twin,main,hbm,noc,taskgraph,block,rmat18,serve,lm,
+                  rwkv,zamba] [--seed 0]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -78,10 +78,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    a leg);
 5. ``hbm`` (with ``main``) — fused BFS on the same partition with the
    edge shard streamed and the tile budget at 4 MiB, under the resident
-   footprint: ``edge_space="vmem"`` must fail validation; hop counts
-   equal to the oracle; rounds, msgs, spills and edges equal to the
-   resident fused run's; ``hbm_windows > 0``; then ``edge_scan_stream``
-   checked and timed at the shard and messages of its leg 1 in round
+   footprint: ``edge_space="vmem"`` must fail validation; HBM_ROUNDS
+   rounds (a depth cut) whose values, rounds, msgs, spills, edges,
+   updates, drops and link flits equal a resident fused run's of the
+   same depth; ``hbm_windows > 0``; then ``edge_scan_stream`` checked and
+   timed at the shard and messages of its leg 1 in round
    ``HBM_SCAN_ROUND``;
 6. ``noc`` — the rmat-hier preset's fabric and placement on 64 tiles:
    hier, an 8 x 8 grid as 2 x 2 dies of 4 x 4 meshes,
@@ -121,11 +122,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
 9. ``rmat18`` — R-MAT-18 over 64 tiles: the unfused paths
    (``fuse=False``: BFS, BFS with the shard streamed through
    ``edge_scan_stream``, SpMV, PageRank; five kernel calls a round)
-   against the oracles; PageRank runs 5 iterations (the depth is cut from
+   against the oracles; PageRank runs 3 iterations (the depth is cut from
    the reference's 20 for chip time only); the two ``queue_push_pop``
    turns and the scan of BFS round ``R18_TURN_ROUND``, and the scan of
    the streamed BFS's, are held against their plain versions and timed
    at the operands the engine gave them;
+9b. ``serve`` — query lanes (``repro_torch.serve``).  (a) A static batch
+   of SERVE_B BFS queries on the main path (R-MAT-22, 64 tiles,
+   ``MAIN_FUSED``): MAIN_ROOT, SERVE_RANDOM sources drawn from ``--seed``,
+   MAIN_ROOT again and a padding lane.  Lane 0 bitwise the main path's
+   solo run (values and every Stats field, launches included), the two
+   MAIN_ROOT lanes bitwise each other, every lane equal to the oracle, no
+   drops, the padding lane born finished, ``total_rounds`` the largest
+   lane count, each fused leg launched once a shared round for the whole
+   batch; queries/s, wall and device ms a shared round beside the solo
+   run's, peak memory; the legs held against their plain stages over
+   the first SERVE_CHECK_ROUNDS rounds and timed at B = SERVE_B.  (b)
+   The continuous front end on R-MAT-SERVE_CONT_SCALE (cut), Poisson
+   arrivals, the trace on: every record equal to its oracle and to its
+   solo run (rounds, edges, values, ring bitwise), no drops.  (c) B = 3
+   lanes on R-MAT-10 (the mesh runs on R-MAT-FABRIC_SCALE) over 16 tiles:
+   "torch" against "kernels", fused (every leg call against its plain
+   stage) and unfused (every scan call), ideal and mesh at link_cap 2,
+   BFS and SSSP, and BFS streamed; values and lane-led Stats bitwise but
+   launches.  Then both scans at SERVE_B lanes of the R-MAT-22 shard,
+   checked and timed;
 10. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
    flash kernel against its plain version (K/V repeated, blockwise scan)
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
@@ -246,6 +267,7 @@ from repro_torch import trace as TR  # noqa: E402
 from repro_torch.core.comm import LocalComm  # noqa: E402
 from repro_torch.noc import make_network  # noqa: E402
 from repro_torch.noc.topology import CLASS_DIE, N_LINK_CLASSES  # noqa: E402
+from repro_torch import serve as SERVE  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
@@ -325,7 +347,7 @@ R18_CFGS = {"BFS": dataclasses.replace(MAIN_CFG, **UNFUSED),
 KCORE_SCALE, KCORE_K = 20, 16
 KCORE_V, KCORE_E, KCORE_CORE = 1048576, 19967950, 137224
 KCORE_CFG = MAIN_CFG
-TRI_SCALE = 13
+TRI_SCALE = 12
 TRI_CFG = EngineConfig()
 CHECK_ROUNDS.update({"k-core": 400, "triangles": 300})
 # The physical NoCs.  Twin: BFS on each fabric over 16 tiles (a 4 x 4
@@ -334,8 +356,10 @@ CHECK_ROUNDS.update({"k-core": 400, "triangles": 300})
 # and hier 2x2 at link_cap 2; the trace on against off on TRACE_TWIN.  A
 # link-bound run takes a round for every few messages (BFS on the twin's
 # R-MAT-10 at link_cap 1: 1,892-3,555 rounds, and the fabric runs took
-# 755 s of the card's time), so they run on R-MAT-FABRIC_SCALE: cut for
-# the script's time (PERF.md §4).  Their fused legs are held against
+# 755 s of the card's time; on R-MAT-8 378-662 rounds and ~140 s), so
+# they run on R-MAT-FABRIC_SCALE (63-125 rounds; both channels still
+# spill on the fabrics together, and the die-local criterion holds): cut
+# for the script's time (PERF.md §4).  Their fused legs are held against
 # their plain stages every FABRIC_CHECK_PERIOD-th round and at the
 # FusedCheck's other rounds.
 TWIN_FABRICS = {
@@ -347,7 +371,7 @@ TWIN_FABRICS = {
     "hier 2x1 torus": (dict(noc="hier", ndies_y=2, ndies_x=1,
                             hier_base="torus"), "low_order"),
 }
-FABRIC_SCALE, FABRIC_CHECK_PERIOD, FABRIC_PR_ITERS = 8, 100, 2
+FABRIC_SCALE, FABRIC_CHECK_PERIOD, FABRIC_PR_ITERS = 6, 100, 2
 TRACE_TWIN = "hier 2x2"
 # Phase noc: the rmat-hier preset's fabric and placement
 # (src/repro/configs/dalorex_graph.py): an 8 x 8 grid as 2 x 2 dies of 4 x
@@ -358,7 +382,9 @@ TRACE_TWIN = "hier 2x2"
 # (412,613 on the ideal crossbar; on hier 5,137,856 by round 40,000, not
 # done), and with queues that hold them its hier run outlasts the script
 # (ROADMAP.md §3, PERF.md §4).  R-MAT-18 needs a range queue of 7,496 and
-# an update queue of 258,559 (peaks of the run at NOC_CAPS).  (b) The main
+# an update queue of 258,559 (peaks of the run at NOC_CAPS); the run is on
+# R-MAT-16 since the serving phase came (cut for the script's time, PERF.md
+# §4), with the same queues.  (b) The main
 # path's R-MAT-22 partition under the same placement at link_cap 1, its
 # queues the main path's, for NOC_STRESS_ROUNDS rounds.  The die-aligned
 # edge layout gives each run of same-die tiles its own vertices' edges:
@@ -366,7 +392,7 @@ TRACE_TWIN = "hier 2x2"
 # e_chunk is 3,374,734 against the flat layout's 642,283, and the
 # resident shard (27.0 MB a tile) passes the modelled tile's 16 MiB, so
 # (b)'s tile budget is NOC_VMEM_LIMIT.
-NOC_SCALE, NOC_PLACEMENT, NOC_DIES = 18, "low_order_dielocal", (2, 2)
+NOC_SCALE, NOC_PLACEMENT, NOC_DIES = 16, "low_order_dielocal", (2, 2)
 NOC_FABRIC = dict(noc="hier", ndies_y=2, ndies_x=2, hier_base="mesh")
 NOC_CAPS = dict(cap_rangeq=65536, cap_updq=524288)
 NOC_CFG = EngineConfig(link_cap=0, trace=True, trace_every=1,
@@ -379,6 +405,36 @@ NOC_STRESS = dataclasses.replace(
     **NOC_FABRIC)
 # the profiled window of (a), and of the ideal crossbar on its partition
 NOC_PROFILE_AT, NOC_PROFILE_ROUNDS = 300, 20
+# Phase serve: query lanes.  (a) A static batch of SERVE_B BFS queries on
+# the main path (R-MAT-22, T = 64, MAIN_FUSED): MAIN_ROOT, SERVE_RANDOM
+# sources drawn from --seed among the vertices with out-edges, MAIN_ROOT
+# again and a padding lane; its fused legs held against their plain
+# stages and timed over its first SERVE_CHECK_ROUNDS rounds, and its
+# device time over SERVE_PROFILE_ROUNDS rounds from SERVE_PROFILE_AT.
+# (b) The continuous front end on R-MAT-SERVE_CONT_SCALE (cut from
+# R-MAT-22, and one step below R-MAT-18, for the script's time: its 12
+# solo runs, trace on, are checked, and R-MAT-18 took the script past
+# 1,200 s on a slow host): SERVE_CONT_QUERIES queries through
+# SERVE_CONT_WIDTH lanes, Poisson arrivals SERVE_CONT_GAP modelled cycles
+# apart, the trace on (a ring that holds every round of a query).  (c)
+# The twin on R-MAT-10 over 16 tiles, B = 3 (two sources and a padding
+# lane): "torch" against "kernels", fused and unfused, ideal and mesh at
+# link_cap 2, BFS and SSSP; and BFS with the shard streamed, unfused.  The
+# mesh runs take R-MAT-FABRIC_SCALE, as the twin's fabric runs do (a
+# capped link takes a round for every few messages): cut for the
+# script's time.
+SERVE_B, SERVE_RANDOM = 8, 5
+SERVE_CHECK_ROUNDS = 300
+SERVE_PROFILE_AT, SERVE_PROFILE_ROUNDS = 300, 20
+SERVE_CONT_SCALE, SERVE_CONT_QUERIES, SERVE_CONT_WIDTH = 17, 12, 4
+SERVE_CONT_GAP = 2e4
+SERVE_CONT_CFG = dataclasses.replace(MAIN_FUSED, trace=True,
+                                     trace_rounds=8192)
+SERVE_TWIN_SCALE, SERVE_TWIN_T = 10, 16
+SERVE_TWIN_FABRICS = {"ideal": (SERVE_TWIN_SCALE, {}),
+                      "mesh": (FABRIC_SCALE, dict(noc="mesh", link_cap=2))}
+# the lane-axis scans timed at SERVE_B lanes of the R-MAT-22 shard
+SERVE_SCAN_R = MAIN_T * MAIN_CFG.cap_route_range
 BLOCK_SCALE, BLOCK_B, BLOCK_T = 14, 128, 16
 # the knobs of the reference's block-ELL test (tests/test_kernels.py:75)
 TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -386,7 +442,7 @@ TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
                   max_rounds=20000)
 SEG_CAP = 4096        # updates per bin and round of the binned scatter
 SEG_EDGE_B = 2050     # b of the column-range edge case: G = 5, b % 4 == 2
-PR_SCALE, PR_ITERS = 18, 5
+PR_SCALE, PR_ITERS = 18, 3
 # the unfused R-MAT-18 BFS round whose two queue_push_pop turns are timed
 # at the engine's operands (of about 1,000 rounds)
 R18_TURN_ROUND = 500
@@ -943,9 +999,10 @@ def scan_bounds(args, out, max_t2) -> dict:
     j = torch.arange(max_t2, device=dev, dtype=torch.int32)
     live = j < length[:, :, None]
     eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
-    words = sum(int(torch.unique(eidx[t]).numel()) for t in range(T))
-    live_words = sum(int(torch.unique(eidx[t][live[t]]).numel())
-                     for t in range(T))
+    words = shard_words(eidx, T)
+    # a live lane's word, or -1 (one extra "word" a shard row at most)
+    live_words = shard_words(torch.where(live, eidx, -1), T) - sum(
+        int(bool((~live[t::T]).any())) for t in range(T))
     n_live = int(live.sum())
     rows = nbytes(start, stop, rv)
     return dict(
@@ -960,12 +1017,16 @@ def scan_library(args, max_t2):
     word pairs at every lane's clamped index (no jvalid)."""
     ed, ev, start, stop, rv = args
     T, e_chunk = ed.shape
+    lanes = start.shape[0] // T
     local0 = torch.where(rv, start % e_chunk, 0)
     j = torch.arange(max_t2, device=ed.device, dtype=torch.int32)
     eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
     pairs = torch.stack([ed, ev.view(torch.int32)], dim=-1)
-    gidx = eidx.reshape(T, -1, 1).expand(-1, -1, 2).to(torch.int64)
-    return lambda: torch.gather(pairs, 1, gidx)
+    # the serving lanes' rows gather from the one shard (a view)
+    pairs = pairs[None].expand((lanes,) + tuple(pairs.shape))
+    gidx = eidx.reshape(lanes, T, -1, 1).expand(-1, -1, -1, 2) \
+        .to(torch.int64)
+    return lambda: torch.gather(pairs, 2, gidx)
 
 
 def scan_record(label, args, max_t2, timer, *window) -> dict:
@@ -976,6 +1037,7 @@ def scan_record(label, args, max_t2, timer, *window) -> dict:
     out = scan_call(scan, args, max_t2, *window)
     T, e_chunk = args[0].shape
     rec = dict(call=label, shape=[T, e_chunk, args[2].shape[1], max_t2],
+               lanes=args[2].shape[0] // T,
                max_abs_err=0.0,
                ms=timer.ms(lambda: scan(*args, max_t2, *window)),
                plain_ms=timer.ms(lambda: plain(*args, max_t2, *window)),
@@ -985,7 +1047,7 @@ def scan_record(label, args, max_t2, timer, *window) -> dict:
     if window:  # what the staged windows of the earlier design read
         rec["staged_bound_ms"] = bound_ms(
             nbytes(*args[2:], *out)
-            + 8 * stream_words(args[2], args[4], e_chunk, *window))
+            + 8 * stream_words(args[2], args[4], e_chunk, *window, T))
     return rec
 
 
@@ -1007,15 +1069,23 @@ def check_edge_scan_gather(rng, dev, timer):
         for label, e_chunk in SCAN_SHAPES.items()])
 
 
-def stream_words(start, rv, e_chunk, window):
+def shard_words(idx, shard_T=None) -> int:
+    """Distinct shard words of (rows, ...) indices, each row reading shard
+    row ``row % shard_T`` (the serving lanes' rows share one shard;
+    ``shard_T`` None: one row a shard row)."""
+    shard_T = shard_T or idx.shape[0]
+    return sum(int(torch.unique(idx[t::shard_T]).numel())
+               for t in range(shard_T))
+
+
+def stream_words(start, rv, e_chunk, window, shard_T=None):
     """Distinct shard words the staged windows of these messages cover:
     what the earlier, staging design of the streamed T2 read."""
     local0 = torch.where(rv, start % e_chunk, 0)
     base = torch.div(local0, window, rounding_mode="floor") * window
     k = torch.arange(2 * window, device=start.device, dtype=torch.int32)
     sidx = torch.clamp(base[:, :, None] + k, max=e_chunk - 1)
-    return sum(int(torch.unique(sidx[t]).numel())
-               for t in range(start.shape[0]))
+    return shard_words(sidx, shard_T)
 
 
 def check_edge_scan_stream(rng, dev, timer):
@@ -1468,16 +1538,16 @@ def leg_index(name: str) -> int:
     return int(name[-1])
 
 
-def scan_words(recv, rv, e_chunk, tmpl) -> int:
+def scan_words(recv, rv, e_chunk, tmpl, shard_T) -> int:
     """Distinct shard words the T2 lanes of these messages read: the
-    staged windows when streamed, else the clamped lane indices."""
+    staged windows when streamed, else the clamped lane indices (rows of
+    serving lanes that share a shard row counted once)."""
     if tmpl.window:
-        return stream_words(recv[..., 0], rv, e_chunk, tmpl.window)
+        return stream_words(recv[..., 0], rv, e_chunk, tmpl.window, shard_T)
     local0 = torch.where(rv, recv[..., 0] % e_chunk, 0)
     j = torch.arange(tmpl.max_t2, device=rv.device, dtype=torch.int32)
     eidx = torch.clamp(local0[:, :, None] + j, max=e_chunk - 1)
-    return sum(int(torch.unique(eidx[t]).numel())
-               for t in range(eidx.shape[0]))
+    return shard_words(eidx, shard_T)
 
 
 def leg_bytes(name: str, tmpl, ops, out, whole=False) -> int:
@@ -1525,7 +1595,7 @@ def leg_bytes(name: str, tmpl, ops, out, whole=False) -> int:
         word = 8 if tmpl.emit in ("plus_w", "times_w") and \
             name == "fused_leg1" else 4
         return moved + word * scan_words(recv, rv, sh.edge_dst.shape[1],
-                                         tmpl)
+                                         tmpl, sh.edge_dst.shape[0])
     if name == "fused_tri_leg2":
         return moved + 8 * int(rv.sum())
     if name == "fused_tri_leg4":
@@ -2250,9 +2320,10 @@ def phase_main(dev, smi, timer, with_hbm):
     log(f"# BFS oracle: {time.perf_counter() - t0:.1f} s, "
         f"{int(np.isfinite(oracle).sum())} reachable vertices")
     paths = {}
-    bfs, paths["BFS"], _ = drive(
+    bfs, paths["BFS"], wall = drive(
         lambda: alg.bfs(pg, MAIN_ROOT, MAIN_FUSED), smi,
         f"BFS R-MAT-{MAIN_SCALE} (fused)", FUSED_ROUND)
+    bfs.wall_ms = 1e3 * wall / int(bfs.stats.rounds)
     np.testing.assert_array_equal(bfs.values, oracle)
     log("# main path BFS: hop counts equal to the oracle")
 
@@ -2276,11 +2347,10 @@ def phase_main(dev, smi, timer, with_hbm):
         calls += legs_at_main_shapes(label, run, cfg, timer)
     scans = []
     if with_hbm:
-        paths["BFS-hbm"], scans = phase_hbm(pg, oracle, bfs.stats, smi,
-                                            timer)
+        paths["BFS-hbm"], scans = phase_hbm(pg, smi, timer)
         calls += legs_at_main_shapes(
             "BFS-hbm", lambda c: alg.bfs(pg, MAIN_ROOT, c), HBM_CFG, timer)
-    return paths, calls, scans
+    return paths, calls, scans, (g, pg, bfs)
 
 
 @contextlib.contextmanager
@@ -2334,13 +2404,16 @@ def scan_at(kept, label, timer, smi) -> dict:
 
 
 # the round of the fused streamed BFS on R-MAT-22 whose leg-1 operands the
-# streamed scan is checked and timed at (of 20,545 rounds)
-HBM_SCAN_ROUND = 3000
+# streamed scan is checked and timed at (of 20,545 rounds); the streamed
+# run stops after HBM_ROUNDS rounds, held to a resident run of the same
+# depth (cut from the whole run for the script's time, PERF.md §4)
+HBM_SCAN_ROUND, HBM_ROUNDS = 1000, 1100
 
 
-def phase_hbm(pg, oracle, vmem_stats, smi, timer):
+def phase_hbm(pg, smi, timer):
     """Fused BFS on the main partition with the edge shard streamed and the
-    tile's scratchpad budget under the resident footprint; then
+    tile's scratchpad budget under the resident footprint, HBM_ROUNDS
+    rounds, against a resident run of the same depth; then
     edge_scan_stream at the operands of one of its leg-1 calls."""
     prog = as_program(BFS)
 
@@ -2361,20 +2434,26 @@ def phase_hbm(pg, oracle, vmem_stats, smi, timer):
     else:
         raise AssertionError("edge_space='vmem' ran over its budget")
     kept = []
+    depth = dict(max_rounds=HBM_ROUNDS)
     with scan_operands(HBM_SCAN_ROUND, kept, "fused_leg1"):
-        res, launches, _ = drive(lambda: alg.bfs(pg, MAIN_ROOT, HBM_CFG),
-                                 smi, f"BFS R-MAT-{MAIN_SCALE} (fused, hbm)",
-                                 FUSED_ROUND)
-    np.testing.assert_array_equal(res.values, oracle)
+        res, launches, _ = drive(
+            lambda: alg.bfs(pg, MAIN_ROOT, dataclasses.replace(HBM_CFG,
+                                                               **depth)),
+            smi, f"BFS R-MAT-{MAIN_SCALE} (fused, hbm, {HBM_ROUNDS} rounds)",
+            FUSED_ROUND)
+    vmem = alg.bfs(pg, MAIN_ROOT, dataclasses.replace(MAIN_FUSED, **depth))
+    np.testing.assert_array_equal(res.values, vmem.values)
     st = res.stats
+    assert int(st.rounds) == HBM_ROUNDS
     for f in ("rounds", "msgs", "spills", "edges_scanned",
-              "updates_applied"):
-        assert torch.equal(getattr(st, f), getattr(vmem_stats, f)), f
+              "updates_applied", "drops", "flits_per_link"):
+        assert torch.equal(getattr(st, f), getattr(vmem.stats, f)), f
     window = 128  # resolve_window(0, max_t2 = 32)
     assert int(st.hbm_windows) > 0
     assert int(st.hbm_edges) == window * int(st.hbm_windows)
-    log(f"# hbm phase: hop counts equal to the oracle; rounds, msgs, "
-        f"spills, edges and updates equal the resident fused run's; "
+    log(f"# hbm phase: after {HBM_ROUNDS} rounds the values, rounds, msgs, "
+        f"spills, edges, updates, drops and link flits equal a resident "
+        f"fused run's of the same depth; "
         f"hbm_windows {int(st.hbm_windows)}, hbm_edges "
         f"{int(st.hbm_edges)}")
     assert kept and kept[0][2] == window, kept[0][1:] if kept else None
@@ -2659,6 +2738,302 @@ def phase_noc(dev, smi, timer):
                               drops_stress=int(a.stats.drops), **{
                                   f"{k}_{m}": v for k, p in prof.items()
                                   for m, v in p.items()})
+
+
+# --------------------------------------------------------------------------
+# Phase serve: query lanes
+# --------------------------------------------------------------------------
+
+def serve_sources(g, seed, n, extra=()):
+    """``n`` distinct sources drawn from ``seed`` among the vertices with
+    out-edges (``extra`` excluded)."""
+    deg = g.ptr[1:] - g.ptr[:-1]
+    pool = np.setdiff1d(np.flatnonzero(deg > 0), np.asarray(extra, int))
+    return [int(s) for s in np.random.default_rng(seed).choice(
+        pool, size=n, replace=False)]
+
+
+def assert_lane_is(res, lane, values, stats, where):
+    """Lane ``lane`` of a BatchResult: values and every Stats field,
+    launches included, bitwise those given (a solo run's, or a lane's)."""
+    np.testing.assert_array_equal(res.values[lane], values, err_msg=where)
+    for f, a, b in zip(stats._fields, res.stats, stats):
+        assert_bitwise(a[lane], b, f"{where}: Stats.{f}")
+
+
+def lane_profile(pg, cfg, sources, at: int, n: int) -> dict:
+    """Device ms a shared round of rounds ``at .. at + n - 1`` of the
+    batch (torch.profiler; the rounds before run unprofiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    from tools.port_round_profile import device_us
+    prog = as_program(BFS)
+    shard = E.GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
+    value, frontier = SERVE.batch_min_state(pg, sources)
+    carry = SERVE.local_lanes_call(
+        prog, dataclasses.replace(cfg, max_rounds=at), pg.T, pg.e_chunk,
+        pg.v_chunk, shard, value, frontier)
+    assert carry.rounds == at and bool((carry.pending > 0).any())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        carry = SERVE.local_lanes_segment(
+            prog, dataclasses.replace(cfg, max_rounds=at + n), pg.T,
+            pg.e_chunk, pg.v_chunk, shard, carry, stop_on_finish=False)
+    assert carry.rounds == at + n
+    total, _, counts = device_us(prof)
+    return dict(device_ms=total / 1e3 / n, kernels=counts["kernels"] / n,
+                aten_ops=counts["aten_ops"] / n)
+
+
+def serve_static(g, pg, solo, smi, timer, seed):
+    """(a): SERVE_B BFS lanes on the main path.  Lane 0 is the solo main
+    run bitwise (launches included), lane SERVE_B - 2 lane 0's, every lane
+    the oracle's; no drops; each fused leg launched once a shared round
+    for the whole batch; the legs held against their plain stages and
+    timed at these shapes; queries/s, wall and device ms a shared round,
+    peak memory."""
+    sources = ([MAIN_ROOT] + serve_sources(g, seed, SERVE_RANDOM,
+                                           [MAIN_ROOT]) + [MAIN_ROOT, -1])
+    assert len(sources) == SERVE_B
+    what = (f"serve (a) BFS R-MAT-{MAIN_SCALE} B={SERVE_B} lanes "
+            f"{sources} (fused)")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = SERVE.multi_source(pg, "bfs", sources, MAIN_FUSED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    st = res.stats
+    lane_rounds = st.rounds.tolist()
+    rounds = res.total_rounds
+    assert rounds == max(lane_rounds), (rounds, lane_rounds)
+    assert st.drops.tolist() == [0] * SERVE_B, st.drops.tolist()
+    assert st.launches.tolist() == [3 * r for r in lane_rounds]
+    want = dict.fromkeys(launches, 0)
+    want.update({k: n * rounds for k, n in FUSED_ROUND.items()})
+    assert launches == want, (launches, want)
+    assert_lane_is(res, 0, solo.values, solo.stats,
+                   f"{what}: lane 0 against the solo main run")
+    last = SERVE_B - 2
+    assert_lane_is(res, last, res.values[0],
+                   E.Stats(*(x[0] for x in st)), f"{what}: lane {last}")
+    pad = SERVE_B - 1
+    assert np.isinf(res.values[pad]).all() and lane_rounds[pad] == 0
+    assert int(res.done_round[pad]) == 0
+    t_or = time.perf_counter()
+    for lane, s in enumerate(sources[1:last], start=1):
+        np.testing.assert_array_equal(res.values[lane], ref.bfs_ref(g, s),
+                                      err_msg=f"{what}: lane {lane}")
+    t_or = time.perf_counter() - t_or
+    queries = SERVE_B - 1
+    solo_ms = solo.wall_ms
+    log(f"# path {what}: every lane equal to its oracle (the {last - 1} "
+        f"drawn in {t_or:.1f} s), lane 0 bitwise the solo main run (every "
+        f"Stats field, launches included), lane {last} bitwise lane 0, "
+        f"padding lane born finished; drops 0; shared rounds {rounds} "
+        f"(lane rounds {lane_rounds}; sequential {res.seq_rounds}, "
+        f"{res.seq_rounds / rounds:.3f} x); each leg kernel launched once a "
+        f"shared round ({ {k: v for k, v in launches.items() if v} }); "
+        f"wall {wall:.3f} s, {queries / wall:.4f} queries/s, "
+        f"{1e3 * wall / rounds:.3f} ms a shared round (solo main BFS "
+        f"{solo_ms:.3f} ms a round); peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; card {smi}")
+    prof = lane_profile(pg, MAIN_FUSED, sources, SERVE_PROFILE_AT,
+                        SERVE_PROFILE_ROUNDS)
+    assert prof["device_ms"] > 0, f"the profiler saw no device time: {prof}"
+    solo_prof = round_profile(pg, MAIN_FUSED, SERVE_PROFILE_AT,
+                              SERVE_PROFILE_ROUNDS)
+    log(f"# serve (a) profile (rounds {SERVE_PROFILE_AT}.."
+        f"{SERVE_PROFILE_AT + SERVE_PROFILE_ROUNDS - 1}): device "
+        f"{prof['device_ms']:.3f} ms a shared round of {SERVE_B} lanes, "
+        f"{prof['kernels']:.1f} kernels and {prof['aten_ops']:.1f} PyTorch "
+        f"operators a round; solo main BFS {solo_prof['device_ms']:.3f} ms, "
+        f"{solo_prof['kernels']:.1f} kernels, {solo_prof['aten_ops']:.1f} "
+        f"operators; card {smi}")
+    with FusedCheck(f"R-MAT-{MAIN_SCALE} B={SERVE_B} lanes",
+                    period=50) as chk:
+        SERVE.multi_source(pg, "bfs", sources, dataclasses.replace(
+            MAIN_FUSED, max_rounds=SERVE_CHECK_ROUNDS))
+    chk.report()
+    assert {"fused_leg1: spills", "fused_leg2: spills"} <= chk.cover, \
+        chk.cover
+    calls = time_legs(chk, timer, f"serve B={SERVE_B} round "
+                      f"<= {SERVE_CHECK_ROUNDS}")
+    return launches, calls, dict(
+        queries=queries, wall_s=wall, qps=queries / wall, rounds=rounds,
+        seq_rounds=res.seq_rounds, lane_rounds=lane_rounds,
+        wall_ms=1e3 * wall / rounds, solo_wall_ms=solo_ms,
+        device_ms=prof["device_ms"], solo_device_ms=solo_prof["device_ms"],
+        peak_gib=peak / 2 ** 30)
+
+
+def serve_continuous(dev, smi, seed):
+    """(b): the continuous front end on R-MAT-SERVE_CONT_SCALE with the
+    trace on: every record its oracle's, its solo run's rounds, edges,
+    values and ring (bitwise, launches included); no drops; each leg
+    launched once a shared round."""
+    g = rmat_graph(SERVE_CONT_SCALE)
+    pg = alg.prepare(g, MAIN_T, "low_order", device=dev)
+    srcs = serve_sources(g, seed + 1, SERVE_CONT_QUERIES)
+    fe = SERVE.Frontend(pg, app="bfs", cfg=SERVE_CONT_CFG,
+                        width=SERVE_CONT_WIDTH, policy="continuous")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = fe.serve(srcs, arrival="poisson", gap=SERVE_CONT_GAP, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update({k: rep.total_rounds for k in FUSED_ROUND})
+    assert launches == want, (launches, want)
+    assert rep.drops == 0 and len(rep.records) == SERVE_CONT_QUERIES
+    assert rep.batches > 1 and rep.total_rounds < rep.seq_rounds
+    for rec in rep.records:
+        where = f"serve (b) query {rec.qid} (source {rec.source})"
+        np.testing.assert_array_equal(rec.values, ref.bfs_ref(g, rec.source),
+                                      err_msg=where)
+        solo = alg.bfs(pg, rec.source, SERVE_CONT_CFG)
+        np.testing.assert_array_equal(rec.values, solo.values, err_msg=where)
+        assert (rec.rounds, rec.edges) == (int(solo.stats.rounds),
+                                           int(solo.stats.edges_scanned))
+        assert int(rec.trace.cursor) == solo.trace.cursor, where
+        for f in rec.trace._fields[1:]:
+            assert_bitwise(getattr(rec.trace, f), getattr(solo.trace, f),
+                           f"{where}: ring {f}")
+    row = rep.row()
+    log(f"# path serve (b) continuous R-MAT-{SERVE_CONT_SCALE} "
+        f"(V={g.num_vertices}), {SERVE_CONT_QUERIES} queries through "
+        f"{SERVE_CONT_WIDTH} lanes, Poisson gap {SERVE_CONT_GAP:g} cycles, "
+        f"trace on: every record equal to its oracle and to its solo run "
+        f"(rounds, edges, values, ring bitwise); drops 0; {row}; shared "
+        f"rounds {rep.total_rounds} against {rep.seq_rounds} sequential; "
+        f"wall {wall:.3f} s ({SERVE_CONT_QUERIES / wall:.4f} queries/s, "
+        f"{1e3 * wall / rep.total_rounds:.3f} ms a shared round); card "
+        f"{smi}")
+    return launches, dict(wall_s=wall, rounds=rep.total_rounds,
+                          seq_rounds=rep.seq_rounds, row=row)
+
+
+def serve_twin(dev):
+    """(c): multi_source on "torch" against "kernels" at B = 3, fused
+    (every leg call held against its plain stage) and unfused (every scan
+    call against its plain version), ideal and mesh (link_cap 2), BFS and
+    SSSP, and BFS streamed unfused: values and lane-led Stats bitwise but
+    launches, values against the oracles, no drops.  Returns the launches
+    of the kernels' runs."""
+    oracles = {"bfs": ref.bfs_ref, "sssp": ref.sssp_ref}
+    parts = {}
+    for fabric, (scale, _) in SERVE_TWIN_FABRICS.items():
+        g = rmat_graph(scale)
+        root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+        parts[fabric] = (g, alg.prepare(g, SERVE_TWIN_T, "low_order",
+                                        device=dev),
+                         [root, serve_sources(g, 0, 1, [root])[0], -1])
+    runs = [(app, fabric, fuse, "vmem") for app in ("bfs", "sssp")
+            for fabric in SERVE_TWIN_FABRICS for fuse in (True, False)]
+    runs.append(("bfs", "ideal", False, "hbm"))
+    reset_launches()
+    seen, cover, wants = {}, set(), {}
+    t0 = time.perf_counter()
+    for app, fabric, fuse, space in runs:
+        g, pg, sources = parts[fabric]
+        scale, knobs = SERVE_TWIN_FABRICS[fabric]
+        base = EngineConfig(edge_space=space, **knobs)
+        where = (f"serve (c) {app} R-MAT-{scale} {fabric} {space} "
+                 f"{'fused' if fuse else 'unfused'} lanes {sources}")
+        # the "torch" run ignores fuse: one a configuration serves both
+        if (app, fabric, space) not in wants:
+            wants[app, fabric, space] = SERVE.multi_source(
+                pg, app, sources, dataclasses.replace(base, backend="torch"))
+        want = wants[app, fabric, space]
+        cfg = dataclasses.replace(base, fuse=fuse)
+        if fuse:
+            with FusedCheck(where, every=True) as chk:
+                got = SERVE.multi_source(pg, app, sources, cfg)
+            cover |= set(chk.checked)
+        else:
+            with scan_check(seen):
+                got = SERVE.multi_source(pg, app, sources, cfg)
+        np.testing.assert_array_equal(want.values, got.values,
+                                      err_msg=where)
+        assert_stats_equal(want.stats, got.stats, where)
+        per_round = 3 if fuse else 5
+        assert got.stats.launches.tolist() == [
+            per_round * r for r in got.stats.rounds.tolist()], where
+        assert int(got.stats.drops.sum()) == 0, where
+        assert int(got.stats.rounds[2]) == 0, where
+        for lane in (0, 1):
+            check_values(got.values[lane],
+                         oracles[app](g, sources[lane]),
+                         None if app == "bfs" else dict(rtol=1e-5, atol=0.0),
+                         f"{where} lane {lane}")
+        if fabric == "mesh":
+            assert int(got.stats.spills.sum()) > 0, where
+    assert cover == set(FUSED_ROUND), cover
+    assert set(seen) == {"edge_scan_gather", "edge_scan_stream"}, seen
+    log(f"# serve (c) twin (T={SERVE_TWIN_T}, B=3 with a padding lane): "
+        f"{len(runs)} configurations, torch == kernels "
+        f"bitwise (values and lane-led Stats but launches), every lane "
+        f"equal to its oracle; fused legs {sorted(cover)} held against "
+        f"their plain stages at every call, scans {seen} by scan_contract "
+        f"(the lane-axis kernels at B = 3); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return read_launches()
+
+
+def lane_scan_inputs(rng, lanes, T, e_chunk, R, max_t2, dev):
+    """A scan's operands for ``lanes`` serving lanes over one shard:
+    :func:`scan_inputs`' shard of T rows, and messages of lanes * T rows
+    drawn as its messages are."""
+    shard = scan_inputs(rng, T, e_chunk, 1, max_t2, dev)[:2]
+    rows = lanes * T
+    start = rng.integers(0, T * e_chunk, (rows, R)).astype(np.int32)
+    stop = start + rng.integers(0, max_t2 + 1, (rows, R)).astype(np.int32)
+    rv = rng.random((rows, R)) < 0.5
+    start = np.where(rv | (rng.random((rows, R)) < 0.5), start, -1)
+    return [*shard, *(rng_tensor(rng, a, dev) for a in (
+        start.astype(np.int32), stop.astype(np.int32), rv))]
+
+
+def serve_scans(dev, timer):
+    """The two scans at SERVE_B lanes of the R-MAT-22 shard: checked by
+    scan_contract and timed beside their plain versions and the library
+    gather, with their bounds."""
+    rng = np.random.default_rng(SERVE_B)
+    max_t2 = MAIN_CFG.max_t2
+    args = lane_scan_inputs(rng, SERVE_B, MAIN_T, MAIN_E_CHUNK,
+                            SERVE_SCAN_R, max_t2, dev)
+    label = f"B={SERVE_B} lanes, R-MAT-22 partition"
+    return {"edge_scan_gather": scan_record(label, args, max_t2, timer),
+            "edge_scan_stream": scan_record(f"window 128, {label}", args,
+                                            max_t2, timer, 128)}
+
+
+def phase_serve(dev, smi, timer, seed, main_run=None):
+    """Query lanes: (a) SERVE_B BFS lanes on the main path, (b) the
+    continuous front end, (c) the twin and the lane-axis kernels against
+    their plain versions at B = 3, and the scans timed at SERVE_B lanes.
+    ``main_run``: the main phase's (graph, partition, solo BFS), else
+    built and run here."""
+    if main_run is None:
+        g, pg = build_graph(MAIN_SCALE, MAIN_T, dev)
+        solo, _, wall = drive(lambda: alg.bfs(pg, MAIN_ROOT, MAIN_FUSED),
+                              smi, f"BFS R-MAT-{MAIN_SCALE} (fused)",
+                              FUSED_ROUND)
+        solo.wall_ms = 1e3 * wall / int(solo.stats.rounds)
+    else:
+        g, pg, solo = main_run
+    paths = {}
+    paths["serve twin"] = serve_twin(dev)
+    scans = serve_scans(dev, timer)
+    paths["serve static"], calls, stat = serve_static(g, pg, solo, smi,
+                                                      timer, seed)
+    paths["serve continuous"], cont = serve_continuous(dev, smi, seed)
+    return paths, calls, scans, dict(static=stat, continuous=cont)
 
 
 KCORE_ROUND = {"fused_leg0": 1, "fused_leg1": 1, "fused_kcore_leg2": 1}
@@ -3737,7 +4112,17 @@ def phase_zamba(dev, smi, timer):
 
 
 PHASES = ("kernels", "twin", "main", "hbm", "noc", "taskgraph", "block",
-          "rmat18", "lm", "rwkv", "zamba")
+          "rmat18", "serve", "lm", "rwkv", "zamba")
+SPENT = {}  # phase: wall seconds
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its wall time logged and kept in SPENT."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    SPENT[name] = time.perf_counter() - t0
+    log(f"# phase {name}: {SPENT[name]:.1f} s")
+    return out
 
 
 def main():
@@ -3746,6 +4131,8 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)} "
                          f"(default: all; hbm runs with main)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serving phase's drawn sources")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if phases - set(PHASES):
@@ -3753,25 +4140,37 @@ def main():
     smi, hgmma = phase_device()
     dev = torch.device("cuda", 0)
     timer = Timer(dev)
-    rows = phase_kernels(dev, timer) if "kernels" in phases else {}
+    rows = timed("kernels", phase_kernels, dev, timer) \
+        if "kernels" in phases else {}
     if "twin" in phases:
-        phase_twin(dev)
+        timed("twin", phase_twin, dev)
     paths, calls = [], []
+    main_run = None
     if "main" in phases:
-        main_paths, main_calls, scans = phase_main(dev, smi, timer,
-                                                   "hbm" in phases)
+        main_paths, main_calls, scans, main_run = timed(
+            "main", phase_main, dev, smi, timer, "hbm" in phases)
         paths += main_paths.values()
         calls += main_calls
         if "edge_scan_stream" in rows:
             rows["edge_scan_stream"]["calls"] += scans
     if "noc" in phases:
-        noc_paths, noc_calls, _ = phase_noc(dev, smi, timer)
+        noc_paths, noc_calls, _ = timed("noc", phase_noc, dev, smi, timer)
         paths += noc_paths.values()
         calls += noc_calls
     if "taskgraph" in phases:
-        task_paths, task_calls = phase_taskgraph(dev, smi, timer)
+        task_paths, task_calls = timed("taskgraph", phase_taskgraph, dev,
+                                       smi, timer)
         paths += task_paths.values()
         calls += task_calls
+    if "serve" in phases:
+        serve_paths, serve_calls, lane_scans, _ = timed(
+            "serve", phase_serve, dev, smi, timer, args.seed, main_run)
+        main_run = None
+        paths += serve_paths.values()
+        calls += serve_calls
+        for name, rec in lane_scans.items():
+            if name in rows:
+                rows[name]["calls"].append(rec)
     for k in F.KERNELS:
         mine = [c for c in calls if c["kernel"] == k.__name__]
         if mine:
@@ -3780,9 +4179,10 @@ def main():
                 max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], library_ms=None, calls=mine)
     if "block" in phases:
-        paths.append(phase_block(dev, smi))
+        paths.append(timed("block", phase_block, dev, smi))
     if "rmat18" in phases:
-        r18_paths, turns, scans = phase_rmat18(dev, smi, timer)
+        r18_paths, turns, scans = timed("rmat18", phase_rmat18, dev, smi,
+                                        timer)
         paths += r18_paths.values()
         if "queue_push_pop" in rows:
             rows["queue_push_pop"]["calls"] += turns
@@ -3790,14 +4190,16 @@ def main():
             if name in rows:
                 rows[name]["calls"].append(rec)
     if "lm" in phases:
-        rows["flash_attention"], lm_paths = phase_lm(dev, smi, timer)
+        rows["flash_attention"], lm_paths = timed("lm", phase_lm, dev, smi,
+                                                  timer)
         paths += lm_paths
     if "rwkv" in phases:
-        rows["wkv6_kernel"], rwkv_paths = phase_rwkv(dev, smi, timer)
+        rows["wkv6_kernel"], rwkv_paths = timed("rwkv", phase_rwkv, dev,
+                                                smi, timer)
         paths += rwkv_paths
     if "zamba" in phases:
-        rows["ssd_kernel"], flash80, zamba_paths = phase_zamba(dev, smi,
-                                                               timer)
+        rows["ssd_kernel"], flash80, zamba_paths = timed(
+            "zamba", phase_zamba, dev, smi, timer)
         if "flash_attention" in rows:   # hd 64 (granite) and hd 80 (zamba2)
             rows["flash_attention"]["hd80"] = flash80
         else:

@@ -45,8 +45,17 @@ streamed windows (``Stats.hbm_windows`` / ``hbm_edges``, ``t_hbm`` /
 With ``cfg.trace`` each round (every ``trace_every``-th) also writes a
 slot of the flight recorder's ring (:mod:`repro_torch.trace`), which
 :func:`run_engine` returns; recording reads what the round computed and
-adds no host sync.  ``adapt`` (adaptive placement) is still to port and
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+adds no host sync.
+
+Over a :class:`~repro_torch.core.comm.LaneComm` the same round runs B
+query lanes at once (:mod:`repro_torch.serve`): the state has B * T
+lane-major rows over one shared ``(T, ...)`` shard, each leg is still
+one launch for the whole batch, and the Stats are lane-led ``(B, ...)``.
+:func:`lane_select` and :func:`keep_frozen` freeze the lanes that have
+finished.
+
+``adapt`` (adaptive placement) is still to port and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -69,7 +78,8 @@ from repro_torch.noc import make_network
 from repro_torch.noc.topology import N_LINK_CLASSES
 from repro_torch.perf import (PerfParams, link_cost_vectors,
                               round_energy_pj, tile_compute_cycles)
-from repro_torch.trace.buffer import on_cadence, record_round, zero_trace
+from repro_torch.trace.buffer import (on_cadence, record_lanes,
+                                      record_round, zero_trace)
 
 I32, F32 = torch.int32, torch.float32
 
@@ -253,11 +263,46 @@ def _budgets(cfg: EngineConfig, prog: Program, qcaps, pops, st: EngineState,
 
 def pending_work(me, st: EngineState) -> torch.Tensor:
     """Per-tile pending work (frontier population + queue occupancies),
-    the local contribution to the paper's hierarchical idle wire."""
+    the local contribution to the paper's hierarchical idle wire; the
+    serving lanes take each query's idle signal from it too."""
     p = st.frontier.sum(dim=1, dtype=I32)
     for q in st.queues:
         p = p + q.count
     return p
+
+
+def lane_select(active: torch.Tensor, old, new):
+    """Per-lane select over matching lane-led tuples of tensors: ``new``
+    where the lane is ``active`` ((B,) bool), ``old`` where it is frozen,
+    so a finished query's Stats and Kahan compensation stop evolving the
+    round its pending work reaches zero, as its solo run's loop stops."""
+    def sel(o, n):
+        return torch.where(active.reshape(active.shape + (1,) * (n.ndim - 1)),
+                           n, o)
+    out = [sel(o, n) for o, n in zip(old, new)]
+    return type(new)(*out) if hasattr(new, "_fields") else tuple(out)
+
+
+def keep_frozen(rows: torch.Tensor, old: EngineState,
+                new: EngineState) -> EngineState:
+    """``new`` with the frozen lanes' ``rows`` (int64 indices of the B * T
+    lane-major rows) of ``old`` copied back into its vertex slices, queue
+    counts and pressure, in place.  A frozen lane has no pending work, so
+    its round moved nothing and these hold what they held; the copy makes
+    that so whatever the round computed.  Its queues' storage is not
+    copied: their counts are 0, so no slot of it is read.  The round's
+    outputs are new tensors (the fused legs append in place only onto a
+    queue that an earlier leg of the same round made); a field the round
+    passed through unchanged is ``old``'s own and is left alone."""
+    def keep(o, n):
+        if n is not o:
+            n.index_copy_(0, rows, o.index_select(0, rows))
+        return n
+    for f in ("value", "acc", "frontier", "next_frontier", "net_pressure"):
+        keep(getattr(old, f), getattr(new, f))
+    for qo, qn in zip(old.queues, new.queues):
+        keep(qo.count, qn.count)
+    return new
 
 
 def _set_queue(st: EngineState, i: int, q: Queue) -> EngineState:
@@ -298,11 +343,17 @@ def _check_ported(cfg: EngineConfig):
 def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
                e_chunk: int, v_chunk: int, shard: GraphShard):
     """Build the round function ``(state, stats, kahan_comp, tbuf=None,
-    r=0) -> (state, stats, kahan_comp, tbuf, pending)``; ``kahan_comp`` is
-    the (cycles, energy) float32 compensation pair of the perf model's
-    summation, ``tbuf`` the flight recorder's ring when ``cfg.trace`` (else
-    None, passed through) and ``r`` the host's index of the round, which
-    the ring's cadence reads."""
+    r=0, active=None) -> (state, stats, kahan_comp, tbuf, pending)``;
+    ``kahan_comp`` is the (cycles, energy) float32 compensation pair of
+    the perf model's summation, ``tbuf`` the flight recorder's ring when
+    ``cfg.trace`` (else None, passed through) and ``r`` the host's index
+    of the round, which the ring's cadence reads.
+
+    Over a :class:`~repro_torch.core.comm.LaneComm` the state holds
+    ``comm.rows`` lane-major rows, the Stats, compensation and pending
+    work come out lane-led, and a lane-led ring records on each lane's
+    own pre-round ``Stats.rounds`` where ``active`` ((B,) bool) holds, as
+    the solo ring records on its round index."""
     chans = prog.channels
     K = len(chans)
     backends = tuple(ch.resolve_backend(cfg) for ch in chans)
@@ -326,6 +377,7 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     t_hop, e_hop = link_cost_vectors(pp, net, comm.device)
     t_round = torch.tensor(pp.t_round, dtype=F32, device=comm.device)
     T = comm.size
+    n_rows = comm.rows  # T, or B * T lane-major rows
     tracing = cfg.trace
     if tracing:
         # (C, num_links) one-hot splitting per-link flits by cost class
@@ -373,9 +425,10 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
         else:
             if kernels:
                 w = q.data.shape[2]
-                none = torch.zeros((T, 1), dtype=torch.bool,
+                none = torch.zeros((n_rows, 1), dtype=torch.bool,
                                    device=comm.device)
-                pad = torch.zeros((T, 1, w), dtype=I32, device=comm.device)
+                pad = torch.zeros((n_rows, 1, w), dtype=I32,
+                                  device=comm.device)
                 replay, rvalid, qdata, qcount, _ = turn(
                     q.data, q.count, pad, none, pop_i.contiguous(), pops[i])
                 q = Queue(qdata, qcount)
@@ -383,9 +436,9 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
                 replay, rvalid, q = queue_take_front(q, pop_i, pops[i])
             msgs = torch.cat([replay, rows], dim=1)
             mvalid = torch.cat([rvalid, valid], dim=1)
-            drops = torch.zeros((T,), dtype=I32, device=comm.device)
+            drops = torch.zeros((n_rows,), dtype=I32, device=comm.device)
             npop = rvalid.sum(dim=1, dtype=I32)
-            npush = torch.zeros((T,), dtype=I32, device=comm.device)
+            npush = torch.zeros((n_rows,), dtype=I32, device=comm.device)
         return _set_queue(st, i, q), msgs, mvalid, drops, npop, npush
 
     def stage_first(me, sh, st):
@@ -438,8 +491,11 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     def tile_sum(v):
         return v.sum(dim=1, dtype=I32)
 
-    def rnd(st: EngineState, stats: Stats, kcomp, tbuf=None, r: int = 0):
-        recording = tracing and on_cadence(r, cfg.trace_every)
+    def rnd(st: EngineState, stats: Stats, kcomp, tbuf=None, r: int = 0,
+            active=None):
+        # a lane-led ring decides on the device, lane by lane
+        recording = tracing and (comm.lane_led
+                                 or on_cadence(r, cfg.trace_every))
         if recording:
             # the TSU's source grant, from the pre-round state leg 0
             # arbitrates on: taken now, as the fused legs append in place
@@ -508,10 +564,11 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             epochs = epochs + comm.to_global(do_swap)
             pending = pending + nxt
 
+        # globals: one copy, or one a lane (channels and links last)
         glob = comm.to_global
-        msgs_vec = torch.stack([glob(comm.psum(s)) for s in sents])
+        msgs_vec = torch.stack([glob(comm.psum(s)) for s in sents], dim=-1)
         spills_vec = torch.stack([glob(comm.psum(tile_sum(sv)))
-                                  for sv in spillv])
+                                  for sv in spillv], dim=-1)
         link_g = glob(link_round)
         edges_g = glob(comm.psum(edges))
         applied_g = glob(comm.psum(applied))
@@ -528,11 +585,12 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             pp, n_pop, n_push, n_replay, edges, applied,
             hbm_edges=hbm_win * window if streaming else None)
         cyc_round = (t_round + glob(comm.pmax(comp))
-                     + (link_g.to(F32) * t_hop).max())
+                     + (link_g.to(F32) * t_hop).amax(dim=-1))
         energy_round = round_energy_pj(
-            pp, T, edges_g, applied_g, msgs_vec.sum(dtype=I32),
-            spills_vec.sum(dtype=I32), link_g, e_hop, cyc_round,
+            pp, T, edges_g, applied_g, msgs_vec.sum(dim=-1, dtype=I32),
+            spills_vec.sum(dim=-1, dtype=I32), link_g, e_hop, cyc_round,
             hbm_edges_g=he_g if streaming else None)
+        rounds_in = stats.rounds  # a lane-led ring records on it
         cycles_acc, c_cyc = kahan_add(stats.cycles, kcomp[0], cyc_round)
         energy_acc, c_en = kahan_add(stats.energy_pj, kcomp[1],
                                      energy_round)
@@ -548,7 +606,7 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             work_max=stats.work_max + glob(comm.pmax(edges)),
             flits_per_link=stats.flits_per_link + link_g,
             max_link_occupancy=torch.maximum(stats.max_link_occupancy,
-                                             link_g.max()),
+                                             link_g.amax(dim=-1)),
             hop_histogram=stats.hop_histogram + glob(hop_round),
             die_crossings=stats.die_crossings + glob(die_round),
             cycles=cycles_acc,
@@ -566,26 +624,32 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
             # reads of the round's telemetry and reductions of it: nothing
             # here feeds back into the state or the Stats
             occ = torch.stack([q.count for q in st.queues], dim=1)
-            tbuf = record_round(tbuf, dict(
+            busy = glob(comm.all_gather(comp))  # (T,), lane-led (B, T)
+            row = dict(
                 cyc=cyc_round,
                 cyc_total=cycles_acc,
-                tile_busy=comp,
+                tile_busy=busy,
                 # the first maximum, as jnp.argmax picks it on ties
-                crit_tile=torch.where(comp == comp.max(), tile_ids,
-                                      T).min(),
+                crit_tile=torch.where(busy == busy.amax(-1, keepdim=True),
+                                      tile_ids, T).amin(-1),
                 msgs=msgs_vec,
                 spills=spills_vec,
-                qdepth=occ.sum(dim=0, dtype=I32),
-                qdepth_max=occ.amax(dim=0),
-                chan_budget=dyn_pops.sum(dim=0, dtype=I32),
-                src_budget=src_grant.sum(dtype=I32),
-                link_cls=(cls_onehot * link_g[None, :]).sum(dim=1,
-                                                            dtype=I32),
+                qdepth=glob(comm.psum(occ)),
+                qdepth_max=glob(comm.pmax(occ)),
+                chan_budget=glob(comm.psum(dyn_pops)),
+                src_budget=glob(comm.psum(src_grant)),
+                link_cls=(cls_onehot * link_g[..., None, :]).sum(
+                    dim=-1, dtype=I32),
                 launches=launch_tally.n,
                 hbm_windows=hw_g if streaming else 0,
-                frontier=st.frontier.sum(dtype=I32),
+                frontier=glob(comm.psum(tile_sum(st.frontier))),
                 pending=glob(pending),
-            ), r, cfg.trace_every)
+            )
+            if comm.lane_led:
+                tbuf = record_lanes(tbuf, row, rounds_in, active,
+                                    cfg.trace_every)
+            else:
+                tbuf = record_round(tbuf, row, r, cfg.trace_every)
         return st, stats, (c_cyc, c_en), tbuf, glob(pending)
 
     return rnd
@@ -593,10 +657,11 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
 
 def init_state(comm: LocalComm, cfg: EngineConfig, v_chunk: int, value,
                frontier, alg=BFS, acc=None) -> EngineState:
-    """value/frontier/acc: (T, v_chunk) tensors on the comm's device.
-    ``alg`` (AlgSpec or Program) fixes the channel queue shapes."""
+    """value/frontier/acc: (rows, v_chunk) tensors on the comm's device
+    (T rows, or B * T lane-major rows over a LaneComm).  ``alg`` (AlgSpec
+    or Program) fixes the channel queue shapes."""
     prog = as_program(alg)
-    T, dev = comm.size, comm.device
+    T, dev = comm.rows, comm.device
     if acc is None:
         acc = torch.zeros((T, v_chunk), dtype=F32, device=dev)
     return EngineState(

@@ -51,11 +51,13 @@ class CSRGraph:
         if val is None:
             val = np.ones(len(src), np.float32)
         if dedup and len(src):
+            # the unique keys come sorted by (src, dst): CSR order already
             key = src.astype(np.int64) * n + dst.astype(np.int64)
             _, idx = np.unique(key, return_index=True)
             src, dst, val = src[idx], dst[idx], val[idx]
-        order = np.lexsort((dst, src))
-        src, dst, val = src[order], dst[order], val[order]
+        else:
+            order = np.lexsort((dst, src))
+            src, dst, val = src[order], dst[order], val[order]
         counts = np.bincount(src, minlength=n)
         ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         return CSRGraph(ptr, dst.astype(np.int64), val.astype(np.float32))
@@ -244,18 +246,22 @@ def rmat_edges(scale: int, edge_factor: int = 10, a: float = 0.57,
     rng = np.random.default_rng(seed)
     n = 1 << scale
     m = n * edge_factor
-    src = np.zeros(m, np.int64)
-    dst = np.zeros(m, np.int64)
+    # ids built in int32 and widened once; the draws fill two reused
+    # buffers (the same stream as fresh arrays)
+    idt = np.int32 if scale < 31 else np.int64
+    src = np.zeros(m, idt)
+    dst = np.zeros(m, idt)
+    r1, r2 = np.empty(m), np.empty(m)
+    # conditional probability of the dst bit per src bit (quadrant)
+    p_dst = np.array([b / (a + b), (1 - (a + b + c)) / (1 - (a + b))])
     for bit in range(scale):
-        r1 = rng.random(m)
-        r2 = rng.random(m)
-        src_bit = (r1 > a + b).astype(np.int64)
-        # conditional probabilities per quadrant
-        p_dst = np.where(src_bit == 0, b / (a + b),
-                         (1 - (a + b + c)) / (1 - (a + b)))
-        dst_bit = (r2 < p_dst).astype(np.int64)
-        src |= src_bit << bit
-        dst |= dst_bit << bit
+        rng.random(m, out=r1)
+        rng.random(m, out=r2)
+        src_bit = r1 > a + b
+        dst_bit = r2 < p_dst[src_bit.view(np.uint8)]
+        src |= np.left_shift(src_bit, bit, dtype=idt)
+        dst |= np.left_shift(dst_bit, bit, dtype=idt)
+    src, dst = src.astype(np.int64), dst.astype(np.int64)
     if weights == "uniform":
         val = rng.uniform(1.0, 10.0, m).astype(np.float32)
     else:

@@ -15,7 +15,9 @@ threshold fold, and :data:`TRIANGLES` is the 4-channel 2-hop chain
 (range -> wedge -> second range -> intersection-count fold).
 
 Sources, transforms and handlers are batched per-tile stages: they take
-tile-led ``(T, ...)`` tensors and ``me = arange(T)``.  The building
+tile-led ``(T, ...)`` tensors and ``me = arange(T)`` (the classic and
+k-core stages also B * T lane-major rows of B serving lanes over the
+same ``(T, ...)`` shard, ``me`` the tile within its lane).  The building
 blocks dispatch on ``Ctx.backend``: ``"kernels"`` calls the Hopper kernel
 wrappers of :mod:`repro_torch.kernels.engine` (the counterpart of the
 reference's unfused ``"pallas"`` backend), ``"torch"`` runs inline
@@ -38,6 +40,7 @@ from repro_torch.kernels.engine import (edge_scan_gather, edge_scan_stream,
                                         fold_scatter, frontier_pop,
                                         frontier_take, scatter_body,
                                         segment_gather, segment_stream)
+from repro_torch.kernels.engine.kernel import shard_gather
 from repro_torch.mem import check_alloc, check_budgets
 
 INF = float(np.finfo(np.float32).max)  # "unreached": float32 max, not inf
@@ -311,8 +314,8 @@ def frontier_source(payload: Callable) -> Callable:
             vidx, vvalid, frontier = take_first_k(st.frontier, budget,
                                                   ctx.cfg.f_pop)
         vl = vidx.to(torch.int64)
-        deg = sh.deg.gather(1, vl)
-        start = sh.ptr_start.gather(1, vl)
+        deg = shard_gather(sh.deg, vl)
+        start = shard_gather(sh.ptr_start, vl)
         pay = payload(ctx, me, sh, st, vidx, deg)
         if pay.ndim == 2:
             pay = pay[:, :, None]

@@ -41,6 +41,13 @@ def queue_make(T: int, cap: int, width: int, space: str = "vmem",
     return Queue(data, torch.zeros((T,), dtype=torch.int32, device=device))
 
 
+def queue_clear(q: Queue) -> Queue:
+    """An emptied queue of the same shape, its storage zeroed, so that a
+    cleared queue is bit-equal to a freshly made one (the serving front
+    end resets a recycled lane's queues with it)."""
+    return Queue(torch.zeros_like(q.data), torch.zeros_like(q.count))
+
+
 def queue_push(q: Queue, rows: torch.Tensor,
                mask: torch.Tensor) -> tuple[Queue, torch.Tensor]:
     """Append ``rows[mask]`` (row order kept) at each tile's queue tail.
@@ -100,12 +107,17 @@ def occurrence_index(dest: torch.Tensor, valid: torch.Tensor,
 
     (T, n) batched.  The group-start scan is ``torch.cummax`` (the
     reference's ``associative_scan(maximum)``); sort keys are int64 and
-    unique, so sort stability does not matter.
+    unique, so sort stability does not matter.  The rows are sorted in one
+    flat sort, each row's keys offset past the row before's: a sort along
+    dim 1 of more than a few rows (serving lanes) falls to a segmented
+    sort that is several times slower on the card.
     """
     T, n = dest.shape
     ar = torch.arange(n, dtype=torch.int64, device=dest.device)[None]
     d = torch.where(valid, dest, num_dest).to(torch.int64)  # invalid: trash
-    order = torch.argsort(d * n + ar, dim=1)  # group, then FIFO
+    rows = torch.arange(T, dtype=torch.int64, device=dest.device)[:, None]
+    key = d * n + ar + rows * ((num_dest + 1) * n)  # row, group, then FIFO
+    order = torch.argsort(key.reshape(-1)).view(T, n) - rows * n
     ds = torch.gather(d, 1, order)
     new_grp = torch.ones_like(ds, dtype=torch.bool)
     new_grp[:, 1:] = ds[:, 1:] != ds[:, :-1]

@@ -411,9 +411,10 @@ queue_push_pop_kernel(const int32_t* __restrict__ data,
 // word pair read and its nb and w written (16 bytes).  Design: a team of
 // ceil(max_t2 / 4) threads a message, thread q owning the lanes 4q .. 4q + 3
 // (a team is at most SCAN_THREADS threads, each then also taking every
-// SCAN_THREADS-th group after its own), over a grid-stride loop on the tiles'
-// T * R messages, SCAN_BLOCKS_PER_SM blocks a SM (the register budget compiled
-// for them).  A team reads its message's rv, start and stop once (one address
+// SCAN_THREADS-th group after its own), over a grid-stride loop on the rows *
+// R messages, SCAN_BLOCKS_PER_SM blocks a SM (the register budget compiled for
+// them).  The rows are the T tiles, or B * T lane-major rows of B serving
+// lanes that share the shard: row r scans shard row r % T.  A team reads its message's rv, start and stop once (one address
 // for the whole team), takes the message's bounds once (one floor modulo, no
 // division a lane), issues the shard loads of its live lanes before any use,
 // and writes jvalid whole as one 4-byte word and nb, w as one 16-byte vector
@@ -431,7 +432,7 @@ __device__ __forceinline__ void scan_messages(
     const int32_t* __restrict__ edge_dst, const float* __restrict__ edge_val,
     const int32_t* __restrict__ start, const int32_t* __restrict__ stop,
     const uint8_t* __restrict__ rv, int32_t* __restrict__ nb,
-    float* __restrict__ wout, uint8_t* __restrict__ jvalid, int T,
+    float* __restrict__ wout, uint8_t* __restrict__ jvalid, int rows, int T,
     int e_chunk, int R, int max_t2) {
   const int groups = (max_t2 + 3) / 4;
   const int team = groups < SCAN_THREADS ? groups : SCAN_THREADS;
@@ -441,14 +442,17 @@ __device__ __forceinline__ void scan_messages(
   const bool aligned = ((reinterpret_cast<uintptr_t>(nb) |
                          reinterpret_cast<uintptr_t>(wout)) & 15) == 0 &&
                        (reinterpret_cast<uintptr_t>(jvalid) & 3) == 0;
-  const int messages = T * R;  // below 2^31: the entries check it
+  const int messages = rows * R;  // below 2^31: the entries check it
   for (int m = blockIdx.x * teams + threadIdx.x / team; m < messages;
        m += gridDim.x * teams) {
     int length, local0;
     repro::message_bounds(rv[m] != 0, start[m], stop[m], e_chunk, &length,
                           &local0);
-    const int32_t* ed = edge_dst + (size_t)(m / R) * e_chunk;
-    const float* ev = edge_val + (size_t)(m / R) * e_chunk;
+    // state row m / R scans shard row (m / R) % T: the serving lanes'
+    // rows share one shard
+    const size_t shard_row = (size_t)((m / R) % T);
+    const int32_t* ed = edge_dst + shard_row * e_chunk;
+    const float* ev = edge_val + shard_row * e_chunk;
     for (int g = q; g < groups; g += team) {
       const int j0 = 4 * g;
       const size_t o = (size_t)m * max_t2 + j0;
@@ -496,10 +500,10 @@ edge_scan_gather_kernel(const int32_t* __restrict__ edge_dst,
                         const int32_t* __restrict__ stop,
                         const uint8_t* __restrict__ rv,
                         int32_t* __restrict__ nb, float* __restrict__ wout,
-                        uint8_t* __restrict__ jvalid, int T, int e_chunk,
-                        int R, int max_t2) {
-  scan_messages(edge_dst, edge_val, start, stop, rv, nb, wout, jvalid, T,
-                e_chunk, R, max_t2);
+                        uint8_t* __restrict__ jvalid, int rows, int T,
+                        int e_chunk, int R, int max_t2) {
+  scan_messages(edge_dst, edge_val, start, stop, rv, nb, wout, jvalid, rows,
+                T, e_chunk, R, max_t2);
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS, SCAN_BLOCKS_PER_SM)
@@ -509,13 +513,13 @@ edge_scan_stream_kernel(const int32_t* __restrict__ edge_dst,
                         const int32_t* __restrict__ stop,
                         const uint8_t* __restrict__ rv,
                         int32_t* __restrict__ nb, float* __restrict__ wout,
-                        uint8_t* __restrict__ jvalid, int T, int e_chunk,
-                        int R, int max_t2) {
-  scan_messages(edge_dst, edge_val, start, stop, rv, nb, wout, jvalid, T,
-                e_chunk, R, max_t2);
+                        uint8_t* __restrict__ jvalid, int rows, int T,
+                        int e_chunk, int R, int max_t2) {
+  scan_messages(edge_dst, edge_val, start, stop, rv, nb, wout, jvalid, rows,
+                T, e_chunk, R, max_t2);
 }
 
-// The blocks of a scan of T * R messages: as many as its teams need, at
+// The blocks of a scan of rows * R messages: as many as its teams need, at
 // most SCAN_BLOCKS_PER_SM on each SM of the current device.
 inline int scan_blocks(int T, int R, int max_t2) {
   int dev = 0, sms = 132;
@@ -880,40 +884,42 @@ int repro_queue_push_pop(const void* data, const void* count, const void* rows,
 
 int repro_edge_scan_gather(const void* edge_dst, const void* edge_val,
                            const void* start, const void* stop, const void* rv,
-                           void* nb, void* w, void* jvalid, int T, int e_chunk,
-                           int R, int max_t2, void* stream) {
-  if ((long long)T * R == 0 || max_t2 == 0)
+                           void* nb, void* w, void* jvalid, int rows, int T,
+                           int e_chunk, int R, int max_t2, void* stream) {
+  if (T < 1 || rows % T) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)rows * R == 0 || max_t2 == 0)
     return static_cast<int>(cudaSuccess);
-  if (e_chunk < 1 || max_t2 < 0 || (long long)T * R >= (1LL << 31))
+  if (e_chunk < 1 || max_t2 < 0 || (long long)rows * R >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  edge_scan_gather_kernel<<<scan_blocks(T, R, max_t2), SCAN_THREADS, 0,
+  edge_scan_gather_kernel<<<scan_blocks(rows, R, max_t2), SCAN_THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(edge_dst),
       static_cast<const float*>(edge_val), static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
       static_cast<int32_t*>(nb), static_cast<float*>(w),
-      static_cast<uint8_t*>(jvalid), T, e_chunk, R, max_t2);
+      static_cast<uint8_t*>(jvalid), rows, T, e_chunk, R, max_t2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Any window of at least max_t2: the same lanes as the gather's.
 int repro_edge_scan_stream(const void* edge_dst, const void* edge_val,
                            const void* start, const void* stop, const void* rv,
-                           void* nb, void* w, void* jvalid, int T, int e_chunk,
-                           int R, int max_t2, int window, void* stream) {
-  if (window < 1 || window < max_t2)
+                           void* nb, void* w, void* jvalid, int rows, int T,
+                           int e_chunk, int R, int max_t2, int window,
+                           void* stream) {
+  if (window < 1 || window < max_t2 || T < 1 || rows % T)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((long long)T * R == 0 || max_t2 == 0)
+  if ((long long)rows * R == 0 || max_t2 == 0)
     return static_cast<int>(cudaSuccess);
-  if (e_chunk < 1 || max_t2 < 0 || (long long)T * R >= (1LL << 31))
+  if (e_chunk < 1 || max_t2 < 0 || (long long)rows * R >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  edge_scan_stream_kernel<<<scan_blocks(T, R, max_t2), SCAN_THREADS, 0,
+  edge_scan_stream_kernel<<<scan_blocks(rows, R, max_t2), SCAN_THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(edge_dst),
       static_cast<const float*>(edge_val), static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(stop), static_cast<const uint8_t*>(rv),
       static_cast<int32_t*>(nb), static_cast<float*>(w),
-      static_cast<uint8_t*>(jvalid), T, e_chunk, R, max_t2);
+      static_cast<uint8_t*>(jvalid), rows, T, e_chunk, R, max_t2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,6 +60,11 @@
 // binary search reads the shard word-random, at most bit_length(e_chunk) +
 // 1 words a row, CLOSE_ROWS searches of a thread in flight together.
 //
+// The lane axis: the grid's T rows may be B * T lane-major rows of B
+// serving lanes over one shard of shard_T = T rows; leg 0 and the scan legs
+// read shard row t % shard_T for row t (the tile within its lane, also
+// leg 0's placed-id payload), the other legs touch state only.
+//
 // Plain C interface, as engine_kernels.cu: device pointers, sizes, template
 // codes and the caller's cudaStream_t in, cudaGetLastError() out.
 
@@ -226,7 +231,7 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
                   int32_t* __restrict__ npop_out,
                   int32_t* __restrict__ npush_out, unsigned char* scratch,
                   size_t stage_bytes, int v_chunk, int e_chunk, int cap_r,
-                  int f_pop, int r_pop, int max_t2, int plimit) {
+                  int f_pop, int r_pop, int max_t2, int plimit, int shard_T) {
   extern __shared__ __align__(16) unsigned char leg0_smem[];
   __shared__ int sm[33];
   const int t = blockIdx.x, g = blockIdx.y - 1, G = gridDim.y - 1;
@@ -251,6 +256,10 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
   if (tid == 0)
     for (int i = 0; i < K; ++i) dyn_pops[K * t + i] = pops[i];
   const size_t vt = (size_t)t * v_chunk;
+  // this row's tile: its shard row (the serving lanes' rows share one
+  // shard of shard_T rows) and its id in the placed payload
+  const int tile = t % shard_T;
+  const size_t st_row = (size_t)tile * v_chunk;
   const int n_take = repro::frontier_take_block(
       frontier + vt, frontier_out + vt, v_chunk, fp, f_pop, sg.idx, sm);
   __syncthreads();
@@ -264,12 +273,12 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
     if (i < n_take) {
       const int vi = sg.idx[i];
       const size_t o = vt + vi;
-      dg = deg[o];
-      st = ptr_start[o];
+      dg = deg[st_row + vi];
+      st = ptr_start[st_row + vi];
       if (PAYLOAD == PAY_ONE) {
         pay = ONE_BITS;
       } else if (PAYLOAD == PAY_PLACED) {  // me * v_chunk + vidx
-        pay = repro::wrap_add(repro::wrap_mul(t, v_chunk), vi);
+        pay = repro::wrap_add(repro::wrap_mul(tile, v_chunk), vi);
       } else {
         float x = value[o];
         if (PAYLOAD == PAY_VALUE_OVER_DEG)
@@ -384,7 +393,8 @@ fused_leg1_kernel(int32_t* rq, const int32_t* __restrict__ rq_count,
                   int32_t* __restrict__ npush_out,
                   int32_t* __restrict__ nspill_out, int* tally, int cap_r,
                   int S, int R, int e_chunk, int max_t2, int window,
-                  int cap_u, int u_pop, int scan_warps, int nchan, int chan) {
+                  int cap_u, int u_pop, int scan_warps, int nchan, int chan,
+                  int shard_T) {
   extern __shared__ __align__(16) unsigned char stage_smem[];
   __shared__ int sm[33];
   const int t = blockIdx.x, g = blockIdx.y, G = gridDim.y - 1;
@@ -424,8 +434,9 @@ fused_leg1_kernel(int32_t* rq, const int32_t* __restrict__ rq_count,
   constexpr int MU = SCAN == SCAN_STAGED ? 1 : 4;
   const int r_lo = (int)((long long)g * R / G);
   const int r_hi = (int)((long long)(g + 1) * R / G);
-  const int32_t* ed = edge_dst + (size_t)t * e_chunk;
-  const float* ev = edge_val + (size_t)t * e_chunk;
+  // row t scans shard row t % shard_T (the serving lanes share one shard)
+  const int32_t* ed = edge_dst + (size_t)(t % shard_T) * e_chunk;
+  const float* ev = edge_val + (size_t)(t % shard_T) * e_chunk;
   const int warp = tid >> 5, lane = tid & 31;
   int my_edges = 0;
   if (warp < scan_warps) {
@@ -1049,11 +1060,11 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, int G, cudaStream_t stream,
                         void* drops, void* dyn_pops, void* npop, void* npush,
                         void* scratch, int v_chunk, int e_chunk, int cap_r,
                         int f_pop, int r_pop, int max_t2, int plimit,
-                        long long stage_bytes) {
+                        long long stage_bytes, int shard_T) {
   size_t smem;
   unsigned char* stage;
   const int eff = r_pop < cap_r ? r_pop : cap_r;
-  if (G < 1 || f_pop < 0 || r_pop < 0 ||
+  if (G < 1 || f_pop < 0 || r_pop < 0 || shard_T < 1 || T % shard_T ||
       !staging(leg0_stage_bytes(f_pop, eff), (size_t)stage_bytes, scratch,
                &smem, &stage))
     return cudaErrorInvalidValue;
@@ -1069,7 +1080,7 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, int G, cudaStream_t stream,
       static_cast<uint8_t*>(mvalid), static_cast<int32_t*>(drops),
       static_cast<int32_t*>(dyn_pops), static_cast<int32_t*>(npop),
       static_cast<int32_t*>(npush), stage, (size_t)stage_bytes, v_chunk,
-      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit);
+      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, shard_T);
   return cudaGetLastError();
 }
 
@@ -1086,8 +1097,9 @@ cudaError_t launch_leg1(Leg1Kernel kernel, int T, int G, size_t smem,
                         void* npop, void* npush, void* nspill, void* tally,
                         int cap_r, int S, int R, int e_chunk, int max_t2,
                         int window, int cap_u, int u_pop, int warps, int nchan,
-                        int chan) {
-  if (G < 1 || warps < 1) return cudaErrorInvalidValue;
+                        int chan, int shard_T) {
+  if (G < 1 || warps < 1 || shard_T < 1 || T % shard_T)
+    return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   e = cudaMemsetAsync(tally, 0, 2 * (size_t)T * sizeof(int), stream);
@@ -1106,7 +1118,7 @@ cudaError_t launch_leg1(Leg1Kernel kernel, int T, int G, size_t smem,
       static_cast<int32_t*>(edges), static_cast<int32_t*>(npop),
       static_cast<int32_t*>(npush), static_cast<int32_t*>(nspill),
       static_cast<int*>(tally), cap_r, S, R, e_chunk, max_t2, window, cap_u,
-      u_pop, warps, nchan, chan);
+      u_pop, warps, nchan, chan, shard_T);
   return cudaGetLastError();
 }
 
@@ -1169,10 +1181,10 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
                      const void* pressure, void* frontier_out, void* rq_out,
                      void* rq_count_out, void* msgs, void* mvalid, void* drops,
                      void* dyn_pops, void* npop, void* npush, void* scratch,
-                     int T, int v_chunk, int e_chunk, int cap_r, int cap_u,
-                     int f_pop, int r_pop, int u_pop, int max_t2, int plimit,
-                     int payload, int policy, int G, long long stage_bytes,
-                     void* stream) {
+                     int T, int shard_T, int v_chunk, int e_chunk, int cap_r,
+                     int cap_u, int f_pop, int r_pop, int u_pop, int max_t2,
+                     int plimit, int payload, int policy, int G,
+                     long long stage_bytes, void* stream) {
   Leg0Kernel kernel = nullptr;
   const bool traffic = policy == POLICY_TRAFFIC;
   switch (payload) {
@@ -1199,7 +1211,8 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
       kernel, T, G, static_cast<cudaStream_t>(stream), frontier, value, deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
       rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
-      v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes));
+      v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes,
+      shard_T));
 }
 
 // Leg 0 of the 4-channel triangles chain (placed-id payload).
@@ -1209,10 +1222,10 @@ int repro_fused_leg0_chain(
     const void* count1, const void* count2, const void* count3,
     const void* pressure, void* frontier_out, void* rq_out,
     void* rq_count_out, void* msgs, void* mvalid, void* drops, void* dyn_pops,
-    void* npop, void* npush, void* scratch, int T, int v_chunk, int e_chunk,
-    int cap_r, int cap1, int cap2, int cap3, int f_pop, int r_pop, int pop1,
-    int pop2, int pop3, int max_t2, int plimit, int payload, int policy,
-    int G, long long stage_bytes, void* stream) {
+    void* npop, void* npush, void* scratch, int T, int shard_T, int v_chunk,
+    int e_chunk, int cap_r, int cap1, int cap2, int cap3, int f_pop, int r_pop,
+    int pop1, int pop2, int pop3, int max_t2, int plimit, int payload,
+    int policy, int G, long long stage_bytes, void* stream) {
   if (payload != PAY_PLACED) return static_cast<int>(cudaErrorInvalidValue);
   const Leg0Kernel kernel =
       policy == POLICY_TRAFFIC
@@ -1227,7 +1240,8 @@ int repro_fused_leg0_chain(
       kernel, T, G, static_cast<cudaStream_t>(stream), frontier, value, deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
       rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
-      v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes));
+      v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes,
+      shard_T));
 }
 
 // Leg 1 of the 2-channel programs: resident or streamed (window > 0; its
@@ -1240,8 +1254,8 @@ int repro_fused_leg1(void* rq, const void* rq_count, const void* sp,
                      const void* dyn_pops, void* rq_count_out, void* uq_out,
                      void* uq_count_out, void* msgs, void* mvalid, void* drops,
                      void* edges, void* npop, void* npush, void* nspill,
-                     void* tally, int T, int cap_r, int S, int R, int e_chunk,
-                     int max_t2, int window, int cap_u, int u_pop,
+                     void* tally, int T, int shard_T, int cap_r, int S, int R,
+                     int e_chunk, int max_t2, int window, int cap_u, int u_pop,
                      int emit_code, int G, void* stream) {
   int warps;
   size_t smem;
@@ -1272,7 +1286,7 @@ int repro_fused_leg1(void* rq, const void* rq_count, const void* sp,
       sp, spv, recv, rv, edge_dst, edge_val, uq, uq_count, dyn_pops,
       rq_count_out, uq_out, uq_count_out, msgs, mvalid, drops, edges, npop,
       npush, nspill, tally, cap_r, S, R, e_chunk, max_t2, window, cap_u,
-      u_pop, warps, 2, 1));
+      u_pop, warps, 2, 1, shard_T));
 }
 
 // Legs 1 and 3 of the triangles chain (resident shard): the range channel
@@ -1284,9 +1298,9 @@ int repro_fused_leg1_chain(
     const void* edge_val, const void* uq, const void* uq_count,
     const void* dyn_pops, void* rq_count_out, void* uq_out,
     void* uq_count_out, void* msgs, void* mvalid, void* drops, void* edges,
-    void* npop, void* npush, void* nspill, void* tally, int T, int cap_r,
-    int S, int R, int e_chunk, int max_t2, int cap_u, int u_pop, int nchan,
-    int chan, int emit_code, int G, void* stream) {
+    void* npop, void* npush, void* nspill, void* tally, int T, int shard_T,
+    int cap_r, int S, int R, int e_chunk, int max_t2, int cap_u, int u_pop,
+    int nchan, int chan, int emit_code, int G, void* stream) {
   Leg1Kernel kernel = nullptr;
   if (emit_code == EMIT_WEDGE)
     kernel = fused_leg1_kernel<EMIT_WEDGE, SCAN_GATHER, 3>;
@@ -1299,7 +1313,7 @@ int repro_fused_leg1_chain(
       spv, recv, rv, edge_dst, edge_val, uq, uq_count, dyn_pops,
       rq_count_out, uq_out, uq_count_out, msgs, mvalid, drops, edges, npop,
       npush, nspill, tally, cap_r, S, R, e_chunk, max_t2, 0, cap_u, u_pop,
-      SPLIT_THREADS / 32, nchan, chan));
+      SPLIT_THREADS / 32, nchan, chan, shard_T));
 }
 
 // Leg 2 of the classic program: the min (of at most MIN_FOLD_MAX_ROWS

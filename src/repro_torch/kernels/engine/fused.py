@@ -60,6 +60,12 @@ launch failed, with no fallback.  Each call is one
 launch per leg (3 for the classic and k-core programs, 5 for triangles),
 as the reference's fused round.
 
+The state may hold B * T lane-major rows of B serving lanes over one
+``(T, ...)`` shard (:mod:`repro_torch.serve`): every leg is one launch
+for the whole batch, and leg 0 and the scan legs read shard row ``row %
+T`` (:func:`~repro_torch.kernels.engine.kernel.shard_rows`); the fold
+legs touch state only.
+
 The kernels write what the plain stage writes where the reference
 defines it: every queue row below its count, every valid message row,
 every other output.  Two kinds of don't-care element differ.  A queue that
@@ -95,17 +101,17 @@ from repro_torch.kernels.cuda_build import CudaLibrary, check as _check
 from repro_torch.kernels.engine.kernel import (CSRC, ENGINE_DEVICE,
                                                MIN_FOLD_MAX_ROWS,
                                                ORDERED_SCATTER, add_chunks,
-                                               device_split, staging,
-                                               window_path)
+                                               device_split, shard_rows,
+                                               staging, window_path)
 from repro_torch.kernels.engine.launches import record
 
 _L = ctypes.c_longlong  # a staging's bytes a tile
 SOURCE = CSRC / "fused_legs.cu"
 LIBRARY = CudaLibrary(SOURCE, {
-    "repro_fused_leg0": [_P] * 18 + [_I] * 13 + [_L, _P],
-    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 17 + [_L, _P],
-    "repro_fused_leg1": [_P] * 22 + [_I] * 11 + [_P],
-    "repro_fused_leg1_chain": [_P] * 22 + [_I] * 12 + [_P],
+    "repro_fused_leg0": [_P] * 18 + [_I] * 14 + [_L, _P],
+    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 18 + [_L, _P],
+    "repro_fused_leg1": [_P] * 22 + [_I] * 12 + [_P],
+    "repro_fused_leg1_chain": [_P] * 22 + [_I] * 13 + [_P],
     "repro_fused_leg2": [_P] * 14 + [_I] * 8 + [_P],
     "repro_fused_kcore_leg2": [_P] * 16 + [_I] * 8 + [_P],
     "repro_fused_wedge_leg": [_P] * 22 + [_I] * 12 + [_L, _P],
@@ -239,13 +245,15 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
     queues = st.queues
     rq, K = queues[0], len(queues)
     T, v_chunk = st.frontier.shape
+    Ts = sh.deg.shape[0]
+    shard_rows(sh.deg, T)
     cap_r = rq.data.shape[1]
     eff = min(tmpl.pops[0], cap_r)
     e_chunk = sh.edge_dst.shape[1]
     _check(("frontier", st.frontier, torch.bool, (T, v_chunk)),
            ("value", st.value, torch.float32, (T, v_chunk)),
-           ("deg", sh.deg, torch.int32, (T, v_chunk)),
-           ("ptr_start", sh.ptr_start, torch.int32, (T, v_chunk)),
+           ("deg", sh.deg, torch.int32, (Ts, v_chunk)),
+           ("ptr_start", sh.ptr_start, torch.int32, (Ts, v_chunk)),
            ("range queue", rq.data, torch.int32, (T, cap_r, 3)),
            *((f"queue {i} count", q.count, torch.int32, (T,))
              for i, q in enumerate(queues)),
@@ -264,8 +272,8 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
     dyn_pops = ints[4 * T:].view(T, K)
     ins = (st.frontier, st.value, sh.deg, sh.ptr_start, rq.data, rq.count)
     outs = (st.net_pressure, frontier, qdata, qcount, msgs, mvalid,
-            counts[0], dyn_pops, counts[1], counts[2], scratch, T, v_chunk,
-            e_chunk, cap_r)
+            counts[0], dyn_pops, counts[1], counts[2], scratch, T, Ts,
+            v_chunk, e_chunk, cap_r)
     codes = (tmpl.max_t2, tmpl.plimit, _code(PAYLOADS, tmpl.payload),
              _code(POLICIES, tmpl.policy), leg0_split(T, cap_r, dev), nbytes)
     if K == 2:
@@ -319,11 +327,12 @@ def _scan_leg(name: str, chan: int, emit: str, tmpl: LegTemplate, plain, me,
     K = len(st.queues)
     T, cap_r, W = rq.data.shape
     cap_u = uq.data.shape[1]
-    e_chunk = sh.edge_dst.shape[1]
+    Ts, e_chunk = sh.edge_dst.shape
+    shard_rows(sh.edge_dst, T)
     S, R = sp.shape[1], recv.shape[1]
     _check(*_spill_checks(rq, sp, spv, recv, rv, T, W),
-           ("edge_dst", sh.edge_dst, torch.int32, (T, e_chunk)),
-           ("edge_val", sh.edge_val, torch.float32, (T, e_chunk)),
+           ("edge_dst", sh.edge_dst, torch.int32, (Ts, e_chunk)),
+           ("edge_val", sh.edge_val, torch.float32, (Ts, e_chunk)),
            ("update queue", uq.data, torch.int32, (T, cap_u, 2)),
            ("update count", uq.count, torch.int32, (T,)),
            ("dyn_pops", dyn_pops, torch.int32, (T, K)))
@@ -346,7 +355,7 @@ def _scan_leg(name: str, chan: int, emit: str, tmpl: LegTemplate, plain, me,
     args = (rq.data, rq.count, sp, spv, recv, rv, sh.edge_dst, sh.edge_val,
             uq.data, uq.count, dyn_pops, counts[0], udata, counts[1], msgs,
             mvalid, counts[2], counts[3], counts[4], counts[5], counts[6],
-            counts[7:], T, cap_r, S, R, e_chunk, tmpl.max_t2)
+            counts[7:], T, Ts, cap_r, S, R, e_chunk, tmpl.max_t2)
     if K == 2:
         _launch("repro_fused_leg1", *args, tmpl.window, cap_u, u_pop,
                 _code(EMITS, emit), G)

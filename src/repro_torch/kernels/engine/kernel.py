@@ -51,6 +51,12 @@ launch in its ``path`` attribute.  The two T2 scans stage nothing: the
 stream reads each lane's word where the gather does (:func:`edge_scan_
 stream`).
 
+The lane axis.  The serving lanes run B queries over one shared shard:
+their state has B * T lane-major rows, and the shard's ``(T, ...)`` rows
+are never copied a lane.  The two scans (and the fused legs 0 and 1)
+read shard row ``row % T`` for state row ``row`` (:func:`shard_rows`);
+every other kernel touches state only and takes any row count.
+
 The CUDA source is built at first use (:mod:`repro_torch.kernels.
 cuda_build`: ``nvcc`` for ``sm_90a`` into ``build/repro_torch/``, loaded
 with ``ctypes``).  A failed build raises with nvcc's output.
@@ -152,8 +158,8 @@ def _sm_count(index: int) -> int:
 LIBRARY = CudaLibrary(SOURCE, {
     "repro_frontier_pop": [_P] * 5 + [_I] * 5 + [_P],
     "repro_queue_push_pop": [_P] * 11 + [_I] * 6 + [_P],
-    "repro_edge_scan_gather": [_P] * 8 + [_I] * 4 + [_P],
-    "repro_edge_scan_stream": [_P] * 8 + [_I] * 5 + [_P],
+    "repro_edge_scan_gather": [_P] * 8 + [_I] * 5 + [_P],
+    "repro_edge_scan_stream": [_P] * 8 + [_I] * 6 + [_P],
     "repro_fold_scatter_min": [_P] * 5 + [_I] * 5 + [_P],
     "repro_fold_scatter_add": [_P] * 5 + [_I] * 5 + [_P],
 }, headers=(ENGINE_DEVICE, ORDERED_SCATTER))
@@ -196,6 +202,30 @@ def window_path(window: int) -> str:
 # ==========================================================================
 # Plain versions: batched ports of the reference's pure bodies.
 # ==========================================================================
+
+def shard_rows(shard: torch.Tensor, rows: int) -> int:
+    """The lanes of ``rows`` state rows over a ``(T, ...)`` shard: state
+    row ``r`` reads shard row ``r % T``.  Raises unless ``rows`` is a
+    positive multiple of T."""
+    T = shard.shape[0]
+    if T < 1 or rows < T or rows % T:
+        raise ValueError(f"{rows} state rows over a shard of {T} tiles: "
+                         f"the rows must be a multiple of the tiles")
+    return rows // T
+
+
+def shard_gather(shard: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``shard[row % T, idx[row, k]]`` for (rows, k) int64 ``idx`` over a
+    (T, n) shard: ``torch.gather`` along dim 1 when rows == T, else over
+    the shard broadcast to (rows / T, T, n) (a view: nothing is copied a
+    lane)."""
+    lanes = shard_rows(shard, idx.shape[0])
+    if lanes == 1:
+        return torch.gather(shard, 1, idx)
+    T = shard.shape[0]
+    return torch.gather(shard[None].expand((lanes,) + tuple(shard.shape)),
+                        2, idx.reshape(lanes, T, -1)).reshape(idx.shape)
+
 
 def frontier_take(mask: torch.Tensor, k: torch.Tensor, k_max: int):
     """The first ``min(k, popcount)`` set bits of each tile's bitmap, in
@@ -251,20 +281,22 @@ def fifo_turn(data, count, rows, valid, n, max_n: int):
 def segment_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
     """The T2 ragged segment gather out of each tile's edge shard.
 
-    edge_dst/edge_val (T, e_chunk), start/stop/rv (T, R) -> nb, w, jvalid,
-    each (T, R, max_t2).  Every lane reads the clamped index, valid or not.
+    edge_dst/edge_val (T, e_chunk), start/stop/rv (rows, R) -> nb, w,
+    jvalid, each (rows, R, max_t2), rows a multiple of T (state row ``r``
+    scans shard row ``r % T``).  Every lane reads the clamped index, valid
+    or not.
     """
-    T, e_chunk = edge_dst.shape
-    R = start.shape[1]
+    e_chunk = edge_dst.shape[1]
+    rows, R = start.shape
     length = torch.where(rv, stop - start, 0)
     local0 = torch.where(rv, start % e_chunk, 0)
     j = torch.arange(max_t2, dtype=torch.int32, device=start.device)
     eidx = local0[:, :, None] + j                  # (T, R, MAX_T2)
     jvalid = rv[:, :, None] & (j < length[:, :, None])
-    eidx_c = torch.clamp(eidx, max=e_chunk - 1).reshape(T, -1) \
+    eidx_c = torch.clamp(eidx, max=e_chunk - 1).reshape(rows, -1) \
         .to(torch.int64)
-    nb = torch.gather(edge_dst, 1, eidx_c).reshape(T, R, max_t2)
-    w = torch.gather(edge_val, 1, eidx_c).reshape(T, R, max_t2)
+    nb = shard_gather(edge_dst, eidx_c).reshape(rows, R, max_t2)
+    w = shard_gather(edge_val, eidx_c).reshape(rows, R, max_t2)
     return nb, w, jvalid & (nb >= 0)
 
 
@@ -283,17 +315,17 @@ def segment_stream(edge_dst, edge_val, start, stop, rv, max_t2: int,
     staging never bites, and ``min(base + off0, e_chunk - 1) = min(local0
     + j, e_chunk - 1)`` is the gather's index.
     """
-    T, e_chunk = edge_dst.shape
-    R = start.shape[1]
+    e_chunk = edge_dst.shape[1]
+    rows, R = start.shape
     dev = start.device
     length = torch.where(rv, stop - start, 0)
     local0 = torch.where(rv, start % e_chunk, 0)
     base = torch.div(local0, window, rounding_mode="floor") * window
     k = torch.arange(2 * window, dtype=torch.int32, device=dev)
     sidx = torch.clamp(base[:, :, None] + k, max=e_chunk - 1) \
-        .reshape(T, -1).to(torch.int64)
-    stage_dst = torch.gather(edge_dst, 1, sidx).reshape(T, R, 2 * window)
-    stage_val = torch.gather(edge_val, 1, sidx).reshape(T, R, 2 * window)
+        .reshape(rows, -1).to(torch.int64)
+    stage_dst = shard_gather(edge_dst, sidx).reshape(rows, R, 2 * window)
+    stage_val = shard_gather(edge_val, sidx).reshape(rows, R, 2 * window)
     j = torch.arange(max_t2, dtype=torch.int32, device=dev)
     jvalid = rv[:, :, None] & (j < length[:, :, None])
     off = torch.clamp((local0 - base)[:, :, None] + j, max=2 * window - 1) \
@@ -507,29 +539,32 @@ def turn_contract(out):
 
 def _scan(name, edge_dst, edge_val, start, stop, rv, max_t2, *window):
     T, e_chunk = edge_dst.shape
-    R = start.shape[1]
+    rows, R = start.shape
+    shard_rows(edge_dst, rows)
     _check(("edge_dst", edge_dst, torch.int32, (T, e_chunk)),
            ("edge_val", edge_val, torch.float32, (T, e_chunk)),
-           ("start", start, torch.int32, (T, R)),
-           ("stop", stop, torch.int32, (T, R)),
-           ("rv", rv, torch.bool, (T, R)))
+           ("start", start, torch.int32, (rows, R)),
+           ("stop", stop, torch.int32, (rows, R)),
+           ("rv", rv, torch.bool, (rows, R)))
     dev = edge_dst.device
-    nb = torch.empty((T, R, max_t2), dtype=torch.int32, device=dev)
-    w = torch.empty((T, R, max_t2), dtype=torch.float32, device=dev)
-    jvalid = torch.empty((T, R, max_t2), dtype=torch.bool, device=dev)
+    nb = torch.empty((rows, R, max_t2), dtype=torch.int32, device=dev)
+    w = torch.empty((rows, R, max_t2), dtype=torch.float32, device=dev)
+    jvalid = torch.empty((rows, R, max_t2), dtype=torch.bool, device=dev)
     _launch(f"repro_{name}", edge_dst, edge_val, start, stop, rv, nb, w,
-            jvalid, T, e_chunk, R, max_t2, *window)
+            jvalid, rows, T, e_chunk, R, max_t2, *window)
     return nb, w, jvalid
 
 
 def edge_scan_gather(edge_dst, edge_val, start, stop, rv, max_t2: int):
     """T2: for each tile's R delivered range messages, the up-to-``max_t2``
     (dst, val) pairs of its edge shard from ``start % e_chunk``.
-    edge_dst (T, e_chunk) int32, edge_val float32, start/stop (T, R)
-    int32, rv (T, R) bool -> nb, w, jvalid, each (T, R, max_t2).
+    edge_dst (T, e_chunk) int32, edge_val float32, start/stop (rows, R)
+    int32, rv (rows, R) bool -> nb, w, jvalid, each (rows, R, max_t2);
+    rows is T, or B * T lane-major rows of B serving lanes, each scanning
+    shard row ``row % T`` (:func:`shard_rows`).
 
     The kernel runs a team of threads a message, four lanes a thread, over
-    a grid-stride loop on the T * R messages.  It writes ``jvalid`` whole,
+    a grid-stride loop on the rows * R messages.  It writes ``jvalid`` whole,
     and ``nb`` and ``w`` only for the groups of four lanes that hold a
     lane below the message's length: the other lanes are the reference's
     don't-care, masked by ``jvalid`` at every consumer, where

@@ -16,6 +16,7 @@ with Python-number constants where the reference has them, so the port's
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -124,22 +125,29 @@ def tile_compute_cycles(params: PerfParams, pops, pushes, spill_replays,
 
 def leak_pj(params: PerfParams, T: int, cycles: torch.Tensor):
     """Static leakage over ``cycles`` on a T-tile grid."""
-    k = torch.tensor(T * params.e_leak_tile_cycle, dtype=torch.float32,
-                     device=cycles.device)
-    return k * cycles
+    return _leak_rate(T * params.e_leak_tile_cycle, cycles.device) * cycles
+
+
+@functools.lru_cache(maxsize=32)
+def _leak_rate(rate: float, device: torch.device) -> torch.Tensor:
+    """The float32 leakage rate on ``device``, made once: a tensor made
+    from a host number each round is a host-to-device copy, which waits
+    for the round's kernels."""
+    return torch.tensor(rate, dtype=torch.float32, device=device)
 
 
 def round_energy_pj(params: PerfParams, T: int, edges_g, updates_g,
                     msgs_total, spills_total, link_flits_g, e_hop,
                     cycles_round, hbm_edges_g=None):
     """Global energy of one round, linear in the round's Stats
-    increments."""
+    increments (globals of one run, or lane-led ``(B, ...)`` ones: the
+    links are the last axis)."""
     f = torch.float32
     out = (edges_g.to(f) * params.e_scan
            + updates_g.to(f) * params.e_fold
            + msgs_total.to(f) * (params.e_push + params.e_pop)
            + spills_total.to(f) * params.e_spill
-           + (link_flits_g.to(f) * e_hop).sum()
+           + (link_flits_g.to(f) * e_hop).sum(dim=-1)
            + leak_pj(params, T, cycles_round))
     if hbm_edges_g is not None:
         out = out + hbm_edges_g.to(f) * params.e_hbm

@@ -13,6 +13,13 @@ The recording contract: trace-off adds nothing to the round, and
 trace-on never perturbs values or ``Stats`` (every recorded value is a
 read of telemetry the round already computed, or a reduction of it).
 All recorded values are global, as ``Stats`` are.
+
+The serving lanes (:mod:`repro_torch.serve`) keep a lane-led ring
+(:func:`zero_lane_trace`): every field gains a leading ``(B,)`` axis and
+the cursor is a ``(B,)`` device tensor, since a lane records on its own
+round count (a recycled lane starts over) and that count lives on the
+device.  :func:`record_lanes` writes each lane's slot under a mask; one
+lane of the ring (``export.lane_trace``) is its solo run's ring.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ class TraceBuf(NamedTuple):
     ``Stats.cycles``: the round occupies ``[cyc_total - cyc, cyc_total]``).
     """
 
-    cursor: int                 # rounds recorded so far
+    cursor: int                 # rounds recorded so far ((B,) i32
+                                # tensor in a lane-led ring)
     round_id: torch.Tensor      # (R,) i32 engine round index per slot
     cyc: torch.Tensor           # (R,) f32 modelled cycles of the round
     cyc_total: torch.Tensor     # (R,) f32 Stats.cycles after the round
@@ -111,3 +119,41 @@ def record_round(tbuf: TraceBuf, row: dict, round_ix: int, every: int
         getattr(tbuf, name)[slot] = v
     tbuf.round_id[slot] = round_ix
     return tbuf._replace(cursor=tbuf.cursor + 1)
+
+
+def zero_lane_trace(cfg, T: int, alg, lanes: int, device="cuda") -> TraceBuf:
+    """A fresh lane-led ring: :func:`zero_trace`'s fields with a leading
+    ``(lanes,)`` axis, and a ``(lanes,)`` int32 cursor on ``device``."""
+    tb = zero_trace(cfg, T, alg, device)
+    return TraceBuf(
+        torch.zeros((lanes,), dtype=torch.int32, device=device),
+        *(x[None].expand((lanes,) + tuple(x.shape)).clone()
+          for x in tb[1:]))
+
+
+def record_lanes(tbuf: TraceBuf, row: dict, rounds: torch.Tensor,
+                 active: torch.Tensor, every: int) -> TraceBuf:
+    """Write one shared round into a lane-led ring, in place: lane ``b``
+    writes slot ``cursor[b] % R`` (and advances its cursor) where it is
+    ``active`` and its own pre-round count ``rounds[b]`` is on the
+    cadence, the round index it records; the other lanes' slots keep
+    their values.  ``row`` maps :data:`SERIES_FIELDS` to lane-led values
+    (or Python numbers, the same for every lane, which ``torch.where``
+    takes as kernel arguments: no host-to-device copy a round)."""
+    assert set(row) == set(SERIES_FIELDS), (
+        f"record_lanes row keys {sorted(row)} != {sorted(SERIES_FIELDS)}")
+    B, R = tbuf.round_id.shape
+    do = active & (rounds % every == 0)
+    slot = (tbuf.cursor % R).to(torch.int64)
+    lane = torch.arange(B, device=slot.device)
+
+    def write(buf, v):
+        old = buf[lane, slot]
+        if isinstance(v, torch.Tensor):
+            v = v.to(buf.dtype).expand(old.shape)
+        m = do.reshape((B,) + (1,) * (old.ndim - 1))
+        buf[lane, slot] = torch.where(m, v, old)
+    for name, v in row.items():
+        write(getattr(tbuf, name), v)
+    write(tbuf.round_id, rounds)
+    return tbuf._replace(cursor=tbuf.cursor + do.to(torch.int32))

@@ -36,6 +36,7 @@ from repro_torch.kernels.scatter_update import (binned_scatter,
 from repro_torch.kernels.spmv import (block_ell_matvec, block_ell_ref,
                                       spmv_block_ell, spmv_dense_ref,
                                       to_block_ell)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

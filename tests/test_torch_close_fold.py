@@ -34,6 +34,7 @@ from repro_torch.core import program as tp
 from repro_torch.core.engine import EngineConfig as TConfig
 from repro_torch.core.engine import GraphShard
 from test_torch_leg_kernels import BASES
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -42,6 +42,7 @@ from test_torch_apps import run
 from test_torch_engine import TIGHT, assert_stats_equal, port_partition
 from test_torch_fused_leg import (assert_all_stats_equal, run_program,
                                   tri_graph)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

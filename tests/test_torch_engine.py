@@ -22,6 +22,7 @@ from repro.core.reference import bfs_ref
 from repro_torch.core import algorithms as ta
 from repro_torch.core.engine import EngineConfig as TConfig
 from repro_torch.core.graph import partition_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_attention import (attention, attention_ref,
                                                  flash_attention,
                                                  repeat_kv_attention)
 from repro_torch.models.layers import blockwise_attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.flash_attention import (attention, flash_attention,
                                                  repeat_kv_attention)
 from repro_torch.models.layers import matmul_f32
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

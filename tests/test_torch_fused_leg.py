@@ -29,6 +29,7 @@ from repro_torch.kernels.engine import fused
 from test_torch_apps import check_oracle, graph, oracle, run
 from test_torch_engine import SMALL, TIGHT, assert_stats_equal, \
     port_partition
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -7,6 +7,7 @@ from repro.core import graph as jg
 from repro.core import reference as jref
 from repro_torch.core import graph as tg
 from repro_torch.core import reference as tref
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -25,6 +26,21 @@ def graphs(request):
 
 def test_csr_graphs_equal(graphs):
     jgr, tgr = graphs
+    for f in ("ptr", "dst", "val"):
+        a, b = getattr(jgr, f), getattr(tgr, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+@pytest.mark.parametrize("weights", ["uniform", "ones"])
+@pytest.mark.parametrize("dedup", [True, False])
+def test_csr_from_edges_equal(weights, dedup):
+    """Both CSR builds and both weight streams, duplicate edges kept or
+    dropped: the same arrays."""
+    J = jg.rmat_edges(9, edge_factor=6, seed=4, weights=weights)
+    P = tg.rmat_edges(9, edge_factor=6, seed=4, weights=weights)
+    jgr = jg.CSRGraph.from_edges(*J, dedup=dedup)
+    tgr = tg.CSRGraph.from_edges(*P, dedup=dedup)
     for f in ("ptr", "dst", "val"):
         a, b = getattr(jgr, f), getattr(tgr, f)
         assert a.dtype == b.dtype, f

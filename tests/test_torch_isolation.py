@@ -14,6 +14,7 @@ from repro_torch.kernels.engine import (edge_scan_gather, fold_scatter,
                                         frontier_pop, queue_push_pop)
 from repro_torch.kernels.scatter_update import scatter_segments
 from repro_torch.kernels.spmv import spmv_block_ell
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

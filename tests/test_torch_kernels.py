@@ -38,6 +38,7 @@ from repro_torch.kernels.engine import (KERNELS, edge_scan_gather,
 from test_torch_fold_kernels import ADD_FOLD_CASES, add_fold_case
 from test_torch_pop_fold_kernels import (MIN_FOLD_CASES, POP_CASES,
                                          min_fold_case, pop_case)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

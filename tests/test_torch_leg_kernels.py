@@ -35,6 +35,7 @@ from test_torch_staging import (BOOL, CHAIN, CLASSIC, H100_SMS, LegCheck,
                                 assert_same, card, check_call, launched,
                                 launches, messages, shard, state,
                                 template)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

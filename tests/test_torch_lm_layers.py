@@ -13,6 +13,7 @@ import torch
 
 from repro.models import layers as JL
 from repro_torch.models import layers as TL
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -32,6 +32,7 @@ from repro.kernels.mamba2 import ref as j_ref
 from repro.kernels.mamba2.kernel import ssd_pallas
 from repro_torch.kernels.mamba2 import (ssd, ssd_chunked, ssd_kernel,
                                         ssd_scan_oracle, ssd_step)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

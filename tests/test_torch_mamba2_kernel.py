@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels.mamba2 import (ssd, ssd_chunked, ssd_kernel,
                                         ssd_scan_oracle)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -38,6 +38,7 @@ from test_torch_apps import graph, run
 from test_torch_engine import SMALL, TIGHT, assert_stats_equal, \
     port_partition
 from test_torch_fused_leg import assert_all_stats_equal
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

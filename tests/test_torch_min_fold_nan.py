@@ -26,6 +26,7 @@ from repro_torch.kernels.scatter_update import (binned_scatter,
                                                 scatter_segments)
 from test_torch_nan_fold_kernels import (FMAX, NAN_CASES, M, N, NZ, PZ,
                                          as_bins, fold_case)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -23,6 +23,7 @@ from repro_torch.kernels.engine import fused
 from repro_torch.kernels.engine import kernel as K
 from repro_torch.kernels.scatter_update import (binned_scatter,
                                                 scatter_segments)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

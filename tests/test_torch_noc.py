@@ -38,6 +38,7 @@ from repro_torch.core.graph import CSRGraph as TCSRGraph
 from repro_torch.noc import network as tnet
 from repro_torch.noc import topology as ttop
 from test_torch_engine import assert_stats_equal, port_partition
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -222,10 +223,22 @@ def test_make_network_selects_backend():
 # Engine runs against the JAX package.
 # --------------------------------------------------------------------------
 
+def rmat(scale: int):
+    n, src, dst, val = rmat_edges(scale, edge_factor=5, seed=0)
+    return CSRGraph.from_edges(n, src, dst, val)
+
+
 @pytest.fixture(scope="module")
 def g():
-    n, src, dst, val = rmat_edges(7, edge_factor=5, seed=0)
-    return CSRGraph.from_edges(n, src, dst, val)
+    return rmat(7)
+
+
+# The capped-link runs on 8 and 16 tiles take R-MAT-5 (32 vertices): at
+# link_cap 1 or 2 both channels still spill and replay there (asserted),
+# in 9-26 rounds instead of R-MAT-7's 50-125.
+@pytest.fixture(scope="module")
+def g5():
+    return rmat(5)
 
 
 def run_port_paths(run, cfg_kw, want, where):
@@ -243,7 +256,8 @@ def run_port_paths(run, cfg_kw, want, where):
 
 @pytest.mark.parametrize("noc,T", [("mesh", 4), ("torus", 16),
                                    ("ruche", 8)])
-def test_bfs_on_grid_fabrics_bitwise_equals_jax(g, noc, T):
+def test_bfs_on_grid_fabrics_bitwise_equals_jax(g, g5, noc, T):
+    g = g if T == 4 else g5
     root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
     jpg = ja.prepare(g, T=T)
     kw = dict(SMALL_NOC if T == 4 else SMALL_NOC16, noc=noc, link_cap=1)
@@ -261,7 +275,8 @@ def test_bfs_on_grid_fabrics_bitwise_equals_jax(g, noc, T):
         assert int(st.flits_per_link[torch.from_numpy(cls == 1)].sum()) > 0
 
 
-def test_spmv_add_fold_on_torus_bitwise_equals_jax(g):
+def test_spmv_add_fold_on_torus_bitwise_equals_jax(g5):
+    g = g5
     x = np.random.default_rng(1).normal(size=g.num_vertices) \
         .astype(np.float32)
     jpg = ja.prepare(g, T=16)
@@ -270,4 +285,4 @@ def test_spmv_add_fold_on_torus_bitwise_equals_jax(g):
     tpg = port_partition(jpg)
     st = run_port_paths(lambda c: ta.spmv(tpg, x, c), kw, want,
                         "spmv torus")
-    assert int(st.spills.sum()) > 0
+    assert (st.spills > 0).all()

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels.engine import kernel as K
 from repro_torch.kernels.engine.kernel import column_split, device_split
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

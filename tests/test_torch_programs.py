@@ -25,6 +25,7 @@ from repro_torch.core.engine import EngineConfig as TConfig
 from repro_torch.core.graph import CSRGraph as TCSRGraph
 from test_torch_engine import SMALL, TIGHT, assert_stats_equal, \
     port_partition
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

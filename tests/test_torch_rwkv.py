@@ -40,6 +40,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.rwkv6 import wkv6_kernel
 from repro_torch.models import rwkv as TR
 from repro_torch.models import transformer as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

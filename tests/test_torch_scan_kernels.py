@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.engine import kernel as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -110,8 +111,9 @@ def test_scans_launch_one_kernel_at_any_lane_count(launches, T, R, max_t2):
     assert (f1, f2) == ("repro_edge_scan_gather", "repro_edge_scan_stream")
     types = K.LIBRARY.signatures
     assert len(a1) == len(types[f1]) - 1 and len(a2) == len(types[f2]) - 1
-    assert a1[8:] == (T, e_chunk, R, max_t2)
-    assert a2[8:] == (T, e_chunk, R, max_t2, 4 * max_t2)
+    # the state's rows, then the shard's tiles: the same T for one run
+    assert a1[8:] == (T, T, e_chunk, R, max_t2)
+    assert a2[8:] == (T, T, e_chunk, R, max_t2, 4 * max_t2)
     for o, args in ((out, a1), (out2, a2)):
         assert all(a is b for a, b in zip(args[5:8], o))
         assert [x.dtype for x in o] == [I32, F32, BOOL]

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels.spmv import (block_ell_matvec, spmv_block_ell,
                                       to_block_ell)
 from repro_torch.kernels.spmv.kernel import MAX_BLOCK, groups
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

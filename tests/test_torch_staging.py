@@ -40,6 +40,7 @@ from repro_torch.kernels.engine.kernel import column_split
 from repro_torch.kernels.scatter_update import kernel as seg
 from repro_torch.kernels.scatter_update import (binned_scatter,
                                                 scatter_segments)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

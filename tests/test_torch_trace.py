@@ -32,6 +32,7 @@ from repro_torch.trace import SERIES_FIELDS, TraceBuf
 from repro_torch.trace.__main__ import main as trace_main
 from test_torch_engine import assert_stats_equal, port_partition
 from test_torch_noc import PORT_PATHS
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

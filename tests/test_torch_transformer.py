@@ -31,6 +31,7 @@ from repro.parallel.sharding import ParamSpec as JParamSpec
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.embedding import routed_embed
 from repro_torch.models import transformer as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -32,6 +32,7 @@ from repro.kernels.rwkv6.kernel import wkv6_pallas
 from repro_torch.kernels.rwkv6 import kernel as W6K
 from repro_torch.kernels.rwkv6 import (wkv6, wkv6_chunked, wkv6_kernel,
                                        wkv6_scan_oracle, wkv6_step)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels.rwkv6 import kernel as W6K
 from repro_torch.kernels.rwkv6 import (wkv6_chunked, wkv6_kernel,
                                        wkv6_scan_oracle)
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 

@@ -47,6 +47,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba2 import ssd_kernel
 from repro_torch.models import mamba as TM
 from repro_torch.models import transformer as T
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
