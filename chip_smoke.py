@@ -3,8 +3,8 @@
 rwkv6-1.6b and zamba2-2.7b serving on one GPU.
 
     python3 chip_smoke.py \
-        [--phases kernels,twin,main,hbm,noc,taskgraph,block,rmat18,serve,lm,
-                  rwkv,zamba] [--seed 0]
+        [--phases kernels,twin,main,hbm,noc,place,taskgraph,block,rmat18,
+                  serve,lm,rwkv,zamba] [--seed 0]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -106,6 +106,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``launches``, link occupancy at most ``link_cap`` times the two route
    legs, equal drops; round NOC_CHECK_ROUND's fused legs held against
    their plain stages and timed;
+6b. ``place`` — adaptive placement (``repro_torch.place``), the rungs of
+   ``benchmarks/fig15_adaptive.py`` at noc (a)'s configuration (noc's
+   runs are reused, or run here when phase noc is not selected).  (a)
+   Between queries: a plan from (a)'s ring within PLACE_BUDGET (V // 8),
+   applied on the card, BFS from the same root again: values bitwise the
+   unmigrated run's and the oracle's, no drops, three launches a round,
+   the move priced into Stats (``migrated_vertices`` and
+   ``migration_cycles`` > 0, ``energy_pj`` within 1e-5 of the host
+   oracle ``energy_from_totals``); printed: pairs by reason, DIE-class
+   flits and the hottest tile's busy share before and after, the host ms
+   of the plan and of ``apply_plan``, rounds, wall and device ms a round.
+   (b) Epoch boundaries: ``adaptive_pagerank`` over PLACE_PR_EPOCHS
+   epochs, a plan every PLACE_PR_EVERY, against ``pagerank`` on
+   R-MAT-PLACE_PR_SCALE: within rtol 1e-6, atol 1e-12, a plan applied,
+   edges, updates and delivered updates equal.  (c) The twin on
+   R-MAT-PLACE_TWIN_SCALE over 16 tiles: "torch" against "kernels" fused
+   (every leg call against its plain stage) and unfused (every scan
+   call), bitwise (values, Stats but launches, plans) for BFS on a
+   partition migrated by its own ring's plan, the dyadic adaptive
+   PageRank and static serving with a plan after every batch (each query
+   bitwise its solo run on the starting partition).  (d) The planner and
+   ``apply_plan`` on noc (b)'s R-MAT-22 partition and ring at budget
+   PLACE_MAIN_BUDGET: host seconds of each step, the old and new
+   ``e_chunk``, ``Program.validate``'s verdict at NOC_VMEM_LIMIT;
 7. ``taskgraph`` — the fused task-graph programs on 64 tiles: k-core
    (k = 16) on symmetrized R-MAT-20 (edge factor 10, seed 1), equal to
    ``kcore_ref``, and triangle counting on ``prepare_triangles`` of
@@ -268,6 +292,8 @@ from repro_torch.core.comm import LocalComm  # noqa: E402
 from repro_torch.noc import make_network  # noqa: E402
 from repro_torch.noc.topology import CLASS_DIE, N_LINK_CLASSES  # noqa: E402
 from repro_torch import serve as SERVE  # noqa: E402
+from repro_torch import place as PL  # noqa: E402
+from repro_torch.perf import model as PM  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
@@ -435,6 +461,30 @@ SERVE_TWIN_FABRICS = {"ideal": (SERVE_TWIN_SCALE, {}),
                       "mesh": (FABRIC_SCALE, dict(noc="mesh", link_cap=2))}
 # the lane-axis scans timed at SERVE_B lanes of the R-MAT-22 shard
 SERVE_SCAN_R = MAIN_T * MAIN_CFG.cap_route_range
+# Phase place: adaptive placement (repro_torch.place) at noc (a)'s
+# configuration, the rungs of benchmarks/fig15_adaptive.py.  (a) Between
+# queries: noc (a)'s traced BFS is the observation and the unmigrated
+# twin; a plan from its ring within fig15's default budget (V // 8),
+# applied, BFS from the same root again, the move priced.  (b) Epoch
+# boundaries: adaptive_pagerank over PLACE_PR_EPOCHS epochs, a plan every
+# PLACE_PR_EVERY, against plain pagerank over the same epochs, under (a)'s
+# fabric and placement on R-MAT-PLACE_PR_SCALE: cut from (a)'s R-MAT-16
+# for the script's time (the two runs took 59.4 s there, PERF.md §4).
+# (c) The twin on R-MAT-PLACE_TWIN_SCALE over PLACE_TWIN_T tiles, hier 2
+# x 2, die-local: "torch" against "kernels", fused and unfused, through a
+# migration (BFS; the dyadic adaptive PageRank of tests/test_place.py,
+# budget PLACE_TWIN_BUDGET; static serving of PLACE_SERVE_SOURCES sources
+# through PLACE_SERVE_WIDTH lanes).  (d) The
+# planner and migrator at full size: noc (b)'s R-MAT-22 partition and
+# its ring, the rmat-hier-adapt preset's budget, host side only (at the
+# main queues this placement drops messages on R-MAT-22, ROADMAP.md §3).
+PLACE_BUDGET = (1 << NOC_SCALE) // 8
+PLACE_PR_SCALE, PLACE_PR_EPOCHS, PLACE_PR_EVERY = 14, 4, 2
+PLACE_TWIN_SCALE, PLACE_TWIN_T, PLACE_TWIN_BUDGET = 10, 16, 16
+PLACE_TWIN_FABRIC = dict(noc="hier", ndies_y=2, ndies_x=2)
+PLACE_PR_DAMPING, PLACE_PR_TWIN_EPOCHS = 0.5, 3
+PLACE_SERVE_SOURCES, PLACE_SERVE_WIDTH = 6, 2
+PLACE_MAIN_BUDGET = 128   # the rmat-hier-adapt preset's adapt_budget
 BLOCK_SCALE, BLOCK_B, BLOCK_T = 14, 128, 16
 # the knobs of the reference's block-ELL test (tests/test_kernels.py:75)
 TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -2733,11 +2783,368 @@ def phase_noc(dev, smi, timer):
         f"; drops {int(a.stats.drops)} on both; spills "
         f"{b.stats.spills.tolist()}; {time.perf_counter() - t0:.1f} s")
     calls = time_legs(chk, timer, f"noc stress round {NOC_CHECK_ROUND}")
+    # what phase place starts from: (a)'s run and (b)'s partition and ring
+    obs = dict(g=g, pg=pg, res=res, wall=wall, g22=g22, pg22=pg22,
+               ring22=b.trace)
     return paths, calls, dict(rounds=rounds, wall_ms=1e3 * wall / rounds,
                               peak_gib=peak / 2 ** 30, die_share=die_share,
                               drops_stress=int(a.stats.drops), **{
                                   f"{k}_{m}": v for k, p in prof.items()
-                                  for m, v in p.items()})
+                                  for m, v in p.items()}), obs
+
+
+# --------------------------------------------------------------------------
+# Phase place: adaptive placement
+# --------------------------------------------------------------------------
+
+def busy_share_max(trace) -> float:
+    """The hottest tile's share of the ring's busy cycles (1 / T is
+    perfect balance)."""
+    busy = PL.score_tiles(trace)
+    return float(busy.max() / busy.sum()) if busy.sum() > 0 else 0.0
+
+
+def noc_observation(dev, smi):
+    """What phase place starts from when phase noc did not run: noc (a)'s
+    traced BFS on its partition, and noc (b)'s R-MAT-22 partition and
+    ring ("kernels", fused).  Returns (observation, launches by path)."""
+    paths = {}
+    g = rmat_graph(NOC_SCALE)
+    pg = alg.prepare(g, MAIN_T, NOC_PLACEMENT, dies=NOC_DIES, device=dev)
+    res, paths["BFS hier (observation)"], wall = drive(
+        lambda: alg.bfs(pg, MAIN_ROOT, NOC_CFG), smi,
+        f"BFS R-MAT-{NOC_SCALE} (fused, hier, {NOC_PLACEMENT}, trace on; "
+        f"noc (a)'s run)", FUSED_ROUND)
+    g22 = rmat_graph(MAIN_SCALE)
+    pg22 = alg.prepare(g22, MAIN_T, NOC_PLACEMENT, dies=NOC_DIES, device=dev)
+    reset_launches()
+    ring22 = alg.bfs(pg22, MAIN_ROOT, NOC_STRESS).trace
+    paths["BFS hier stress (observation)"] = read_launches()
+    return dict(g=g, pg=pg, res=res, wall=wall, g22=g22, pg22=pg22,
+                ring22=ring22), paths
+
+
+def place_between_queries(obs, smi):
+    """(a): plan from noc (a)'s ring within PLACE_BUDGET, apply, BFS from
+    the same root again, price the move.  Values bitwise the unmigrated
+    run's and the oracle's, no drops, three launches a round, the
+    migration counters set, ``energy_pj`` within 1e-5 of the host oracle.
+    Printed, not gated: pairs by reason, DIE-class flits and the hottest
+    tile's busy share before and after, the plan's and the apply's host
+    ms, rounds, wall and device ms a round."""
+    g, pg0, res0 = obs["g"], obs["pg"], obs["res"]
+    T = pg0.T
+    cfg = dataclasses.replace(NOC_CFG, adapt_budget=PLACE_BUDGET)
+    td = PL.cfg_tile_die(cfg, T)
+    net = make_network(cfg, T)
+    t0 = time.perf_counter()
+    plan = PL.plan_from_trace(pg0, cfg, res0.trace)
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    pg1 = PL.apply_plan(g, pg0, plan, tile_die=td)
+    torch.cuda.synchronize()
+    apply_ms = 1e3 * (time.perf_counter() - t0)
+    res1, launches, wall = drive(
+        lambda: alg.bfs(pg1, MAIN_ROOT, cfg), smi,
+        f"BFS R-MAT-{NOC_SCALE} migrated ({plan.num_pairs} pairs; fused, "
+        f"hier, trace on)", FUSED_ROUND)
+    np.testing.assert_array_equal(res1.values, res0.values)
+    np.testing.assert_array_equal(res1.values, ref.bfs_ref(g, MAIN_ROOT))
+    st = PL.price_migration(res1.stats, pg0, plan, T, params=cfg.perf,
+                            tile_die=td)
+    moved = int(st.migrated_vertices)
+    assert moved == plan.moved_vertices(pg0) > 0, moved
+    assert float(st.migration_cycles) > 0, float(st.migration_cycles)
+    want = PM.energy_from_totals(st, cfg.perf, net, T)
+    np.testing.assert_allclose(float(st.energy_pj), want, rtol=1e-5)
+    die = [PM.flits_by_class(s, net)["die"] for s in (res0.stats, st)]
+    share = [busy_share_max(r.trace) for r in (res0, res1)]
+    rounds = [int(r.stats.rounds) for r in (res0, res1)]
+    prof = round_profile(pg1, cfg, NOC_PROFILE_AT, NOC_PROFILE_ROUNDS)
+    reasons = {k: plan.reason.count(k) for k in ("die", "bal")}
+    log(f"# place (a) between queries (R-MAT-{NOC_SCALE}, T={T}, hier "
+        f"2x2, {NOC_PLACEMENT}, budget {PLACE_BUDGET}): plan of "
+        f"{plan.num_pairs} pairs {reasons}, {moved} vertices moved, "
+        f"migration {float(st.migration_cycles):.0f} cycles "
+        f"{float(st.migration_pj):.0f} pJ; e_chunk {pg0.e_chunk} -> "
+        f"{pg1.e_chunk}; values bitwise the unmigrated run's and the "
+        f"oracle's, energy_pj {float(st.energy_pj):.1f} against the "
+        f"oracle's {want:.1f}; DIE-class flits {die[0]} -> {die[1]}, "
+        f"busy_share_max {share[0]:.4f} -> {share[1]:.4f}, rounds "
+        f"{rounds[0]} -> {rounds[1]}; host: plan {plan_ms:.1f} ms, "
+        f"apply_plan {apply_ms:.1f} ms; rerun wall "
+        f"{1e3 * wall / rounds[1]:.3f} ms/round (before "
+        f"{1e3 * obs['wall'] / rounds[0]:.3f}), device "
+        f"{prof['device_ms']:.3f} ms/round (rounds {NOC_PROFILE_AT}.."
+        f"{NOC_PROFILE_AT + NOC_PROFILE_ROUNDS - 1}); card {smi}")
+    return launches, dict(pairs=plan.num_pairs, reasons=reasons,
+                          moved=moved, die_flits=die, busy_share_max=share,
+                          rounds=rounds, plan_ms=plan_ms, apply_ms=apply_ms,
+                          wall_ms=1e3 * wall / rounds[1],
+                          device_ms=prof["device_ms"])
+
+
+def place_epochs(obs, dev, smi):
+    """(b): adaptive_pagerank over PLACE_PR_EPOCHS epochs, a plan every
+    PLACE_PR_EVERY from the last epoch's ring, against plain pagerank over
+    the same epochs and config: values within fig15's tolerance (rtol
+    1e-6, atol 1e-12), at least one plan applied, the placement-free
+    counters (edges scanned, updates applied, delivered updates) equal."""
+    if PLACE_PR_SCALE == NOC_SCALE:
+        g, pg = obs["g"], obs["pg"]
+    else:
+        g = rmat_graph(PLACE_PR_SCALE)
+        pg = alg.prepare(g, MAIN_T, NOC_PLACEMENT, dies=NOC_DIES,
+                         device=dev)
+    budget = g.num_vertices // 8
+    cfg = dataclasses.replace(NOC_CFG, adapt=True,
+                              adapt_every=PLACE_PR_EVERY,
+                              adapt_budget=budget)
+    what = (f"PageRank R-MAT-{PLACE_PR_SCALE} {PLACE_PR_EPOCHS} epochs "
+            f"(fused, hier, {NOC_PLACEMENT}, trace on)")
+    twin, paths = {}, {}
+    twin["plain"], paths["PageRank hier"], wall0 = drive(
+        lambda: alg.pagerank(pg, iters=PLACE_PR_EPOCHS, cfg=NOC_CFG), smi,
+        what, FUSED_ROUND)
+    out = {}
+
+    def adaptive():
+        out["res"], out["pg"], out["plans"] = PL.adaptive_pagerank(
+            g, pg, iters=PLACE_PR_EPOCHS, cfg=cfg, params=cfg.perf)
+        return out["res"]
+
+    twin["adaptive"], paths["PageRank hier adaptive"], wall1 = drive(
+        adaptive, smi, f"adaptive {what}, a plan every {PLACE_PR_EVERY}",
+        FUSED_ROUND)
+    a, b = twin["plain"], twin["adaptive"]
+    np.testing.assert_allclose(b.values, a.values, rtol=1e-6, atol=1e-12)
+    plans = out["plans"]
+    assert plans, "no plan applied"
+    for f in ("edges_scanned", "updates_applied"):
+        assert int(getattr(a.stats, f)) == int(getattr(b.stats, f)), f
+    assert int(a.stats.msgs[-1]) == int(b.stats.msgs[-1])
+    st = b.stats
+    err = float(np.abs(b.values - a.values).max())
+    log(f"# place (b) epoch boundaries: adaptive_pagerank within rtol "
+        f"1e-6 of plain pagerank (max abs diff {err:.3e}), {len(plans)} "
+        f"plans of {[p.num_pairs for p in plans]} pairs, "
+        f"{int(st.migrated_vertices)} vertices moved, "
+        f"{float(st.migration_cycles):.0f} cycles; edges "
+        f"{int(st.edges_scanned)}, updates {int(st.updates_applied)} and "
+        f"delivered updates {int(st.msgs[-1])} equal; rounds "
+        f"{int(a.stats.rounds)} plain, {int(st.rounds)} adaptive; wall "
+        f"{wall0:.3f} s plain, {wall1:.3f} s adaptive; card {smi}")
+    return paths, dict(plans=len(plans), rounds=[int(a.stats.rounds),
+                                                 int(st.rounds)],
+                       wall_s=[wall0, wall1])
+
+
+def pow2_degree_graph(g: CSRGraph) -> CSRGraph:
+    """tests/test_place.py's dyadic instance: each vertex's out-edges cut
+    to the largest power of two <= its degree, unit weights."""
+    deg = g.ptr[1:] - g.ptr[:-1]
+    keep = np.zeros(g.num_edges, bool)
+    for v in range(g.num_vertices):
+        d = int(deg[v])
+        if d:
+            keep[g.ptr[v]:g.ptr[v] + (1 << (d.bit_length() - 1))] = True
+    src = np.repeat(np.arange(g.num_vertices), deg)[keep]
+    return CSRGraph.from_edges(g.num_vertices, src, g.dst[keep],
+                               np.ones(int(keep.sum()), np.float32),
+                               dedup=False)
+
+
+def assert_plans_equal(a, b, where):
+    np.testing.assert_array_equal(a.pairs, b.pairs, err_msg=where)
+    assert a.reason == b.reason, where
+
+
+def place_twin(dev):
+    """(c): "torch" against "kernels" through a migration, on
+    R-MAT-PLACE_TWIN_SCALE over PLACE_TWIN_T tiles, hier 2x2, die-local;
+    "kernels" fused (every leg call held against its plain stage) and
+    unfused (every scan call by scan_contract): BFS on a partition
+    migrated by a plan from its own ring; the dyadic adaptive PageRank;
+    static serving with a plan after every batch.  Values, every Stats
+    field but ``launches`` and the plans' pairs bitwise; each served query
+    bitwise its solo run on the starting partition.  Returns the kernels'
+    launches."""
+    t0 = time.perf_counter()
+    g = rmat_graph(PLACE_TWIN_SCALE)
+    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+    base = EngineConfig(trace=True, trace_rounds=4096,
+                        adapt_budget=g.num_vertices // 8,
+                        **PLACE_TWIN_FABRIC)
+    td = PL.cfg_tile_die(base, PLACE_TWIN_T)
+    pg0 = alg.prepare(g, PLACE_TWIN_T, NOC_PLACEMENT, dies=NOC_DIES,
+                      device=dev)
+    paths = ("torch", "fused", "unfused")
+    seen, legs = {}, set()
+
+    def cfg_of(path, **kw):
+        if path == "torch":
+            return dataclasses.replace(base, backend="torch", **kw)
+        return dataclasses.replace(base, fuse=path == "fused", **kw)
+
+    def each(run, where):
+        """{path: run(path)}, the kernels' calls held as above."""
+        out = {}
+        for path in paths:
+            if path == "fused":
+                with FusedCheck(f"place (c) {where}", every=True) as chk:
+                    out[path] = run(path)
+                legs.update(chk.checked)
+            else:
+                with scan_check(seen):
+                    out[path] = run(path)
+        return out
+
+    def same(out, where, fields=lambda r: (r.values, r.stats)):
+        for path in paths[1:]:
+            (va, sa), (vb, sb) = fields(out["torch"]), fields(out[path])
+            np.testing.assert_array_equal(va, vb, err_msg=where)
+            assert_stats_equal(sa, sb, f"{where} {path}")
+
+    reset_launches()
+    # BFS: a plan from each path's own ring, then the run on its migration
+    obs = each(lambda p: alg.bfs(pg0, root, cfg_of(p)), "BFS observation")
+    same(obs, "BFS observation")
+    plans = {p: PL.plan_from_trace(pg0, base, r.trace)
+             for p, r in obs.items()}
+    assert plans["torch"].num_pairs > 0
+    for p in paths[1:]:
+        assert_plans_equal(plans["torch"], plans[p], f"BFS plan {p}")
+    pg1 = PL.apply_plan(g, pg0, plans["torch"], tile_die=td)
+    mig = each(lambda p: alg.bfs(pg1, root, cfg_of(p)), "BFS migrated")
+    same(mig, "BFS migrated")
+    for p, per_round in (("fused", 3), ("unfused", 5)):
+        assert int(mig[p].stats.launches) == \
+            per_round * int(mig[p].stats.rounds), p
+    np.testing.assert_array_equal(mig["torch"].values, obs["torch"].values)
+    np.testing.assert_array_equal(mig["torch"].values, ref.bfs_ref(g, root))
+    # the dyadic adaptive PageRank of tests/test_place.py
+    gd = pow2_degree_graph(g)
+    pgd = alg.prepare(gd, PLACE_TWIN_T, NOC_PLACEMENT, dies=NOC_DIES,
+                      device=dev)
+    pr = each(lambda p: PL.adaptive_pagerank(
+        gd, pgd, damping=PLACE_PR_DAMPING, iters=PLACE_PR_TWIN_EPOCHS,
+        cfg=cfg_of(p, adapt=True, adapt_every=1,
+                   adapt_budget=PLACE_TWIN_BUDGET)), "PageRank")
+    same(pr, "PageRank", lambda r: (r[0].values, r[0].stats))
+    res_t, _, plans_t = pr["torch"]
+    assert plans_t, "no plan applied"
+    for p in paths[1:]:
+        assert len(pr[p][2]) == len(plans_t), p
+        for a, b in zip(plans_t, pr[p][2]):
+            assert_plans_equal(a, b, f"PageRank plan {p}")
+    plain = alg.pagerank(pgd, damping=PLACE_PR_DAMPING,
+                         iters=PLACE_PR_TWIN_EPOCHS, cfg=cfg_of("torch"))
+    np.testing.assert_allclose(res_t.values, plain.values, rtol=1e-6,
+                               atol=1e-12)
+    pr_bitwise = bool(np.array_equal(res_t.values, plain.values))
+    # static serving with a plan after every batch
+    deg = g.ptr[1:] - g.ptr[:-1]
+    srcs = np.flatnonzero(deg > 0)[:PLACE_SERVE_SOURCES].tolist()
+    reps = each(lambda p: SERVE.Frontend(
+        pg0, app="bfs", cfg=cfg_of(p, adapt=True, adapt_every=1,
+                                   adapt_budget=PLACE_TWIN_BUDGET),
+        width=PLACE_SERVE_WIDTH, graph=g).serve(srcs), "serving")
+    rep_t = reps["torch"]
+    assert rep_t.migrated_vertices > 0 and rep_t.drops == 0
+    for p in paths[1:]:
+        rep = reps[p]
+        assert rep.row() == rep_t.row(), p
+        assert (rep.total_cycles, rep.total_energy_pj) == \
+            (rep_t.total_cycles, rep_t.total_energy_pj), p
+        for a, b in zip(rep_t.records, rep.records):
+            assert (a.qid, a.source, a.complete_cycle, a.rounds, a.edges) \
+                == (b.qid, b.source, b.complete_cycle, b.rounds, b.edges), p
+            np.testing.assert_array_equal(a.values, b.values)
+    for rec in rep_t.records:
+        solo = alg.bfs(pg0, rec.source, cfg_of("torch"))
+        np.testing.assert_array_equal(rec.values, solo.values)
+    assert legs == set(FUSED_ROUND), legs
+    if pg0.device.type == "cuda":
+        assert set(seen) == {"edge_scan_gather"}, seen
+    launches = read_launches()
+    log(f"# place (c) twin (R-MAT-{PLACE_TWIN_SCALE}, T={PLACE_TWIN_T}, "
+        f"hier 2x2, {NOC_PLACEMENT}): torch == kernels fused and unfused "
+        f"bitwise (values, Stats but launches, plans) through a migration, "
+        f"fused legs {sorted(legs)} held against their plain stages at "
+        f"every call, scans {seen} by scan_contract: BFS plan of "
+        f"{plans['torch'].num_pairs} pairs, e_chunk {pg0.e_chunk} -> "
+        f"{pg1.e_chunk}, rounds {int(obs['torch'].stats.rounds)} -> "
+        f"{int(mig['torch'].stats.rounds)}; dyadic adaptive PageRank "
+        f"({PLACE_PR_TWIN_EPOCHS} epochs) {len(plans_t)} plans, "
+        f"{int(res_t.stats.migrated_vertices)} moved, bitwise the "
+        f"unmigrated run: {pr_bitwise}; static serving of {len(srcs)} "
+        f"sources through {PLACE_SERVE_WIDTH} lanes, "
+        f"{rep_t.migrated_vertices} vertices moved between batches, each "
+        f"query bitwise its solo run on the starting partition; kernel "
+        f"launches { {k: v for k, v in launches.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def place_full_size(obs, smi):
+    """(d): the planner and the migrator on noc (b)'s R-MAT-22 partition
+    and its ring, at the rmat-hier-adapt preset's budget: the host
+    seconds of each step, the old and new ``e_chunk``, and
+    ``Program.validate``'s verdict on the new shape at NOC_VMEM_LIMIT.
+    No device rerun (ROADMAP.md §3)."""
+    g, pg = obs["g22"], obs["pg22"]
+    td = PL.cfg_tile_die(NOC_STRESS, pg.T)
+    secs = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    busy = step("score_tiles", lambda: PL.score_tiles(obs["ring22"]))
+    edges = step("placed_edges", lambda: PL.placed_edges(pg))
+    step("vertex_die_affinity",
+         lambda: PL.vertex_die_affinity(pg, td, edges))
+    del edges
+    plan = step("migration_plan", lambda: PL.migration_plan(
+        pg, busy, budget=PLACE_MAIN_BUDGET, tile_die=td))
+    pg1 = step("apply_plan", lambda: PL.apply_plan(g, pg, plan, tile_die=td))
+    torch.cuda.synchronize()
+    assert plan.moved_vertices(pg) <= PLACE_MAIN_BUDGET
+    try:
+        as_program(BFS).validate(NOC_STRESS, pg1.T, pg1.e_chunk,
+                                 pg1.v_chunk)
+        verdict = "fits"
+    except ValueError as e:   # the verdict is printed, not gated
+        verdict = f"refused: {e}"
+    reasons = {k: plan.reason.count(k) for k in ("die", "bal")}
+    log(f"# place (d) full size (V={g.num_vertices}, E={g.num_edges}, "
+        f"T={pg.T}, hier 2x2, "
+        f"{NOC_PLACEMENT}, ring of {NOC_STRESS_ROUNDS} rounds, budget "
+        f"{PLACE_MAIN_BUDGET}): plan of {plan.num_pairs} pairs {reasons}, "
+        f"{plan.moved_vertices(pg)} vertices moved; host s "
+        f"{ {k: round(v, 3) for k, v in secs.items()} }; e_chunk "
+        f"{pg.e_chunk} -> {pg1.e_chunk}; Program.validate at a tile budget "
+        f"of {NOC_VMEM_LIMIT} B: {verdict}; card {smi}")
+    return dict(secs=secs, pairs=plan.num_pairs, e_chunk=[pg.e_chunk,
+                                                          pg1.e_chunk],
+                verdict=verdict)
+
+
+def phase_place(dev, smi, obs=None):
+    """Adaptive placement: (a) between queries, (b) at epoch boundaries,
+    (c) the twin through a migration, (d) the host side at R-MAT-22.
+    ``obs``: phase noc's runs, else run here."""
+    paths = {}
+    if obs is None:
+        obs, paths = noc_observation(dev, smi)
+    paths["place BFS migrated"], a = place_between_queries(obs, smi)
+    pr_paths, b = place_epochs(obs, dev, smi)
+    paths.update(pr_paths)
+    paths["place twin"] = place_twin(dev)
+    d = place_full_size(obs, smi)
+    return paths, dict(a=a, b=b, d=d)
 
 
 # --------------------------------------------------------------------------
@@ -4111,8 +4518,8 @@ def phase_zamba(dev, smi, timer):
     return ssd_row, flash_row, paths
 
 
-PHASES = ("kernels", "twin", "main", "hbm", "noc", "taskgraph", "block",
-          "rmat18", "serve", "lm", "rwkv", "zamba")
+PHASES = ("kernels", "twin", "main", "hbm", "noc", "place", "taskgraph",
+          "block", "rmat18", "serve", "lm", "rwkv", "zamba")
 SPENT = {}  # phase: wall seconds
 
 
@@ -4153,10 +4560,16 @@ def main():
         calls += main_calls
         if "edge_scan_stream" in rows:
             rows["edge_scan_stream"]["calls"] += scans
+    noc_obs = None
     if "noc" in phases:
-        noc_paths, noc_calls, _ = timed("noc", phase_noc, dev, smi, timer)
+        noc_paths, noc_calls, _, noc_obs = timed("noc", phase_noc, dev, smi,
+                                                 timer)
         paths += noc_paths.values()
         calls += noc_calls
+    if "place" in phases:
+        place_paths, _ = timed("place", phase_place, dev, smi, noc_obs)
+        paths += place_paths.values()
+    noc_obs = None
     if "taskgraph" in phases:
         task_paths, task_calls = timed("taskgraph", phase_taskgraph, dev,
                                        smi, timer)

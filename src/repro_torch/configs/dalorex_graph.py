@@ -6,8 +6,9 @@ run; ``python -m repro_torch.trace`` reads them.  The R-MAT scales mirror
 the paper's synthetic datasets (Section IV-A), clipped to sizes a host
 builds in seconds.  ``backend`` takes the port's values: the reference's
 ``"xla"`` presets are ``"torch"`` here and its ``"pallas"`` preset is
-``"kernels"``.  The ``adapt`` presets stay as data; running one raises,
-as adaptive placement is still to port (ROADMAP.md, "Placement").
+``"kernels"``.  The ``adapt`` fields are read by the adaptive call sites
+(:mod:`repro_torch.place`); the trace CLI, as the reference's, runs a
+preset's workload without them.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class GraphWorkload:
     # next pow2 >= max_t2) — bit-identical values, per-space pricing
     edge_space: str = "vmem"
     hbm_window: int = 0
-    # telemetry-driven adaptive placement (still to port): relabel hot
+    # telemetry-driven adaptive placement (repro_torch.place): relabel hot
     # vertices at epoch/query boundaries, at most ``adapt_budget`` moved
     # vertices per plan, every ``adapt_every`` epochs/batches
     adapt: bool = False

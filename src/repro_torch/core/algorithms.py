@@ -171,32 +171,47 @@ def spmv(pg: PartitionedGraph, x: np.ndarray,
                   trace=trace)
 
 
+def initial_rank(pg: PartitionedGraph) -> np.ndarray:
+    """(T, v_chunk) float32: 1 / V on every real vertex, 0 on padding."""
+    return np.where(real_mask(pg), np.float32(1.0 / pg.num_vertices),
+                    0.0).astype(np.float32)
+
+
+def pagerank_epoch(pg: PartitionedGraph, rank: np.ndarray, damping: float,
+                   cfg: EngineConfig):
+    """One PageRank epoch on ``pg``: the engine pushes ``rank``'s
+    contributions, then the rank update and the dangling redistribution
+    run in numpy on the host, the reference's very expression, so the sums
+    keep its order.  Returns ``(new_rank, stats, trace)``; ``acc`` is read
+    back once."""
+    V = pg.num_vertices
+    real = real_mask(pg)
+    deg = _host_deg(pg)
+    value, frontier = _dev(pg, rank, real & (deg > 0))
+    _, acc, stats, trace = local_engine_call(pg, PAGERANK, cfg, value,
+                                             frontier)
+    acc = acc.cpu().numpy()
+    dangling = rank[real & (deg == 0)].sum()
+    new_rank = np.where(
+        real, (1 - damping) / V + damping * (acc + dangling / V),
+        0.0).astype(np.float32)
+    return new_rank, stats, trace
+
+
 def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
              tol: float = 0.0, cfg: EngineConfig = EngineConfig()
              ) -> Result:
     """Epoch-synchronized PageRank (the paper keeps the barrier for PR).
 
-    Each epoch is one engine run (push contributions, accumulate).  The
-    rank update and the dangling redistribution between epochs stay numpy
-    on the host, the reference's very expression, so the sums keep its
-    order; ``acc`` is read back once per epoch.
+    Each epoch is one engine run (:func:`pagerank_epoch`), the rank
+    update between epochs on the host.
     """
-    V = pg.num_vertices
-    real = real_mask(pg)
-    deg = _host_deg(pg)
-    rank = np.where(real, np.float32(1.0 / V), 0.0).astype(np.float32)
+    rank = initial_rank(pg)
     total = zero_stats(cfg, pg.T, PAGERANK, pg.device)
     epochs = 0
     trace = None  # the LAST epoch's ring (each epoch restarts the engine)
     for _ in range(iters):
-        value, frontier = _dev(pg, rank, real & (deg > 0))
-        _, acc, stats, trace = local_engine_call(pg, PAGERANK, cfg, value,
-                                                 frontier)
-        acc = acc.cpu().numpy()
-        dangling = rank[real & (deg == 0)].sum()
-        new_rank = np.where(
-            real, (1 - damping) / V + damping * (acc + dangling / V),
-            0.0).astype(np.float32)
+        new_rank, stats, trace = pagerank_epoch(pg, rank, damping, cfg)
         diff = np.abs(new_rank - rank).sum()
         rank = new_rank
         total = _acc_stats(total, stats)

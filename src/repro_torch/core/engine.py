@@ -54,8 +54,8 @@ one launch for the whole batch, and the Stats are lane-led ``(B, ...)``.
 :func:`lane_select` and :func:`keep_frozen` freeze the lanes that have
 finished.
 
-``adapt`` (adaptive placement) is still to port and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``adapt`` (adaptive placement, :mod:`repro_torch.place`) is read by the
+host drivers between epochs and batches; the round loop never migrates.
 """
 from __future__ import annotations
 
@@ -129,7 +129,10 @@ class EngineConfig:
     trace: bool = False      # flight recorder (repro_torch.trace)
     trace_every: int = 1
     trace_rounds: int = 512
-    adapt: bool = False      # adaptive placement: still to port
+    # adaptive placement (repro_torch.place): plans apply only at quiescent
+    # boundaries (between PageRank epochs, between serving batches), every
+    # ``adapt_every`` of them, at most ``adapt_budget`` vertices moved
+    adapt: bool = False
     adapt_every: int = 1
     adapt_budget: int = 64
 
@@ -324,16 +327,10 @@ def _bsp_swap(me, st: EngineState, do_swap: torch.Tensor) -> EngineState:
                                   st.next_frontier))
 
 
-def _check_ported(cfg: EngineConfig):
-    """Raise for the options the port does not have yet."""
+def _check_mode(cfg: EngineConfig):
+    """Raise for a mode the engine does not know."""
     if cfg.mode not in ("async", "bsp"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
-    todo = {"adapt": (cfg.adapt, "'Placement'")}
-    for name, (unported, item) in todo.items():
-        if unported:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(cfg, name)!r} is still to "
-                f"port (ROADMAP.md, {item})")
 
 
 # --------------------------------------------------------------------------
@@ -360,7 +357,7 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
     # fuse: every leg is one fused-leg kernel when all channels run on
     # "kernels" (the reference fuses a leg iff its channels are "pallas")
     fused = cfg.fuse and all(b == "kernels" for b in backends)
-    _check_ported(cfg)
+    _check_mode(cfg)
     # an HBM-declared shard streams T2 through the windows of its space
     edge_space = resolve_edge_space(prog, cfg)
     streaming = edge_space == "hbm"

@@ -24,6 +24,8 @@ import torch
 from repro_torch.noc.topology import (CLASS_DIE, CLASS_LOCAL, CLASS_PORT,
                                       CLASS_RUCHE, CLASS_WRAP,
                                       N_LINK_CLASSES)
+from repro_torch.trace.export import LINK_CLASS_NAMES
+from repro_torch.trace.export import host as _host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,3 +154,57 @@ def round_energy_pj(params: PerfParams, T: int, edges_g, updates_g,
     if hbm_edges_g is not None:
         out = out + hbm_edges_g.to(f) * params.e_hbm
     return out
+
+
+def flits_by_class(stats, net) -> dict:
+    """Cumulative flit traversals per link class of an accumulated Stats:
+    ``{class_name: flits}`` over the classes that exist on ``net``.  On
+    the hier fabric ``out["die"]`` is the die-to-die traffic the die-local
+    placements and the planner's die phase (:mod:`repro_torch.place`)
+    work to cut."""
+    cls = np.asarray(net.link_classes)
+    flits = _host(stats.flits_per_link).astype(np.int64)
+    return {LINK_CLASS_NAMES[c]: int(flits[cls == c].sum())
+            for c in sorted(set(cls.tolist()))}
+
+
+def die_crossing_frac(stats) -> float:
+    """Fraction of fabric injections that crossed at least one die
+    boundary (0.0 on single-die fabrics and on runs with no traffic)."""
+    hist = _host(stats.die_crossings).astype(np.int64)
+    return float(hist[1:].sum()) / max(int(hist.sum()), 1)
+
+
+def migration_cost(params: PerfParams, words_intra: int,
+                   words_cross: int) -> tuple[float, float]:
+    """Price a migration plan (:mod:`repro_torch.place`): modelled
+    ``(cycles, pJ)`` as Python floats.  Every 64-bit word moved pays the
+    paired SRAM read and write (``t_migrate`` / ``e_migrate``); a word
+    that crosses a die boundary also pays one die-class hop."""
+    words = float(words_intra) + float(words_cross)
+    cycles = params.t_migrate * words + params.t_hop_die * float(words_cross)
+    pj = params.e_migrate * words + params.e_hop_die * float(words_cross)
+    return cycles, pj
+
+
+def energy_from_totals(stats, params: PerfParams, net, T: int) -> float:
+    """Total energy recomputed from the final Stats counters, on the host:
+    the oracle of the accumulated ``Stats.energy_pj`` (and of
+    ``price_migration``, which must keep it true)."""
+    _, e_hop = link_cost_vectors(params, net, device="cpu")
+    edges = float(_host(stats.edges_scanned))
+    updates = float(_host(stats.updates_applied))
+    msgs = float(_host(stats.msgs).sum())
+    spills = float(_host(stats.spills).sum())
+    flits = _host(stats.flits_per_link).astype(np.float64)
+    cycles = float(_host(stats.cycles))
+    hbm_edges = float(_host(getattr(stats, "hbm_edges", 0)))
+    migration_pj = float(_host(getattr(stats, "migration_pj", 0)))
+    leak = leak_pj(params, T, torch.tensor(np.float32(cycles)))
+    return (edges * params.e_scan + updates * params.e_fold
+            + msgs * (params.e_push + params.e_pop)
+            + spills * params.e_spill
+            + float((flits * e_hop.numpy().astype(np.float64)).sum())
+            + float(leak)
+            + hbm_edges * params.e_hbm
+            + migration_pj)

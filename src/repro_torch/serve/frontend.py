@@ -30,9 +30,11 @@ Two batching policies:
   traversals.
 
 Both price time on the shared batch clock of :mod:`repro_torch.serve.
-lanes`.  Between-batch adaptation (``EngineConfig.adapt``) is ROADMAP.md's
-"Placement" item and a mesh its "SPMD on torch.distributed" item; both
-raise ``NotImplementedError``.
+lanes`.  Under ``EngineConfig.adapt`` the static policy migrates the
+resident partition between batches (:meth:`Frontend._maybe_adapt`,
+:mod:`repro_torch.place`) and charges the move to the clock.  A mesh is
+ROADMAP.md's "SPMD on torch.distributed" item and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,13 +50,14 @@ from repro_torch.core.graph import PartitionedGraph
 from repro_torch.core.program import as_program
 from repro_torch.core.queues import Queue, queue_clear
 from repro_torch.noc import make_network
+from repro_torch.perf.model import migration_cost
+from repro_torch.place import (adapt_partition, cfg_tile_die,
+                               migration_words, score_tiles)
 from repro_torch.serve.lanes import (POINT_QUERIES, SPMD_TODO, LaneCarry,
                                      batch_min_state, lane_carry, lane_state,
                                      lane_values, local_lanes_segment,
                                      multi_source)
-
-ADAPT_TODO = ("EngineConfig.adapt (between-batch adaptation) is still to "
-              "port (ROADMAP.md, 'Placement')")
+from repro_torch.trace.export import lane_trace
 
 
 def arrival_cycles(n: int, pattern: str = "burst", gap: float = 0.0,
@@ -118,8 +121,7 @@ class ServeReport:
                              # rounds: each lane is its solo run)
     drops: int = 0           # summed over lanes; must be 0
     f_ghz: float = 1.0
-    migrated_vertices: int = 0  # vertices moved between batches (adapt:
-                                # still to port, so 0)
+    migrated_vertices: int = 0  # vertices moved between batches (adapt)
 
     @property
     def queries(self) -> int:
@@ -222,9 +224,9 @@ class Frontend:
     >>> fe = Frontend(pg, app="bfs", cfg=cfg, width=8)
     >>> report = fe.serve(sources, arrival="poisson", gap=5e4)
 
-    ``mesh`` and ``graph`` (the host CSR that between-batch adaptation
-    re-deals) keep the reference's signature; both features are still to
-    port (``mesh`` raises, and ``cfg.adapt``).
+    ``graph`` is the host CSR that between-batch adaptation
+    (``cfg.adapt``) re-deals; ``mesh`` keeps the reference's signature
+    and raises (still to port).
     """
 
     def __init__(self, pg: PartitionedGraph, app: str = "bfs",
@@ -240,15 +242,21 @@ class Frontend:
                              "(the host drives the admit loop)")
         if width < 1:
             raise ValueError("width must be >= 1")
+        if cfg.adapt and graph is None:
+            raise ValueError("cfg.adapt needs graph= (the host CSR) to "
+                             "re-deal edge segments between batches")
+        if cfg.adapt and policy != "static":
+            raise ValueError("between-batch adaptation is static-policy "
+                             "only (continuous lanes are never quiescent)")
         if mesh is not None:
             raise NotImplementedError(SPMD_TODO)
-        if cfg.adapt:
-            raise NotImplementedError(ADAPT_TODO)
         self.pg = pg
         self.app = app
         self.cfg = cfg
         self.width = width
         self.policy = policy
+        self.graph = graph          # host CSR; needed when cfg.adapt
+        self.migrated_vertices = 0  # total moved by between-batch plans
         self.prog = as_program(POINT_QUERIES[app])
         self.prog.validate(cfg, pg.T, pg.e_chunk, pg.v_chunk)
 
@@ -263,13 +271,42 @@ class Frontend:
                       for i, (s, t) in enumerate(zip(sources, enq)))
         serve = (self._serve_static if self.policy == "static"
                  else self._serve_continuous)
+        migrated0 = self.migrated_vertices
         records, batches, cyc, en, rounds, seq, drops = serve(queue)
         records.sort(key=lambda r: r.qid)
         return ServeReport(
             app=self.app, policy=self.policy, width=self.width,
             arrival=arrival, records=records, batches=batches,
             total_cycles=cyc, total_energy_pj=en, total_rounds=rounds,
-            seq_rounds=seq, drops=drops, f_ghz=self.cfg.perf.f_ghz)
+            seq_rounds=seq, drops=drops, f_ghz=self.cfg.perf.f_ghz,
+            migrated_vertices=self.migrated_vertices - migrated0)
+
+    # -- between-batch adaptation (repro_torch.place) ----------------------
+
+    def _maybe_adapt(self, res):
+        """Relabel the resident partition from the finished batch's
+        telemetry: the lane rings' busy vectors summed on the host in lane
+        order (the planner's static in-degree fallback when the trace is
+        off).  Every lane has drained at a batch boundary, so the move is
+        a pure relabeling and later queries see the same values.  Returns
+        the move's modelled ``(cycles, pJ)``, which the caller charges to
+        the batch clock."""
+        busy = None
+        if res.trace is not None:
+            busy = sum(score_tiles(lane_trace(res.trace, lane))
+                       for lane in range(self.width))
+        old = self.pg
+        pg2, plan = adapt_partition(self.graph, old, self.cfg, busy=busy)
+        if not plan.num_pairs:
+            return 0.0, 0.0
+        tile_die = cfg_tile_die(self.cfg, old.T)
+        wi, wc = migration_words(old, plan, tile_die)
+        cyc, pj = migration_cost(self.cfg.perf, wi, wc)
+        self.migrated_vertices += plan.moved_vertices(old)
+        self.pg = pg2
+        # e_chunk can change in the aligned edge modes: re-check sizing
+        self.prog.validate(self.cfg, pg2.T, pg2.e_chunk, pg2.v_chunk)
+        return cyc, pj
 
     # -- static batches ----------------------------------------------------
 
@@ -303,6 +340,11 @@ class Frontend:
             seq += res.seq_rounds
             drops += int(res.stats.drops.sum())
             batches += 1
+            if (self.cfg.adapt and queue
+                    and batches % max(self.cfg.adapt_every, 1) == 0):
+                mig_cyc, mig_pj = self._maybe_adapt(res)
+                now += mig_cyc
+                energy += mig_pj
         return records, batches, now, energy, rounds, seq, drops
 
     # -- continuous batching (lane recycling) ------------------------------

@@ -84,9 +84,7 @@ def traced_run(args):
                        ndies_y=ndies[0], ndies_x=ndies[1],
                        edge_space=wl.edge_space, hbm_window=wl.hbm_window,
                        trace=True, trace_every=args.trace_every,
-                       trace_rounds=args.trace_rounds, adapt=wl.adapt,
-                       adapt_every=wl.adapt_every,
-                       adapt_budget=wl.adapt_budget)
+                       trace_rounds=args.trace_rounds)
     cfg = sized_cfg(cfg, as_program(BFS), tiles)
     n, src, dst, val = rmat_edges(scale, edge_factor=wl.edge_factor, seed=1)
     g = CSRGraph.from_edges(n, src, dst, val)

@@ -113,14 +113,19 @@ def test_port_bfs_from_a_root_without_out_edges():
 
 
 def test_unported_options_raise():
-    """``adapt`` is still to port and raises; the physical NoC and the
-    trace, once refused, run and equal the JAX package's result."""
+    """The options once refused run and equal the JAX package's result:
+    ``adapt`` (inert inside a round, as in the reference), the physical
+    NoC and the trace; an unknown mode raises."""
     g = CSRGraph.from_edges(8, np.array([0]), np.array([1]),
                             np.ones(1, np.float32))
     jpg = ja.prepare(g, T=4)
     tpg = port_partition(jpg)
-    with pytest.raises(NotImplementedError, match="'Placement'"):
-        ta.bfs(tpg, 0, TConfig(**SMALL, adapt=True))
+    kw = dict(SMALL, adapt=True, adapt_every=1, adapt_budget=2)
+    want = ja.bfs(jpg, 0, JConfig(backend="xla", **kw))
+    got = ta.bfs(tpg, 0, TConfig(**kw))
+    np.testing.assert_array_equal(want.values, got.values)
+    assert_stats_equal(want.stats, got.stats, "adapt")
+    assert int(got.stats.migrated_vertices) == 0
     ref = ja.bfs(jpg, 0, JConfig(backend="xla", noc="mesh", **SMALL))
     for kw in (dict(noc="mesh"), dict(noc="mesh", trace=True)):
         got = ta.bfs(tpg, 0, TConfig(**SMALL, **kw))

@@ -193,10 +193,11 @@ def test_multi_source_rejects_non_point_queries(pgs):
         multi_source(pgs[1], "pagerank", [0], TConfig(**SMALL))
 
 
-def test_unported_options_raise_naming_their_roadmap_items(pgs):
-    """A mesh is the SPMD item, between-batch adaptation the Placement
-    item; continuous batching on a mesh is refused as the reference
-    refuses it."""
+def test_unported_options_raise_naming_their_roadmap_items(g, pgs):
+    """A mesh is the SPMD item; continuous batching on a mesh is refused
+    as the reference refuses it.  Between-batch adaptation, once refused,
+    runs: its report equals the reference's, and without ``graph=`` it
+    raises the reference's ``ValueError``."""
     pg = pgs[1]
     spmd = "SPMD on torch.distributed"
     with pytest.raises(NotImplementedError, match=spmd):
@@ -207,8 +208,15 @@ def test_unported_options_raise_naming_their_roadmap_items(pgs):
         Frontend(pg, cfg=TConfig(**SMALL), mesh=object())
     with pytest.raises(ValueError, match="LocalComm"):
         Frontend(pg, policy="continuous", mesh=object())
-    with pytest.raises(NotImplementedError, match="Placement"):
+    with pytest.raises(ValueError, match="graph"):
         Frontend(pg, cfg=TConfig(adapt=True, **SMALL))
+    kw = dict(SMALL, adapt=True, adapt_every=1, adapt_budget=8)
+    srcs = sources_of(g, 4, seed=5)
+    rep = Frontend(pg, cfg=TConfig(**kw), width=2, graph=g).serve(srcs)
+    jrep = JFrontend(pgs[0], cfg=JConfig(backend="xla", **kw), width=2,
+                     graph=g).serve(srcs)
+    check_records(g, rep, jrep)
+    assert rep.migrated_vertices == jrep.migrated_vertices > 0
     for kw, msg in ((dict(app="wcc"), "bfs/sssp"),
                     (dict(policy="adaptive"), "policy"),
                     (dict(width=0), "width")):

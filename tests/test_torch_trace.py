@@ -29,6 +29,7 @@ from repro_torch.core import algorithms as ta
 from repro_torch.core.engine import EngineConfig as TConfig
 from repro_torch.trace import export as texp
 from repro_torch.trace import SERIES_FIELDS, TraceBuf
+from repro_torch.core.program import BFS, as_program, sized_cfg
 from repro_torch.trace.__main__ import main as trace_main
 from test_torch_engine import assert_stats_equal, port_partition
 from test_torch_noc import PORT_PATHS
@@ -229,9 +230,27 @@ def test_trace_cli_runs_a_hier_preset(tmp_path, capsys):
                        "6", "--tiles", "4", "--noc", "torus", "--device",
                        "cpu", "--trace-rounds", "1"]) == 0
     assert "ring wrapped" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="'Placement'"):
-        trace_main(["summarize", "--preset", "rmat-hier-adapt", "--scale",
-                    "6", "--device", "cpu"])
+    # the adapt preset, once refused, runs as the reference's CLI runs it
+    # (without adapt, its queues sized): its figures and summary equal
+    # the JAX package's run of the same config
+    argv = ["summarize", "--preset", "rmat-hier-adapt", "--scale", "6",
+            "--device", "cpu"]
+    assert trace_main(argv) == 0
+    text = capsys.readouterr().out
+    assert "placement=low_order_dielocal" in text
+    tcfg = sized_cfg(TConfig(noc="hier", ndies_y=2, ndies_x=2, trace=True,
+                             trace_rounds=4096), as_program(BFS), 64)
+    jcfg = JConfig(backend="xla", noc="hier", ndies_y=2, ndies_x=2,
+                   trace=True, trace_rounds=4096, cap_rangeq=tcfg.cap_rangeq,
+                   cap_updq=tcfg.cap_updq)
+    n, src, dst, val = rmat_edges(6, edge_factor=10, seed=1)
+    g = CSRGraph.from_edges(n, src, dst, val)
+    jpg = ja.prepare(g, 64, scheme="low_order_dielocal", dies=(2, 2))
+    jres = ja.bfs(jpg, root_of(g), jcfg)
+    st = jres.stats
+    assert (f"rounds={int(st.rounds)} cycles={float(st.cycles):.0f} "
+            f"energy_pj={float(st.energy_pj):.0f}") in text
+    assert jexp.format_summary(jexp.summarize(jres.trace)) in text
 
 
 def test_trace_off_config_adds_no_ring(graph, pgs):
