@@ -4,7 +4,7 @@ rwkv6-1.6b and zamba2-2.7b serving on one GPU.
 
     python3 chip_smoke.py \
         [--phases kernels,twin,main,hbm,noc,place,taskgraph,block,rmat18,
-                  serve,lm,rwkv,zamba] [--seed 0]
+                  serve,spmd,lm,rwkv,zamba] [--seed 0]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -152,10 +152,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the streamed BFS's, are held against their plain versions and timed
    at the operands the engine gave them;
 9b. ``serve`` — query lanes (``repro_torch.serve``).  (a) A static batch
-   of SERVE_B BFS queries on the main path (R-MAT-22, 64 tiles,
-   ``MAIN_FUSED``): MAIN_ROOT, SERVE_RANDOM sources drawn from ``--seed``,
-   MAIN_ROOT again and a padding lane.  Lane 0 bitwise the main path's
-   solo run (values and every Stats field, launches included), the two
+   of SERVE_B BFS queries on R-MAT-SERVE_SCALE (64 tiles, ``MAIN_FUSED``;
+   cut from the main path's R-MAT-22): MAIN_ROOT, SERVE_RANDOM sources
+   drawn from ``--seed``, MAIN_ROOT again and a padding lane.  Lane 0
+   bitwise a solo run from MAIN_ROOT on the same partition
+   (values and every Stats field, launches included), the two
    MAIN_ROOT lanes bitwise each other, every lane equal to the oracle, no
    drops, the padding lane born finished, ``total_rounds`` the largest
    lane count, each fused leg launched once a shared round for the whole
@@ -171,6 +172,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    BFS and SSSP, and BFS streamed; values and lane-led Stats bitwise but
    launches.  Then both scans at SERVE_B lanes of the R-MAT-22 shard,
    checked and timed;
+9c. ``spmd`` — SPMD on ``torch.distributed`` (``core/comm.py``
+   ``AxisComm``, one tile a process).  (a) The tile base of fused leg 0:
+   its operands at SPMD_TILE_CALLS calls of BFS and of a 3-lane batch on
+   R-MAT-SPMD_TWIN_SCALE and of triangles on symmetrized
+   R-MAT-SPMD_TRI_SCALE, over SPMD_TWIN_T tiles; the leg launched on all
+   rows, then on each tile's rows alone over its shard row with ``tile0``
+   the tile (as AxisComm and LaneAxisComm launch it): each one-tile launch
+   bitwise those rows of the launch on all rows (the legs' contract) and
+   equal to its plain stage.  (b) World size 1 over NCCL (a file store;
+   one card, and NCCL takes one GPU a rank): fused BFS and SPMD_LANES
+   serving lanes on R-MAT-SPMD_SCALE at T = 1 through ``mesh=`` an
+   ``auto_mesh((1,), ("x",))``, bitwise the LocalComm runs at T = 1
+   (values, Stats but launches; the lanes' batch clock) and the oracle,
+   each fused leg once a round; each SPMD run again with its fused legs
+   held against their plain stages at those one-row shapes (FusedCheck);
+   wall ms a round, and device ms, NCCL kernel ms, kernels and PyTorch
+   operators a round over a profiled window, beside the LocalComm run's;
 10. ``lm`` — granite-3-2b serving at full width and all 40 layers.  The
    flash kernel against its plain version (K/V repeated, blockwise scan)
    at granite's bfloat16 prefill shape (B 4, S 2048, 32 / 8 heads of 64)
@@ -432,11 +450,14 @@ NOC_STRESS = dataclasses.replace(
 # the profiled window of (a), and of the ideal crossbar on its partition
 NOC_PROFILE_AT, NOC_PROFILE_ROUNDS = 300, 20
 # Phase serve: query lanes.  (a) A static batch of SERVE_B BFS queries on
-# the main path (R-MAT-22, T = 64, MAIN_FUSED): MAIN_ROOT, SERVE_RANDOM
-# sources drawn from --seed among the vertices with out-edges, MAIN_ROOT
-# again and a padding lane; its fused legs held against their plain
-# stages and timed over its first SERVE_CHECK_ROUNDS rounds, and its
-# device time over SERVE_PROFILE_ROUNDS rounds from SERVE_PROFILE_AT.
+# R-MAT-SERVE_SCALE (T = 64, MAIN_FUSED): MAIN_ROOT, SERVE_RANDOM sources
+# drawn from --seed among the vertices with out-edges, MAIN_ROOT again and
+# a padding lane, beside a solo run from MAIN_ROOT; its fused legs held
+# against their plain stages and timed over its first SERVE_CHECK_ROUNDS
+# rounds, and its device time over SERVE_PROFILE_ROUNDS rounds from
+# SERVE_PROFILE_AT.  Cut from the main path's R-MAT-22 (20,545
+# shared rounds, ~200-290 s) for the script's time: with phase spmd the
+# script took 1,091-1,240 s on slow hosts against the 1,200 s it must keep.
 # (b) The continuous front end on R-MAT-SERVE_CONT_SCALE (cut from
 # R-MAT-22, and one step below R-MAT-18, for the script's time: its 12
 # solo runs, trace on, are checked, and R-MAT-18 took the script past
@@ -449,7 +470,7 @@ NOC_PROFILE_AT, NOC_PROFILE_ROUNDS = 300, 20
 # mesh runs take R-MAT-FABRIC_SCALE, as the twin's fabric runs do (a
 # capped link takes a round for every few messages): cut for the
 # script's time.
-SERVE_B, SERVE_RANDOM = 8, 5
+SERVE_SCALE, SERVE_B, SERVE_RANDOM = 20, 8, 5
 SERVE_CHECK_ROUNDS = 300
 SERVE_PROFILE_AT, SERVE_PROFILE_ROUNDS = 300, 20
 SERVE_CONT_SCALE, SERVE_CONT_QUERIES, SERVE_CONT_WIDTH = 17, 12, 4
@@ -485,6 +506,24 @@ PLACE_TWIN_FABRIC = dict(noc="hier", ndies_y=2, ndies_x=2)
 PLACE_PR_DAMPING, PLACE_PR_TWIN_EPOCHS = 0.5, 3
 PLACE_SERVE_SOURCES, PLACE_SERVE_WIDTH = 6, 2
 PLACE_MAIN_BUDGET = 128   # the rmat-hier-adapt preset's adapt_budget
+# Phase spmd: SPMD on torch.distributed (core/comm.py AxisComm).  (a) The
+# tile base of fused leg 0 on the card: its operands at SPMD_TILE_CALLS
+# calls of the twin's BFS (R-MAT-SPMD_TWIN_SCALE, SPMD_TWIN_T tiles), of
+# triangles (symmetrized R-MAT-SPMD_TRI_SCALE) and of a 3-lane batch, each
+# launched on all rows and then on one tile's rows at a time with tile0
+# the tile (AxisComm's and LaneAxisComm's launch).  (b) World size 1 over
+# NCCL (one card: NCCL takes one GPU a rank): BFS and SPMD_LANES serving
+# lanes at T = 1 on R-MAT-SPMD_SCALE, the largest that the phase's ~30 s
+# hold (rounds grow with the edges at one tile: ~E / 60), against the
+# LocalComm run at T = 1 and the oracle; wall and device ms a round; each
+# SPMD run again with its fused legs held against their plain stages at
+# the one-row shapes (FusedCheck, every SPMD_CHECK_PERIOD-th round).
+SPMD_TWIN_SCALE, SPMD_TWIN_T, SPMD_TRI_SCALE = 10, 16, 8
+SPMD_TILE_CALLS = (0, 1, 4, 9)
+SPMD_SCALE, SPMD_LANES = 11, 4
+SPMD_PROFILE_AT, SPMD_PROFILE_ROUNDS = 100, 20
+SPMD_CHECK_PERIOD = 30
+SPMD_HOST_TOP = 12
 BLOCK_SCALE, BLOCK_B, BLOCK_T = 14, 128, 16
 # the knobs of the reference's block-ELL test (tests/test_kernels.py:75)
 TEST_KNOBS = dict(f_pop=8, r_pop=8, u_pop=16, max_t2=8, cap_route_range=8,
@@ -2373,7 +2412,6 @@ def phase_main(dev, smi, timer, with_hbm):
     bfs, paths["BFS"], wall = drive(
         lambda: alg.bfs(pg, MAIN_ROOT, MAIN_FUSED), smi,
         f"BFS R-MAT-{MAIN_SCALE} (fused)", FUSED_ROUND)
-    bfs.wall_ms = 1e3 * wall / int(bfs.stats.rounds)
     np.testing.assert_array_equal(bfs.values, oracle)
     log("# main path BFS: hop counts equal to the oracle")
 
@@ -2400,7 +2438,7 @@ def phase_main(dev, smi, timer, with_hbm):
         paths["BFS-hbm"], scans = phase_hbm(pg, smi, timer)
         calls += legs_at_main_shapes(
             "BFS-hbm", lambda c: alg.bfs(pg, MAIN_ROOT, c), HBM_CFG, timer)
-    return paths, calls, scans, (g, pg, bfs)
+    return paths, calls, scans
 
 
 @contextlib.contextmanager
@@ -2650,18 +2688,24 @@ def fabric_twin(dev):
         f"both == oracle, no drops")
 
 
-def round_profile(pg, cfg, at: int, n: int) -> dict:
+def round_profile(pg, cfg, at: int, n: int, comm=None,
+                  root=MAIN_ROOT, host_top: int = 0) -> dict:
     """Device ms a round of rounds ``at .. at + n - 1`` of BFS from
-    MAIN_ROOT on ``pg`` under ``cfg`` (torch.profiler; the rounds before
+    ``root`` on ``pg`` under ``cfg`` (torch.profiler; the rounds before
     run unprofiled, as run_engine runs them), and of it the routes' (the
     NoC backend's ``route`` calls, as tools/port_round_profile.py
-    attributes them)."""
+    attributes them) and the NCCL kernels'; ``comm`` is LocalComm over the
+    partition's tiles unless given (phase spmd: AxisComm of one tile over
+    the whole one-tile partition).  With ``host_top``, the next n rounds'
+    wall ms a round unprofiled, and the ``host_top`` Python functions
+    that take the most host time of the n after them (cProfile, own time
+    a round)."""
     from torch.profiler import ProfilerActivity, profile
     from tools.port_round_profile import RouteRanges, device_us
-    comm = LocalComm(pg.T, pg.device)
+    comm = comm or LocalComm(pg.T, pg.device)
     prog = as_program(BFS)
     shard = E.GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
-    value, frontier = alg.init_min_state(pg, [MAIN_ROOT])
+    value, frontier = alg.init_min_state(pg, [root])
     st = E.init_state(comm, cfg, pg.v_chunk, value, frontier, prog)
     rnd = E.make_round(comm, RouteRanges(make_network(cfg, pg.T)), cfg,
                        prog, pg.e_chunk, pg.v_chunk, shard)
@@ -2678,10 +2722,36 @@ def round_profile(pg, cfg, at: int, n: int) -> dict:
         for r in range(at, at + n):
             st, stats, kcomp, tbuf, p = rnd(st, stats, kcomp, tbuf, r)
             assert int(p) > 0, r
-    total, _, counts = device_us(prof)
-    return dict(device_ms=total / 1e3 / n,
-                route_ms=counts["route_us"] / 1e3 / n,
-                kernels=counts["kernels"] / n, aten_ops=counts["aten_ops"] / n)
+    total, by_name, counts = device_us(prof)
+    nccl = sum(us for k, us in by_name.items() if "nccl" in k.lower())
+    # the collectives the host called (ProcessGroupNCCL's "nccl:" ranges)
+    calls = [e for e in prof.events() if e.name.startswith("nccl:")
+             and e.device_type != torch.autograd.DeviceType.CUDA]
+    out = dict(device_ms=total / 1e3 / n,
+               route_ms=counts["route_us"] / 1e3 / n,
+               kernels=counts["kernels"] / n, aten_ops=counts["aten_ops"] / n,
+               nccl_ms=nccl / 1e3 / n, collectives=len(calls) / n,
+               nccl_host_ms=sum(e.cpu_time_total for e in calls) / 1e3 / n)
+    if host_top:
+        import cProfile
+        import pstats
+
+        def rounds(first):
+            nonlocal st, stats, kcomp, tbuf
+            for r in range(first, first + n):
+                st, stats, kcomp, tbuf, p = rnd(st, stats, kcomp, tbuf, r)
+                assert int(p) > 0, r
+
+        t0 = time.perf_counter()
+        rounds(at + n)
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        prof = cProfile.Profile()
+        prof.runcall(rounds, at + 2 * n)
+        own = pstats.Stats(prof).stats  # func: (cc, nc, tottime, ...)
+        top = sorted(own.items(), key=lambda kv: -kv[1][2])[:host_top]
+        out["host_top"] = [(f"{f[2]} ({Path(f[0]).name}:{f[1]})",
+                            v[2] * 1e3 / n, v[1] / n) for f, v in top]
+    return out
 
 
 def phase_noc(dev, smi, timer):
@@ -3193,7 +3263,7 @@ def lane_profile(pg, cfg, sources, at: int, n: int) -> dict:
 
 
 def serve_static(g, pg, solo, smi, timer, seed):
-    """(a): SERVE_B BFS lanes on the main path.  Lane 0 is the solo main
+    """(a): SERVE_B BFS lanes on R-MAT-SERVE_SCALE.  Lane 0 is the solo
     run bitwise (launches included), lane SERVE_B - 2 lane 0's, every lane
     the oracle's; no drops; each fused leg launched once a shared round
     for the whole batch; the legs held against their plain stages and
@@ -3202,7 +3272,7 @@ def serve_static(g, pg, solo, smi, timer, seed):
     sources = ([MAIN_ROOT] + serve_sources(g, seed, SERVE_RANDOM,
                                            [MAIN_ROOT]) + [MAIN_ROOT, -1])
     assert len(sources) == SERVE_B
-    what = (f"serve (a) BFS R-MAT-{MAIN_SCALE} B={SERVE_B} lanes "
+    what = (f"serve (a) BFS R-MAT-{SERVE_SCALE} B={SERVE_B} lanes "
             f"{sources} (fused)")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -3223,7 +3293,7 @@ def serve_static(g, pg, solo, smi, timer, seed):
     want.update({k: n * rounds for k, n in FUSED_ROUND.items()})
     assert launches == want, (launches, want)
     assert_lane_is(res, 0, solo.values, solo.stats,
-                   f"{what}: lane 0 against the solo main run")
+                   f"{what}: lane 0 against the solo run")
     last = SERVE_B - 2
     assert_lane_is(res, last, res.values[0],
                    E.Stats(*(x[0] for x in st)), f"{what}: lane {last}")
@@ -3238,14 +3308,14 @@ def serve_static(g, pg, solo, smi, timer, seed):
     queries = SERVE_B - 1
     solo_ms = solo.wall_ms
     log(f"# path {what}: every lane equal to its oracle (the {last - 1} "
-        f"drawn in {t_or:.1f} s), lane 0 bitwise the solo main run (every "
+        f"drawn in {t_or:.1f} s), lane 0 bitwise the solo run (every "
         f"Stats field, launches included), lane {last} bitwise lane 0, "
         f"padding lane born finished; drops 0; shared rounds {rounds} "
         f"(lane rounds {lane_rounds}; sequential {res.seq_rounds}, "
         f"{res.seq_rounds / rounds:.3f} x); each leg kernel launched once a "
         f"shared round ({ {k: v for k, v in launches.items() if v} }); "
         f"wall {wall:.3f} s, {queries / wall:.4f} queries/s, "
-        f"{1e3 * wall / rounds:.3f} ms a shared round (solo main BFS "
+        f"{1e3 * wall / rounds:.3f} ms a shared round (solo BFS "
         f"{solo_ms:.3f} ms a round); peak device memory "
         f"{peak / 2 ** 30:.3f} GiB; card {smi}")
     prof = lane_profile(pg, MAIN_FUSED, sources, SERVE_PROFILE_AT,
@@ -3257,10 +3327,10 @@ def serve_static(g, pg, solo, smi, timer, seed):
         f"{SERVE_PROFILE_AT + SERVE_PROFILE_ROUNDS - 1}): device "
         f"{prof['device_ms']:.3f} ms a shared round of {SERVE_B} lanes, "
         f"{prof['kernels']:.1f} kernels and {prof['aten_ops']:.1f} PyTorch "
-        f"operators a round; solo main BFS {solo_prof['device_ms']:.3f} ms, "
+        f"operators a round; solo BFS {solo_prof['device_ms']:.3f} ms, "
         f"{solo_prof['kernels']:.1f} kernels, {solo_prof['aten_ops']:.1f} "
         f"operators; card {smi}")
-    with FusedCheck(f"R-MAT-{MAIN_SCALE} B={SERVE_B} lanes",
+    with FusedCheck(f"R-MAT-{SERVE_SCALE} B={SERVE_B} lanes",
                     period=50) as chk:
         SERVE.multi_source(pg, "bfs", sources, dataclasses.replace(
             MAIN_FUSED, max_rounds=SERVE_CHECK_ROUNDS))
@@ -3420,21 +3490,18 @@ def serve_scans(dev, timer):
                                             max_t2, timer, 128)}
 
 
-def phase_serve(dev, smi, timer, seed, main_run=None):
-    """Query lanes: (a) SERVE_B BFS lanes on the main path, (b) the
-    continuous front end, (c) the twin and the lane-axis kernels against
-    their plain versions at B = 3, and the scans timed at SERVE_B lanes.
-    ``main_run``: the main phase's (graph, partition, solo BFS), else
-    built and run here."""
-    if main_run is None:
-        g, pg = build_graph(MAIN_SCALE, MAIN_T, dev)
-        solo, _, wall = drive(lambda: alg.bfs(pg, MAIN_ROOT, MAIN_FUSED),
-                              smi, f"BFS R-MAT-{MAIN_SCALE} (fused)",
-                              FUSED_ROUND)
-        solo.wall_ms = 1e3 * wall / int(solo.stats.rounds)
-    else:
-        g, pg, solo = main_run
+def phase_serve(dev, smi, timer, seed):
+    """Query lanes: (a) SERVE_B BFS lanes on R-MAT-SERVE_SCALE beside
+    their solo run, (b) the continuous front end, (c) the twin and the
+    lane-axis kernels against their plain versions at B = 3, and the scans
+    timed at SERVE_B lanes."""
+    g, pg = build_graph(SERVE_SCALE, MAIN_T, dev)
     paths = {}
+    solo, paths["serve solo"], wall = drive(
+        lambda: alg.bfs(pg, MAIN_ROOT, MAIN_FUSED), smi,
+        f"BFS R-MAT-{SERVE_SCALE} (fused; serve (a)'s solo run)",
+        FUSED_ROUND)
+    solo.wall_ms = 1e3 * wall / int(solo.stats.rounds)
     paths["serve twin"] = serve_twin(dev)
     scans = serve_scans(dev, timer)
     paths["serve static"], calls, stat = serve_static(g, pg, solo, smi,
@@ -4518,8 +4585,274 @@ def phase_zamba(dev, smi, timer):
     return ssd_row, flash_row, paths
 
 
+def take_rows(st, rows):
+    """The state's ``rows`` (an int64 index tensor), every tile-led field
+    and queue copied."""
+    def pick(x):
+        return x.index_select(0, rows)
+    return st._replace(
+        value=pick(st.value), acc=pick(st.acc),
+        frontier=pick(st.frontier), next_frontier=pick(st.next_frontier),
+        queues=tuple(E.Queue(pick(q.data), pick(q.count))
+                     for q in st.queues),
+        net_pressure=pick(st.net_pressure))
+
+
+def take_out_rows(out, rows):
+    """A leg 0's outputs ``(state, msgs, mvalid, drops, dyn_pops, npop,
+    npush)`` at state rows ``rows``."""
+    return (take_rows(out[0], rows),) + tuple(x.index_select(0, rows)
+                                              for x in out[1:])
+
+
+class LegZeroCapture:
+    """The operands of fused leg 0 (classic or triangles) at the
+    ``calls``-th calls of a run, copied: the run goes on unchanged."""
+
+    NAMES = ("fused_leg0", "fused_tri_leg0")
+
+    def __init__(self, calls):
+        self.calls, self.n, self.ops = set(calls), 0, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(F, n) for n in self.NAMES}
+        for n, f in self.saved.items():
+            setattr(F, n, functools.partial(self.call, n, f))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(F, n, f)
+
+    def call(self, name, real, tmpl, plain, me, sh, st):
+        if self.n in self.calls:
+            every = torch.arange(me.shape[0], device=me.device)
+            self.ops.append((name, real, tmpl, plain, me.clone(),
+                             E.GraphShard(*(x.clone() for x in sh)),
+                             take_rows(st, every)))
+        self.n += 1
+        return real(tmpl, plain, me, sh, st)
+
+
+def check_tile_base(label, ops):
+    """Each captured leg 0 launched on all its rows, then on each tile's
+    rows alone (one row; one a lane over a batch) over that tile's shard
+    row with ``tile0`` the tile, as AxisComm / LaneAxisComm launch it:
+    every one-tile launch bitwise those rows of the launch on all rows
+    (by the legs' contract), and equal to its plain stage.  Returns the
+    one-tile launches made."""
+    n = 0
+    for name, real, tmpl, plain, me, sh, st in ops:
+        assert tmpl.tile0 == 0, (label, tmpl.tile0)
+        full = real(tmpl, plain, me, sh, st)
+        T = sh.deg.shape[0]
+        for k in range(T):
+            rows = torch.arange(k, me.shape[0], T, device=me.device)
+            tk = tmpl._replace(tile0=k)
+            ops_k = (me.index_select(0, rows),
+                     E.GraphShard(*(x[k:k + 1] for x in sh)),
+                     take_rows(st, rows))
+            got = real(tk, plain, *ops_k)
+            n += 1
+            where = f"spmd (a) {label} {name} tile {k}"
+            want = take_out_rows(full, rows)
+            defined, past = F.contract(name, tk, ops_k[2], got)
+            assert_bitwise(defined, F.contract(name, tk, ops_k[2], want)[0],
+                           where)
+            assert not bool(past.any()), where
+            check_leg(name, tk, ops_k, got, plain(*ops_k), f"{where} plain")
+    return n
+
+
+def spmd_tile_base(dev):
+    """(a): the tile base of fused leg 0 on the card."""
+    g, pg = build_graph(SPMD_TWIN_SCALE, SPMD_TWIN_T, dev)
+    root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+    gs = alg.symmetrize(rmat_graph(SPMD_TRI_SCALE))
+    pgt = alg.prepare_triangles(gs, SPMD_TWIN_T, device=dev)
+    lanes = [root, serve_sources(g, 0, 1, [root])[0], -1]
+    runs = {
+        "BFS": lambda: alg.bfs(pg, root, EngineConfig()),
+        "triangles": lambda: alg.triangles(pgt, EngineConfig()),
+        "3 lanes": lambda: SERVE.multi_source(pg, "bfs", lanes,
+                                              EngineConfig()),
+    }
+    t0 = time.perf_counter()
+    counts = {}
+    for label, run in runs.items():
+        with LegZeroCapture(SPMD_TILE_CALLS) as cap:
+            run()
+        assert len(cap.ops) == len(SPMD_TILE_CALLS), (label, len(cap.ops))
+        counts[label] = check_tile_base(label, cap.ops)
+    log(f"# spmd (a): fused leg 0 at calls {SPMD_TILE_CALLS} of BFS and "
+        f"3 lanes (R-MAT-{SPMD_TWIN_SCALE}) and of triangles (symmetrized "
+        f"R-MAT-{SPMD_TRI_SCALE}) over {SPMD_TWIN_T} tiles: each one-tile "
+        f"launch (tile0 = k, shard row k; one-tile launches {counts}) "
+        f"bitwise tile k's rows of the launch on all rows and equal to its "
+        f"plain stage; {time.perf_counter() - t0:.1f} s")
+
+
+def spmd_checked(label, run, want):
+    """``run`` again with every fused leg call of its first two rounds and
+    of every SPMD_CHECK_PERIOD-th round (and the FusedCheck's other
+    rounds) held against its plain stage at the one-row shapes SPMD gives
+    it; the result bitwise ``want``, the unchecked run's.  Returns the
+    checked calls by leg."""
+    with FusedCheck(label, period=SPMD_CHECK_PERIOD) as chk:
+        got = run()
+    chk.report()
+    np.testing.assert_array_equal(got.values, want.values)
+    assert set(chk.checked) == set(FUSED_ROUND), (label, chk.checked)
+    return chk.checked
+
+
+def spmd_world_one(dev, smi):
+    """(b): BFS and SPMD_LANES lanes through AxisComm / LaneAxisComm over
+    NCCL at world size 1 against the LocalComm runs at T = 1 and the
+    oracle.  Returns the launch counts of the SPMD paths."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core.comm import AxisComm
+    from repro_torch.launch.mesh import auto_mesh
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = auto_mesh((1,), ("x",))
+        g, pg = build_graph(SPMD_SCALE, 1, dev)
+        root = int(np.argmax(g.ptr[1:] - g.ptr[:-1]))
+        cfg = EngineConfig()
+        oracle = ref.bfs_ref(g, root)
+        paths, walls = [], {}
+        res = {}
+        for how, mesh_of in (("LocalComm", None), ("AxisComm", mesh)):
+            what = (f"spmd (b) BFS R-MAT-{SPMD_SCALE} T=1 fused {how}"
+                    + (" over NCCL, world size 1" if mesh_of else ""))
+            res[how], launches, walls[how] = drive(
+                lambda: alg.bfs(pg, root, cfg, mesh=mesh_of), smi, what,
+                FUSED_ROUND)
+            if mesh_of is not None:
+                paths.append(launches)
+        np.testing.assert_array_equal(res["AxisComm"].values,
+                                      res["LocalComm"].values)
+        np.testing.assert_array_equal(res["AxisComm"].values, oracle)
+        assert_stats_equal(res["LocalComm"].stats, res["AxisComm"].stats,
+                           "spmd (b) BFS")
+        rounds = int(res["AxisComm"].stats.rounds)
+        checks = [spmd_checked(
+            f"spmd (b) BFS R-MAT-{SPMD_SCALE} AxisComm",
+            lambda: alg.bfs(pg, root, cfg, mesh=mesh), res["AxisComm"])]
+        prof = {how: round_profile(
+            pg, cfg, SPMD_PROFILE_AT, SPMD_PROFILE_ROUNDS,
+            comm=None if how == "LocalComm" else AxisComm(
+                mesh.get_group("x"), 1, 0, pg.device), root=root,
+            host_top=SPMD_HOST_TOP) for how in ("LocalComm", "AxisComm")}
+        costs = collective_costs(AxisComm(mesh.get_group("x"), 1, 0,
+                                          pg.device))
+        sources = [root] + serve_sources(g, 0, SPMD_LANES - 1, [root])
+        lanes = {}
+        for how, mesh_of in (("LocalComm", None), ("AxisComm", mesh)):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lanes[how] = SERVE.multi_source(pg, "bfs", sources, cfg,
+                                            mesh=mesh_of)
+            torch.cuda.synchronize()
+            walls[f"{how} lanes"] = time.perf_counter() - t0
+            launches = read_launches()
+            shared = lanes[how].total_rounds
+            want = dict.fromkeys(launches, 0)
+            want.update({k: n * shared for k, n in FUSED_ROUND.items()})
+            assert launches == want, (how, launches, want)
+            if mesh_of is not None:
+                paths.append(launches)
+        checks.append(spmd_checked(
+            f"spmd (b) {SPMD_LANES} lanes LaneAxisComm",
+            lambda: SERVE.multi_source(pg, "bfs", sources, cfg, mesh=mesh),
+            lanes["AxisComm"]))
+        a, b = lanes["LocalComm"], lanes["AxisComm"]
+        np.testing.assert_array_equal(b.values, a.values)
+        assert_stats_equal(a.stats, b.stats, "spmd (b) lanes")
+        assert (a.total_rounds, a.batch_cycles, a.batch_energy_pj) == (
+            b.total_rounds, b.batch_cycles, b.batch_energy_pj)
+        np.testing.assert_array_equal(a.done_round, b.done_round)
+        np.testing.assert_array_equal(a.done_cycle, b.done_cycle)
+        assert int(b.stats.drops.sum()) == 0
+        for lane, src in enumerate(sources):
+            np.testing.assert_array_equal(b.values[lane],
+                                          ref.bfs_ref(g, src))
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    lane_rounds = b.total_rounds
+    log(f"# spmd (b): R-MAT-{SPMD_SCALE} (V {g.num_vertices}, E "
+        f"{g.num_edges}) on one tile, fused: BFS from {root} in {rounds} "
+        f"rounds, AxisComm over NCCL (world size 1) bitwise the LocalComm "
+        f"run (values, Stats but launches) and the oracle; "
+        f"{SPMD_LANES} lanes {sources} in {lane_rounds} shared rounds, "
+        f"LaneAxisComm bitwise LaneComm (values, lane-led Stats, batch "
+        f"clock, done rounds) and each lane its oracle; each run again with "
+        f"its fused legs held against their plain stages (FusedCheck, "
+        f"every {SPMD_CHECK_PERIOD}th round): {checks}; card {smi}")
+    for how in ("LocalComm", "AxisComm"):
+        p = prof[how]
+        log(f"#   {how}: BFS wall {1e3 * walls[how] / rounds:.3f} ms a "
+            f"round; lanes wall {1e3 * walls[how + ' lanes'] / lane_rounds:.3f}"
+            f" ms a shared round; device {p['device_ms']:.4f} ms a round "
+            f"(NCCL kernels {p['nccl_ms']:.4f}), {p['kernels']:.1f} kernels "
+            f"and {p['aten_ops']:.1f} PyTorch operators a round, "
+            f"{p['collectives']:.1f} collectives a round taking "
+            f"{p['nccl_host_ms']:.3f} ms of host time (rounds "
+            f"{SPMD_PROFILE_AT}-{SPMD_PROFILE_AT + SPMD_PROFILE_ROUNDS - 1}); "
+            f"the next {SPMD_PROFILE_ROUNDS} rounds' wall {p['wall_ms']:.3f} "
+            f"ms a round; card {smi}")
+        log(f"#   {how}: host ms a round (cProfile own time, calls a "
+            f"round), the {SPMD_HOST_TOP} largest: " + "; ".join(
+                f"{name} {ms:.3f} ({calls:g})"
+                for name, ms, calls in p["host_top"]))
+    log("#   host ms a call, NCCL at world size 1 (200 calls each): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in costs.items())
+        + f"; card {smi}")
+    return paths
+
+
+def collective_costs(comm, reps=200) -> dict:
+    """Host ms a call of each AxisComm collective at the engine's small
+    shapes (a round's counters, a route's send buffer), the device
+    synchronized once after ``reps`` calls."""
+    dev = comm.device
+    ops = {
+        "psum int32 (1, 4)": (comm.psum, torch.ones((1, 4), dtype=torch.int32,
+                                                     device=dev)),
+        "pmax float32 (1,) (all-gather)": (
+            comm.pmax, torch.ones((1,), device=dev)),
+        "a2a int32 (1, 1024, 2)": (comm.a2a, torch.ones(
+            (1, 1024, 2), dtype=torch.int32, device=dev)),
+        "clone int32 (1, 4) (no collective)": (torch.clone, torch.ones(
+            (1, 4), dtype=torch.int32, device=dev)),
+    }
+    out = {}
+    for name, (fn, x) in ops.items():
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def phase_spmd(dev, smi):
+    """SPMD on torch.distributed: (a) the tile base of fused leg 0, (b)
+    world size 1 over NCCL.  Returns the launch counts of (b)'s paths."""
+    spmd_tile_base(dev)
+    return spmd_world_one(dev, smi)
+
+
 PHASES = ("kernels", "twin", "main", "hbm", "noc", "place", "taskgraph",
-          "block", "rmat18", "serve", "lm", "rwkv", "zamba")
+          "block", "rmat18", "serve", "spmd", "lm", "rwkv", "zamba")
 SPENT = {}  # phase: wall seconds
 
 
@@ -4552,9 +4885,8 @@ def main():
     if "twin" in phases:
         timed("twin", phase_twin, dev)
     paths, calls = [], []
-    main_run = None
     if "main" in phases:
-        main_paths, main_calls, scans, main_run = timed(
+        main_paths, main_calls, scans = timed(
             "main", phase_main, dev, smi, timer, "hbm" in phases)
         paths += main_paths.values()
         calls += main_calls
@@ -4577,8 +4909,7 @@ def main():
         calls += task_calls
     if "serve" in phases:
         serve_paths, serve_calls, lane_scans, _ = timed(
-            "serve", phase_serve, dev, smi, timer, args.seed, main_run)
-        main_run = None
+            "serve", phase_serve, dev, smi, timer, args.seed)
         paths += serve_paths.values()
         calls += serve_calls
         for name, rec in lane_scans.items():
@@ -4602,6 +4933,8 @@ def main():
         for name, rec in scans.items():
             if name in rows:
                 rows[name]["calls"].append(rec)
+    if "spmd" in phases:
+        paths += timed("spmd", phase_spmd, dev, smi)
     if "lm" in phases:
         rows["flash_attention"], lm_paths = timed("lm", phase_lm, dev, smi,
                                                   timer)

@@ -1,13 +1,20 @@
 """Host drivers for the paper workloads (port of ``repro.core.algorithms``).
 
 Each driver initializes per-shard state in *placed* space on the
-partition's device, runs its Program on the engine over
-:class:`LocalComm` (T emulated tiles on one device), and maps the result
+partition's device, runs its Program on the engine, and maps the result
 back to original vertex ids.  The five paper workloads (BFS, SSSP,
 PageRank, WCC, SpMV) run the classic 3-task program; :func:`kcore` runs
 the peel program and :func:`triangles` the 4-channel 2-hop chain over a
-:func:`prepare_triangles` partition.  The SPMD path is a later slice
-(ROADMAP.md).
+:func:`prepare_triangles` partition.
+
+Two execution paths share all engine code:
+
+* ``mesh=None`` — :func:`local_engine_call`: T emulated tiles on the
+  partition's device (:class:`LocalComm`);
+* ``mesh=`` a :class:`~torch.distributed.device_mesh.DeviceMesh` —
+  :func:`spmd_engine_call`: one tile a process over the mesh's ``axis``
+  (:class:`AxisComm`, T = the axis's size), every process making the
+  same call on the same partition and getting the same result.
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.comm import LocalComm
+from repro_torch.core.comm import AxisComm, LocalComm, mesh_axis
 from repro_torch.core.engine import (BFS, EngineConfig, GraphShard, Stats,
                                      init_state, run_engine, zero_stats)
 from repro_torch.core.graph import CSRGraph, PartitionedGraph, \
@@ -119,6 +126,66 @@ def local_engine_call(pg: PartitionedGraph, alg, cfg: EngineConfig,
     return st.value, st.acc, stats, trace
 
 
+def to_device(tree, device):
+    """A NamedTuple of tensors (Stats, TraceBuf) with every tensor moved
+    to ``device``; other fields (a ring's host cursor) as they are."""
+    return type(tree)(*(x.to(device) if isinstance(x, torch.Tensor) else x
+                        for x in tree))
+
+
+def spmd_rows(pg: PartitionedGraph, mesh, axis: str):
+    """One tile a process over ``axis`` of ``mesh``: ``(group, size, rank,
+    device)`` of :func:`mesh_axis`, checked against the partition's T,
+    ``row(x, lanes=False)``, this process's tile of a ``(T, ...)`` tensor
+    (or, with ``lanes``, of a ``(B, T, ...)`` one) on its device, and its
+    row of the partition's shard."""
+    group, size, rank, dev = mesh_axis(mesh, axis)
+    if size != pg.T:
+        raise ValueError(f"SPMD runs one tile a process: the partition has "
+                         f"{pg.T} tiles, mesh axis {axis!r} {size} "
+                         f"processes")
+
+    def row(x, lanes=False):
+        if x is None:
+            return None
+        return (x[:, rank:rank + 1] if lanes else x[rank:rank + 1]).to(dev)
+
+    shard = GraphShard(*(row(x) for x in (pg.ptr_start, pg.deg, pg.edge_dst,
+                                           pg.edge_val)))
+    return group, size, rank, dev, row, shard
+
+
+def spmd_engine_call(pg: PartitionedGraph, alg, cfg: EngineConfig, value,
+                     frontier, mesh, axis: str = "x", acc=None):
+    """Run ``alg`` as SPMD over ``axis`` of ``mesh``: one tile a process
+    (the axis's size must be ``pg.T``), each process taking row ``rank``
+    of the partition and of ``value`` / ``frontier`` / ``acc`` onto its
+    device and running the engine over :class:`AxisComm`.  Every process
+    returns the same ``(value, acc, stats, trace)`` as
+    :func:`local_engine_call`: the tiles' rows all-gathered to ``(T,
+    v_chunk)``, the Stats and the ring (globals), all on ``pg.device``.
+    ``Stats.launches`` counts this process's own launches."""
+    prog = as_program(alg)
+    group, size, rank, dev, row, shard = spmd_rows(pg, mesh, axis)
+    comm = AxisComm(group, size, rank, dev)
+    st = init_state(comm, cfg, pg.v_chunk, row(value), row(frontier), prog,
+                    row(acc))
+    st, stats, trace = run_engine(comm, cfg, prog, shard, st, pg.e_chunk,
+                                  pg.v_chunk)
+    home = pg.device
+    value, acc = (comm.all_gather(x)[0].to(home) for x in (st.value,
+                                                           st.acc))
+    return value, acc, to_device(stats, home), \
+        None if trace is None else to_device(trace, home)
+
+
+def _call(pg, alg, cfg, value, frontier, mesh=None, axis="x", acc=None):
+    """The engine on ``pg``: emulated (``mesh=None``) or SPMD."""
+    if mesh is None:
+        return local_engine_call(pg, alg, cfg, value, frontier, acc)
+    return spmd_engine_call(pg, alg, cfg, value, frontier, mesh, axis, acc)
+
+
 # --------------------------------------------------------------------------
 # Workload drivers.
 # --------------------------------------------------------------------------
@@ -138,35 +205,36 @@ def _distances(pg, v) -> np.ndarray:
 
 
 def bfs(pg: PartitionedGraph, root: int,
-        cfg: EngineConfig = EngineConfig()) -> Result:
-    """Hop counts from ``root`` (unreachable = inf), on ``pg``'s device."""
+        cfg: EngineConfig = EngineConfig(), mesh=None) -> Result:
+    """Hop counts from ``root`` (unreachable = inf), on ``pg``'s device
+    (or over ``mesh``, one tile a process)."""
     value, frontier = init_min_state(pg, [root])
-    v, _, stats, trace = local_engine_call(pg, BFS, cfg, value, frontier)
+    v, _, stats, trace = _call(pg, BFS, cfg, value, frontier, mesh)
     return Result(_distances(pg, v), stats, trace=trace)
 
 
 def sssp(pg: PartitionedGraph, root: int,
-         cfg: EngineConfig = EngineConfig()) -> Result:
+         cfg: EngineConfig = EngineConfig(), mesh=None) -> Result:
     """Float32 path lengths from ``root`` (unreachable = inf)."""
     value, frontier = init_min_state(pg, [root])
-    v, _, stats, trace = local_engine_call(pg, SSSP, cfg, value, frontier)
+    v, _, stats, trace = _call(pg, SSSP, cfg, value, frontier, mesh)
     return Result(_distances(pg, v), stats, trace=trace)
 
 
-def wcc(pg: PartitionedGraph, cfg: EngineConfig = EngineConfig()) -> Result:
+def wcc(pg: PartitionedGraph, cfg: EngineConfig = EngineConfig(),
+        mesh=None) -> Result:
     """Label propagation to the min original id (graph must be
     symmetric)."""
     value, frontier = init_wcc_state(pg)
-    v, _, stats, trace = local_engine_call(pg, WCC, cfg, value, frontier)
+    v, _, stats, trace = _call(pg, WCC, cfg, value, frontier, mesh)
     return Result(to_original(pg, v).astype(np.int64), stats, trace=trace)
 
 
 def spmv(pg: PartitionedGraph, x: np.ndarray,
-         cfg: EngineConfig = EngineConfig()) -> Result:
+         cfg: EngineConfig = EngineConfig(), mesh=None) -> Result:
     """Push-mode y[dst] += val * x[src] — one engine epoch."""
     value, frontier = init_add_state(pg, x)
-    _, acc, stats, trace = local_engine_call(pg, SPMV, cfg, value,
-                                             frontier)
+    _, acc, stats, trace = _call(pg, SPMV, cfg, value, frontier, mesh)
     return Result(to_original(pg, acc).astype(np.float64), stats,
                   trace=trace)
 
@@ -178,7 +246,7 @@ def initial_rank(pg: PartitionedGraph) -> np.ndarray:
 
 
 def pagerank_epoch(pg: PartitionedGraph, rank: np.ndarray, damping: float,
-                   cfg: EngineConfig):
+                   cfg: EngineConfig, mesh=None):
     """One PageRank epoch on ``pg``: the engine pushes ``rank``'s
     contributions, then the rank update and the dangling redistribution
     run in numpy on the host, the reference's very expression, so the sums
@@ -188,8 +256,7 @@ def pagerank_epoch(pg: PartitionedGraph, rank: np.ndarray, damping: float,
     real = real_mask(pg)
     deg = _host_deg(pg)
     value, frontier = _dev(pg, rank, real & (deg > 0))
-    _, acc, stats, trace = local_engine_call(pg, PAGERANK, cfg, value,
-                                             frontier)
+    _, acc, stats, trace = _call(pg, PAGERANK, cfg, value, frontier, mesh)
     acc = acc.cpu().numpy()
     dangling = rank[real & (deg == 0)].sum()
     new_rank = np.where(
@@ -199,8 +266,8 @@ def pagerank_epoch(pg: PartitionedGraph, rank: np.ndarray, damping: float,
 
 
 def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
-             tol: float = 0.0, cfg: EngineConfig = EngineConfig()
-             ) -> Result:
+             tol: float = 0.0, cfg: EngineConfig = EngineConfig(),
+             mesh=None) -> Result:
     """Epoch-synchronized PageRank (the paper keeps the barrier for PR).
 
     Each epoch is one engine run (:func:`pagerank_epoch`), the rank
@@ -211,7 +278,8 @@ def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
     epochs = 0
     trace = None  # the LAST epoch's ring (each epoch restarts the engine)
     for _ in range(iters):
-        new_rank, stats, trace = pagerank_epoch(pg, rank, damping, cfg)
+        new_rank, stats, trace = pagerank_epoch(pg, rank, damping, cfg,
+                                                mesh)
         diff = np.abs(new_rank - rank).sum()
         rank = new_rank
         total = _acc_stats(total, stats)
@@ -223,12 +291,12 @@ def pagerank(pg: PartitionedGraph, damping: float = 0.85, iters: int = 20,
 
 
 def kcore(pg: PartitionedGraph, k: int,
-          cfg: EngineConfig = EngineConfig()) -> Result:
+          cfg: EngineConfig = EngineConfig(), mesh=None) -> Result:
     """k-core membership by peeling (graph must be symmetric, deduped):
     values[v] = 1 if v survives in the k-core, else 0."""
     value, frontier, acc = init_kcore_state(pg, k)
-    _, a, stats, trace = local_engine_call(pg, kcore_program(int(k)), cfg,
-                                           value, frontier, acc)
+    _, a, stats, trace = _call(pg, kcore_program(int(k)), cfg, value,
+                               frontier, mesh, acc=acc)
     return Result((to_original(pg, a) == 0.0).astype(np.int64), stats,
                   trace=trace)
 
@@ -268,8 +336,8 @@ def prepare_triangles(g: CSRGraph, T: int, scheme: str = "low_order",
                                           device=device))
 
 
-def triangles(pg: PartitionedGraph,
-              cfg: EngineConfig = EngineConfig()) -> Result:
+def triangles(pg: PartitionedGraph, cfg: EngineConfig = EngineConfig(),
+              mesh=None) -> Result:
     """2-hop triangle counting on a :func:`prepare_triangles` partition:
     values[v] = number of triangles whose placed-minimum vertex is v."""
     if not (pg.edge_mode == "vertex_aligned" and pg.sorted_adj):
@@ -279,8 +347,7 @@ def triangles(pg: PartitionedGraph,
             f"sorted_adj={pg.sorted_adj}")
     cfg = sized_cfg(cfg, TRIANGLES, pg.T)
     value, frontier = init_triangles_state(pg)
-    _, a, stats, trace = local_engine_call(pg, TRIANGLES, cfg, value,
-                                           frontier)
+    _, a, stats, trace = _call(pg, TRIANGLES, cfg, value, frontier, mesh)
     return Result(to_original(pg, a).astype(np.int64), stats, trace=trace)
 
 

@@ -54,6 +54,14 @@ one launch for the whole batch, and the Stats are lane-led ``(B, ...)``.
 :func:`lane_select` and :func:`keep_frozen` freeze the lanes that have
 finished.
 
+Over an :class:`~repro_torch.core.comm.AxisComm` (SPMD, one tile a
+process over a ``torch.distributed`` group) or its lane form
+:class:`~repro_torch.core.comm.LaneAxisComm` the same round runs with
+``comm.rows`` = 1 (or B) rows a process over a one-row shard; every
+value the host loop reads (the pending work) is a reduced global, the
+same on every process, so all of them run the same rounds and meet in
+every collective.
+
 ``adapt`` (adaptive placement, :mod:`repro_torch.place`) is read by the
 host drivers between epochs and batches; the round loop never migrates.
 """
@@ -471,7 +479,8 @@ def make_round(comm: LocalComm, net, cfg: EngineConfig, prog: Program,
         tmpl = LegTemplate(
             payload=codes.payload, emit=codes.emit, fold=codes.fold,
             k=codes.k, mode=cfg.mode, policy=cfg.policy, window=window,
-            f_pop=cfg.f_pop, pops=pops, max_t2=cfg.max_t2, plimit=plimit)
+            f_pop=cfg.f_pop, pops=pops, max_t2=cfg.max_t2, plimit=plimit,
+            tile0=comm.tile0)
         legs = [functools.partial(getattr(fused_legs, name), tmpl)
                 for name in fused_legs.LEGS[codes.family]]
         stage_first = functools.partial(legs[0], stage_first)

@@ -62,8 +62,10 @@
 //
 // The lane axis: the grid's T rows may be B * T lane-major rows of B
 // serving lanes over one shard of shard_T = T rows; leg 0 and the scan legs
-// read shard row t % shard_T for row t (the tile within its lane, also
-// leg 0's placed-id payload), the other legs touch state only.
+// read shard row t % shard_T for row t, the other legs touch state only.
+// Leg 0's placed-id payload takes the tile id tile0 + t % shard_T: tile0 is
+// the tile of shard row 0, 0 where every tile is a row of the launch, the
+// rank where a process runs one tile (SPMD, core/comm.py AxisComm).
 //
 // Plain C interface, as engine_kernels.cu: device pointers, sizes, template
 // codes and the caller's cudaStream_t in, cudaGetLastError() out.
@@ -231,7 +233,8 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
                   int32_t* __restrict__ npop_out,
                   int32_t* __restrict__ npush_out, unsigned char* scratch,
                   size_t stage_bytes, int v_chunk, int e_chunk, int cap_r,
-                  int f_pop, int r_pop, int max_t2, int plimit, int shard_T) {
+                  int f_pop, int r_pop, int max_t2, int plimit, int shard_T,
+                  int tile0) {
   extern __shared__ __align__(16) unsigned char leg0_smem[];
   __shared__ int sm[33];
   const int t = blockIdx.x, g = blockIdx.y - 1, G = gridDim.y - 1;
@@ -256,10 +259,11 @@ fused_leg0_kernel(const uint8_t* __restrict__ frontier,
   if (tid == 0)
     for (int i = 0; i < K; ++i) dyn_pops[K * t + i] = pops[i];
   const size_t vt = (size_t)t * v_chunk;
-  // this row's tile: its shard row (the serving lanes' rows share one
-  // shard of shard_T rows) and its id in the placed payload
-  const int tile = t % shard_T;
-  const size_t st_row = (size_t)tile * v_chunk;
+  // this row's shard row (the serving lanes' rows share one shard of
+  // shard_T rows) and its tile id in the placed payload
+  const int srow = t % shard_T;
+  const int tile = tile0 + srow;
+  const size_t st_row = (size_t)srow * v_chunk;
   const int n_take = repro::frontier_take_block(
       frontier + vt, frontier_out + vt, v_chunk, fp, f_pop, sg.idx, sm);
   __syncthreads();
@@ -1060,11 +1064,12 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, int G, cudaStream_t stream,
                         void* drops, void* dyn_pops, void* npop, void* npush,
                         void* scratch, int v_chunk, int e_chunk, int cap_r,
                         int f_pop, int r_pop, int max_t2, int plimit,
-                        long long stage_bytes, int shard_T) {
+                        long long stage_bytes, int shard_T, int tile0) {
   size_t smem;
   unsigned char* stage;
   const int eff = r_pop < cap_r ? r_pop : cap_r;
   if (G < 1 || f_pop < 0 || r_pop < 0 || shard_T < 1 || T % shard_T ||
+      tile0 < 0 ||
       !staging(leg0_stage_bytes(f_pop, eff), (size_t)stage_bytes, scratch,
                &smem, &stage))
     return cudaErrorInvalidValue;
@@ -1080,7 +1085,7 @@ cudaError_t launch_leg0(Leg0Kernel kernel, int T, int G, cudaStream_t stream,
       static_cast<uint8_t*>(mvalid), static_cast<int32_t*>(drops),
       static_cast<int32_t*>(dyn_pops), static_cast<int32_t*>(npop),
       static_cast<int32_t*>(npush), stage, (size_t)stage_bytes, v_chunk,
-      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, shard_T);
+      e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, shard_T, tile0);
   return cudaGetLastError();
 }
 
@@ -1181,9 +1186,9 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
                      const void* pressure, void* frontier_out, void* rq_out,
                      void* rq_count_out, void* msgs, void* mvalid, void* drops,
                      void* dyn_pops, void* npop, void* npush, void* scratch,
-                     int T, int shard_T, int v_chunk, int e_chunk, int cap_r,
-                     int cap_u, int f_pop, int r_pop, int u_pop, int max_t2,
-                     int plimit, int payload, int policy, int G,
+                     int T, int shard_T, int tile0, int v_chunk, int e_chunk,
+                     int cap_r, int cap_u, int f_pop, int r_pop, int u_pop,
+                     int max_t2, int plimit, int payload, int policy, int G,
                      long long stage_bytes, void* stream) {
   Leg0Kernel kernel = nullptr;
   const bool traffic = policy == POLICY_TRAFFIC;
@@ -1212,7 +1217,7 @@ int repro_fused_leg0(const void* frontier, const void* value, const void* deg,
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
       rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
       v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes,
-      shard_T));
+      shard_T, tile0));
 }
 
 // Leg 0 of the 4-channel triangles chain (placed-id payload).
@@ -1222,10 +1227,10 @@ int repro_fused_leg0_chain(
     const void* count1, const void* count2, const void* count3,
     const void* pressure, void* frontier_out, void* rq_out,
     void* rq_count_out, void* msgs, void* mvalid, void* drops, void* dyn_pops,
-    void* npop, void* npush, void* scratch, int T, int shard_T, int v_chunk,
-    int e_chunk, int cap_r, int cap1, int cap2, int cap3, int f_pop, int r_pop,
-    int pop1, int pop2, int pop3, int max_t2, int plimit, int payload,
-    int policy, int G, long long stage_bytes, void* stream) {
+    void* npop, void* npush, void* scratch, int T, int shard_T, int tile0,
+    int v_chunk, int e_chunk, int cap_r, int cap1, int cap2, int cap3,
+    int f_pop, int r_pop, int pop1, int pop2, int pop3, int max_t2, int plimit,
+    int payload, int policy, int G, long long stage_bytes, void* stream) {
   if (payload != PAY_PLACED) return static_cast<int>(cudaErrorInvalidValue);
   const Leg0Kernel kernel =
       policy == POLICY_TRAFFIC
@@ -1241,7 +1246,7 @@ int repro_fused_leg0_chain(
       ptr_start, rq, rq_count, down, pressure, frontier_out, rq_out,
       rq_count_out, msgs, mvalid, drops, dyn_pops, npop, npush, scratch,
       v_chunk, e_chunk, cap_r, f_pop, r_pop, max_t2, plimit, stage_bytes,
-      shard_T));
+      shard_T, tile0));
 }
 
 // Leg 1 of the 2-channel programs: resident or streamed (window > 0; its

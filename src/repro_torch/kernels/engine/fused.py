@@ -64,7 +64,10 @@ The state may hold B * T lane-major rows of B serving lanes over one
 ``(T, ...)`` shard (:mod:`repro_torch.serve`): every leg is one launch
 for the whole batch, and leg 0 and the scan legs read shard row ``row %
 T`` (:func:`~repro_torch.kernels.engine.kernel.shard_rows`); the fold
-legs touch state only.
+legs touch state only.  Under SPMD (:class:`~repro_torch.core.comm.
+AxisComm`) a process holds one tile: the shard has one row and leg 0's
+placed-id payload takes the tile id from ``LegTemplate.tile0`` (the
+rank), not from the row.
 
 The kernels write what the plain stage writes where the reference
 defines it: every queue row below its count, every valid message row,
@@ -108,8 +111,8 @@ from repro_torch.kernels.engine.launches import record
 _L = ctypes.c_longlong  # a staging's bytes a tile
 SOURCE = CSRC / "fused_legs.cu"
 LIBRARY = CudaLibrary(SOURCE, {
-    "repro_fused_leg0": [_P] * 18 + [_I] * 14 + [_L, _P],
-    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 18 + [_L, _P],
+    "repro_fused_leg0": [_P] * 18 + [_I] * 15 + [_L, _P],
+    "repro_fused_leg0_chain": [_P] * 20 + [_I] * 19 + [_L, _P],
     "repro_fused_leg1": [_P] * 22 + [_I] * 12 + [_P],
     "repro_fused_leg1_chain": [_P] * 22 + [_I] * 13 + [_P],
     "repro_fused_leg2": [_P] * 14 + [_I] * 8 + [_P],
@@ -180,8 +183,11 @@ def wedge_split(T: int, R: int, dev):
 class LegTemplate(NamedTuple):
     """The static shape of a round's legs: the program's codes (payload,
     emit, fold, and k-core's threshold ``k``), the run's mode and TSU
-    policy, the edge shard's window (0: resident), and the budgets of the
-    TSU (``pops``: each channel's pop budget)."""
+    policy, the edge shard's window (0: resident), the budgets of the
+    TSU (``pops``: each channel's pop budget), and ``tile0``, the tile id
+    of shard row 0 (the comm's ``tile0``: 0 where the launch holds every
+    tile, the rank where a process runs one tile), which leg 0's placed-id
+    payload adds to the row's shard row."""
 
     payload: str
     emit: str
@@ -194,6 +200,7 @@ class LegTemplate(NamedTuple):
     pops: tuple
     max_t2: int
     plimit: int
+    tile0: int = 0
 
 
 def _code(options, value):
@@ -273,7 +280,7 @@ def _source_leg(name: str, tmpl: LegTemplate, plain, me, sh, st):
     ins = (st.frontier, st.value, sh.deg, sh.ptr_start, rq.data, rq.count)
     outs = (st.net_pressure, frontier, qdata, qcount, msgs, mvalid,
             counts[0], dyn_pops, counts[1], counts[2], scratch, T, Ts,
-            v_chunk, e_chunk, cap_r)
+            tmpl.tile0, v_chunk, e_chunk, cap_r)
     codes = (tmpl.max_t2, tmpl.plimit, _code(PAYLOADS, tmpl.payload),
              _code(POLICIES, tmpl.policy), leg0_split(T, cap_r, dev), nbytes)
     if K == 2:

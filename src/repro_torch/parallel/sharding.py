@@ -4,9 +4,10 @@
 A :class:`ParamSpec` is a leaf's shape, logical axes, dtype and init rule;
 :func:`init_tree` materializes a tree of them (nested dicts, tuples and
 NamedTuples; ``None`` is an empty subtree) on one device.  The logical
-axes are kept for ROADMAP §1's "SPMD on torch.distributed": the mesh,
-its rule tables, ``lsc`` and ``gathered`` are not ported, since without a
-mesh they are no-ops in the reference (``sharding.py:182-200``).
+axes are kept for the rule tables, ``lsc`` and ``gathered``, which are
+ROADMAP §1's "the rest of the LM substrate" (without a mesh they are
+no-ops in the reference, ``sharding.py:182-200``); the mesh itself is
+:mod:`repro_torch.launch.mesh`.
 
 The init rule is the reference's, unchanged: ``normal`` leaves draw
 N(0, 1) in float32, scaled by ``scale / sqrt(fan_in)`` with ``fan_in =

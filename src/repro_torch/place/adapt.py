@@ -9,8 +9,10 @@ remaps the rank vector through original vertex ids on the host, and
 prices the move into the accumulated Stats.  Migration happens only at
 quiescent points (the engine has drained between epochs), so no message
 in flight ever sees a stale owner.  The engine runs on the partition's
-device throughout; a mesh is ROADMAP.md's "SPMD on torch.distributed"
-item and raises.
+device, or as SPMD over a mesh: the plan comes from the ring, which holds
+globals only and so is the same on every process, and ``apply_plan``
+re-deals the host partition on every process alike before each process
+takes its tile's row of it.
 """
 from __future__ import annotations
 
@@ -23,10 +25,6 @@ from repro_torch.place.migrate import apply_plan, price_migration, \
     remap_state
 from repro_torch.place.plan import MigrationPlan, empty_plan, \
     migration_plan, score_tiles
-
-SPMD_TODO = ("adaptive_pagerank on a mesh is still to port (ROADMAP.md, "
-             "'SPMD on torch.distributed')")
-
 
 def cfg_tile_die(cfg: EngineConfig, T: int) -> np.ndarray | None:
     """The tile -> die map of ``cfg``'s fabric (None off the hier NoC)."""
@@ -78,8 +76,6 @@ def adaptive_pagerank(g: CSRGraph, pg: PartitionedGraph,
 
     Returns ``(result, pg_final, plans)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(SPMD_TODO)
     from repro_torch.core.algorithms import (Result, _acc_stats,
                                              initial_rank, pagerank_epoch,
                                              to_original)
@@ -97,7 +93,7 @@ def adaptive_pagerank(g: CSRGraph, pg: PartitionedGraph,
                                         params=params, tile_die=tile_die)
                 pg = pg2
                 plans.append(plan)
-        rank, stats, trace = pagerank_epoch(pg, rank, damping, cfg)
+        rank, stats, trace = pagerank_epoch(pg, rank, damping, cfg, mesh)
         total = _acc_stats(total, stats)
     res = Result(to_original(pg, rank).astype(np.float64), total, iters,
                  trace=trace)

@@ -32,9 +32,10 @@ Two batching policies:
 Both price time on the shared batch clock of :mod:`repro_torch.serve.
 lanes`.  Under ``EngineConfig.adapt`` the static policy migrates the
 resident partition between batches (:meth:`Frontend._maybe_adapt`,
-:mod:`repro_torch.place`) and charges the move to the clock.  A mesh is
-ROADMAP.md's "SPMD on torch.distributed" item and raises
-``NotImplementedError``.
+:mod:`repro_torch.place`) and charges the move to the clock.  On a mesh
+the static policy runs each batch as SPMD (:func:`~repro_torch.serve.
+lanes.spmd_lanes_call`, one tile a process); continuous batching is
+refused there, as the reference refuses it.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ from repro_torch.noc import make_network
 from repro_torch.perf.model import migration_cost
 from repro_torch.place import (adapt_partition, cfg_tile_die,
                                migration_words, score_tiles)
-from repro_torch.serve.lanes import (POINT_QUERIES, SPMD_TODO, LaneCarry,
+from repro_torch.serve.lanes import (POINT_QUERIES, LaneCarry,
                                      batch_min_state, lane_carry, lane_state,
                                      lane_values, local_lanes_segment,
                                      multi_source)
@@ -225,8 +226,9 @@ class Frontend:
     >>> report = fe.serve(sources, arrival="poisson", gap=5e4)
 
     ``graph`` is the host CSR that between-batch adaptation
-    (``cfg.adapt``) re-deals; ``mesh`` keeps the reference's signature
-    and raises (still to port).
+    (``cfg.adapt``) re-deals; ``mesh`` runs the static policy's batches
+    as SPMD over its ``"x"`` axis (every process calls ``serve`` with the
+    same arguments and gets the same report).
     """
 
     def __init__(self, pg: PartitionedGraph, app: str = "bfs",
@@ -248,9 +250,8 @@ class Frontend:
         if cfg.adapt and policy != "static":
             raise ValueError("between-batch adaptation is static-policy "
                              "only (continuous lanes are never quiescent)")
-        if mesh is not None:
-            raise NotImplementedError(SPMD_TODO)
         self.pg = pg
+        self.mesh = mesh
         self.app = app
         self.cfg = cfg
         self.width = width
@@ -323,7 +324,7 @@ class Frontend:
                 batch.append(queue.popleft())
             srcs = [s for _, s, _ in batch] + [-1] * (self.width -
                                                       len(batch))
-            res = multi_source(self.pg, self.app, srcs, self.cfg)
+            res = multi_source(self.pg, self.app, srcs, self.cfg, self.mesh)
             lane_rounds = res.stats.rounds.tolist()
             lane_edges = res.stats.edges_scanned.tolist()
             for lane, (qid, s, t_enq) in enumerate(batch):

@@ -38,9 +38,14 @@ back once a round, in one copy (the round loop's one sync, as
 
 ``done_round`` / ``done_cycle`` record, per lane, the shared round and the
 batch clock at which the lane finished: the completion side of the front
-end's latency accounting (:mod:`repro_torch.serve.frontend`).  The SPMD
-lanes (``spmd_lanes_call``, ``mesh=``) are ROADMAP.md's "SPMD on
-torch.distributed" item.
+end's latency accounting (:mod:`repro_torch.serve.frontend`).
+
+On a mesh (``spmd_lanes_call``, ``multi_source(..., mesh=)``) the tiles
+are processes (:class:`~repro_torch.core.comm.LaneAxisComm`): each runs
+all B lanes of its own tile, B rows over its one-row shard, and every
+process holds the same lane-led globals, so the host loops take the same
+rounds everywhere.  The result is every process's, bitwise the
+emulated run's.
 """
 from __future__ import annotations
 
@@ -50,7 +55,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.comm import LaneComm
+from repro_torch.core.algorithms import spmd_rows, to_device
+from repro_torch.core.comm import LaneAxisComm, LaneComm
 from repro_torch.core.engine import (EngineConfig, EngineState, GraphShard,
                                      Stats, init_state, keep_frozen,
                                      lane_select, make_round, pending_work)
@@ -62,8 +68,6 @@ from repro_torch.trace.buffer import zero_lane_trace
 
 F32, I32 = torch.float32, torch.int32
 POINT_QUERIES = {"bfs": BFS, "sssp": SSSP}
-SPMD_TODO = ("serving lanes on a mesh are still to port (ROADMAP.md, "
-             "'SPMD on torch.distributed')")
 
 
 class LaneCarry(NamedTuple):
@@ -91,7 +95,8 @@ def lane_state(comm: LaneComm, cfg: EngineConfig, v_chunk: int, value,
                frontier, alg, acc=None) -> EngineState:
     """:func:`~repro_torch.core.engine.init_state` of ``comm.lanes`` lanes:
     ``value`` / ``frontier`` / ``acc`` are ``(B, T, v_chunk)`` on the
-    comm's device, laid out as B * T lane-major rows."""
+    comm's device, laid out as B * T lane-major rows (``(B, 1, v_chunk)``
+    of this process's tile under :class:`LaneAxisComm`: B rows)."""
     def rows(x):
         return None if x is None else x.reshape(comm.rows, v_chunk)
     return init_state(comm, cfg, v_chunk, rows(value), rows(frontier), alg,
@@ -158,6 +163,7 @@ def lane_loop(comm: LaneComm, net, cfg: EngineConfig, prog, e_chunk: int,
     prog = as_program(prog)
     rnd = make_round(comm, net, cfg, prog, e_chunk, v_chunk, shard)
     pp, T, B = cfg.perf, comm.size, comm.lanes
+    per = comm.rows // B  # a lane's rows: T, or one under SPMD
     t_round = torch.tensor(pp.t_round, dtype=F32)
     c = carry
     act = None
@@ -168,8 +174,8 @@ def lane_loop(comm: LaneComm, net, cfg: EngineConfig, prog, e_chunk: int,
             # rows go to the device once, not every round
             act = c.pending > 0
             active = act.to(comm.device)
-            frozen = (torch.nonzero(~act)[:, 0, None] * T
-                      + torch.arange(T)[None]).flatten().to(comm.device)
+            frozen = (torch.nonzero(~act)[:, 0, None] * per
+                      + torch.arange(per)[None]).flatten().to(comm.device)
         st, stats, kcomp, trace, pend = rnd(c.st, c.stats, c.kcomp, c.trace,
                                             c.rounds, active)
         if frozen.numel():
@@ -235,8 +241,38 @@ def local_lanes_segment(prog, cfg: EngineConfig, T: int, e_chunk: int,
 
 def spmd_lanes_call(pg: PartitionedGraph, prog, cfg: EngineConfig, value,
                     frontier, mesh, axis: str = "x", acc=None):
-    """The batched run sharded over a mesh: still to port."""
-    raise NotImplementedError(SPMD_TODO)
+    """The batched run as SPMD over ``axis`` of ``mesh`` (its size must be
+    ``pg.T``): each process takes its tile's row of the partition and of
+    the ``(B, T, v_chunk)`` ``value`` / ``frontier`` / ``acc`` onto its
+    device and runs all B lanes of that tile (:class:`LaneAxisComm`).
+    Returns, on every process and on ``pg.device``, ``(values (B, T,
+    v_chunk), stats lane-led, rounds, clock, energy, done_round,
+    done_cycle, trace)``: ``trace`` is the lane-led ring when
+    ``cfg.trace``, else None; ``Stats.launches`` counts this process's
+    launches."""
+    prog = as_program(prog)
+    prog.validate(cfg, pg.T, pg.e_chunk, pg.v_chunk)
+    group, size, rank, dev, row, shard = spmd_rows(pg, mesh, axis)
+    comm = LaneAxisComm(group, size, value.shape[0], rank, dev)
+    net = make_network(cfg, pg.T)
+    st = lane_state(comm, cfg, pg.v_chunk, row(value, True),
+                    row(frontier, True), prog, row(acc, True))
+    out = lane_loop(comm, net, cfg, prog, pg.e_chunk, pg.v_chunk, shard,
+                    lane_carry(comm, net, cfg, prog, st))
+    home = pg.device
+    return lane_outputs(out, comm.all_gather(out.st.value).to(home), home)
+
+
+def lane_outputs(out: LaneCarry, values, home=None):
+    """A finished batched run as ``spmd_lanes_call`` returns it: ``values``
+    (B lanes' every tile), then ``out``'s Stats, rounds, clock, energy,
+    done rounds and cycles, and ring, the device tensors on ``home`` (by
+    default where they are)."""
+    def at(tree):
+        return tree if home is None or tree is None else to_device(tree,
+                                                                   home)
+    return (values, at(out.stats), out.rounds, out.clock, out.energy,
+            out.done_round, out.done_cycle, at(out.trace))
 
 
 # --------------------------------------------------------------------------
@@ -296,9 +332,10 @@ def multi_source(pg: PartitionedGraph, app: str, sources,
                  cfg: EngineConfig = EngineConfig(), mesh=None
                  ) -> BatchResult:
     """Answer a batch of point queries (``app`` "bfs" or "sssp") over the
-    resident partition in one shared batched run on its device.  Each
-    lane's result equals the solo :func:`repro_torch.core.algorithms.bfs`
-    / ``sssp`` run at ``cfg``, bit for bit.
+    resident partition in one shared batched run on its device (or as
+    SPMD over ``mesh``, one tile a process: :func:`spmd_lanes_call`).
+    Each lane's result equals the solo :func:`repro_torch.core.algorithms.
+    bfs` / ``sssp`` run at ``cfg`` and ``mesh``, bit for bit.
 
     A padding lane (``source < 0``) runs frozen from its birth: its values
     stay "unreached", its Stats, stamps and ring zero (``round_id`` -1),
@@ -307,20 +344,23 @@ def multi_source(pg: PartitionedGraph, app: str, sources,
     if app not in POINT_QUERIES:
         raise ValueError(f"multi_source serves point queries (bfs/sssp), "
                          f"got {app!r}")
-    if mesh is not None:
-        raise NotImplementedError(SPMD_TODO)
     sources = np.asarray(sources, np.int64)
-    shard = GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
     prog = as_program(POINT_QUERIES[app])
-    prog.validate(cfg, pg.T, pg.e_chunk, pg.v_chunk)
     value, frontier = batch_min_state(pg, sources)
-    out = local_lanes_call(prog, cfg, pg.T, pg.e_chunk, pg.v_chunk, shard,
-                           value, frontier)
-    T = pg.T
-    values = np.stack([lane_values(pg, out.st.value[i * T:(i + 1) * T])
-                       for i in range(len(sources))])
+    if mesh is None:
+        shard = GraphShard(pg.ptr_start, pg.deg, pg.edge_dst, pg.edge_val)
+        prog.validate(cfg, pg.T, pg.e_chunk, pg.v_chunk)
+        out = local_lanes_call(prog, cfg, pg.T, pg.e_chunk, pg.v_chunk,
+                               shard, value, frontier)
+        out = lane_outputs(out, out.st.value)
+    else:
+        out = spmd_lanes_call(pg, prog, cfg, value, frontier, mesh)
+    (vals, stats, rounds, clock, energy, done_round, done_cycle,
+     trace) = out
+    vals = vals.reshape(len(sources), pg.T * pg.v_chunk)
+    values = np.stack([lane_values(pg, v) for v in vals])
     return BatchResult(
-        values=values, stats=out.stats, total_rounds=out.rounds,
-        batch_cycles=float(out.clock), batch_energy_pj=float(out.energy),
-        done_round=out.done_round.numpy(), done_cycle=out.done_cycle.numpy(),
-        sources=sources, trace=out.trace)
+        values=values, stats=stats, total_rounds=rounds,
+        batch_cycles=float(clock), batch_energy_pj=float(energy),
+        done_round=done_round.numpy(), done_cycle=done_cycle.numpy(),
+        sources=sources, trace=trace)

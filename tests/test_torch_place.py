@@ -24,6 +24,7 @@ unit weights, T = 8, its ``small_cfg`` knobs.
   ``launches``.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -390,9 +391,13 @@ def test_adaptive_pagerank_equals_jax(graph, case):
         twin = ta.pagerank(tpg, damping=damping, iters=iters,
                            cfg=TConfig(**dict(kw, adapt=False)))
         np.testing.assert_array_equal(tres.values, twin.values)
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        tp.adaptive_pagerank(g, tpg, iters=1, cfg=TConfig(**kw),
-                             mesh=object())
+    if not torch.cuda.is_available():  # a mesh runs (test_torch_spmd.py),
+        # and a "cuda" one without a GPU raises: no fallback to the CPU
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tp.adaptive_pagerank(g, tpg, iters=1, cfg=TConfig(**kw),
+                                 mesh=SimpleNamespace(
+                                     device_type="cuda",
+                                     mesh_dim_names=("x",)))
 
 
 # --------------------------------------------------------------------------

@@ -22,6 +22,7 @@ The lane axis of the kernels and ``LaneComm`` are held in
 card's machine).
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from repro.trace.export import lane_trace as jlane_trace
 from repro_torch.configs import dalorex_graph
 from repro_torch.core import algorithms as ta
 from repro_torch.core.engine import EngineConfig as TConfig
+from repro_torch.core.program import BFS
 from repro_torch.serve import Frontend, multi_source, spmd_lanes_call
 from repro_torch.serve.__main__ import main as serve_main
 from repro_torch.trace import TraceBuf, lane_trace
@@ -194,18 +196,22 @@ def test_multi_source_rejects_non_point_queries(pgs):
 
 
 def test_unported_options_raise_naming_their_roadmap_items(g, pgs):
-    """A mesh is the SPMD item; continuous batching on a mesh is refused
-    as the reference refuses it.  Between-batch adaptation, once refused,
-    runs: its report equals the reference's, and without ``graph=`` it
-    raises the reference's ``ValueError``."""
+    """A mesh, once refused, runs (tests/test_torch_spmd.py); a "cuda"
+    mesh without a GPU raises rather than falling back to the CPU, and
+    continuous batching on a mesh is refused as the reference refuses it.
+    Between-batch adaptation, once refused, runs: its report equals the
+    reference's, and without ``graph=`` it raises the reference's
+    ``ValueError``."""
     pg = pgs[1]
-    spmd = "SPMD on torch.distributed"
-    with pytest.raises(NotImplementedError, match=spmd):
-        multi_source(pg, "bfs", [0], TConfig(**SMALL), mesh=object())
-    with pytest.raises(NotImplementedError, match=spmd):
-        spmd_lanes_call(pg, None, TConfig(**SMALL), None, None, object())
-    with pytest.raises(NotImplementedError, match=spmd):
-        Frontend(pg, cfg=TConfig(**SMALL), mesh=object())
+    cuda_mesh = SimpleNamespace(device_type="cuda", mesh_dim_names=("x",))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            multi_source(pg, "bfs", [0], TConfig(**SMALL), mesh=cuda_mesh)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            spmd_lanes_call(pg, BFS, TConfig(**SMALL), None, None,
+                            cuda_mesh)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Frontend(pg, cfg=TConfig(**SMALL), mesh=cuda_mesh).serve([0])
     with pytest.raises(ValueError, match="LocalComm"):
         Frontend(pg, policy="continuous", mesh=object())
     with pytest.raises(ValueError, match="graph"):

@@ -18,6 +18,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -193,9 +194,13 @@ def test_what_is_not_ported_raises():
         T.lm_loss(None, cfg, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.chunked_xent(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="SPMD on torch.distributed"):
-        routed_embed(torch.zeros(4, 2), torch.zeros(1, 1, dtype=torch.long),
-                     mesh=object())
+    if not torch.cuda.is_available():  # the routed lookup on a mesh runs
+        # (test_torch_spmd.py); a "cuda" mesh without a GPU raises
+        with pytest.raises(RuntimeError, match="CUDA"):
+            routed_embed(torch.zeros(4, 2),
+                         torch.zeros(1, 1, dtype=torch.long),
+                         mesh=SimpleNamespace(device_type="cuda",
+                                              mesh_dim_names=("model",)))
 
 
 def test_full_config_matches_the_reference():
