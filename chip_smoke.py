@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the Dalorex engine and of granite-3-2b,
-rwkv6-1.6b and zamba2-2.7b serving on one GPU.
+"""Drive the PyTorch/CUDA port of the Dalorex engine, of granite-3-2b,
+rwkv6-1.6b and zamba2-2.7b serving and of granite-3-2b training on one
+GPU.
 
     python3 chip_smoke.py \
         [--phases kernels,twin,main,hbm,noc,place,taskgraph,block,rmat18,
-                  serve,spmd,lm,rwkv,zamba] [--seed 0]
+                  serve,spmd,lm,rwkv,zamba,train] [--seed 0]
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. device and build — the card's name and power limit (nvidia-smi), and
-   the build of the seven kernel sources (``src/repro_torch/kernels/
+   the build of the eight kernel sources (``src/repro_torch/kernels/
    {engine,scatter_update,spmv,flash_attention,rwkv6,mamba2}/csrc/*.cu``;
    one nvcc each, sm_90a, all started together), and the tensor-core
    instructions (HGMMA) in each instance of the built flash library, by
@@ -261,7 +262,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the flash kernel once a superblock (9), neither in decode, the plain
    path neither.  A 208-token prompt prefills on the kernels and matches
    the plain path; a 200-token one (200 % 16 != 0) is refused on both
-   paths, as the reference's ``ssd_chunked`` asserts.
+   paths, as the reference's ``ssd_chunked`` asserts;
+13. ``train`` — granite-3-2b training at full width and all 40 layers,
+   random weights from a seed, B 4 sequences of 2048 tokens from the
+   seeded Markov source (``--seed``), remat on.  (a) The flash backward
+   kernel (``flash_attention_bwd.cu``) against its plain version
+   (autograd through ``repeat_kv_attention``; dq, dk, dv within
+   FLASH_BWD_TOL of its largest magnitude) and the training forward's
+   logsumexp against ``attention_lse``, on FLASH_BWD_SWEEP (granite's
+   shape in float32, S = 200, window 128, G = 1 and 4, hd 32, 80 and 128)
+   and granite's bfloat16 shape, timed there beside SDPA's backward
+   (forward plus backward less forward; timed only).  (b) One whole-model
+   step at TRAIN_TWIN_LAYERS layers, forward, remat and backward, the
+   kernel path against ``use_kernels=False`` from the same weights (the
+   reference's draws scaled to a fan-in init) and batch, float32 (loss,
+   global gradient norm, every leaf within TRAIN_LOSS_RTOL,
+   TRAIN_GNORM_RTOL, TRAIN_LEAF_REL) and bfloat16 (loss and norm; every
+   leaf of both paths within TRAIN_BF16_LEAF_REL of the float32
+   gradient at the same weights); the kernels launch twice a layer
+   forward (forward and remat) and once backward, the plain path never.
+   (c) TRAIN_STEPS timed steps of ``make_train_step`` at all 40 layers
+   (bf16 parameters, AdamW with a float32 master): step ms, tokens/s,
+   launches a step, peak memory.  (d) ``train`` at TRAIN_RESUME_LAYERS
+   layers (a depth cut: a 40-layer checkpoint is ~37 GB of disk), 4 steps
+   against 2, a checkpoint, a restart and 2 more: bitwise.
 
 The last lines are the script's wall time, the kernels' JSON record, the
 nvidia-smi line, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -275,9 +299,12 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -312,6 +339,12 @@ from repro_torch.noc.topology import CLASS_DIE, N_LINK_CLASSES  # noqa: E402
 from repro_torch import serve as SERVE  # noqa: E402
 from repro_torch import place as PL  # noqa: E402
 from repro_torch.perf import model as PM  # noqa: E402
+from repro_torch.checkpoint import store as CKPT  # noqa: E402
+from repro_torch.data.pipeline import make_source  # noqa: E402
+from repro_torch.optim import adamw as ADAMW  # noqa: E402
+from repro_torch.runtime import trainer as TRAINER  # noqa: E402
+from tools.bf16_grad_readings import (leaf_names,  # noqa: E402
+                                      rescale_to_fan_in)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 ENGINE_SRC = "src/repro_torch/kernels/engine/csrc/engine_kernels.cu"
@@ -339,10 +372,14 @@ KERNEL_ROWS = {
                     "src/repro/kernels/rwkv6/kernel.py:59"),
     "ssd_kernel": ("src/repro_torch/kernels/mamba2/csrc/ssd.cu",
                    "src/repro/kernels/mamba2/kernel.py:55"),
+    # no TPU kernel: the reference differentiates blockwise_attention
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:57"),
 }
 ALL_WRAPPERS = (*K.KERNELS, *F.KERNELS, SEG.scatter_segments,
                 SPMV.spmv_block_ell, FA.flash_attention, W6.wkv6_kernel,
-                SSD.ssd_kernel)
+                SSD.ssd_kernel, FA.flash_attention_bwd)
 
 # Main path: R-MAT-22 over T=64 tiles (v_chunk, e_chunk of its partition).
 # The update (spill) queue holds 262144 entries: its one-round burst bound
@@ -692,6 +729,52 @@ ZAMBA_BF16_REL_L2 = 1.6
 # prompt lengths: 208 = 13 chunks of 16 is served; 200 is refused by the
 # SSD (200 % min(16, 200) != 0), as the reference's ssd_chunked asserts
 ZAMBA_SERVED_P, ZAMBA_REFUSED_P = 208, 200
+# The training path: granite-3-2b at full width and all 40 layers, bf16
+# parameters with a float32 master, B = 4 sequences of 2048 tokens from the
+# seeded Markov source, remat on.  Flash backward cases (B, S, H, Hkv, hd,
+# window, dtype): granite's shape in float32, S = 200 (not a multiple of
+# the 64-row tile), window 128, G = 1 and G = 4, hd 80, 32 and 128, each
+# dtype; the main shape, granite's bfloat16 training attention, is timed.
+FLASH_BWD_SWEEP = (
+    (LM_B, LM_P, 32, 8, 64, 0, "float32"),
+    (2, 200, 8, 2, 64, 0, "float32"), (2, 200, 8, 2, 64, 0, "bfloat16"),
+    (1, 512, 8, 2, 64, 128, "float32"), (1, 512, 8, 2, 64, 128, "bfloat16"),
+    (2, 256, 4, 4, 64, 0, "float32"), (2, 256, 4, 4, 64, 0, "bfloat16"),
+    (2, 256, 8, 2, 64, 0, "float32"), (1, 256, 4, 4, 80, 0, "float32"),
+    (1, 256, 4, 4, 80, 0, "bfloat16"), (1, 256, 4, 2, 32, 0, "float32"),
+    (1, 256, 4, 1, 128, 64, "float32"), (1, 256, 4, 1, 128, 64, "bfloat16"))
+FLASH_BWD_MAIN = (LM_B, LM_P, 32, 8, 64, 0, "bfloat16")
+# each gradient within FLASH_BWD_TOL of its plain version's largest
+# magnitude (the forward's tolerances; the sums run in other orders), the
+# logsumexp within FLASH_LSE_TOL absolute
+FLASH_BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# The phase's weights: the reference's draws (``TFM.init_params``), each
+# block matrix scaled to std 1/sqrt(fan-in) (``tools/bf16_grad_readings.py``
+# ``rescale_to_fan_in``).  The reference's own init (std 1/sqrt(40) on every
+# stacked block matrix) makes its gradients ill-conditioned: there the JAX
+# package's own bfloat16 gradient of granite-3-2b reduced at 3 layers is
+# 0.74-1.18 rel L2 from its float32 one on its block leaves, the port's
+# 0.67-1.10 on the CPU and 0.68-1.12 on the card (ROADMAP §3), so no
+# bfloat16 check can hold it; at the fan-in init all three read
+# 0.006-0.018 there, and the reference 0.021 at most at 8 layers, 0.026 at
+# 40.
+# (b) One whole-model step at TRAIN_TWIN_LAYERS layers (a depth cut for the
+# script's time, PERF.md §4), kernel path against plain path, from the same
+# weights and batch: the loss within rtol TRAIN_LOSS_RTOL, the global
+# gradient norm within TRAIN_GNORM_RTOL, in float32 every gradient leaf
+# within relative L2 TRAIN_LEAF_REL; in bfloat16 every leaf of both paths
+# within TRAIN_BF16_LEAF_REL of the float32 plain path's gradient at the
+# same weights (the bfloat16 weights widened): ~5x the reference's 0.021,
+# where a zero gradient reads 1 and an unrelated one of the same norm ~1.41.
+TRAIN_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+TRAIN_GNORM_RTOL = {"float32": 1e-3, "bfloat16": 0.1}
+TRAIN_LEAF_REL = 1e-2   # float32
+TRAIN_BF16_LEAF_REL = 0.1
+TRAIN_TWIN_LAYERS = 8
+TRAIN_STEPS = 10            # timed steps of the kernel path
+TRAIN_RESUME_LAYERS = 2     # depth of the save/resume check (disk: §4)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
 
 
 def log(*a):
@@ -801,7 +884,7 @@ def phase_device():
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     libs = (K.LIBRARY, F.LIBRARY, SEG.LIBRARY, SPMV.LIBRARY, FA.LIBRARY,
-            W6.LIBRARY, SSD.LIBRARY)
+            W6.LIBRARY, SSD.LIBRARY, FA.BWD_LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         list(pool.map(lambda lib: lib.get(), libs))
@@ -4851,8 +4934,338 @@ def phase_spmd(dev, smi):
     return spmd_world_one(dev, smi)
 
 
+# --------------------------------------------------------------------------
+# Phase 13: granite-3-2b training on the flash backward kernel
+# --------------------------------------------------------------------------
+
+def check_flash_bwd(dev, timer):
+    """The flash backward kernel against its plain version (autograd
+    through ``repeat_kv_attention``) on FLASH_BWD_SWEEP and at the main
+    shape, the training forward's logsumexp against ``attention_lse``;
+    timed at the main shape (and the float32 instance at the same shape)
+    beside SDPA's backward (forward plus backward less forward, K/V
+    repeated to the query heads; timed only, the port never calls it)."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for case in (*FLASH_BWD_SWEEP, FLASH_BWD_MAIN):
+        B, S, H, Hkv, hd, win, dtype = case
+        q, k, v = flash_inputs(gen, B, S, H, Hkv, hd, dtype, dev)
+        do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(q.dtype)
+        out, lse = FA.flash_attention_fwd(q, k, v, win)
+        got = FA.flash_attention_bwd(q, k, v, out, lse, do, win)
+        want = FA.attention_bwd_plain(q, k, v, do, win)
+        torch.cuda.synchronize()
+        lse_err = float((lse - FA.attention_lse(q, k, win)).abs().max())
+        assert lse_err <= FLASH_LSE_TOL[dtype], (case, lse_err)
+        rel = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = float((a.float() - b.float()).abs().max())
+            big = float(b.float().abs().max())
+            assert err <= FLASH_BWD_TOL[dtype] * big, (case, name, err, big)
+            rel.append(err / big)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        log(f"#   flash bwd (B, S, H, Hkv, hd, window, dtype) = {case}: "
+            f"dq, dk, dv within {FLASH_BWD_TOL[dtype]} of the plain "
+            f"version's largest magnitude ({', '.join(f'{r:.3g}' for r in rel)}"
+            f"), lse within {lse_err:.3g}")
+        del got, want
+    B, S, H, Hkv, hd, win, dtype = FLASH_BWD_MAIN
+    f32 = [x.float() for x in (q, k, v, out, lse, do)]
+    f32_ms = timer.ms(lambda: FA.flash_attention_bwd(*f32, win))
+    del f32
+    G = H // Hkv
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for x in (k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+    flops = 5 * B * H * S * S * hd  # S, dP, dV, dK, dQ over the triangle
+    moved = nbytes(q, k, v, out, lse, do) + nbytes(q, k, v)
+    bound = max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S) * 1e3
+    return dict(max_abs_err=err,
+                ms=timer.ms(lambda: FA.flash_attention_bwd(q, k, v, out, lse,
+                                                           do, win)),
+                plain_ms=timer.ms(lambda: FA.attention_bwd_plain(
+                    q, k, v, do, win)),
+                bound_ms=bound, bound_by="operations",
+                library_ms=timer.ms(sdpa_fwd_bwd) - timer.ms(sdpa),
+                f32_ms=f32_ms)
+
+
+def check_matmul_f32_grad(dev):
+    """A bfloat16 projection's gradients (``matmul_f32``'s autograd
+    function) at granite's MLP widths against autograd of the float32
+    product of the same values: within 1e-2 relative L2 of it and 1e-3 of
+    it rounded to bfloat16 (the backward keeps the float32 cotangent and
+    rounds each gradient once).  Returns the four distances."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(LM_B * 256, 2048, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(2048, 8192, generator=gen, device=dev) / 45).bfloat16()
+    dy = torch.randn(LM_B * 256, 8192, generator=gen, device=dev)
+    a.requires_grad_(True)
+    w.requires_grad_(True)
+    got = torch.autograd.grad(LMLAYERS.matmul_f32(a, w), (a, w), dy)
+    a32, w32 = (x.detach().float().requires_grad_(True) for x in (a, w))
+    want = torch.autograd.grad(a32 @ w32, (a32, w32), dy)
+    rel = [rel_l2(g, x) for g, x in zip(got, want)]
+    rel16 = [rel_l2(g, x.bfloat16()) for g, x in zip(got, want)]
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert max(rel) < 1e-2 and max(rel16) < 1e-3, (rel, rel16)
+    return rel + rel16
+
+
+def train_batch(src, step, dev):
+    return {"tokens": torch.from_numpy(src.batch_at(step)).to(dev)}
+
+
+def train_params(dev, cfg):
+    """``cfg``'s weights: the reference's draws from LM_SEED, each block
+    matrix scaled to std 1/sqrt(fan-in)."""
+    return rescale_to_fan_in(TFM.init_params(
+        torch.Generator(device=dev).manual_seed(LM_SEED), cfg, dev))
+
+
+def train_step_twin(dev, base, src):
+    """One whole-model step's loss and gradients at TRAIN_TWIN_LAYERS
+    layers, the kernel path against the plain path (``use_kernels=False``)
+    from the same weights and batch, in float32 (the bfloat16 weights
+    widened) and bfloat16; each bfloat16 leaf of both paths against the
+    float32 plain path's.  Returns the kernel paths' launch counts."""
+    cfg16 = dataclasses.replace(base, dtype="bfloat16",
+                                num_layers=TRAIN_TWIN_LAYERS)
+    p16 = train_params(dev, cfg16)
+    batch = train_batch(src, 0, dev)
+    names = leaf_names(p16)
+    L = cfg16.num_layers
+    grads32, counts = None, []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg16, dtype=dtype)
+        params = p16 if dtype == "bfloat16" else \
+            tree_map(lambda a: a.detach().float(), p16)
+        runs = {}
+        for use in (True, False):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, grads = TRAINER.loss_and_grads(params, cfg, batch,
+                                                    use_kernels=use)
+            torch.cuda.synchronize()
+            runs[use] = (loss, grads, ADAMW.global_norm(grads),
+                         time.perf_counter() - t0, read_launches())
+        (lk, gk, nk, tk, ck), (lp, gp, np_, tp, cp) = runs[True], runs[False]
+        del runs
+        assert ck["flash_attention"] == 2 * L and \
+            ck["flash_attention_bwd"] == L, ck  # forward, remat, backward
+        assert cp["flash_attention"] == cp["flash_attention_bwd"] == 0, cp
+        assert bool(torch.isfinite(lk)) and bool(torch.isfinite(nk))
+        counts.append(ck)
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        norm_rel = abs(float(nk) - float(np_)) / float(np_)
+        leaf = {n: rel_l2(a, b) for n, a, b in zip(names, gk, gp)}
+        worst = max(leaf, key=leaf.get)
+        log(f"# train {dtype}: one step at {L} layers, kernel path against "
+            f"plain: loss {float(lk):.6f} / {float(lp):.6f} (rel "
+            f"{loss_rel:.3g}, bound {TRAIN_LOSS_RTOL[dtype]}), grad norm "
+            f"{float(nk):.6g} / {float(np_):.6g} (rel {norm_rel:.3g}, bound "
+            f"{TRAIN_GNORM_RTOL[dtype]}), leaf rel L2 at most "
+            f"{leaf[worst]:.3g} ({worst}); step {tk * 1e3:.1f} / "
+            f"{tp * 1e3:.1f} ms (forward, remat, backward; no update)")
+        assert loss_rel <= TRAIN_LOSS_RTOL[dtype], loss_rel
+        assert norm_rel <= TRAIN_GNORM_RTOL[dtype], norm_rel
+        if dtype == "float32":
+            assert leaf[worst] <= TRAIN_LEAF_REL, (worst, leaf[worst])
+            grads32 = gp
+            del gk, params
+            continue
+        dist = {n: (rel_l2(a, c), rel_l2(b, c))
+                for n, a, b, c in zip(names, gk, gp, grads32)}
+        far = max(dist, key=lambda n: max(dist[n]))
+        log(f"# train bfloat16: every leaf of both paths within "
+            f"{TRAIN_BF16_LEAF_REL} rel L2 of the float32 gradient at the "
+            f"same weights; farthest {far} {max(dist[far]):.3g}; kernel / "
+            f"plain: " + ", ".join(f"{n} {ek:.3g}/{ep:.3g}"
+                                   for n, (ek, ep) in dist.items()))
+        for n, (ek, ep) in dist.items():
+            assert ek <= TRAIN_BF16_LEAF_REL and ep <= TRAIN_BF16_LEAF_REL, \
+                (n, ek, ep)
+    return counts
+
+
+# kernel-name groups of a training step's device time (the backward's
+# three passes; the forward's wgmma body; cuBLAS and CUTLASS products)
+STEP_GROUPS = (("flash backward", ("delta_kernel", "dkdv_kernel",
+                                   "dq_kernel")),
+               ("flash forward", ("flash_wgmma_kernel", "flash_fwd_kernel")),
+               ("matrix products", ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def step_profile(step_fn, params, state, batch) -> tuple:
+    """One more step under ``torch.profiler``: (wall ms, device ms, device
+    ms by STEP_GROUPS and the rest, the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from tools.port_round_profile import device_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    total, by_name, counts = device_us(prof)
+    groups = {g: 0.0 for g, _ in STEP_GROUPS}
+    groups["the rest"] = 0.0
+    for name, us in by_name.items():
+        g = next((g for g, keys in STEP_GROUPS
+                  if any(k in name for k in keys)), "the rest")
+        groups[g] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return wall, total / 1e3, groups, counts, top
+
+
+def timed_train_steps(dev, smi, base, src, bwd_ms):
+    """TRAIN_STEPS timed steps of ``make_train_step`` (kernel path, all
+    the layers, AdamW with a float32 master) after an untimed one;
+    ``bwd_ms``: the backward kernel's time at this shape (phase (a)).
+    Returns the launch counts of the timed steps and the median step
+    ms."""
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    params = train_params(dev, cfg)
+    oc = ADAMW.OptConfig(**TRAIN_OPT)
+    step_fn = TRAINER.make_train_step(cfg, TRAINER.TrainConfig(
+        batch=LM_B, seq_len=LM_P, remat=True, opt=oc))
+    state = ADAMW.init(params, oc)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, m = step_fn(params, state, train_batch(src, 0, dev))
+    losses, times = [float(m["loss"])], []
+    reset_launches()
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = train_batch(src, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert all(np.isfinite(losses)), losses
+    assert int(state.step) == TRAIN_STEPS + 1
+    L = cfg.num_layers
+    assert counts["flash_attention_bwd"] == L * TRAIN_STEPS and \
+        counts["flash_attention"] == 2 * L * TRAIN_STEPS, counts
+    step_ms = float(np.median(times)) * 1e3
+    wall, dev_ms, groups, pc, top = step_profile(
+        step_fn, params, state, train_batch(src, TRAIN_STEPS + 1, dev))
+    log(f"# train bfloat16: one more step profiled: wall {wall:.1f} ms, "
+        f"device {dev_ms:.1f} ms (busy share {dev_ms / wall:.3f}), "
+        f"{pc['kernels']} kernels, {pc['aten_ops']} PyTorch operators; "
+        + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / dev_ms:.1f} %)"
+                    for g, ms in groups.items())
+        + "; top: " + ", ".join(f"{n[:48]} {us / 1e3:.1f} ms"
+                                for n, us in top))
+    log(f"# train bfloat16: {TRAIN_STEPS} steps of {LM_B} x {LM_P} tokens "
+        f"after one untimed: step {step_ms:.1f} ms median (mean "
+        f"{np.mean(times) * 1e3:.1f}, min {min(times) * 1e3:.1f}, max "
+        f"{max(times) * 1e3:.1f}), {LM_B * LM_P / (step_ms / 1e3):.0f} "
+        f"tokens/s; launches a step: flash_attention "
+        f"{counts['flash_attention'] // TRAIN_STEPS} (forward and remat), "
+        f"flash_attention_bwd {counts['flash_attention_bwd'] // TRAIN_STEPS}"
+        f" at {bwd_ms:.4f} ms each (phase (a)); peak device memory "
+        f"{peak:.3f} GiB; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; card {smi}")
+    return counts, step_ms
+
+
+def check_resume(dev, base, seed):
+    """``train`` at full width and TRAIN_RESUME_LAYERS layers, weights
+    and data from ``seed``: 4 steps uninterrupted, against 2 steps, a
+    checkpoint, a restart and 2 more: the resumed steps' losses and the
+    final parameters and optimizer state bitwise.  Returns the kernel
+    launch counts of the runs."""
+    cfg = dataclasses.replace(base, dtype="bfloat16",
+                              num_layers=TRAIN_RESUME_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def tc(name, every):
+        return TRAINER.TrainConfig(
+            steps=4, batch=LM_B, seq_len=LM_P, ckpt_every=every,
+            ckpt_dir=os.path.join(root, name), ckpt_keep=1, log_every=0,
+            seed=seed, opt=ADAMW.OptConfig(**TRAIN_OPT))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        pa, sa, ha = TRAINER.train(cfg, tc("a", 4), device=dev)
+        t_run = time.perf_counter() - t0
+        nbytes_ckpt = sum(f.stat().st_size for f in
+                          Path(root, "a", "step_4").iterdir())
+        shutil.rmtree(os.path.join(root, "a"))
+        TRAINER.train(cfg, tc("b", 2), stop_after=2, device=dev)
+        assert CKPT.latest_valid_step(os.path.join(root, "b")) == 2
+        t0 = time.perf_counter()
+        pb, sb, hb = TRAINER.train(cfg, tc("b", 2), device=dev)
+        t_resume = time.perf_counter() - t0
+        counts = read_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert [h["step"] for h in hb] == [2, 3]
+    assert [h["loss"] for h in hb] == [h["loss"] for h in ha[2:]], (ha, hb)
+    for a, b in zip(ADAMW.leaves((pa, sa)), ADAMW.leaves((pb, sb))):
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+    log(f"# train resume: {cfg.num_layers} layers at full width, 4 steps "
+        f"uninterrupted ({t_run:.1f} s with its checkpoint) against 2, a "
+        f"checkpoint of {nbytes_ckpt / 2 ** 30:.3f} GiB, a restart and 2 "
+        f"more ({t_resume:.1f} s): losses "
+        f"{', '.join('%.6f' % h['loss'] for h in hb)} and every parameter "
+        f"and optimizer leaf bitwise the uninterrupted run's")
+    return counts
+
+
+def phase_train(dev, smi, timer, seed):
+    """granite-3-2b training at full width and depth: the flash backward
+    kernel against its plain version, one whole-model step kernel against
+    plain (float32, bfloat16), TRAIN_STEPS timed steps, then the save and
+    resume check at TRAIN_RESUME_LAYERS layers.  Returns (the backward
+    kernel's record row, the launch counts of the kernel paths)."""
+    row = check_flash_bwd(dev, timer)
+    log(f"# kernel flash_attention_bwd: within {FLASH_BWD_TOL['bfloat16']} "
+        f"of its plain version at {FLASH_BWD_MAIN}; kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+        f"ms (operations), library {row['library_ms']:.4f} ms (SDPA "
+        f"backward: forward + backward less forward); float32 instance "
+        f"{row['f32_ms']:.4f} ms; card {smi}")
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rel = check_matmul_f32_grad(dev)
+    log(f"# train: bfloat16 projection gradients (dx, dw) within "
+        f"{rel[0]:.3g}, {rel[1]:.3g} rel L2 of the float32 product's, "
+        f"{rel[2]:.3g}, {rel[3]:.3g} of it rounded to bfloat16")
+    base = get_config(LM_ARCH)
+    src = make_source("markov", base.vocab_size, LM_P, LM_B, seed)
+    log(f"# train: {LM_ARCH} at full width, all {base.num_layers} layers "
+        f"({base.param_count() / 1e9:.3f} B parameters), random weights "
+        f"from seed {LM_SEED} at a fan-in init, B = {LM_B}, S = {LM_P}, "
+        f"Markov data from seed {seed}, remat on")
+    paths = train_step_twin(dev, base, src)
+    torch.cuda.empty_cache()
+    counts, row["step_ms"] = timed_train_steps(dev, smi, base, src,
+                                               row["ms"])
+    paths.append(counts)
+    torch.cuda.empty_cache()
+    paths.append(check_resume(dev, base, seed))
+    torch.cuda.empty_cache()
+    return row, paths
+
+
 PHASES = ("kernels", "twin", "main", "hbm", "noc", "place", "taskgraph",
-          "block", "rmat18", "serve", "spmd", "lm", "rwkv", "zamba")
+          "block", "rmat18", "serve", "spmd", "lm", "rwkv", "zamba", "train")
 SPENT = {}  # phase: wall seconds
 
 
@@ -4872,7 +5285,8 @@ def main():
                     help=f"comma-separated subset of {','.join(PHASES)} "
                          f"(default: all; hbm runs with main)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the serving phase's drawn sources")
+                    help="seed of the serving phase's drawn sources and "
+                         "of the training phase's data")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if phases - set(PHASES):
@@ -4951,6 +5365,10 @@ def main():
         else:
             rows["flash_attention"] = flash80
         paths += zamba_paths
+    if "train" in phases:
+        rows["flash_attention_bwd"], train_paths = timed(
+            "train", phase_train, dev, smi, timer, args.seed)
+        paths += train_paths
     if "flash_attention" in rows:
         rows["flash_attention"]["hgmma"] = hgmma
     # each kernel's launches summed over the driven paths
@@ -4966,7 +5384,7 @@ def main():
             **{k: r[k] for k in ("calls", "hd80", "f32_ms", "hgmma",
                                  "library_bsr_ms", "f32_bound_ms", "hmma",
                                  "G", "path", "copy_ms", "whole_bound_ms",
-                                 "live_share")
+                                 "live_share", "step_ms")
                if k in r}))
     log(f"# chip_smoke wall time: {time.perf_counter() - t_start:.1f} s "
         f"(phases {','.join(p for p in PHASES if p in phases)})")

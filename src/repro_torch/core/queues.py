@@ -41,6 +41,11 @@ def queue_make(T: int, cap: int, width: int, space: str = "vmem",
     return Queue(data, torch.zeros((T,), dtype=torch.int32, device=device))
 
 
+def queue_free(q: Queue) -> torch.Tensor:
+    """Free rows of each tile's queue: capacity less count."""
+    return q.data.shape[-2] - q.count
+
+
 def queue_clear(q: Queue) -> Queue:
     """An emptied queue of the same shape, its storage zeroed, so that a
     cleared queue is bit-equal to a freshly made one (the serving front

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.queues import occurrence_index
+from repro_torch.core.queues import histogram, occurrence_index
 
 EMPTY = -1  # head-flit value marking an empty network slot
 
@@ -71,3 +71,12 @@ def route_tasks(comm, msgs: torch.Tensor, valid: torch.Tensor,
     buf, spill, spill_valid, n_sent = comm.run(local_bin, msgs, valid, dest)
     recv = comm.a2a(buf)
     return Routed(recv, recv[..., 0] >= 0, spill, spill_valid, n_sent)
+
+
+def route_stats(comm, valid: torch.Tensor, dest: torch.Tensor,
+                num_shards: int) -> torch.Tensor:
+    """Per-destination message histogram, (T, num_shards) int32 (for NoC
+    balance benchmarks)."""
+    def local(_me, v, d):
+        return histogram(d, v, num_shards)
+    return comm.run(local, valid, dest)

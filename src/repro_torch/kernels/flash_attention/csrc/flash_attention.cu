@@ -3,7 +3,10 @@
 // the LM prefill with an optional sliding window and grouped-query heads.
 //
 // q (B, S, H, hd), k and v (B, S, Hkv, hd), bfloat16 or float32, read in
-// place; out (B, S, H, hd) in q's dtype.  Query head h reads kv head
+// place; out (B, S, H, hd) in q's dtype; and, where the caller passes lse
+// (the training forward; the backward, flash_attention_bwd.cu, reads it),
+// each row's logsumexp (B, H, S) in float32: m + log(l) of the scaled,
+// masked scores, in natural units.  Query head h reads kv head
 // h / (H / Hkv) directly, so K/V are never repeated.  Both bodies compute
 // what the Pallas body computes (kernel.py:25-67): scores in float32,
 // scaled by hd^-0.5, -1e30 (not -inf) where key > query or key <= query -
@@ -148,7 +151,8 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int S, int H, int Hkv, int window, float scale) {
+                     float* __restrict__ lse, int S, int H, int Hkv,
+                     int window, float scale) {
   constexpr int NC = HD / 16;  // output columns a thread owns
   extern __shared__ float4 fa_smem4[];
   float* smem = reinterpret_cast<float*>(fa_smem4);
@@ -266,13 +270,15 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       ob[(size_t)r * q_row + out_col<HD>(tx, c)] = acc[i][c] / den;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + r] = m[i] + logf(l[i]);
   }
 }
 
 template <int HD>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int Hkv, int window, float scale,
-               cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int S, int H, int Hkv, int window,
+               float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * HD * TS + BK * HD + BK * TS);
   auto kern = flash_fwd_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -281,8 +287,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, window,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, H, Hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,7 +539,8 @@ __global__ void __launch_bounds__(WT, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int Hkv,
                        int window, float scale_log2) {
   using G = Geom<HD>;
   extern __shared__ uint8_t fw_smem[];
@@ -709,6 +716,10 @@ __global__ void __launch_bounds__(WT, 1)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qpos * q_row + 8 * j) =
             __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv,
                                   oacc[4 * j + 2 * r + 1] * inv);
+      // m is in log2 units: lse = (m + log2 l) ln 2
+      if (lse != nullptr && lane % 4 == 0)
+        lse[((size_t)b * H + h) * S + qpos] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
     }
   }
 }
@@ -753,9 +764,9 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* p, int heads,
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int Hkv, int window, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int S, int H, int Hkv, int window,
+                 float scale, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap qm, km, vm;
@@ -770,33 +781,40 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (S + WQ - 1) / WQ);
   kern<<<grid, WT, smem, stream>>>(qm, km, vm,
-                                   static_cast<__nv_bfloat16*>(o), S, H, Hkv,
+                                   static_cast<__nv_bfloat16*>(o),
+                                   static_cast<float*>(lse), S, H, Hkv,
                                    window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool BF16, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int Hkv, int window, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int S, int H, int Hkv, int window, float scale,
+           cudaStream_t st) {
   if constexpr (BF16)
-    return launch_wgmma<HD>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+    return launch_wgmma<HD>(q, k, v, o, lse, B, S, H, Hkv, window, scale,
+                            st);
   else
-    return launch_fma<HD>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+    return launch_fma<HD>(q, k, v, o, lse, B, S, H, Hkv, window, scale, st);
 }
 
 template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int Hkv, int hd, int window, float scale,
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int S, int H, int Hkv, int hd, int window, float scale,
              cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<BF16, 32>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+      return launch<BF16, 32>(q, k, v, o, lse, B, S, H, Hkv, window, scale,
+                                st);
     case 64:
-      return launch<BF16, 64>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+      return launch<BF16, 64>(q, k, v, o, lse, B, S, H, Hkv, window, scale,
+                                st);
     case 80:
-      return launch<BF16, 80>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+      return launch<BF16, 80>(q, k, v, o, lse, B, S, H, Hkv, window, scale,
+                                st);
     case 128:
-      return launch<BF16, 128>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+      return launch<BF16, 128>(q, k, v, o, lse, B, S, H, Hkv, window, scale,
+                                st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -811,17 +829,18 @@ const char* repro_cuda_error_string(int code) {
 }
 
 // is_bf16: 1 for bfloat16 operands (the wgmma body), 0 for float32 (the FMA
-// body); scale: hd^-0.5 as the caller rounds it to float32.
+// body); scale: hd^-0.5 as the caller rounds it to float32; lse: null (the
+// serving prefill) or (B, H, S) float32 for the rows' logsumexp.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int H, int Hkv, int hd,
-                          int window, int is_bf16, float scale,
+                          void* o, void* lse, int B, int S, int H, int Hkv,
+                          int hd, int window, int is_bf16, float scale,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? dispatch<true>(q, k, v, o, B, S, H, Hkv, hd, window,
+  return is_bf16 ? dispatch<true>(q, k, v, o, lse, B, S, H, Hkv, hd, window,
                                   scale, st)
-                 : dispatch<false>(q, k, v, o, B, S, H, Hkv, hd, window,
+                 : dispatch<false>(q, k, v, o, lse, B, S, H, Hkv, hd, window,
                                    scale, st);
 }
 

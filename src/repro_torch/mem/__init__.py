@@ -48,7 +48,17 @@ HBM = MemSpace("hbm", capacity_bytes=8 * 1024 * 1024 * 1024, window=128,
 HOST = MemSpace("host", capacity_bytes=64 * 1024 * 1024 * 1024, window=4096,
                 kinds=(), streamed=True)
 
-_REGISTRY = {s.name: s for s in (VMEM, HBM, HOST)}
+_REGISTRY: dict = {}
+
+
+def register(space: MemSpace) -> MemSpace:
+    """Add (or replace) a space in the registry; returns it."""
+    _REGISTRY[space.name] = space
+    return space
+
+
+for _s in (VMEM, HBM, HOST):
+    register(_s)
 
 
 def get_space(name: str) -> MemSpace:

@@ -8,8 +8,12 @@ exactly (a product of two bfloat16 values fits a float32) and sums in
 float32 — on the card through ``torch.mm(..., out_dtype=torch.float32)``,
 whose float32 output leaves no room for the bfloat16 split-K reduction
 that ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-permits for a bfloat16 output, and without touching that flag.  A float32
-product follows the caller's TF32 setting (off by default).
+permits for a bfloat16 output, and without touching that flag.  That
+call has no derivative, so a product that needs a gradient goes through
+:class:`_MatmulF32`, whose backward keeps the float32 cotangent, as the
+reference's transpose of a ``preferred_element_type=float32`` product
+does.  A float32 product follows the caller's TF32 setting (off by
+default).
 
 :func:`blockwise_attention` is the reference's two-level flash pattern
 (online softmax over kv blocks), the plain version of the port's flash
@@ -26,6 +30,52 @@ from repro_torch.parallel.sharding import ParamSpec
 NEG_INF = -1e30
 
 
+def split_bf16(x):
+    """Float32 ``x`` as three bfloat16 terms whose float32 sum is ``x``:
+    each takes the next 8 significand bits of what the terms before it
+    left (24 in all; bfloat16 has float32's exponents), exactly wherever
+    ``|x| >= 2**-108``, where the last term is still a normal number."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi  # float32: hi widens exactly
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid).to(torch.bfloat16)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ w`` of two bfloat16 CUDA operands with a float32 output,
+    differentiable: ``torch.mm(..., out_dtype=torch.float32)`` has no
+    derivative.  The backward's products take the float32 cotangent
+    whole, as the reference's (``dot_general`` of the float32 cotangent
+    and the bfloat16 operand): it is cut into :func:`split_bf16`'s three
+    terms, each product of a term and an operand is exact in float32 and
+    summed in float32, and only each gradient is rounded to bfloat16."""
+
+    @staticmethod
+    def forward(ctx, a2, w2):
+        ctx.save_for_backward(a2, w2)
+        return torch.mm(a2, w2, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a2, w2 = ctx.saved_tensors
+        g = split_bf16(dy.float())
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = _sum_of_products([(t, w2.t()) for t in g]).to(a2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _sum_of_products([(a2.t(), t) for t in g]).to(w2.dtype)
+        return da, dw
+
+
+def _sum_of_products(pairs):
+    """The float32 sum of ``x @ y`` (float32 outputs) over ``pairs``, in
+    their order."""
+    acc = torch.mm(*pairs[0], out_dtype=torch.float32)
+    for x, y in pairs[1:]:
+        acc += torch.mm(x, y, out_dtype=torch.float32)
+    return acc
+
+
 def matmul_f32(a, w):
     """``a`` (..., K) times ``w`` (K, ...) -> (..., *w.shape[1:]) float32,
     accumulated in float32 whatever the operands' dtype."""
@@ -34,8 +84,12 @@ def matmul_f32(a, w):
     a2, w2 = a.reshape(-1, K), w.reshape(K, -1)
     if a2.dtype == torch.float32 and w2.dtype == torch.float32:
         y = torch.mm(a2, w2)
-    elif a2.device.type == "cuda" and a2.dtype == w2.dtype:
-        y = torch.mm(a2, w2, out_dtype=torch.float32)
+    elif a2.device.type == "cuda" and a2.dtype == w2.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and (a2.requires_grad
+                                        or w2.requires_grad):
+            y = _MatmulF32.apply(a2, w2)
+        else:
+            y = torch.mm(a2, w2, out_dtype=torch.float32)
     else:
         y = torch.mm(a2.float(), w2.float())
     return y.reshape(out_shape)

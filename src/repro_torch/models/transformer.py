@@ -32,10 +32,18 @@ The cache tensors are written in place (they are the largest state of a
 serving run); ``prefill``, ``serve_step`` and ``forward`` return a new
 :class:`Cache` whose position has advanced, over the same tensors.
 
+Training: :func:`lm_loss` is the causal LM loss of the dense family
+through :func:`chunked_xent`, the logits taken a sequence chunk at a time.
+Its forward runs the same attention entry point, whose flash kernel has a
+hand-written backward (:class:`repro_torch.kernels.flash_attention.
+kernel.FlashAttention`); ``remat=True`` recomputes each layer in the
+backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` of its scanned layer body.
+
 Not ported: the MoE family, the vision and audio frontends, ring
-(context-parallel) attention, which needs a mesh, and the loss
-(``lm_loss``, ``chunked_xent``); each raises ``NotImplementedError``
-naming its ROADMAP item.
+(context-parallel) attention, which needs a mesh, and the training of the
+ssm and hybrid families, which needs backward kernels of WKV6 and SSD;
+each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.embedding import embed_lookup, padded_vocab
@@ -51,12 +60,25 @@ from repro_torch.models.layers import (decode_attention, matmul_f32,
                                        mlp_apply, mlp_specs, rms_norm, rope)
 from repro_torch.models.mamba import CONV_K, mamba_block, mamba_block_specs
 from repro_torch.models.rwkv import rwkv_block, rwkv_block_specs
+from repro_torch.optim.adamw import OptState
 from repro_torch.parallel.sharding import ParamSpec, init_tree, tree_map
 
 # the ROADMAP items that bring what is not ported
 SUBSTRATE_ITEM = "ROADMAP §1, still to port: the rest of the LM substrate"
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-TRAINING_ITEM = "ROADMAP §1: the LM training path"
+# the families whose training is ported (the others' kernels have no
+# backward yet)
+TRAINED_FAMILIES = ("dense",)
+TRAINING_ITEM = ("ROADMAP §1, still to port: rwkv6 and zamba2 training "
+                 "(the WKV6 and SSD backward kernels)")
+
+
+def check_trainable(cfg: ModelConfig):
+    """Raise unless the port trains ``cfg``'s family."""
+    _check_ported(cfg)
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(f"training family {cfg.family!r}: "
+                                  f"{TRAINING_ITEM}")
 
 
 def _check_ported(cfg: ModelConfig):
@@ -250,12 +272,18 @@ def _dense_block(p, x, cfg, kv_cache, pos, use_kernels: bool):
     return x + mlp_apply(p["mlp"], h, cfg.mlp)
 
 
-def _stacked_layers(params, x, cfg, cache, pos, use_kernels: bool):
+def _stacked_layers(params, x, cfg, cache, pos, use_kernels: bool,
+                    remat: bool = False):
     """The dense and ssm layer stacks: one block a layer, its cache
-    entries written in place."""
+    entries written in place.  ``remat`` (a dense scoring pass, checked
+    by :func:`forward`): each block is recomputed in the backward instead
+    of keeping its activations."""
     for i in range(cfg.num_layers):
         p_l = tree_map(lambda a: a[i], params["blocks"])
-        if cfg.family == "ssm":
+        if remat:
+            x = checkpoint(_dense_block, p_l, x, cfg, None, pos,
+                           use_kernels, use_reentrant=False)
+        elif cfg.family == "ssm":
             st = None if cache is None else tuple(a[i] for a in cache.rwkv)
             x, new_st = rwkv_block(p_l, x, st, cfg.rwkv_head_dim,
                                    cfg.norm_eps, use_kernels)
@@ -296,7 +324,7 @@ def _hybrid_layers(params, x, cfg, cache, pos, use_kernels: bool):
 # --------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
-            use_kernels: bool = True):
+            use_kernels: bool = True, remat: bool = False):
     """Returns (hidden (B, S, d), new_cache, aux dict).
 
     batch: {"tokens": (B, S)}.  cache=None -> scoring (no cache written);
@@ -306,15 +334,24 @@ def forward(params, cfg: ModelConfig, batch: dict, *, cache: Cache = None,
     the conv and continues the SSD state).  ``use_kernels`` reaches the
     prefill's kernels, the flash attention (dense, hybrid), the WKV6
     recurrence (ssm) and the SSD scan (hybrid): the kernel on CUDA tensors
-    when True, its plain version when False."""
+    when True, its plain version when False.  ``remat`` recomputes each
+    dense layer in the backward of a scoring pass (the training forward,
+    :func:`lm_loss`); asked of another family or with a cache, it
+    raises."""
     _check_ported(cfg)
+    if remat:
+        check_trainable(cfg)
+        if cache is not None:
+            raise ValueError("remat recomputes a scoring pass: no cache")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x, ovf = embed_lookup(params["embed"], tokens, cfg.routed_embedding)
     pos = cache.pos if cache is not None else \
         torch.zeros((), dtype=torch.int32, device=tokens.device)
-    layers = _hybrid_layers if cfg.family == "hybrid" else _stacked_layers
-    x = layers(params, x, cfg, cache, pos, use_kernels)
+    if cfg.family == "hybrid":
+        x = _hybrid_layers(params, x, cfg, cache, pos, use_kernels)
+    else:
+        x = _stacked_layers(params, x, cfg, cache, pos, use_kernels, remat)
     new_cache = cache
     if cache is not None:
         new_cache = cache._replace(pos=cache.pos + S)
@@ -347,12 +384,58 @@ def prefill(params, cfg: ModelConfig, cache: Cache, batch: dict, *,
     return x[:, -1], new_cache
 
 
-def lm_loss(*args, **kw):
-    raise NotImplementedError(f"lm_loss: {TRAINING_ITEM}")
+# --------------------------------------------------------------------------
+# Loss (chunked logits).
+# --------------------------------------------------------------------------
+
+def chunked_xent(x, w_head, labels, mask, chunk: int = 512,
+                 z_loss: float = 1e-4):
+    """Cross entropy against the logits, taken ``chunk`` positions at a
+    time (outside autograd the whole (B, S, V) float32 logits never exist
+    at once; under it each chunk's are kept for the backward, as the
+    reference's scan keeps them); a sequence that is not a multiple of
+    ``chunk`` is one chunk, as in the reference.  Adds ``z_loss`` times
+    the mean squared logsumexp.
+
+    x: (B, S, d); w_head: (d, V_pad); labels: (B, S) int; mask: (B, S)
+    float32."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    zt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        logits = matmul_f32(x[:, c0:c0 + chunk], w_head)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(
+            -1, labels[:, c0:c0 + chunk, None].long())[..., 0]
+        mc = mask[:, c0:c0 + chunk]
+        tot = tot + ((lse - picked) * mc).sum()
+        zt = zt + (lse * lse * mc).sum()
+    denom = torch.clamp_min(mask.sum(), 1).to(torch.float32)
+    return tot / denom + z_loss * zt / denom
 
 
-def chunked_xent(*args, **kw):
-    raise NotImplementedError(f"chunked_xent: {TRAINING_ITEM}")
+def lm_loss(params, cfg: ModelConfig, batch: dict, *, remat: bool = True,
+            use_kernels: bool = True, aux_weight: float = 1e-2):
+    """Causal LM loss of the dense family; returns (loss, metrics).  Token
+    t + 1 is predicted at position t; a negative label is masked out.
+    ``use_kernels`` reaches the attention: the flash kernel and its
+    backward kernel on CUDA tensors, their plain versions otherwise (the
+    reference's ``lm_loss`` runs its plain ``blockwise_attention``)."""
+    check_trainable(cfg)
+    x, _, aux = forward(params, cfg, batch, remat=remat,
+                        use_kernels=use_kernels)
+    tokens = batch["tokens"]
+    hx = x[:, :-1] if tokens.shape[1] > 1 else x
+    labels = tokens[:, 1:]
+    mask = (labels >= 0).to(torch.float32)
+    loss = chunked_xent(hx, params["lm_head"], torch.clamp_min(labels, 0),
+                        mask)
+    total = loss + aux_weight * aux["moe_aux"]
+    return total, {"xent": loss, "moe_aux": aux["moe_aux"],
+                   "overflow": aux["overflow"]}
 
 
 # --------------------------------------------------------------------------
@@ -371,6 +454,14 @@ def params_from_numpy(tree, device="cuda"):
     """The JAX package's params (nested dicts of numpy arrays, same keys
     and layouts) as the port's tensors on ``device``."""
     return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The JAX package's ``OptState`` (its fields as numpy arrays or
+    trees of them; ``ef`` may be None) as the port's
+    :class:`repro_torch.optim.adamw.OptState`."""
+    return OptState(*(tree_map(lambda a: _tensor(a, device), f)
+                      for f in state))
 
 
 def cache_from_numpy(cache, device="cuda"):

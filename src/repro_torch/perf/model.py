@@ -24,7 +24,7 @@ import torch
 from repro_torch.noc.topology import (CLASS_DIE, CLASS_LOCAL, CLASS_PORT,
                                       CLASS_RUCHE, CLASS_WRAP,
                                       N_LINK_CLASSES)
-from repro_torch.trace.export import LINK_CLASS_NAMES
+from repro_torch.trace.export import LINK_CLASS_NAMES, trace_metrics
 from repro_torch.trace.export import host as _host
 
 
@@ -208,3 +208,67 @@ def energy_from_totals(stats, params: PerfParams, net, T: int) -> float:
             + float(leak)
             + hbm_edges * params.e_hbm
             + migration_pj)
+
+
+def serving_metrics(queries: int, cycles: float, energy_pj: float,
+                    edges: int, params: PerfParams = None) -> dict:
+    """Throughput columns of a serving run (:mod:`repro_torch.serve`):
+    many queries sharing one makespan.  ``cycles`` and ``energy_pj`` are
+    the shared run's batch clock and batch energy (not sums over lanes:
+    lanes share the tiles, so per-lane cycles count the round overhead
+    again), ``edges`` the edges scanned over all lanes.  Returns
+    queries/s (``qps``), modelled joules a query (``j_per_query``) and
+    the aggregate ``gteps`` on the same clock."""
+    params = params or PerfParams()
+    time_s = cycles / (params.f_ghz * 1e9)
+    return {
+        "cycles": int(round(cycles)),
+        "time_model_s": round(time_s, 9),
+        "qps": round(queries / time_s, 1) if time_s > 0 else 0.0,
+        "gteps": round(edges / time_s / 1e9, 6) if time_s > 0 else 0.0,
+        "energy_pj": round(energy_pj, 1),
+        "j_per_query": round(energy_pj * 1e-12 / queries, 15)
+        if queries else 0.0,
+    }
+
+
+def derived_metrics(stats, params: PerfParams = None, T: int = None,
+                    trace=None) -> dict:
+    """Time, throughput and energy columns of an accumulated Stats.
+
+    ``params`` must be the run's ``cfg.perf`` where it was overridden (the
+    clock and leak constants live here, not in Stats).  ``time_model_s``
+    is modelled cycles over the tile clock, ``gteps`` giga traversed edges
+    a modelled second (``edges_scanned``, the paper's TEPS), ``pj_per_edge``
+    the energy ladder's metric.  With ``T``, the leakage share
+    (``leak_pj``, ``leak_frac``) by the :func:`leak_pj` the accumulator
+    priced it with.  A run whose edge shard streamed from HBM adds the
+    split of its energy by space; a ``trace`` (a captured ring) adds
+    :func:`repro_torch.trace.export.trace_metrics`'s two columns."""
+    params = params or PerfParams()
+    cycles = float(_host(stats.cycles))
+    edges = float(_host(stats.edges_scanned))
+    energy = float(_host(stats.energy_pj))
+    time_s = cycles / (params.f_ghz * 1e9)
+    out = {
+        "cycles": int(round(cycles)),
+        "time_model_s": round(time_s, 9),
+        "gteps": round(edges / time_s / 1e9, 6) if time_s > 0 else 0.0,
+        "energy_pj": round(energy, 1),
+        "pj_per_edge": round(energy / edges, 3) if edges > 0 else 0.0,
+    }
+    if T is not None:
+        lk = float(leak_pj(params, T, torch.tensor(np.float32(cycles))))
+        out["leak_pj"] = round(lk, 1)
+        out["leak_frac"] = round(lk / energy, 3) if energy > 0 else 0.0
+    hbm_edges = float(_host(getattr(stats, "hbm_edges", 0)))
+    if hbm_edges > 0:
+        hbm_pj = hbm_edges * params.e_hbm
+        out["hbm_pj"] = round(hbm_pj, 1)
+        out["hbm_frac"] = round(hbm_pj / energy, 3) if energy > 0 else 0.0
+        if edges > 0:
+            out["pj_per_edge_hbm"] = round(hbm_pj / edges, 3)
+            out["pj_per_edge_sram"] = round((energy - hbm_pj) / edges, 3)
+    if trace is not None:
+        out.update(trace_metrics(trace))
+    return out
